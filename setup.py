@@ -40,8 +40,11 @@ setup(
     description="TPU-native framework with MXNet capability parity "
                 "(JAX/XLA/Pallas compute, C++ IO/runtime)",
     packages=find_packages(include=["incubator_mxnet_tpu",
-                                    "incubator_mxnet_tpu.*"]),
-    package_data={"incubator_mxnet_tpu.native": ["*.so", "src/*.cc"]},
+                                    "incubator_mxnet_tpu.*",
+                                    "incubator_mxnet_tpu_torch",
+                                    "incubator_mxnet_tpu_torch.*"]),
+    package_data={"incubator_mxnet_tpu.native": ["*.so", "src/*.cc"],
+                  "incubator_mxnet_tpu_torch.ops": ["csrc/*.cu"]},
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
