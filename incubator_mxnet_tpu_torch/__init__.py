@@ -6,14 +6,16 @@ each TPU Pallas kernel on a ported path is a hand-written CUDA kernel for
 Hopper (``ops/csrc``), built with ``nvcc`` at first use. Entry points run
 on ``gpu(0)`` unless the caller passes ``cpu()``.
 
-This slice serves BERT and GPT through ``serving.ModelRegistry`` with the
-flash-attention forward kernel.
+It serves BERT and GPT through ``serving.ModelRegistry`` with the
+flash-attention forward kernel, and trains them through ``jit.TrainStep``
+(``gluon.Trainer``, SGD/Adam/AdamW with fp32 masters) with the forward and
+the two backward kernels.
 """
-from . import config, context, initializer, ndarray  # noqa: F401
+from . import autograd, config, context, initializer, ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
-from . import gluon, jit, models, ops, serving  # noqa: F401
+from . import gluon, jit, models, ops, optimizer, serving  # noqa: F401
 from .context import Context, cpu, current_context, gpu, num_gpus, tpu  # noqa: F401
-from .convert import from_jax_params  # noqa: F401
+from .convert import from_jax_params, to_numpy_params  # noqa: F401
 from . import initializer as init  # noqa: F401
 
 __version__ = "0.1.0"

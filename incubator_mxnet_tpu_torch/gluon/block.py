@@ -9,9 +9,10 @@ attribute is registered as an ``nn.Parameter`` under that name. So
 ``encoder.layer0.attention_cell.query.weight``. ``collect_params()`` is
 keyed by the same names.
 
-Blocks start in inference mode (``training`` False), as the JAX package
-runs a forward outside ``autograd.record``. PyTorch runs eagerly, so
-``hybridize()`` has nothing to compile and is accepted as a no-op.
+Train/predict behaviour (dropout) follows ``autograd``'s thread-local
+training flag, as in the JAX package, not ``nn.Module.training``. PyTorch
+runs eagerly, so ``hybridize()`` has nothing to compile and is accepted as
+a no-op.
 """
 from __future__ import annotations
 

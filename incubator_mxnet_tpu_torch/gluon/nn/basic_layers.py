@@ -73,8 +73,7 @@ class Dropout(HybridBlock):
         self._axes = axes
 
     def forward(self, x):
-        return nd.Dropout(x, p=self._rate, axes=self._axes,
-                          training=self.training)
+        return nd.Dropout(x, p=self._rate, axes=self._axes)
 
 
 class Embedding(HybridBlock):

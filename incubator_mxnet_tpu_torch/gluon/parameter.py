@@ -8,6 +8,11 @@ as one ``nn.Parameter``. The block that owns it registers that tensor under
 the attribute name, so ``state_dict()`` and ``named_parameters()`` see it.
 ``cast`` swaps the tensor's storage in place, which keeps the registered
 object (and any sharing, such as a tied embedding) intact.
+
+The gradient is torch's: ``grad()`` reads the tensor's ``.grad``, which a
+backward fills (a tied weight gets the sum of its uses) and
+``Trainer.step`` / ``TrainStep`` consume. ``lr_mult`` and ``wd_mult``
+scale the optimizer's learning rate and weight decay for this parameter.
 """
 from __future__ import annotations
 
@@ -29,9 +34,12 @@ class Parameter:
     """A parameter with an MXNet-style (possibly deferred) shape."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False):
         self.name = name
         self.grad_req = grad_req
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
@@ -129,6 +137,24 @@ class Parameter:
                                ".initialize() first." % self.name)
         return self._data
 
+    def grad(self, ctx=None):
+        """The gradient of the last backward(s), zeros before any."""
+        if self.grad_req == "null":
+            raise RuntimeError("Parameter %s has grad_req='null'" % self.name)
+        data = self.data()
+        return data.grad if data.grad is not None else torch.zeros_like(data)
+
+    def zero_grad(self):
+        if self._data is not None:
+            self._data.grad = None
+
+    def list_ctx(self):
+        """[the Context this parameter lives on]."""
+        from ..context import Context
+        device = self.data().device
+        return [Context("gpu" if device.type == "cuda" else "cpu",
+                        device.index or 0)]
+
     @torch.no_grad()
     def set_data(self, data):
         """Copy ``data`` (tensor or numpy array) into this parameter, in its
@@ -195,3 +221,7 @@ class ParameterDict:
     def cast(self, dtype):
         for p in self.values():
             p.cast(dtype)
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()

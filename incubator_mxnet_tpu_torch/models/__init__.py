@@ -1,4 +1,5 @@
-"""Model families served by the port."""
-from .bert import (BERTModel, BERTEncoder, MultiHeadAttention,  # noqa: F401
-                   TransformerEncoderLayer)
-from .gpt import GPTModel, TransformerDecoderLayer  # noqa: F401
+"""Model families of the port."""
+from .bert import (BERTModel, BERTEncoder, ChunkedMLMLoss,  # noqa: F401
+                   MultiHeadAttention, TransformerEncoderLayer)
+from .gpt import (ChunkedLMLoss, FeaturesView, GPTModel,  # noqa: F401
+                  TransformerDecoderLayer)

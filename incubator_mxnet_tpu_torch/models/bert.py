@@ -3,7 +3,8 @@
 
 Child names equal the JAX package's, so ``state_dict()`` keys are its
 structural parameter names. ``attention="flash"`` runs the CUDA
-flash-attention forward (ops/attention.py); ``"dense"`` the composite.
+flash-attention kernels (ops/attention.py: the forward, and the two
+backward kernels when training); ``"dense"`` the composite.
 Ring and Ulysses sequence parallelism come with the multi-GPU slice.
 """
 from __future__ import annotations
@@ -16,9 +17,10 @@ from .. import ndarray as nd
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
+from .lm_head import ChunkedHeadLossBase
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "BERTEncoder",
-           "BERTModel"]
+           "BERTModel", "ChunkedMLMLoss"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -71,8 +73,7 @@ class MultiHeadAttention(HybridBlock):
                 scores = scores.reshape(B * H, S, S)
             attn = nd.softmax(scores, axis=-1)
             if self._dropout:
-                attn = nd.Dropout(attn, p=self._dropout,
-                                  training=self.training)
+                attn = nd.Dropout(attn, p=self._dropout)
             out = nd.batch_dot(attn, v.reshape(B * H, S, D)) \
                 .reshape(B, H, S, D)
         out = out.transpose(1, 2).reshape(B, S, U)
@@ -159,3 +160,13 @@ class BERTModel(HybridBlock):
             x = self.embed_dropout(x)
         h = self.encoder(x, mask)
         return self.mlm_ln(self.mlm_dense(h))
+
+
+class ChunkedMLMLoss(ChunkedHeadLossBase):
+    """BERT's counterpart of ``gpt.ChunkedLMLoss``: the untied, biased
+    ``mlm_decoder`` fused with the chunked softmax cross-entropy. Use with
+    ``FeaturesView(bert)``."""
+
+    def _head_params(self):
+        return (self._model.mlm_decoder.weight.data(),
+                self._model.mlm_decoder.bias.data())

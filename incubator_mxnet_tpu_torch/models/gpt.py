@@ -1,7 +1,8 @@
 """Decoder-only (GPT-style) causal language model (counterpart of
 ``incubator_mxnet_tpu/models/gpt.py``): pre-norm blocks, learned positions,
 causal flash attention and an LM head tied to the token embedding.
-``FeaturesView`` and ``ChunkedLMLoss`` come with the training slice."""
+``FeaturesView`` and ``ChunkedLMLoss`` pair the trunk with the chunked
+vocabulary cross-entropy for training."""
 from __future__ import annotations
 
 import torch
@@ -10,8 +11,10 @@ from .. import ndarray as nd
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from .bert import MultiHeadAttention
+from .lm_head import ChunkedHeadLossBase
 
-__all__ = ["GPTModel", "TransformerDecoderLayer"]
+__all__ = ["GPTModel", "TransformerDecoderLayer", "ChunkedLMLoss",
+           "FeaturesView"]
 
 
 class TransformerDecoderLayer(HybridBlock):
@@ -70,3 +73,31 @@ class GPTModel(HybridBlock):
         # weight-tied head: logits = h Eᵀ
         e = self.tok_embed.weight.data()
         return torch.matmul(h, e.t().to(h.dtype))
+
+
+class ChunkedLMLoss(ChunkedHeadLossBase):
+    """The weight-tied LM head fused with the chunked softmax cross-entropy
+    (``ops/lm_ce.py``)::
+
+        gpt = GPTModel(...)
+        step = jit.TrainStep(FeaturesView(gpt), ChunkedLMLoss(gpt), trainer)
+
+    The head reads the embedding's own tensor, so its gradient adds to the
+    gather's in the one ``tok_embed.weight`` gradient."""
+
+    def _head_params(self):
+        return self._model.tok_embed.weight.data(), None
+
+
+class FeaturesView(HybridBlock):
+    """A model's ``features`` as its forward, so ``TrainStep``'s
+    ``loss_fn(net(*inputs), labels)`` pairs the trunk with a fused loss
+    head. The model is the child ``model``: parameter names are
+    ``model.<the model's names>``, as in the JAX package."""
+
+    def __init__(self, model, **kwargs):
+        super().__init__(**kwargs)
+        self.model = model
+
+    def forward(self, *args):
+        return self.model.features(*args)

@@ -1,10 +1,10 @@
 """MXNet-named operators as plain functions on ``torch.Tensor``
 (counterpart of ``incubator_mxnet_tpu/ndarray/ndarray.py``).
 
-Only the operators the serving slice calls are here. Each mirrors the JAX
-package's arithmetic (same casts, same order) so the two agree on the CPU
-in float32. The ``NDArray`` wrapper and autograd come with the training
-slice.
+Only the operators the serving and training paths call are here. Each
+mirrors the JAX package's arithmetic (same casts, same order) so the two
+agree on the CPU in float32. The port keeps plain tensors: the ``NDArray``
+wrapper is not ported yet, and gradients are torch's own (``autograd.py``).
 """
 from __future__ import annotations
 
@@ -12,8 +12,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["FullyConnected", "Activation", "LeakyReLU", "LayerNorm",
-           "Embedding", "softmax", "batch_dot", "Dropout", "arange",
-           "slice_axis", "torch_dtype"]
+           "Embedding", "softmax", "log_softmax", "pick", "batch_dot",
+           "Dropout", "arange", "slice_axis", "torch_dtype"]
 
 _DTYPES = {
     "float32": torch.float32, "float16": torch.float16,
@@ -80,14 +80,36 @@ def softmax(data, axis=-1, temperature=None, **kw):
     return torch.softmax(x, dim=axis)
 
 
+def log_softmax(data, axis=-1, temperature=None, **kw):
+    """log(softmax(x)) along ``axis``, in the input's type."""
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis)
+
+
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """``data`` at ``index`` along ``axis`` (indices clipped into range)."""
+    if mode != "clip":
+        raise ValueError("only mode='clip' is ported, got %r" % (mode,))
+    axis = axis % data.ndim
+    idx = index.long().clamp(0, data.shape[axis] - 1).unsqueeze(axis)
+    picked = torch.gather(data, axis, idx)
+    return picked if keepdims else picked.squeeze(axis)
+
+
 def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
     a = lhs.transpose(-1, -2) if transpose_a else lhs
     b = rhs.transpose(-1, -2) if transpose_b else rhs
     return torch.matmul(a, b)
 
 
-def Dropout(data, p=0.5, axes=(), training=False, generator=None, **kw):
-    """Inverted dropout; the identity outside training or for p <= 0."""
+def Dropout(data, p=0.5, axes=(), training=None, generator=None, **kw):
+    """Inverted dropout; the identity outside training or for p <= 0.
+    ``training=None`` reads ``autograd.is_training()``, as the JAX package
+    does: dropout is active under ``autograd.record()``/``train_mode()``
+    and in ``jit.TrainStep``, never in ``EvalStep`` or serving."""
+    if training is None:
+        from ..autograd import is_training
+        training = is_training()
     if not training or p <= 0:
         return data
     shape = list(data.shape)

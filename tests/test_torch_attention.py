@@ -120,11 +120,15 @@ def test_bf16_cpu_path_keeps_the_input_type():
 
 
 def test_cuda_wrapper_refuses_grad_before_launch():
-    """A CUDA input that requires grad raises before anything is built; the
-    check does not depend on the device, so it is exercised here."""
+    """The kernel wrapper takes CUDA tensors only: a CPU input that requires
+    grad raises before anything is built, and its gradient goes through
+    flash_attention's autograd Function (the plain versions on the CPU)."""
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 1, 64, 64))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="CUDA"):
         TA._flash_fwd_cuda(q, k, v, False, 0.125)
+    TA.flash_attention(q, k, v, False, 0.125).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
 
 
 @pytest.mark.parametrize("bad", ["shape", "width", "dtype", "layout"])
