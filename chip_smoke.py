@@ -8,20 +8,29 @@ Phases, each of which must pass, in order:
 
 1. Build every CUDA kernel of the serving, training and conv-backward paths
    from the checkout's sources (flash_fwd.cu: K1; flash_bwd.cu: K2 and K3;
-   conv_bwd.cu: K4), one nvcc per source, all started together.
+   conv_bwd.cu: K4), one nvcc per source, all started together; print
+   ptxas's registers and spills per kernel instantiation, and fail if a
+   tensor-core instantiation of K2 or K3 spills.
 2. Hold K1 against its plain PyTorch version on the card, at the shapes the
    serving path gives it and at a few ragged/odd ones, and time kernel,
    plain version and the PyTorch library call that computes the same
    function (a yardstick only; the port never calls it).
 3. Hold K2 (dK, dV) and K3 (dQ) against their plain version
-   (_fa_bwd_reference), and the K1 out and lse that feed them against
+   (_fa_bwd_reference, which rounds p and ds to the input type where the
+   tensor-core kernels do), and the K1 out and lse that feed them against
    K1's plain version, on the card on the same inputs: fp32 S 1000 D 64
-   causal, fp16 S 300 D 128 with a nonzero LSE cotangent, bf16 S 130 D 64
-   causal, and the two training shapes, bf16 B 64 H 8 S 512 D 128 and
+   causal (the FMA kernels), fp16 S 300 D 128 with a nonzero LSE
+   cotangent, bf16 S 130 D 64 causal, bf16 S 7 D 128 causal, bf16 S 512
+   D 64, bf16 S 128 D 64 causal with a fully masked row (its dQ must be
+   zero), and the two training shapes, bf16 B 64 H 8 S 512 D 128 and
    B 1 H 8 S 8192 D 128 causal. Tolerances: in fp32 every gradient within
    1e-4 x max|plain|; in bf16/fp16 within one rounding of the type (2^-7
-   bf16, 2^-10 fp16, relative) plus 1e-3 x max|plain|. At the training
-   shapes, time K1, K2, K3, the plain forward and backward, and the
+   bf16, 2^-10 fp16, relative) of the gradient and of each term whose p or
+   ds is rounded (``hold_bwd``) plus 1e-3 x max|plain|, and within 1e-2
+   (bf16) or 2e-3 (fp16) relative Frobenius error of the fp32-p recompute
+   (the JAX function's arithmetic); every gradient finite. At the training
+   shapes, time K1, K2, K3 (with TFLOP/s on each kernel's own flop count
+   and the share of its bound), the plain forward and backward, and the
    forward and backward of scaled_dot_product_attention (the yardsticks
    for K1 and for the pair).
 4. Hold a small BERT and GPT in float32 on the card (kernel route) against
@@ -148,13 +157,20 @@ def attention_bound_ms(bh, s, d, causal, itemsize):
                                        else "bytes")
 
 
-def attention_bwd_bound_ms(kernel, bh, s, d, causal, itemsize):
-    """Least time for K2 ("dkv": 8·BH·pairs·D flops, writes dK and dV) or
-    K3 ("dq": 6·BH·pairs·D flops, writes dQ): bf16 tensor-core flops
-    against reading q, dO, k, v in the input type and lse, delta in fp32
-    once, and writing the gradient(s) once."""
+def attention_bwd_flops(kernel, bh, s, d, causal):
+    """A backward kernel's own flop count: K2 ("dkv") 8·BH·pairs·D (s, dp,
+    dV, dK), K3 ("dq") 6·BH·pairs·D (s, dp again, dQ); pairs S² or
+    S(S+1)/2 causal."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = (8.0 if kernel == "dkv" else 6.0) * bh * pairs * d
+    return (8.0 if kernel == "dkv" else 6.0) * bh * pairs * d
+
+
+def attention_bwd_bound_ms(kernel, bh, s, d, causal, itemsize):
+    """Least time for K2 ("dkv", writes dK and dV) or K3 ("dq", writes dQ):
+    bf16 tensor-core flops (``attention_bwd_flops``) against reading q, dO,
+    k, v in the input type and lse, delta in fp32 once, and writing the
+    gradient(s) once."""
+    flops = attention_bwd_flops(kernel, bh, s, d, causal)
     n_out = 2 if kernel == "dkv" else 1
     nbytes = (4 + n_out) * bh * s * d * itemsize + 2.0 * 4 * bh * s
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
@@ -174,6 +190,48 @@ def build_kernels():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas %s: %s" % (src, line.strip()))
+    ptxas = ptxas_report(_kernels.BUILD_LOG.get(attention.BWD_SOURCE, ""))
+    for fn in ptxas:
+        log("  %s: %s" % (fn["kernel"], fn))
+    if not ptxas:
+        log("  flash_bwd.cu was built before this run: no ptxas report")
+    # the tensor-core instantiations of K2 and K3 must not spill
+    check(all(fn["spill_stores"] == 0 for fn in ptxas
+              if fn["kernel"].startswith(("flash_bwd_dkv_tc",
+                                          "flash_bwd_dq_tc"))),
+          "a tensor-core flash_bwd kernel spills: %s" % ptxas)
+    return ptxas
+
+
+def ptxas_report(build_log):
+    """Per kernel instantiation in an ``nvcc -Xptxas -v`` log: its name
+    (kernel, element type, D), registers and spill bytes."""
+    import re
+    fns, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = re.search(r"(flash_bwd_(?:dkv|dq)_(?:tc|fma))I", mangled)
+            dtype = ("bf16" if "bfloat16" in mangled else "fp16"
+                     if "6__half" in mangled else "fp32")
+            width = re.search(r"Li(\d+)E", mangled)
+            cur = dict(kernel="%s %s%s" % (
+                name.group(1) if name else mangled, dtype,
+                " D%s" % width.group(1) if width else ""),
+                registers=None, spill_stores=None, spill_loads=None)
+            fns.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return fns
 
 
 def hold_fwd(tag, q, k, v, out, lse, causal, scale):
@@ -188,7 +246,9 @@ def hold_fwd(tag, q, k, v, out, lse, causal, scale):
                 torch.float32: 1e-5}
     ref, ref_lse = A._fa_reference(q, k, v, causal, scale)
     err = (out.float() - ref.float()).abs().max().item()
-    lse_err = (lse - ref_lse).abs().max().item()
+    # a fully masked row has lse -inf on both sides
+    lse_err = torch.where(lse == ref_lse, 0.0, (lse - ref_lse).abs()) \
+        .max().item()
     check(torch.allclose(out.float(), ref.float(), rtol=rtol_out[q.dtype],
                          atol=1e-4),
           "%s: flash_fwd out differs from plain (max abs %.3g)" % (tag, err))
@@ -278,27 +338,118 @@ def check_small_models_against_cpu():
         log("small %s fp32, card vs CPU: max abs diff %.3g" % (name, err))
 
 
+BWD_RTOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 0.0}
+BWD_ATOL_SHARE = {"bfloat16": 1e-3, "float16": 1e-3, "float32": 1e-4}
+# relative Frobenius error against the fp32-p recompute (the JAX function):
+# one rounding of p and of ds to the type, about 2^-8/sqrt(3) (bf16) or
+# 2^-11/sqrt(3) (fp16) of each term, plus the gradient's own rounding
+BWD_NORM_TOL = {"bfloat16": 1e-2, "float16": 2e-3}
+# (tag, (B, H, S, D), causal, dtype, LSE cotangent, fully masked row)
+BWD_ODD_SHAPES = (
+    ("fp32 B2 H3 S1000 D64 causal", (2, 3, 1000, 64), True, "float32",
+     False, False),
+    ("fp16 B1 H4 S300 D128 g_lse", (1, 4, 300, 128), False, "float16",
+     True, False),
+    ("bf16 B1 H2 S130 D64 causal", (1, 2, 130, 64), True, "bfloat16",
+     False, False),
+    ("bf16 B1 H2 S7 D128 causal", (1, 2, 7, 128), True, "bfloat16",
+     False, False),
+    ("bf16 B2 H2 S512 D64", (2, 2, 512, 64), False, "bfloat16", False,
+     False),
+    ("bf16 B1 H2 S128 D64 causal masked row", (1, 2, 128, 64), True,
+     "bfloat16", False, True))
+
+
+def bwd_term_sums(q, k, v, o, lse, do, causal, scale, g_lse):
+    """(|dS| |k|, |dS|ᵀ |q|, Pᵀ |dO|) in fp32: for each gradient element, the
+    sum of the magnitudes of the terms whose p or ds factor is rounded to
+    the input type (the plain version's arithmetic, _fa_bwd_reference)."""
+    import math
+    import torch
+    from incubator_mxnet_tpu_torch.ops import attention as A
+    B, H, S, D = q.shape
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~A._causal_keep(S, S, s.device), -math.inf)
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+    del s
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2))
+               - A._bwd_delta(o, do, g_lse).reshape(B, H, S, 1))
+          * scale).abs()
+    return (torch.matmul(ds, kf.abs()),
+            torch.matmul(ds.transpose(-1, -2), qf.abs()),
+            torch.matmul(p.transpose(-1, -2), dof.abs()))
+
+
+def hold_bwd(tag, q, k, v, o, lse, do, causal, scale, g_lse, got):
+    """K2/K3's (dq, dk, dv) against _fa_bwd_reference on the same inputs;
+    returns {gradient: max abs error}. Elementwise against the plain version,
+    which rounds p and ds where the kernels do: fp32 within 1e-4 x
+    max|plain| (summation order); bf16/fp16 within one rounding of the type
+    (2^-7 bf16, 2^-10 fp16, relative) of the gradient and of each rounded
+    term of its sum, plus 1e-3 x max|plain|. The terms' share: kernel and
+    plain version compute p and ds in fp32 in another order, so a p or ds
+    within an fp32 ulp or so of a rounding boundary of the type rounds to
+    neighbouring values on the two sides (at BERT's training shape one dV
+    element of 33.5 M exceeded the tolerance without it, by a single flip of
+    a p near 0.3). bf16/fp16 also normwise against the fp32-p recompute
+    (``BWD_NORM_TOL``). Every gradient finite."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import attention as A
+    dtype = str(q.dtype).split(".")[-1]
+    ref = A._fa_bwd_reference(q, k, v, o, lse, do, causal, scale, g_lse)
+    ref32 = A._fa_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                                lse, do.float(), causal, scale, g_lse) \
+        if dtype in BWD_NORM_TOL else ref
+    terms = bwd_term_sums(q, k, v, o, lse, do, causal, scale, g_lse) \
+        if dtype in BWD_NORM_TOL else (0.0, 0.0, 0.0)
+    errs, norms = {}, {}
+    for name, g, want, want32, term in zip(("dq", "dk", "dv"), got, ref,
+                                           ref32, terms):
+        g, want, want32 = g.float(), want.float(), want32.float()
+        err = (g - want).abs()
+        bound = BWD_RTOL[dtype] * (want.abs() + term) \
+            + BWD_ATOL_SHARE[dtype] * want.abs().max()
+        check(bool(torch.isfinite(g).all()) and bool((err <= bound).all()),
+              "%s: %s differs from plain (max abs %.3g, max|plain| %.3g)"
+              % (tag, name, err.max().item(), want.abs().max().item()))
+        errs[name] = err.max().item()
+        norms[name] = ((g - want32).norm() / want32.norm().clamp_min(1e-30)) \
+            .item()
+        check(dtype not in BWD_NORM_TOL or norms[name] <= BWD_NORM_TOL[dtype],
+              "%s: %s differs from the fp32-p recompute by %.3g (Frobenius, "
+              "relative)" % (tag, name, norms[name]))
+    log("  %-40s max|d-plain| dq %.3g dk %.3g dv %.3g; |d-fp32p|/|fp32p| "
+        "dq %.3g dk %.3g dv %.3g" % (tag, errs["dq"], errs["dk"], errs["dv"],
+                                     norms["dq"], norms["dk"], norms["dv"]))
+    return errs
+
+
 def check_flash_bwd():
-    """K2 and K3 against _fa_bwd_reference (dense fp32 of the same
-    recompute) on the same inputs, the forward's out and lse from K1, which
-    is itself held against its plain version (``hold_fwd``) there.
-    Returns {"dkv": [...], "dq": [...], "fwd": [...]}: per training shape,
-    the max error, kernel ms, plain ms (the whole plain backward), bound,
-    and SDPA's backward ms (the pair's yardstick); for K1 ("fwd") its max
-    error, kernel ms, plain forward ms, bound and SDPA forward ms."""
+    """K2 and K3 against _fa_bwd_reference (``hold_bwd``) on the same
+    inputs, the forward's out and lse from K1, which is itself held against
+    its plain version (``hold_fwd``) there. Returns {"dkv": [...], "dq":
+    [...], "fwd": [...]}: per training shape, the max error, kernel ms,
+    achieved TFLOP/s on the kernel's own flop count, share of the bound,
+    plain ms (the whole plain backward), bound, and SDPA's backward ms (the
+    pair's yardstick); for K1 ("fwd") its max error, kernel ms, plain
+    forward ms, bound and SDPA forward ms."""
     import torch
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import attention as A
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    rtol = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
-            torch.float32: 0.0}
-    atol_share = {torch.bfloat16: 1e-3, torch.float16: 1e-3,
-                  torch.float32: 1e-4}
 
-    def compare(tag, B, H, S, D, causal, dtype, with_g_lse):
+    def compare(tag, B, H, S, D, causal, dtype, with_g_lse, masked=False):
         q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev,
                                    dtype=dtype) for _ in range(4))
+        if masked:
+            # row 5 of head 1 scores -inf against every key (the product
+            # overflows), as in tests/test_torch_attention_bwd.py
+            k = k.abs() + 1.0
+            q[0, 1, 5, :] = -1e38
         scale = 1.0 / D ** 0.5
         o, lse = A._flash_fwd_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
@@ -309,37 +460,22 @@ def check_flash_bwd():
         dk, dv = A._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
         dq = A._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
-        ref = A._fa_bwd_reference(q, k, v, o, lse, do, causal, scale, g_lse)
-        errs = {}
-        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-            got, want = got.float(), want.float()
-            err = (got - want).abs()
-            bound = rtol[dtype] * want.abs() \
-                + atol_share[dtype] * want.abs().max()
-            check(bool(torch.isfinite(got).all()) and bool((err <= bound)
-                                                           .all()),
-                  "%s: %s differs from plain (max abs %.3g, max|plain| %.3g)"
-                  % (tag, name, err.max().item(), want.abs().max().item()))
-            errs[name] = err.max().item()
-        log("  %-40s max|d-plain| dq %.3g dk %.3g dv %.3g"
-            % (tag, errs["dq"], errs["dk"], errs["dv"]))
+        errs = hold_bwd(tag, q, k, v, o, lse, do, causal, scale, g_lse,
+                        (dq, dk, dv))
+        if masked:
+            check(bool((dq[0, 1, 5] == 0).all()),
+                  "%s: the fully masked row's dq is not zero" % tag)
         return (q, k, v, o, lse, do, delta, scale,
                 max(errs["dk"], errs["dv"]), errs["dq"], err_fwd)
 
     log("flash_bwd_dkv / flash_bwd_dq vs plain version:")
-    for tag, shape, causal, dtype, g in (
-            ("fp32 B2 H3 S1000 D64 causal", (2, 3, 1000, 64), True,
-             torch.float32, False),
-            ("fp16 B1 H4 S300 D128 g_lse", (1, 4, 300, 128), False,
-             torch.float16, True),
-            ("bf16 B1 H2 S130 D64 causal", (1, 2, 130, 64), True,
-             torch.bfloat16, False)):
-        compare(tag, *shape, causal, dtype, g)
+    for tag, shape, causal, dtype, g, masked in BWD_ODD_SHAPES:
+        compare(tag, *shape, causal, getattr(torch, dtype), g, masked)
 
     out = {"dkv": [], "dq": [], "fwd": []}
     for tag, (B, H, S, D), causal, iters in (
-            ("bert", (BERT_TRAIN_B, 8, BERT_S, 128), False, 5),
-            ("gpt", (GPT_TRAIN_B, 8, GPT_S, 128), True, 3)):
+            ("bert", (BERT_TRAIN_B, 8, BERT_S, 128), False, 20),
+            ("gpt", (GPT_TRAIN_B, 8, GPT_S, 128), True, 10)):
         shape = "B%d H%d S%d D%d bf16%s" % (B, H, S, D,
                                             " causal" if causal else "")
         (q, k, v, o, lse, do, delta, scale, err_dkv, err_dq,
@@ -365,19 +501,26 @@ def check_flash_bwd():
                                 ("dq", ms_dq, err_dq)):
             bound_ms, bound_by = attention_bwd_bound_ms(kernel, B * H, S, D,
                                                         causal, 2)
+            flops = attention_bwd_flops(kernel, B * H, S, D, causal)
             out[kernel].append(dict(
-                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+                shape=shape, max_abs_err=err, ms=ms, flops=flops,
+                tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms))
         fwd_bound, fwd_by = attention_bound_ms(B * H, S, D, causal, 2)
         out["fwd"].append(dict(shape=shape, max_abs_err=err_fwd, ms=ms_fwd,
                                plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
                                bound_ms=fwd_bound, bound_by=fwd_by))
-        log("  %s: K2 %.3f ms  K3 %.3f ms  plain bwd %.3f ms  sdpa bwd %.3f "
-            "ms  bound K2 %.4f K3 %.4f ms; K1 %.3f ms  plain fwd %.3f ms  "
-            "sdpa fwd %.4f ms  bound %.4f ms"
-            % (tag, ms_dkv, ms_dq, plain_ms, lib_ms,
-               out["dkv"][-1]["bound_ms"], out["dq"][-1]["bound_ms"],
-               ms_fwd, plain_fwd_ms, lib_fwd_ms, fwd_bound))
+        log("  %s: K2 %.3f ms (%.1f TFLOP/s, %.1f%% of bound)  K3 %.3f ms "
+            "(%.1f TFLOP/s, %.1f%% of bound)  plain bwd %.3f ms  sdpa bwd "
+            "%.3f ms  bound K2 %.4f K3 %.4f ms; K1 %.3f ms  plain fwd %.3f "
+            "ms  sdpa fwd %.4f ms  bound %.4f ms"
+            % (tag, ms_dkv, out["dkv"][-1]["tflops"],
+               100 * out["dkv"][-1]["share_of_bound"], ms_dq,
+               out["dq"][-1]["tflops"], 100 * out["dq"][-1]["share_of_bound"],
+               plain_ms, lib_ms, out["dkv"][-1]["bound_ms"],
+               out["dq"][-1]["bound_ms"], ms_fwd, plain_fwd_ms, lib_fwd_ms,
+               fwd_bound))
         del q, k, v, o, lse, do, delta, qr, kr, vr, sdpa
         torch.cuda.empty_cache()
     return out
@@ -1157,7 +1300,7 @@ def main():
                          text=True, timeout=60)
     card = (smi.stdout.strip().splitlines() or ["unknown"])[0]
     try:
-        build_kernels()
+        ptxas = build_kernels()
         served = check_flash_fwd()
         bwd = check_flash_bwd()
         conv_launches, conv_rows = check_conv_bwd()
@@ -1212,11 +1355,18 @@ def main():
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             library_ms=sum(r["library_ms"] for r in rows),
+            tflops=sum(r["flops"] for r in rows) / sum(r["ms"] for r in rows)
+            / 1e9,
+            share_of_bound=sum(r["bound_ms"] for r in rows)
+            / sum(r["ms"] for r in rows),
+            ptxas=[fn for fn in ptxas if fn["kernel"].startswith(name)],
             note="one launch at each training shape, summed; per shape in "
-                 "'shapes'. plain_ms is the whole plain backward "
-                 "(_fa_bwd_reference: dQ, dK and dV) and library_ms the "
-                 "backward of scaled_dot_product_attention, which also "
-                 "computes all three: both are the pair K2 + K3's",
+                 "'shapes'. tflops is the kernel's own flop count (K2 "
+                 "8·BH·pairs·D, K3 6·BH·pairs·D) over its time. plain_ms is "
+                 "the whole plain backward (_fa_bwd_reference: dQ, dK and "
+                 "dV) and library_ms the backward of "
+                 "scaled_dot_product_attention, which also computes all "
+                 "three: both are the pair K2 + K3's",
             shapes=rows))
     kernels.append(dict(
         name="conv_bwd", route="cuda", source=src + "conv_bwd.cu",

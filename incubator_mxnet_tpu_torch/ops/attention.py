@@ -4,7 +4,8 @@
 Three hand-written CUDA kernels stand for the three Pallas kernels: K1, the
 forward (``csrc/flash_fwd.cu``, the port of ``_fa_kernel``), and K2 and K3,
 the backward's dK/dV and dQ (``csrc/flash_bwd.cu``, the ports of
-``_fa_bwd_dkv_kernel`` and ``_fa_bwd_dq_kernel``). Each wrapper launches its
+``_fa_bwd_dkv_kernel`` and ``_fa_bwd_dq_kernel``; bf16/fp16 inputs run on
+tensor cores, float32 inputs on fp32 FMAs). Each wrapper launches its
 kernel on CUDA tensors and runs its plain PyTorch version (``_fa_reference``,
 ``_fa_bwd_reference``) on CPU tensors. A CUDA tensor always goes to the
 kernel; a shape, type or layout the kernel does not take raises instead of
@@ -111,7 +112,10 @@ def _fa_bwd_reference(q, k, v, o, lse, do, causal, scale, g_lse=None):
     """Plain version of K2 and K3: (dq, dk, dv) in the input type, computed
     densely in fp32 as ``_recompute_p_ds`` does: ``s = (q kᵀ) * scale``
     (scaled after the product), ``p = exp(s - lse)`` and 0 where s is not
-    finite, ``ds = p (dp - delta) * scale``, each gradient cast once."""
+    finite, ``ds = p (dp - delta) * scale``, each gradient cast once.
+    Rounded where the tensor-core kernels round: p to the input type before
+    ``pᵀ dO``, and ds (from the unrounded p) before ``dsᵀ q`` and ``ds k``;
+    in float32 both roundings are no-ops, as in the JAX recompute."""
     B, H, S, D = q.shape
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     delta = _bwd_delta(o, do, g_lse).reshape(B, H, S, 1)
@@ -121,7 +125,8 @@ def _fa_bwd_reference(q, k, v, o, lse, do, causal, scale, g_lse=None):
     p = torch.exp(s - lse.reshape(B, H, S, 1))
     p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta) * scale
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    p = p.to(q.dtype).float()
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.transpose(-1, -2), dof)

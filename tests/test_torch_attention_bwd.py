@@ -6,9 +6,12 @@ Pallas kernels in interpret mode with 128-row blocks (so S = 256 runs a
 grid of several blocks). The port's ``torch.autograd.Function``s run the
 kernels' plain versions, because the tensors lie on the CPU; the CUDA
 kernels are held against the same plain versions on the card by
-chip_smoke.py. Tolerance: 1e-5 of the largest reference gradient, in
-float32 — both sides recompute fp32 probabilities from the forward's LSE
-and differ in the order of the sums.
+chip_smoke.py and by the ``cuda``-marked test here, which skips without a
+card. Tolerance: 1e-5 of the largest reference gradient, in float32 — both
+sides recompute fp32 probabilities from the forward's LSE and differ in the
+order of the sums. In bf16 the port rounds p and ds to bf16 where its
+tensor-core kernels do and the JAX recompute does not; that test holds the
+gradients normwise (see its docstring).
 """
 import math
 
@@ -152,6 +155,93 @@ def test_attention_with_lse_routes_by_shape():
     assert out.shape == (1, 2, 128, 32) and lse.shape == (1, 2, 128)
     with pytest.raises(ValueError, match="kernel-legal"):
         TA.flash_attention_lse(*narrow)
+
+
+def _rel_fro(got, ref):
+    """Relative Frobenius error ||got - ref|| / ||ref|| in float64."""
+    got, ref = (onp.asarray(x, dtype="float64") for x in (got, ref))
+    return onp.linalg.norm(got - ref) / max(onp.linalg.norm(ref), 1e-30)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_grads_match_jax_normwise(causal):
+    """In bf16 the port's plain backward rounds p and ds to bf16 where the
+    tensor-core kernels do (before ``pᵀ dO``, ``dsᵀ q`` and ``ds k``); the
+    JAX recompute keeps them in fp32. One bf16 rounding of each term is an
+    error of about 2^-8/sqrt(3) (0.23 %) of a gradient's spread, and each
+    gradient is rounded to bf16 once more on both sides: within 1e-2
+    relative Frobenius error per gradient."""
+    q, k, v, do = _inputs(2, 2, 256, 64, seed=11 + causal)
+    ref = _jax_grads(lambda a, b, c: JA.flash_attention(a, b, c, causal),
+                     *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                     (jnp.asarray(do, jnp.bfloat16),))
+    tq, tk, tv = (torch.from_numpy(x).bfloat16().requires_grad_()
+                  for x in (q, k, v))
+    TA.flash_attention(tq, tk, tv, causal).backward(
+        torch.from_numpy(do).bfloat16())
+    for t, r in zip((tq, tk, tv), ref):
+        assert t.grad.dtype == torch.bfloat16
+        got = t.grad.float().numpy()
+        assert onp.isfinite(got).all()
+        assert _rel_fro(got, onp.asarray(r.astype(jnp.float32))) <= 1e-2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: K2 and K3 have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S, D, causal, dtype, with_g_lse", [
+    (130, 64, True, "bfloat16", False),
+    (300, 128, False, "float16", True)])
+def test_kernels_match_plain_on_the_card(cuda_device, S, D, causal, dtype,
+                                         with_g_lse):
+    """K2 and K3 (tensor cores in bf16/fp16) against the plain backward on
+    the same inputs, which rounds p and ds where the kernels do:
+    elementwise within one rounding of the type (2^-7 bf16, 2^-10 fp16,
+    relative) of the gradient and of each term whose p or ds is rounded (a
+    p or ds close to a rounding boundary may round to neighbouring values
+    on the two sides, whose fp32 sums run in another order), plus 1e-3 of
+    the largest plain gradient; and within 1e-2 (bf16) or 2e-3 (fp16)
+    relative Frobenius error of the fp32-p recompute."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x).to(cuda_device, dt)
+                   for x in _inputs(1, 4, S, D, seed=S))
+    scale = 1.0 / math.sqrt(D)
+    g_lse = torch.from_numpy(onp.random.RandomState(1).randn(1, 4, S)
+                             .astype("float32")).to(cuda_device) \
+        if with_g_lse else None
+    o, lse = TA._fa_reference(q, k, v, causal, scale)
+    delta = TA._bwd_delta(o, do, g_lse)
+    dk, dv = TA._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    dq = TA._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    ref = TA._fa_bwd_reference(q, k, v, o, lse, do, causal, scale, g_lse)
+    ref32 = TA._fa_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                                 lse, do.float(), causal, scale, g_lse)
+    # magnitudes of the rounded terms: |dS| |k|, |dS|ᵀ |q|, Pᵀ |dO|
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~TA._causal_keep(S, S, s.device), -math.inf)
+    p = torch.exp(s - lse.reshape(1, 4, S, 1))
+    p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2))
+               - delta.reshape(1, 4, S, 1)) * scale).abs()
+    terms = (torch.matmul(ds, kf.abs()),
+             torch.matmul(ds.transpose(-1, -2), qf.abs()),
+             torch.matmul(p.transpose(-1, -2), dof.abs()))
+    rtol = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -10
+    for got, want, want32, term in zip((dq, dk, dv), ref, ref32, terms):
+        assert got.dtype == dt and bool(torch.isfinite(got).all())
+        got, want = got.float(), want.float()
+        bound = rtol * (want.abs() + term) + 1e-3 * want.abs().max()
+        assert bool(((got - want).abs() <= bound).all())
+        assert _rel_fro(got.cpu().numpy(), want32.cpu().numpy()) <= (
+            1e-2 if dt == torch.bfloat16 else 2e-3)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "lse", "device"])
