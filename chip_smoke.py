@@ -9,16 +9,28 @@ Phases, each of which must pass, in order:
 1. Build every CUDA kernel of the serving, training and conv-backward paths
    from the checkout's sources (flash_fwd.cu: K1; flash_bwd.cu: K2 and K3;
    conv_bwd.cu: K4), one nvcc per source, all started together; print
-   ptxas's registers and spills per kernel instantiation, and fail if a
-   tensor-core instantiation of K2 or K3 spills.
-2. Hold K1 against its plain PyTorch version on the card, at the shapes the
-   serving path gives it and at a few ragged/odd ones, and time kernel,
-   plain version and the PyTorch library call that computes the same
-   function (a yardstick only; the port never calls it).
+   ptxas's registers and spills per kernel instantiation of all three, and
+   fail if a tensor-core (``_tc``) instantiation of K1, K2, K3 or K4 spills
+   or is missing from the report.
+2. Hold K1 against its plain PyTorch version on the card (``hold_fwd``), at
+   the shapes the serving path gives it and at ragged/odd ones: fp32 S 1000
+   D 64 causal (the FMA kernel), fp16 S 300 D 128, bf16 S 130 D 64 causal,
+   bf16 S 7 D 128 causal, and bf16 S 128 D 64 causal with a fully masked
+   row (its out must be 0 and its lse -inf). At the served shapes time the
+   kernel (TFLOP/s on 4·BH·pairs·D and the share of its bound), the plain
+   version and the PyTorch library call that computes the same function (a
+   yardstick only; the port never calls it). ``hold_fwd``: lse within atol
+   2e-4 / rtol 1e-5 and fp32 out within atol 1e-4 / rtol 1e-5 (summation
+   order); bf16/fp16 out elementwise within one rounding of the type (2^-7
+   bf16, 2^-10 fp16) of the output plus the same of each term p_ij|v_j|/l_i
+   (the tensor-core kernel rounds p to the type against its running max,
+   which no dense plain version mirrors), plus 1e-4, and within 1e-2 (bf16)
+   / 2e-3 (fp16) relative Frobenius error of the plain version (fp32 p, the
+   JAX function's arithmetic).
 3. Hold K2 (dK, dV) and K3 (dQ) against their plain version
    (_fa_bwd_reference, which rounds p and ds to the input type where the
    tensor-core kernels do), and the K1 out and lse that feed them against
-   K1's plain version, on the card on the same inputs: fp32 S 1000 D 64
+   K1's plain version (``hold_fwd``), on the card on the same inputs: fp32 S 1000 D 64
    causal (the FMA kernels), fp16 S 300 D 128 with a nonzero LSE
    cotangent, bf16 S 130 D 64 causal, bf16 S 7 D 128 causal, bf16 S 512
    D 64, bf16 S 128 D 64 causal with a fully masked row (its dQ must be
@@ -29,8 +41,8 @@ Phases, each of which must pass, in order:
    ds is rounded (``hold_bwd``) plus 1e-3 x max|plain|, and within 1e-2
    (bf16) or 2e-3 (fp16) relative Frobenius error of the fp32-p recompute
    (the JAX function's arithmetic); every gradient finite. At the training
-   shapes, time K1, K2, K3 (with TFLOP/s on each kernel's own flop count
-   and the share of its bound), the plain forward and backward, and the
+   shapes, time K1, K2, K3 (each with TFLOP/s on its own flop count and
+   the share of its bound), the plain forward and backward, and the
    forward and backward of scaled_dot_product_attention (the yardsticks
    for K1 and for the pair).
 4. Hold a small BERT and GPT in float32 on the card (kernel route) against
@@ -56,12 +68,18 @@ Phases, each of which must pass, in order:
    over the timed steps K1, K2 and K3 each launched layers x steps times.
 7. K4 (ops.conv_bwd) against its plain version (_conv_bwd_reference, dense
    fp32 matrix products, no conv call) at the four ResNet-50 bottleneck
-   3x3 shapes in bf16 at batch 256 (within one bf16 rounding, 2^-7
-   relative, plus 1e-3 x max|plain|) and at two odd fp32 shapes (within
-   1e-4 x max|plain|, summation order), timing K4, the plain version and
-   cuDNN's dgrad + wgrad pair (the gradient of F.conv2d on channels-last
-   bf16, the yardstick); then the entry point: two conv3x3_s1 backwards
-   under autograd.record launch K4 exactly twice and agree with plain.
+   3x3 shapes in bf16 at batch 256 and at three odd shapes (C and K of 8,
+   16, 24, 40, 72 against 64-wide tiles) in bf16 and fp16 (the tensor-core
+   kernels; within one rounding of the type, 2^-7 bf16 / 2^-10 fp16
+   relative, plus 1e-3 x max|plain|), and at two odd fp32 shapes (the FMA
+   kernels; within 1e-4 x max|plain|, summation order); at the stage shapes
+   dx and dw must be identical across two launches (no atomics), and K4,
+   the plain version and cuDNN's dgrad + wgrad pair (the gradient of
+   F.conv2d on channels-last bf16, the yardstick) are timed, K4 and cuDNN
+   over 30 launches after a warm-up, and K4's launch is split into its CUDA
+   kernels with torch.profiler; then the entry point: two conv3x3_s1
+   backwards under autograd.record launch K4 exactly twice and agree with
+   plain.
 8. Small float32 LeNet and ResNet-18 on the card (cuDNN, TF32 off) against
    the same weights on the CPU: three SGD-momentum TrainSteps. LeNet: each
    step's losses within 1e-3 of the largest, every parameter after every
@@ -149,12 +167,18 @@ def attention_bound_ms(bh, s, d, causal, itemsize):
     """Least time for the flash forward: bf16 tensor-core flops of the two
     products (only the kept (row, col) pairs when causal) against reading
     q, k, v once and writing out and lse once."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4.0 * bh * pairs * d
+    flops = attention_fwd_flops(bh, s, d, causal)
     nbytes = 4.0 * bh * s * d * itemsize + 4.0 * bh * s
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def attention_fwd_flops(bh, s, d, causal):
+    """K1's flop count: 4·BH·pairs·D (q kᵀ and p v); pairs S² or S(S+1)/2
+    causal."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4.0 * bh * pairs * d
 
 
 def attention_bwd_flops(kernel, bh, s, d, causal):
@@ -186,39 +210,61 @@ def build_kernels():
                            conv_bwd.SOURCE)
     log("build: %d kernel source(s) in %.1f s" % (len(paths),
                                                   time.perf_counter() - t0))
-    for src, out in _kernels.BUILD_LOG.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas %s: %s" % (src, line.strip()))
-    ptxas = ptxas_report(_kernels.BUILD_LOG.get(attention.BWD_SOURCE, ""))
+    ptxas, tc_wanted = [], []
+    for src, tc in ((attention.SOURCE, ["flash_fwd_tc %s D%d" % (t, d)
+                                        for t in ("bf16", "fp16")
+                                        for d in (64, 128)]),
+                    (attention.BWD_SOURCE, ["flash_bwd_%s_tc %s D%d" % (n, t, d)
+                                            for n in ("dkv", "dq")
+                                            for t in ("bf16", "fp16")
+                                            for d in (64, 128)]),
+                    (conv_bwd.SOURCE, ["conv3x3_%s_tc %s%s" % (n, t, tile)
+                                       for n, tile in (
+                                           ("dgrad", " 128x128"),
+                                           ("dgrad", " 256x64"),
+                                           ("wgrad", ""))
+                                       for t in ("bf16", "fp16")])):
+        fns = ptxas_report(_kernels.BUILD_LOG.get(src, ""))
+        if not fns:
+            log("  %s was built before this run: no ptxas report" % src)
+            continue
+        ptxas += fns
+        tc_wanted += tc
     for fn in ptxas:
-        log("  %s: %s" % (fn["kernel"], fn))
-    if not ptxas:
-        log("  flash_bwd.cu was built before this run: no ptxas report")
-    # the tensor-core instantiations of K2 and K3 must not spill
+        log("  ptxas %s" % fn)
+    # every tensor-core instantiation is reported, and none spills
+    names = {fn["kernel"] for fn in ptxas}
+    check(all(n in names for n in tc_wanted),
+          "ptxas reported no %s" % [n for n in tc_wanted if n not in names])
     check(all(fn["spill_stores"] == 0 for fn in ptxas
-              if fn["kernel"].startswith(("flash_bwd_dkv_tc",
-                                          "flash_bwd_dq_tc"))),
-          "a tensor-core flash_bwd kernel spills: %s" % ptxas)
+              if "_tc " in fn["kernel"]),
+          "a tensor-core kernel spills: %s" % [
+              fn for fn in ptxas if "_tc " in fn["kernel"]
+              and fn["spill_stores"] != 0])
     return ptxas
 
 
 def ptxas_report(build_log):
     """Per kernel instantiation in an ``nvcc -Xptxas -v`` log: its name
-    (kernel, element type, D), registers and spill bytes."""
+    (kernel, element type, then D for the flash kernels or the tile for
+    K4's dgrad), registers and spill bytes."""
     import re
     fns, cur = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            name = re.search(r"(flash_bwd_(?:dkv|dq)_(?:tc|fma))I", mangled)
+            name = re.search(r"(flash_bwd_(?:dkv|dq)_(?:tc|fma)|flash_fwd_"
+                             r"(?:tc|fma)|conv3x3_(?:dgrad|wgrad)_(?:tc|fma)|"
+                             r"conv3x3_wgrad_reduce)(?=I|E)", mangled)
             dtype = ("bf16" if "bfloat16" in mangled else "fp16"
                      if "6__half" in mangled else "fp32")
-            width = re.search(r"Li(\d+)E", mangled)
+            ints = re.findall(r"Li(\d+)E", mangled)
+            extra = "" if not ints else " D" + ints[0] \
+                if name and name.group(1).startswith("flash") \
+                else " " + "x".join(ints)
             cur = dict(kernel="%s %s%s" % (
-                name.group(1) if name else mangled, dtype,
-                " D%s" % width.group(1) if width else ""),
+                name.group(1) if name else mangled, dtype, extra),
                 registers=None, spill_stores=None, spill_loads=None)
             fns.append(cur)
             continue
@@ -234,30 +280,81 @@ def ptxas_report(build_log):
     return fns
 
 
+FWD_RTOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 1e-5}
+# relative Frobenius error against _fa_reference (fp32 p): the output's own
+# rounding, about 2^-8/sqrt(3) (bf16) or 2^-11/sqrt(3) (fp16) of its spread,
+# plus the smaller error of rounding each p
+FWD_NORM_TOL = {"bfloat16": 1e-2, "float16": 2e-3}
+
+
+def fwd_term_sums(q, k, v, causal, scale):
+    """sum_j p_ij |v_j| / l_i in fp32 (B, H, S, D), with p and l as
+    _fa_reference computes them: for each out element, the sum of the
+    magnitudes of the terms whose p the tensor-core K1 rounds to the input
+    type."""
+    import math
+    import torch
+    from incubator_mxnet_tpu_torch.ops import attention as A
+    S = q.shape[2]
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if causal:
+        s = s.masked_fill(~A._causal_keep(S, S, s.device), -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe)
+    p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+    del s
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
+    return torch.matmul(p, v.float().abs()) / l
+
+
 def hold_fwd(tag, q, k, v, out, lse, causal, scale):
     """K1's ``out`` and ``lse`` against _fa_reference (the same function in
     fp32, dense) on the same inputs; returns the larger max error.
-    Tolerances: out in bf16/fp16 may differ by one rounding of the output
-    type (rtol 2^-7 bf16, 2^-10 fp16, plus atol 1e-4); out in fp32 and lse
-    (fp32 everywhere) by summation order (atol 2e-4, rtol 1e-5)."""
+    Tolerances: lse (fp32 everywhere) within atol 2e-4 / rtol 1e-5 and fp32
+    out within atol 1e-4 / rtol 1e-5 (summation order); bf16/fp16 out
+    elementwise within 1e-4 plus one rounding of the type (2^-7 bf16, 2^-10
+    fp16, relative) of the output and of each term p_ij |v_j| / l_i
+    (``fwd_term_sums``: the tensor-core kernel rounds p to the type against
+    its running max, the plain version keeps p in fp32), and normwise within
+    ``FWD_NORM_TOL``. Every out finite."""
     import torch
     from incubator_mxnet_tpu_torch.ops import attention as A
-    rtol_out = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
-                torch.float32: 1e-5}
+    dtype = str(q.dtype).split(".")[-1]
     ref, ref_lse = A._fa_reference(q, k, v, causal, scale)
-    err = (out.float() - ref.float()).abs().max().item()
+    g, want = out.float(), ref.float()
+    err = (g - want).abs()
+    terms = fwd_term_sums(q, k, v, causal, scale) \
+        if dtype in FWD_NORM_TOL else 0.0
+    bound = 1e-4 + FWD_RTOL[dtype] * (want.abs() + terms)
+    max_err = err.max().item()
+    check(bool(torch.isfinite(g).all()) and bool((err <= bound).all()),
+          "%s: flash_fwd out differs from plain (max abs %.3g, worst share "
+          "of the bound %.3g)" % (tag, max_err, (err / bound).max().item()))
+    norm = ((g - want).norm() / want.norm().clamp_min(1e-30)).item()
+    check(dtype not in FWD_NORM_TOL or norm <= FWD_NORM_TOL[dtype],
+          "%s: flash_fwd out differs from plain by %.3g (Frobenius, relative)"
+          % (tag, norm))
     # a fully masked row has lse -inf on both sides
     lse_err = torch.where(lse == ref_lse, 0.0, (lse - ref_lse).abs()) \
         .max().item()
-    check(torch.allclose(out.float(), ref.float(), rtol=rtol_out[q.dtype],
-                         atol=1e-4),
-          "%s: flash_fwd out differs from plain (max abs %.3g)" % (tag, err))
     check(torch.allclose(lse, ref_lse, rtol=1e-5, atol=2e-4),
           "%s: flash_fwd lse differs from plain (max abs %.3g)"
           % (tag, lse_err))
-    log("  %-40s max|out-plain| %.3g  max|lse-plain| %.3g"
-        % (tag, err, lse_err))
-    return max(err, lse_err)
+    log("  %-40s max|out-plain| %.3g (%.3g of the bound)  |out-plain|/|plain|"
+        " %.3g  max|lse-plain| %.3g" % (tag, max_err,
+                                        (err / bound).max().item(), norm,
+                                        lse_err))
+    return max(max_err, lse_err)
+
+
+def masked_inputs(q, k):
+    """(q, k) with row 5 of head 1 scoring -inf against every key (the
+    product overflows), as in tests/test_torch_attention_bwd.py."""
+    k = k.abs() + 1.0
+    q = q.clone()
+    q[0, 1, 5, :] = -1e38
+    return q, k
 
 
 def check_flash_fwd():
@@ -270,28 +367,40 @@ def check_flash_fwd():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def compare(tag, B, H, S, D, causal, dtype):
+    def compare(tag, B, H, S, D, causal, dtype, masked=False):
         q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev,
                                dtype=dtype) for _ in range(3))
+        if masked:
+            q, k = masked_inputs(q, k)
         scale = 1.0 / D ** 0.5
         out, lse = A._flash_fwd_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
+        if masked:
+            check(bool((out[0, 1, 5] == 0).all())
+                  and bool(torch.isneginf(lse[1, 0, 5])),
+                  "%s: the fully masked row's out is not 0 or its lse not "
+                  "-inf" % tag)
         return q, k, v, scale, hold_fwd(tag, q, k, v, out, lse, causal,
                                         scale)
 
     log("flash_fwd vs plain version:")
-    for tag, shape, causal, dtype in (
+    for tag, shape, causal, dtype, masked in (
             ("fp32 B2 H3 S1000 D64 causal", (2, 3, 1000, 64), True,
-             torch.float32),
-            ("fp16 B1 H4 S300 D128", (1, 4, 300, 128), False, torch.float16),
+             torch.float32, False),
+            ("fp16 B1 H4 S300 D128", (1, 4, 300, 128), False, torch.float16,
+             False),
             ("bf16 B1 H2 S130 D64 causal", (1, 2, 130, 64), True,
-             torch.bfloat16)):
-        compare(tag, *shape, causal, dtype)
+             torch.bfloat16, False),
+            ("bf16 B1 H2 S7 D128 causal", (1, 2, 7, 128), True,
+             torch.bfloat16, False),
+            ("bf16 B1 H2 S128 D64 causal masked row", (1, 2, 128, 64), True,
+             torch.bfloat16, True)):
+        compare(tag, *shape, causal, dtype, masked)
 
     served = []
     for tag, (B, H, S, D), causal, iters in (
             ("bert", (BERT_BUCKET, 8, BERT_S, 128), False, 50),
-            ("gpt", (1, 8, GPT_S, 128), True, 10)):
+            ("gpt", (1, 8, GPT_S, 128), True, 20)):
         q, k, v, scale, err = compare("bf16 %s B%d H%d S%d D%d%s" % (
             tag, B, H, S, D, " causal" if causal else ""),
             B, H, S, D, causal, torch.bfloat16)
@@ -304,12 +413,17 @@ def check_flash_fwd():
         lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal), iters)
         bound_ms, bound_by = attention_bound_ms(B * H, S, D, causal, 2)
+        flops = attention_fwd_flops(B * H, S, D, causal)
         served.append(dict(shape="B%d H%d S%d D%d bf16%s" % (
             B, H, S, D, " causal" if causal else ""), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by))
-        log("  %s: kernel %.4f ms  plain %.4f ms  sdpa %.4f ms  bound %.4f "
-            "ms (%s)" % (tag, ms, plain_ms, lib_ms, bound_ms, bound_by))
+            ms=ms, flops=flops, tflops=flops / ms / 1e9,
+            share_of_bound=bound_ms / ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
+        log("  %s: kernel %.4f ms (%.1f TFLOP/s, %.1f%% of bound)  plain %.4f"
+            " ms  sdpa %.4f ms  bound %.4f ms (%s)" % (
+                tag, ms, served[-1]["tflops"],
+                100 * served[-1]["share_of_bound"], plain_ms, lib_ms,
+                bound_ms, bound_by))
         del q, k, v
     torch.cuda.empty_cache()
     return served
@@ -446,10 +560,7 @@ def check_flash_bwd():
         q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev,
                                    dtype=dtype) for _ in range(4))
         if masked:
-            # row 5 of head 1 scores -inf against every key (the product
-            # overflows), as in tests/test_torch_attention_bwd.py
-            k = k.abs() + 1.0
-            q[0, 1, 5, :] = -1e38
+            q, k = masked_inputs(q, k)
         scale = 1.0 / D ** 0.5
         o, lse = A._flash_fwd_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
@@ -508,19 +619,24 @@ def check_flash_bwd():
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms))
         fwd_bound, fwd_by = attention_bound_ms(B * H, S, D, causal, 2)
+        fwd_flops = attention_fwd_flops(B * H, S, D, causal)
         out["fwd"].append(dict(shape=shape, max_abs_err=err_fwd, ms=ms_fwd,
+                               flops=fwd_flops, tflops=fwd_flops / ms_fwd / 1e9,
+                               share_of_bound=fwd_bound / ms_fwd,
                                plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
                                bound_ms=fwd_bound, bound_by=fwd_by))
         log("  %s: K2 %.3f ms (%.1f TFLOP/s, %.1f%% of bound)  K3 %.3f ms "
             "(%.1f TFLOP/s, %.1f%% of bound)  plain bwd %.3f ms  sdpa bwd "
-            "%.3f ms  bound K2 %.4f K3 %.4f ms; K1 %.3f ms  plain fwd %.3f "
-            "ms  sdpa fwd %.4f ms  bound %.4f ms"
+            "%.3f ms  bound K2 %.4f K3 %.4f ms; K1 %.3f ms (%.1f TFLOP/s, "
+            "%.1f%% of bound)  plain fwd %.3f ms  sdpa fwd %.4f ms  bound "
+            "%.4f ms"
             % (tag, ms_dkv, out["dkv"][-1]["tflops"],
                100 * out["dkv"][-1]["share_of_bound"], ms_dq,
                out["dq"][-1]["tflops"], 100 * out["dq"][-1]["share_of_bound"],
                plain_ms, lib_ms, out["dkv"][-1]["bound_ms"],
-               out["dq"][-1]["bound_ms"], ms_fwd, plain_fwd_ms, lib_fwd_ms,
-               fwd_bound))
+               out["dq"][-1]["bound_ms"], ms_fwd, out["fwd"][-1]["tflops"],
+               100 * out["fwd"][-1]["share_of_bound"], plain_fwd_ms,
+               lib_fwd_ms, fwd_bound))
         del q, k, v, o, lse, do, delta, qr, kr, vr, sdpa
         torch.cuda.empty_cache()
     return out
@@ -861,11 +977,38 @@ def hold_conv(tag, got, want, dtype):
     return max(errs)
 
 
+CONV_ODD_SHAPES = ((3, 5, 9, 8, 16), (2, 7, 7, 40, 24), (4, 13, 11, 24, 72))
+CONV_ITERS = 30     # timed launches of K4 and of cuDNN's pair, after a warm-up
+
+
+def kernel_split_us(fn, iters=5):
+    """Mean device microseconds per call of ``fn`` for each of K4's CUDA
+    kernels (``conv3x3_*``, by name without template arguments), from
+    torch.profiler; {} when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0.0)
+        name = e.key.split("<")[0].split("::")[-1].split("(")[0].strip()
+        if us > 0 and name.startswith("conv3x3"):
+            split[name] = split.get(name, 0.0) + us / iters
+    return split
+
+
 def check_conv_bwd():
-    """K4 against _conv_bwd_reference at two odd fp32 shapes and the four
-    ResNet-50 stage shapes (bf16, batch 256), with K4, plain and cuDNN's
-    dgrad + wgrad timed at the stage shapes; then conv3x3_s1's backward,
-    the entry point. Returns (launches over the entry point's run, rows)."""
+    """K4 against _conv_bwd_reference at two odd fp32 shapes, three odd
+    bf16/fp16 shapes and the four ResNet-50 stage shapes (bf16, batch 256),
+    with K4, plain and cuDNN's dgrad + wgrad timed at the stage shapes and
+    K4's dx and dw identical across two launches there; then conv3x3_s1's
+    backward, the entry point. Returns (launches over the entry point's
+    run, rows)."""
     import torch
     import torch.nn.functional as F
     from incubator_mxnet_tpu_torch.ops import _kernels, conv_bwd
@@ -878,12 +1021,16 @@ def check_conv_bwd():
                      for s in ((N, H, W, C), (N, H, W, K), (3, 3, C, K)))
 
     log("conv_bwd vs plain version:")
-    for shape in ((3, 5, 9, 8, 16), (2, 7, 7, 32, 32)):
-        x, dy, w = inputs(shape, torch.float32)
+    for shape, dtype in (((3, 5, 9, 8, 16), torch.float32),
+                         ((2, 7, 7, 32, 32), torch.float32),
+                         *((sh, dt) for sh in CONV_ODD_SHAPES
+                           for dt in (torch.bfloat16, torch.float16))):
+        x, dy, w = inputs(shape, dtype)
         got = conv_bwd._conv_bwd_cuda(x, dy, w)
         torch.cuda.synchronize()
-        hold_conv("fp32 N%d H%d W%d C%d K%d" % shape, got,
-                  conv_bwd._conv_bwd_reference(x, dy, w), torch.float32)
+        hold_conv("%s N%d H%d W%d C%d K%d" % (
+            str(dtype).split(".")[-1], *shape), got,
+            conv_bwd._conv_bwd_reference(x, dy, w), dtype)
     rows = []
     for shape in CONV_STAGES:
         N, H, W, C, K = shape
@@ -893,8 +1040,12 @@ def check_conv_bwd():
         torch.cuda.synchronize()
         err = hold_conv(tag, got, conv_bwd._conv_bwd_reference(x, dy, w),
                         torch.bfloat16)
-        del got
-        ms = timed_ms(lambda: conv_bwd._conv_bwd_cuda(x, dy, w), 5)
+        again = conv_bwd._conv_bwd_cuda(x, dy, w)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              "%s: conv_bwd's dx or dw differs between two launches" % tag)
+        del got, again
+        ms = timed_ms(lambda: conv_bwd._conv_bwd_cuda(x, dy, w), CONV_ITERS)
         plain_ms = timed_ms(lambda: conv_bwd._conv_bwd_reference(x, dy, w), 2)
         # cuDNN's pair: the gradient of F.conv2d on the channels-last views
         xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
@@ -903,17 +1054,21 @@ def check_conv_bwd():
         y = F.conv2d(xr, wr, padding=1)
         dyr = dy.permute(0, 3, 1, 2)
         lib_ms = timed_ms(lambda: torch.autograd.grad(
-            y, (xr, wr), dyr, retain_graph=True), 5)
+            y, (xr, wr), dyr, retain_graph=True), CONV_ITERS)
         bound_ms, bound_by, nbytes = conv_bound_ms(shape)
+        flops = 4.0 * N * H * W * 9 * C * K
+        split = kernel_split_us(lambda: conv_bwd._conv_bwd_cuda(x, dy, w))
         rows.append(dict(shape="N%d H%d W%d C%d K%d bf16" % shape,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, bytes=nbytes,
-                         tflops=4.0 * N * H * W * 9 * C * K / ms / 1e9))
-        log("  %s: K4 %.3f ms (%.1f TFLOP/s)  plain %.3f ms  cudnn dgrad+"
-            "wgrad %.4f ms  bound %.4f ms (%s)" % (
-                tag, ms, rows[-1]["tflops"], plain_ms, lib_ms, bound_ms,
-                bound_by))
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         tflops=flops / ms / 1e9,
+                         share_of_bound=bound_ms / ms, kernels_us=split))
+        log("  %s: K4 %.3f ms (%.1f TFLOP/s, %.1f%% of bound; profiler us %s)"
+            "  plain %.3f ms  cudnn dgrad+wgrad %.4f ms  bound %.4f ms (%s)"
+            % (tag, ms, rows[-1]["tflops"], 100 * rows[-1]["share_of_bound"],
+               {k: round(v, 1) for k, v in split.items()}, plain_ms, lib_ms,
+               bound_ms, bound_by))
         del x, dy, w, xr, wr, y, dyr
         torch.cuda.empty_cache()
 
@@ -1336,10 +1491,17 @@ def main():
         bound_ms=sum(s["bound_ms"] for s in fwd_shapes),
         bound_by=max(fwd_shapes, key=lambda s: s["bound_ms"])["bound_by"],
         library_ms=sum(s["library_ms"] for s in fwd_shapes),
+        tflops=sum(s["flops"] for s in fwd_shapes)
+        / sum(s["ms"] for s in fwd_shapes) / 1e9,
+        share_of_bound=sum(s["bound_ms"] for s in fwd_shapes)
+        / sum(s["ms"] for s in fwd_shapes),
+        ptxas=[fn for fn in ptxas if fn["kernel"].startswith("flash_fwd")],
         note="ms/plain_ms/bound_ms/library_ms: one launch at each shape of "
              "the serving and training paths, summed; per shape in "
              "'shapes' (served BERT, GPT, then BERT training; GPT training "
-             "is the served GPT shape)",
+             "is the served GPT shape). bf16/fp16 run flash_fwd_tc (tensor "
+             "cores), fp32 flash_fwd_fma. tflops is 4·BH·pairs·D over the "
+             "kernel's time",
         shapes=fwd_shapes)]
     for name, key, line in (("flash_bwd_dkv", "dkv", 223),
                             ("flash_bwd_dq", "dq", 248)):
@@ -1379,8 +1541,17 @@ def main():
         bound_ms=sum(r["bound_ms"] for r in conv_rows),
         bound_by=max(conv_rows, key=lambda r: r["bound_ms"])["bound_by"],
         library_ms=sum(r["library_ms"] for r in conv_rows),
+        tflops=sum(r["flops"] for r in conv_rows)
+        / sum(r["ms"] for r in conv_rows) / 1e9,
+        share_of_bound=sum(r["bound_ms"] for r in conv_rows)
+        / sum(r["ms"] for r in conv_rows),
+        ptxas=[fn for fn in ptxas if fn["kernel"].startswith("conv3x3")],
         note="one launch at each ResNet-50 bottleneck 3x3 shape (batch 256, "
-             "bf16), summed; per shape in 'shapes'. library_ms is cuDNN's "
+             "bf16: conv3x3_dgrad_tc, conv3x3_wgrad_tc and the reduce "
+             "pass; fp32 runs the *_fma kernels), summed; per shape in "
+             "'shapes'. tflops is 2 x 2·N·H·W·9·C·K over the kernel's time; "
+             "kernels_us splits a launch by CUDA kernel (torch.profiler). "
+             "library_ms is cuDNN's "
              "dgrad + wgrad pair (the gradient of F.conv2d on channels-last "
              "bf16). launches: conv3x3_s1's entry point (two backwards); "
              "model-zoo convs stay on cuDNN, so ResNet-50 training launches "

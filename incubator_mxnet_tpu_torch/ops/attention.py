@@ -4,12 +4,21 @@
 Three hand-written CUDA kernels stand for the three Pallas kernels: K1, the
 forward (``csrc/flash_fwd.cu``, the port of ``_fa_kernel``), and K2 and K3,
 the backward's dK/dV and dQ (``csrc/flash_bwd.cu``, the ports of
-``_fa_bwd_dkv_kernel`` and ``_fa_bwd_dq_kernel``; bf16/fp16 inputs run on
-tensor cores, float32 inputs on fp32 FMAs). Each wrapper launches its
-kernel on CUDA tensors and runs its plain PyTorch version (``_fa_reference``,
+``_fa_bwd_dkv_kernel`` and ``_fa_bwd_dq_kernel``). In all three, bf16/fp16
+inputs run on tensor cores and float32 inputs on fp32 FMAs, routed by type
+inside the C entry points. Each wrapper launches its kernel on CUDA tensors
+and runs its plain PyTorch version (``_fa_reference``,
 ``_fa_bwd_reference``) on CPU tensors. A CUDA tensor always goes to the
 kernel; a shape, type or layout the kernel does not take raises instead of
 falling back.
+
+Rounding. The tensor-core K1 rounds p to the input type before ``P V``,
+relative to the running row max of its online softmax (as FA2 and SDPA do);
+the JAX kernel and ``_fa_reference`` keep p in fp32, and no dense plain
+version can round against a running max. So on the card K1's bf16/fp16
+``out`` is held to ``_fa_reference`` within one rounding of the output plus
+one rounding of the type on each term ``p_ij |v_j| / l_i`` (and normwise),
+while lse and fp32 keep their summation-order tolerances.
 
 ``flash_attention`` and ``flash_attention_lse`` are ``torch.autograd``
 Functions around the kernels, the counterparts of the JAX package's
@@ -44,7 +53,7 @@ KERNEL_DQ = "flash_bwd_dq"
 BWD_SOURCE = "flash_bwd.cu"
 SUPPORTED_D = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BLOCK = 64        # rows of a q or kv tile in flash_fwd.cu and flash_bwd.cu
+_BLOCK = 64        # fewest rows of a q or kv tile in flash_fwd.cu, flash_bwd.cu
 
 
 def _causal_keep(sq, sk, device):

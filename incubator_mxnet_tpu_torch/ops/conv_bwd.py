@@ -11,7 +11,9 @@ in NHWC / HWIO layout:
     dx[n,a,b,c] = sum_{r,s}   dy[n, a+1-r, b+1-s, :] @ w[r,s].T   (9 taps)
     dw[r,s,c,k] = sum_{n,p,q} x[n, p+r-1, q+s-1, c] * dy[n,p,q,k]
 
-with fp32 sums, dx cast once to x's type and dw once to w's. ``conv3x3_bwd``
+with fp32 sums, dx cast once to x's type and dw once to w's (bf16/fp16
+inputs run on tensor cores, float32 inputs on fp32 FMAs, routed by type
+inside the C entry point; neither route rounds anything else). ``conv3x3_bwd``
 launches it on CUDA tensors and runs its plain PyTorch version
 (``_conv_bwd_reference``, the same nine taps as dense fp32 matrix products,
 no conv call) on CPU tensors; a CUDA tensor of a shape or type the kernel
@@ -42,9 +44,12 @@ _SIGNATURES = {
     # x, dy, wd, dx, dw, ws, N, H, W, C, K, splits, chunk, dtype, device,
     # stream
     "mxt_conv3x3_bwd": "pppppp" "iiiii" "ii" "ii" "p"}
-_TILE = 64              # c and k per wgrad CTA in conv_bwd.cu
-_PIXELS = 32            # pixels per wgrad step in conv_bwd.cu
-_CTAS_IN_FLIGHT = 132 * 8   # wgrad CTAs to aim for: 8 per SM of an H100
+_TILE = 64              # c and k per wgrad CTA in conv_bwd.cu (both routes)
+_PIXELS = 64            # pixels per tensor-core wgrad step in conv_bwd.cu (the
+                        # fp32 route steps 32, which divides it)
+_TAPS = 3               # taps per tensor-core wgrad CTA (the fp32 route: 1)
+_CTAS_IN_FLIGHT = 132 * 4   # tensor-core wgrad CTAs (8 warps) to aim for:
+                            # 4 per SM of an H100
 
 
 def conv3x3_bwd_legal(x_shape, w_shape, stride=(1, 1), padding=(1, 1),
@@ -121,9 +126,11 @@ def _conv_bwd_reference(x, dy, w):
 
 def _wgrad_split(m, c, k):
     """(splits, chunk): the wgrad's pixels cut into ``splits`` slices of
-    ``chunk`` (a multiple of its 32-pixel step), enough slices that about
-    ``_CTAS_IN_FLIGHT`` CTAs run, each slice at least 256 pixels."""
-    tiles = 9 * -(-c // _TILE) * -(-k // _TILE)
+    ``chunk`` (a multiple of its 64-pixel step), enough slices that about
+    ``_CTAS_IN_FLIGHT`` tensor-core CTAs run, each slice at least 256
+    pixels. The fp32 route runs ``_TAPS`` times as many CTAs (one tap
+    each) on the same slices."""
+    tiles = 9 // _TAPS * -(-c // _TILE) * -(-k // _TILE)
     splits = max(1, min(-(-_CTAS_IN_FLIGHT // tiles), -(-m // 256)))
     chunk = -(-m // splits)
     chunk = -(-chunk // _PIXELS) * _PIXELS

@@ -162,23 +162,32 @@ def test_bytes_match_jax():
 @pytest.mark.parametrize("shape,dtype", [((3, 5, 9, 8, 16), torch.float32),
                                          ((2, 7, 7, 32, 32), torch.float32),
                                          ((8, 14, 14, 64, 64),
-                                          torch.bfloat16)])
+                                          torch.bfloat16)] + [
+    (shape, dt) for dt in (torch.bfloat16, torch.float16)
+    for shape in ((3, 5, 9, 8, 16), (2, 7, 7, 40, 24), (4, 13, 11, 24, 72))])
 def test_kernel_matches_plain_on_the_card(cuda_device, shape, dtype):
     """K4 against its plain version on the same card inputs: fp32 within
     1e-4 of max|plain| (summation order), bf16/fp16 within one rounding of
-    the type (2^-7 relative) plus 1e-3 of max|plain|."""
+    the type (2^-7 bf16, 2^-10 fp16, relative) plus 1e-3 of max|plain|;
+    dx and dw identical across two launches (no atomics). The odd C and K
+    (8, 16, 24, 40, 72) leave the tensor-core kernels' 64-wide tiles ragged,
+    so their copies are zero-filled by column as well as by row."""
     x, w, dy = (torch.from_numpy(a).to(cuda_device, dtype)
                 for a in _inputs(shape, seed=3))
     _kernels.reset_launches()
     got = tconv.conv3x3_bwd(x, dy, w)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["conv_bwd"] == 1
+    rtol = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[dtype]
+    share = 1e-4 if dtype == torch.float32 else 1e-3
     for g, r in zip(got, tconv._conv_bwd_reference(x, dy, w)):
+        assert g.dtype == dtype
         g, r = g.float(), r.float()
-        rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
-        share = 1e-4 if dtype == torch.float32 else 1e-3
         assert bool(((g - r).abs() <= rtol * r.abs()
                      + share * r.abs().max()).all())
+    again = tconv.conv3x3_bwd(x, dy, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
