@@ -57,7 +57,11 @@ Phases, each of which must pass, in order:
    request of 8192 tokens. Every reply must have the right shape and be
    finite, served BERT rows must match a direct EvalStep forward, K1's
    launch count over this phase must equal layers x batches, and K2/K3
-   must not launch.
+   must not launch. Then one BERT request with out-of-range token ids
+   (vocab_size, -vocab_size - 1) between two submissions of one batch of
+   8: its reply must be NaN throughout, as the reference's, the batch's
+   replies after it must equal those before it bit for bit, and the card
+   must still synchronise.
 6. The training path, after the serving models are freed: full-width BERT
    (B 64 x S 512, SoftmaxCrossEntropyLoss on the full logits) and GPT
    (B 1 x S 8192, FeaturesView + ChunkedLMLoss) in bfloat16, each through
@@ -100,15 +104,32 @@ Phases, each of which must pass, in order:
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
-   timed.
+   timed three ways: eager (CUDA events over 50 back-to-back launches),
+   host (the host clock over 1000 launches with no synchronisation inside:
+   what a launch costs the host) and graph replay (the same 50 launches
+   captured once in a CUDA graph and replayed: the kernels' own device
+   time), beside the plain version, the library call and the bound. Each
+   timed launch takes the next of six buffer sets, 96 MB or more in all,
+   so its inputs come from HBM and not from the 50 MB L2. Then every
+   kernel is launched again on each set (the add also with another
+   BLOCK) and held against torch: the path the timings took. Last, a
+   launch's host time is split into its parts (``rtc_host_breakdown``).
 
 Prints the card's name and power limit, a {"serving": ...}, a
 {"training": ...}, a {"vision": ...} and a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when CUDA is absent, the port is not beside this script, or any
 phase fails.
+
+    python3 chip_smoke.py --rtc-only [--root DIR]
+
+runs phase 10 alone, on the port found in DIR (by default beside this
+script), and prints the card's name and power limit and {"rtc": {...}}:
+the way to time another tree's K5 launch path with the same code, for
+example an unpacked parent commit's.
 """
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -775,6 +796,7 @@ def serve_full_width():
         batches = {n: reg.metrics(n).batch_count - base[n]
                    for n in ("bert", "gpt")}
         hist = reg.metrics("bert").snapshot()["batch_size_hist"]
+        bad_ids = serve_after_bad_ids(reg, bert_rows[:BERT_BUCKET])
     finally:
         reg.close()
 
@@ -815,7 +837,7 @@ def serve_full_width():
         bert_batches=batches["bert"], bert_batch_sizes=hist,
         gpt_batches=batches["gpt"], wall_ms=wall_ms,
         bert_latency_ms=sorted(lat["bert"]), gpt_latency_ms=lat["gpt"],
-        served_vs_direct_max_abs=worst)
+        served_vs_direct_max_abs=worst, bad_ids=bad_ids)
     log("serving: %d BERT requests in %d batches %s, 1 GPT request; "
         "wall %.1f ms" % (BERT_REQUESTS, batches["bert"], hist, wall_ms))
     log("serving: BERT latency ms p50 %.1f max %.1f; GPT latency ms %.1f; "
@@ -823,6 +845,44 @@ def serve_full_width():
         % (sorted(lat["bert"])[len(lat["bert"]) // 2], max(lat["bert"]),
            lat["gpt"][0], worst))
     return launches, summary
+
+
+def serve_after_bad_ids(reg, rows):
+    """One BERT request with the token ids vocab_size and -vocab_size - 1
+    between two submissions of the same batch of ``rows``. The reference
+    (jnp.take) gives those ids NaN embeddings, which attention spreads over
+    the whole row, so the reply must be NaN throughout (tests/
+    test_torch_models.py holds the two packages' NaN against each other on
+    the CPU); the batch's replies after it must equal those before it, and
+    the card must still synchronise: an out-of-range gather would have
+    tripped a device-side assert and left the CUDA context unusable."""
+    import numpy as onp
+    import torch
+
+    def batch():
+        before = reg.metrics("bert").batch_count
+        reqs = [reg.submit("bert", r) for r in rows]
+        return ([r.result(600)[0] for r in reqs],
+                reg.metrics("bert").batch_count - before)
+
+    first, first_batches = batch()
+    bad = rows[0].copy()
+    bad[3], bad[10] = BERT["vocab_size"], -BERT["vocab_size"] - 1
+    reply = reg.predict("bert", bad)[0]
+    check(reply.shape == (BERT_S, BERT["vocab_size"])
+          and bool(onp.isnan(reply).all()),
+          "the reply to out-of-range token ids is not NaN throughout "
+          "(%d NaN of %d)" % (int(onp.isnan(reply).sum()), reply.size))
+    again, again_batches = batch()
+    check(all(onp.array_equal(a, b) for a, b in zip(first, again)),
+          "a batch served after out-of-range token ids differs from the "
+          "same batch before them")
+    torch.cuda.synchronize()
+    log("serving: out-of-range token ids answered with NaN; the batch of "
+        "%d before (%d dispatch(es)) and after (%d) it agree bit for bit"
+        % (len(rows), first_batches, again_batches))
+    return dict(rows=len(rows), batches_before=first_batches,
+                batches_after=again_batches)
 
 
 def train_full_width(bwd):
@@ -1297,6 +1357,12 @@ extern "C" __global__ void block_sum(const float *x, float *out, int n) {
 }
 """
 RTC_N, RTC_GRID, RTC_BLOCK = 1 << 22, 128, 512
+RTC_TIMED = 50              # launches per event-timed run and per graph
+RTC_HOST_LAUNCHES = 1000    # launches per host-clock run
+# buffer sets the timed launches rotate through: 6 x 16 MB of x, of y and
+# of axpy's output, well beyond the H100's 50 MB L2, so every launch reads
+# its inputs from HBM, as the bound counts them
+RTC_SETS = 6
 
 
 def _triton_add():
@@ -1315,52 +1381,65 @@ def _triton_add():
 def check_rtc():
     """K5: NVRTC (CudaModule) and Triton (TritonModule) sample kernels, each
     launched once through its entry point (the counts read around those
-    launches), held against torch, then timed. Returns (launches, rows by
-    kernel, NVRTC compile ms)."""
+    launches), held against torch, then timed: eager ms (``timed_ms``),
+    host us a launch (``host_us``) and graph-replay ms (``graph_ms``), each
+    launch on the next of ``RTC_SETS`` buffer sets; then each kernel
+    launched again on every set (and the Triton add with another
+    ``constexpr``) and held against torch once more: those later launches
+    take the path the timings took. Returns (launches, rows by kernel,
+    NVRTC compile ms)."""
     import torch
     from incubator_mxnet_tpu_torch import rtc
     from incubator_mxnet_tpu_torch.ops import _kernels
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(7)
     n, grid, block = RTC_N, RTC_GRID, RTC_BLOCK
-    x = torch.randn(n, generator=gen, device=dev)
-    y0 = torch.randn(n, generator=gen, device=dev)
+    xs = [torch.randn(n, generator=gen, device=dev) for _ in range(RTC_SETS)]
+    y0s = [torch.randn(n, generator=gen, device=dev)
+           for _ in range(RTC_SETS)]
+    ys = [y.clone() for y in y0s]               # axpy's in-place outputs
+    outs = [torch.empty(grid, device=dev) for _ in range(RTC_SETS)]
     mod = rtc.CudaModule(RTC_SOURCE)
     axpy = mod.get_kernel("axpy", "const float *x, float *y, float a, int n")
     bsum = mod.get_kernel("block_sum", "const float *x, float *out, int n")
     tri = rtc.TritonModule(_triton_add(), lambda a, b, n: (a.shape, a.dtype)) \
         .get_kernel()
-    y, out = y0.clone(), torch.empty(grid, device=dev)
+    run = {"axpy": lambda i: axpy.launch([xs[i], ys[i], 2.5, n], dev,
+                                         (-(-n // 256),), (256,)),
+           "block_sum": lambda i: bsum.launch([xs[i], outs[i], n], "cuda:0",
+                                              (grid,), (block,), block * 4),
+           "triton_add": lambda i, b=1024: tri.launch(
+               [xs[i], y0s[i], n], dev, (-(-n // b),), BLOCK=b)}
+    plain = {"axpy": lambda i: y0s[i] + 2.5 * xs[i],
+             "block_sum": lambda i: xs[i].view(-1, grid, block)
+             .sum(dim=(0, 2)),
+             "triton_add": lambda i: xs[i] + y0s[i]}
+    library = {"axpy": lambda i: torch.add(y0s[i], xs[i], alpha=2.5),
+               "block_sum": lambda i: torch.sum(xs[i].view(-1, grid, block),
+                                                dim=(0, 2)),
+               "triton_add": lambda i: torch.add(xs[i], y0s[i])}
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    axpy.launch([x, y, 2.5, n], dev, (-(-n // 256),), (256,))
-    bsum.launch([x, out, n], "cuda:0", (grid,), (block,), block * 4)
-    added = tri.launch([x, y0, n], dev, (-(-n // 1024),), BLOCK=1024)
+    run["axpy"](0)
+    run["block_sum"](0)
+    added = run["triton_add"](0)
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
     check(launches.get("rtc", 0) == 2 and launches.get("rtc_triton", 0) == 1
           and sum(launches.values()) == 3,
           "rtc launched %s, expected rtc 2 and rtc_triton 1" % launches)
-
-    plain = {"axpy": lambda: y0 + 2.5 * x,
-             "block_sum": lambda: x.view(-1, grid, block).sum(dim=(0, 2)),
-             "triton_add": lambda: x + y0}
-    library = {"axpy": lambda: torch.add(y0, x, alpha=2.5),
-               "block_sum": lambda: torch.sum(x.view(-1, grid, block),
-                                              dim=(0, 2)),
-               "triton_add": lambda: torch.add(x, y0)}
-    got = {"axpy": y, "block_sum": out, "triton_add": added}
+    got = {"axpy": ys[0], "block_sum": outs[0], "triton_add": added}
     # axpy: one fma against two roundings; block_sum: fp32 sums of n/grid
     # terms in another order; the add is exact
-    atol = {"axpy": 1e-6 * (y0.abs().max() + 2.5 * x.abs().max()).item(),
-            "block_sum": 1e-5 * x.abs().sum().item() / grid,
+    atol = {"axpy": max(1e-6 * (y.abs().max() + 2.5 * x.abs().max()).item()
+                        for x, y in zip(xs, y0s)),
+            "block_sum": max(1e-5 * x.abs().sum().item() / grid for x in xs),
             "triton_add": 0.0}
-    run = {"axpy": lambda: axpy.launch([x, y, 2.5, n], dev, (-(-n // 256),),
-                                       (256,)),
-           "block_sum": lambda: bsum.launch([x, out, n], dev, (grid,),
-                                            (block,), block * 4),
-           "triton_add": lambda: tri.launch([x, y0, n], dev,
-                                            (-(-n // 1024),), BLOCK=1024)}
+    err = {}
+    for name in got:
+        err[name] = (got[name] - plain[name](0)).abs().max().item()
+        check(err[name] <= atol[name], "rtc %s differs from torch (max abs "
+              "%.3g, allowed %.3g)" % (name, err[name], atol[name]))
     # bytes: each input read once, each output written once (fp32)
     nbytes = {"axpy": 3 * 4 * n, "block_sum": 4 * n + 4 * grid,
               "triton_add": 3 * 4 * n}
@@ -1368,22 +1447,140 @@ def check_rtc():
     log("rtc: NVRTC compiled the two-kernel module in %.1f ms (%s)"
         % (mod.compile_ms, mod.arch))
     for name in ("axpy", "block_sum", "triton_add"):
-        want = plain[name]()
-        err = (got[name] - want).abs().max().item()
-        check(err <= atol[name], "rtc %s differs from torch (max abs %.3g, "
-              "allowed %.3g)" % (name, err, atol[name]))
-        ms = timed_ms(run[name], 50)
         bound_ms = nbytes[name] / PEAK_BYTES * 1e3
-        rows[name] = dict(max_abs_err=err, ms=ms,
-                          plain_ms=timed_ms(plain[name], 50),
-                          library_ms=timed_ms(library[name], 50),
+        kernel, ref, lib = (rotating(f[name]) for f in (run, plain, library))
+        rows[name] = dict(max_abs_err=err[name],
+                          ms=timed_ms(kernel, RTC_TIMED),
+                          host_us=host_us(kernel, RTC_HOST_LAUNCHES),
+                          graph_ms=graph_ms(kernel, RTC_TIMED),
+                          plain_ms=timed_ms(ref, RTC_TIMED),
+                          library_ms=timed_ms(lib, RTC_TIMED),
+                          library_host_us=host_us(lib, RTC_HOST_LAUNCHES),
                           bound_ms=bound_ms, bound_by="bytes",
-                          shape="%d fp32" % n)
-        log("  %s: max|k-torch| %.3g  kernel %.4f ms  plain %.4f ms  library "
-            "%.4f ms  bound %.4f ms (bytes)" % (
-                name, err, ms, rows[name]["plain_ms"],
-                rows[name]["library_ms"], bound_ms))
+                          shape="%d fp32, %d buffer sets" % (n, RTC_SETS))
+    # later launches, on every set: the path just timed, against torch
+    for i in range(RTC_SETS):
+        ys[i].copy_(y0s[i])
+        run["axpy"](i)
+        run["block_sum"](i)
+        later = [("axpy", ys[i]), ("block_sum", outs[i]),
+                 ("triton_add", run["triton_add"](i))]
+        if i == 1:      # another BLOCK: another specialization
+            later.append(("triton_add", run["triton_add"](i, 512)))
+        for key, out in later:
+            e = (out - plain[key](i)).abs().max().item()
+            check(e <= atol[key], "rtc %s, a later launch on buffer set %d, "
+                  "differs from torch (max abs %.3g, allowed %.3g)"
+                  % (key, i, e, atol[key]))
+            rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], e)
+    for name, r in rows.items():
+        log("  %s: max|k-torch| %.3g  eager %.4f ms  host %.1f us/launch  "
+            "graph replay %.4f ms  plain %.4f ms  library %.4f ms (host "
+            "%.1f us)  bound %.4f ms (bytes)" % (
+                name, r["max_abs_err"], r["ms"], r["host_us"], r["graph_ms"],
+                r["plain_ms"], r["library_ms"], r["library_host_us"],
+                r["bound_ms"]))
     return launches, rows, mod.compile_ms
+
+
+def rotating(fn):
+    """A call of no arguments that calls ``fn(i)`` with the next of the
+    ``RTC_SETS`` buffer sets each time."""
+    sets = itertools.cycle(range(RTC_SETS))
+    return lambda: fn(next(sets))
+
+
+def rtc_host_breakdown():
+    """Where a K5 launch's host time goes (host us a call, 2000 calls, at a
+    size so small that the card never holds the host back): the whole
+    launch, its checks and argument packing, the CUDA driver's
+    ``cuLaunchKernel`` alone, the context check, the launch count, the
+    stream's lookup (PyTorch's C entry point, which a launch takes, and
+    ``torch.cuda.current_stream``); for Triton the whole launch, the
+    output's allocation and Triton's JIT dispatch alone; and torch.add on
+    the same tensors, PyTorch's own launch path."""
+    import ctypes
+    import torch
+    from incubator_mxnet_tpu_torch import rtc
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    dev = torch.device("cuda", 0)
+    n, iters = 32, 2000
+    x = torch.randn(n, device=dev)
+    y = torch.randn(n, device=dev)
+    out = torch.empty(n, device=dev)
+    axpy = rtc.CudaModule(RTC_SOURCE).get_kernel(
+        "axpy", "const float *x, float *y, float a, int n")
+    axpy.launch([x, y, 2.5, n], dev, (1,), (32,))
+    layout, lib = axpy._layout, rtc._libcuda()
+    handle, current = axpy._functions[0].handle, ctypes.c_void_p()
+    stream = _kernels.stream(dev)
+    tri = rtc.TritonModule(_triton_add()).get_kernel()
+    tri.launch([x, y, n], dev, (1,), BLOCK=1024)
+
+    def checks():
+        rtc._cuda_device(dev)
+        rtc._dims((1,), "grid_dims")
+        rtc._dims((32,), "block_dims")
+        layout.fill([x, y, 2.5, n], dev)
+
+    parts = {
+        "cuda_launch": lambda: axpy.launch([x, y, 2.5, n], dev, (1,), (32,)),
+        "cuda_checks_and_packing": checks,
+        "cuda_launch_call": lambda: lib.cuLaunchKernel(
+            handle, 1, 1, 1, 32, 1, 1, 0, stream, layout.array, None),
+        "cuda_context_check": lambda: lib.cuCtxGetCurrent(current),
+        "stream_raw": lambda: _kernels.stream(dev),
+        "stream_public": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "launch_count": lambda: _kernels.count("rtc"),
+        "triton_launch": lambda: tri.launch([x, y, n], dev, (1,),
+                                            BLOCK=1024),
+        "triton_output_alloc": lambda: torch.empty(n, device=dev),
+        "triton_jit_dispatch": lambda: tri._kernel_fn[(1,)](x, y, n, out,
+                                                            BLOCK=1024),
+        "torch_add": lambda: torch.add(x, y),
+    }
+    us = {k: host_us(f, iters) for k, f in parts.items()}
+    log("rtc host us a call (%d calls, %d fp32): %s" % (
+        iters, n, ", ".join("%s %.2f" % kv for kv in us.items())))
+    return us
+
+
+def host_us(fn, iters):
+    """Host time of one launch: ``iters`` back-to-back calls of ``fn`` on
+    the host clock with no synchronisation inside, then one."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def graph_ms(fn, iters, replays=5):
+    """Device time of one launch with no host in the way: ``iters`` calls
+    of ``fn`` captured once in a CUDA graph (torch.cuda.graph's side
+    stream), the graph replayed once to warm up, then ``replays`` replays
+    timed with CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def step_phases(step, *inputs):
@@ -1433,7 +1630,15 @@ def stage_breakdown(net, batch, reps=3):
     return out
 
 
-def main():
+def main(argv):
+    import argparse
+    parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
+                                     "end to end on one NVIDIA GPU.")
+    parser.add_argument("--rtc-only", action="store_true",
+                        help="time K5's launch path (phase 10) alone")
+    parser.add_argument("--root", default=os.path.dirname(
+        os.path.abspath(__file__)), help="the checkout whose port runs")
+    opts = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1443,17 +1648,27 @@ def main():
         print("chip_smoke: CUDA is not available; this script runs the port "
               "on a GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(opts.root))
     try:
         import incubator_mxnet_tpu_torch  # noqa: F401
     except ImportError as e:
-        print("chip_smoke: the port package is not beside this script (%s)"
-              % e, file=sys.stderr)
+        print("chip_smoke: the port package is not in %s (%s)"
+              % (opts.root, e), file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     card = (smi.stdout.strip().splitlines() or ["unknown"])[0]
+    if opts.rtc_only:
+        try:
+            _, rtc_rows, rtc_compile_ms = check_rtc()
+        except SmokeFailure as e:
+            print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
+            return 1
+        log(card)
+        log(json.dumps({"rtc": dict(rtc_rows, compile_ms=rtc_compile_ms,
+                                    root=os.path.abspath(opts.root))}))
+        return 0
     try:
         ptxas = build_kernels()
         served = check_flash_fwd()
@@ -1468,6 +1683,7 @@ def main():
         train_launches, training = train_full_width(bwd)
         train_launches["resnet50"], vision = train_resnet_full_width()
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
+        rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -1572,11 +1788,19 @@ def main():
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by="bytes",
             library_ms=sum(r["library_ms"] for r in rows),
+            host_us=sum(r["host_us"] for r in rows),
+            graph_ms=sum(r["graph_ms"] for r in rows),
             compile_ms=rtc_compile_ms if route == "cuda" else None,
+            host_breakdown_us={
+                k: v for k, v in rtc_host.items()
+                if not k.startswith(("cuda_", "triton_"))
+                or k.startswith(route + "_")},
             note="runtime-compiled user kernels: the samples are chip_smoke."
                  "py's (RTC_SOURCE, _triton_add), one launch each summed; "
-                 "per sample in 'shapes'; compile_ms is NVRTC's for the "
-                 "module",
+                 "per sample in 'shapes'; ms is the eager launch (50 back "
+                 "to back), host_us the host's time a launch (1000, no "
+                 "sync inside), graph_ms the launch replayed from a CUDA "
+                 "graph; compile_ms is NVRTC's for the module",
             shapes=rows))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"training": training}))
@@ -1590,4 +1814,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

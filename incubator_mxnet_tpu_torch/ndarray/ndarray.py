@@ -67,7 +67,9 @@ def Activation(data, act_type="relu", **kw):
 
 
 def LeakyReLU(data, act_type="leaky", **kw):
-    """Only the exact (erf) GELU is ported so far."""
+    """Only the exact (erf) GELU is ported so far: any other act_type
+    raises, so its keywords (``slope``, ``gamma``, the bounds) are never
+    silently ignored; GELU takes none of them, in the JAX package too."""
     if act_type != "gelu":
         raise ValueError("unsupported act_type %r" % act_type)
     return F.gelu(data, approximate="none")
@@ -85,14 +87,49 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, **kw):
     return out.to(data.dtype)
 
 
+def _take_fill(dtype):
+    """``jnp.take``'s fill value for an id out of range: NaN for floats, the
+    least value of a signed type, the largest of an unsigned one, True."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return math.nan
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
 def Embedding(data, weight, input_dim=None, output_dim=None, **kw):
-    """Gather rows of ``weight`` (input_dim, output_dim) by integer ids."""
-    return F.embedding(data.long(), weight)
+    """Gather rows of ``weight`` (input_dim, output_dim) by integer ids, as
+    the JAX package's ``jnp.take`` (mode "fill"): an id in [-input_dim, 0)
+    wraps, any other id outside [0, input_dim) gives a row of NaN (of the
+    fill value, for an integer weight) and no gradient. The gather reads
+    clamped ids, so no id indexes out of bounds: on the card an
+    out-of-bounds gather trips a device-side assert, which leaves the
+    process's CUDA context unusable."""
+    n = weight.shape[0]
+    ids = data.long()
+    valid = (ids >= -n) & (ids < n)
+    rows = F.embedding(torch.where(ids < 0, ids + n, ids).clamp(0, n - 1),
+                       weight)
+    return torch.where(valid.unsqueeze(-1), rows, _take_fill(weight.dtype))
 
 
-def softmax(data, axis=-1, temperature=None, **kw):
+def softmax(data, axis=-1, temperature=None, length=None, **kw):
+    """softmax along ``axis``. With ``length`` (the data's shape without
+    ``axis``), only the first ``length`` entries along ``axis`` take part:
+    the others are -inf before the softmax and 0 after, as in the JAX
+    package (whose mask is built along the last axis; here it is built
+    along ``axis``, which is the same for the last axis)."""
     x = data / temperature if temperature else data
-    return torch.softmax(x, dim=axis)
+    if length is None:
+        return torch.softmax(x, dim=axis)
+    axis = axis % x.dim()
+    pos = torch.arange(x.shape[axis], device=x.device).reshape(
+        [-1 if i == axis else 1 for i in range(x.dim())])
+    mask = pos < torch.as_tensor(length, device=x.device).long() \
+        .unsqueeze(axis)
+    out = torch.softmax(x.masked_fill(~mask, -math.inf), dim=axis)
+    return out.masked_fill(~mask, 0.0)
 
 
 def log_softmax(data, axis=-1, temperature=None, **kw):
@@ -117,11 +154,14 @@ def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
     return torch.matmul(a, b)
 
 
-def Dropout(data, p=0.5, axes=(), training=None, generator=None, **kw):
+def Dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+            training=None, generator=None, **kw):
     """Inverted dropout; the identity outside training or for p <= 0.
     ``training=None`` reads ``autograd.is_training()``, as the JAX package
     does: dropout is active under ``autograd.record()``/``train_mode()``
-    and in ``jit.TrainStep``, never in ``EvalStep`` or serving."""
+    and in ``jit.TrainStep``, never in ``EvalStep`` or serving. ``mode``
+    and ``cudnn_off`` hold the JAX package's argument order and are
+    ignored, as there."""
     if training is None:
         from ..autograd import is_training
         training = is_training()

@@ -136,9 +136,12 @@ def launched(lib, name, err):
     count(name)
 
 
-def stream(t):
-    """The current stream of ``t``'s device, as an int for ``ctypes``. A
-    backward runs on autograd's thread: take the tensor's device's stream,
-    never the thread's current device's."""
+def stream(where):
+    """The current stream of the CUDA device of ``where`` (a tensor, or a
+    ``torch.device`` with its index), as an int for ``ctypes``: PyTorch's C
+    entry point, which makes no ``torch.cuda.Stream``. A backward runs on
+    autograd's thread: take the tensor's device's stream, never the
+    thread's current device's."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    device = where.device if isinstance(where, torch.Tensor) else where
+    return torch._C._cuda_getCurrentRawStream(device.index)

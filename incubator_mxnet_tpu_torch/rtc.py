@@ -22,6 +22,9 @@ On the card the facility is NVRTC again, as in MXNet:
   tensor's type, device and contiguity against the signature and launches
   on ``torch.cuda.current_stream(device)`` under PyTorch's primary context
   of that device. There is no CPU route: a CPU context or tensor raises.
+  What a launch needs beyond its arguments (the function, its context, its
+  shared memory attribute, the argument slots) is resolved once per kernel
+  and device, so back-to-back launches wait on the card, not the host.
 - ``TritonModule(kernel_fn, out_shape_fn=None)`` takes over
   ``PallasModule``'s role for a ``@triton.jit`` function: ``launch`` makes
   a new output tensor (of ``out_shape_fn(*args)`` = (shape, dtype), else
@@ -34,9 +37,11 @@ Each launch counts one ``ops._kernels.count`` under ``"rtc"`` (NVRTC) or
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import re
+import struct
 import sys
 import threading
 import time
@@ -62,7 +67,9 @@ _ARG = re.compile(r"^\s*(const\s+)?([A-Za-z_]\w*)\s*(\*)?\s*([A-Za-z_]\w*)?\s*$"
 _MAX_DYNAMIC_SHARED = 8       # CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES
 _STATIC_SHARED_LIMIT = 48 * 1024
 _lock = threading.Lock()
-_libs = {}
+_libs = {}          # "nvrtc", "cuda": the libraries
+_contexts = {}      # device index -> its primary CUcontext, as an int
+_resolved = {}      # a GPU Context, "cuda:N" or torch.device seen -> device
 
 
 def _parse_signature(signature):
@@ -85,51 +92,108 @@ def _parse_signature(signature):
 def _cuda_device(ctx):
     """The CUDA ``torch.device`` of ``ctx`` (a Context, device or string;
     None is the current context). A CPU context raises: rtc has no CPU
-    route."""
+    route. A context naming its device is resolved once (later launches
+    skip ``as_device`` and its device count); None, and "cuda" without an
+    index, follow the current context and device at every launch."""
+    try:
+        return _resolved[ctx]
+    except (KeyError, TypeError):
+        pass
     device = as_device(ctx)
     if device.type != "cuda":
         raise ValueError("rtc launches CUDA kernels on a GPU context; got %s"
                          % device)
-    return torch.device("cuda", device.index if device.index is not None
-                        else torch.cuda.current_device())
+    if device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if ctx is not None:
+        _resolved[ctx] = device
+    return device
 
 
-def _kernel_args(params, args, device):
-    """The ctypes values of ``args`` for ``params``; raises unless each
-    pointer argument is a contiguous tensor of the signature's type on
-    ``device`` and each scalar a number."""
-    if len(args) != len(params):
-        raise ValueError("the kernel takes %d arguments, got %d"
-                         % (len(params), len(args)))
-    values = []
-    for (name, typ, is_ptr, _const), arg in zip(params, args):
-        dtype, ctype = _TYPES[typ]
-        if is_ptr:
-            if not isinstance(arg, torch.Tensor):
+def _half_bits(x):
+    """The bits of ``x`` as an IEEE half, as PyTorch converts a Python
+    number to float16: round to float32 first, then to half (round to
+    nearest even); a value beyond the half range gives an infinity."""
+    x = float(x)
+    try:
+        return struct.unpack("<H", struct.pack(
+            "<e", struct.unpack("<f", struct.pack("<f", x))[0]))[0]
+    except OverflowError:
+        return 0xFC00 if x < 0 else 0x7C00
+
+
+class _ArgLayout:
+    """A kernel's arguments as ``cuLaunchKernel`` reads them: one ctypes
+    slot per parameter of the signature and the ``void*[]`` array pointing
+    at the slots, both made once. ``fill`` checks a launch's arguments and
+    writes them into the slots in place; it raises unless each pointer
+    argument is a contiguous tensor of the signature's type on ``device``
+    and each scalar a number. The caller holds the slots until the launch
+    has read them."""
+
+    def __init__(self, params):
+        self.params = params
+        self.slots = [ctypes.c_void_p() if is_ptr else _TYPES[typ][1]()
+                      for _name, typ, is_ptr, _const in params]
+        self.array = (ctypes.c_void_p * max(1, len(params)))(
+            *[ctypes.addressof(s) for s in self.slots])
+        # per parameter: its slot, the tensor type of a pointer (else None)
+        # and whether a scalar is a half
+        self._plan = [(slot, _TYPES[typ][0] if is_ptr else None,
+                       typ == "__half")
+                      for slot, (_n, typ, is_ptr, _c) in zip(self.slots,
+                                                             params)]
+
+    def fill(self, args, device):
+        if len(args) != len(self._plan):
+            raise ValueError("the kernel takes %d arguments, got %d"
+                             % (len(self._plan), len(args)))
+        index = -1 if device.index is None else device.index   # cpu: -1
+        for (slot, dtype, half), arg in zip(self._plan, args):
+            if dtype is not None:
+                if not isinstance(arg, torch.Tensor) or arg.dtype != dtype \
+                        or arg.get_device() != index \
+                        or not arg.is_contiguous():
+                    self._refuse(args, device)
+                slot.value = arg.data_ptr()
+            elif isinstance(arg, torch.Tensor):
+                self._refuse(args, device)
+            else:
+                slot.value = _half_bits(arg) if half else arg
+        return self.slots
+
+    def _refuse(self, args, device):
+        """Raise for the first argument that ``fill`` cannot take."""
+        for (name, typ, is_ptr, _const), arg in zip(self.params, args):
+            dtype = _TYPES[typ][0]
+            if not is_ptr:
+                if isinstance(arg, torch.Tensor):
+                    raise TypeError("argument %r is a %s scalar, got a "
+                                    "tensor" % (name, typ))
+            elif not isinstance(arg, torch.Tensor):
                 raise TypeError("argument %r is a %s pointer: pass a tensor, "
                                 "got %s" % (name, typ, type(arg).__name__))
-            if arg.dtype != dtype:
+            elif arg.dtype != dtype:
                 raise TypeError("argument %r is a %s pointer: the tensor must "
-                                "be %s, got %s" % (name, typ, dtype, arg.dtype))
-            if arg.device != device:
+                                "be %s, got %s" % (name, typ, dtype,
+                                                   arg.dtype))
+            elif arg.device != device:
                 raise ValueError("argument %r lies on %s; the kernel launches "
                                  "on %s" % (name, arg.device, device))
-            if not arg.is_contiguous():
+            elif not arg.is_contiguous():
                 raise ValueError("argument %r must be contiguous" % name)
-            values.append(ctypes.c_void_p(arg.data_ptr()))
-        elif isinstance(arg, torch.Tensor):
-            raise TypeError("argument %r is a %s scalar, got a tensor"
-                            % (name, typ))
-        elif typ == "__half":
-            values.append(ctype(int(torch.tensor(float(arg), dtype=torch.float16)
-                                    .view(torch.int16).item()) & 0xFFFF))
-        else:
-            values.append(ctype(arg))
-    return values
 
 
 def _dims(dims, what):
-    dims = tuple(int(d) for d in ((dims,) if isinstance(dims, int) else dims))
+    """``dims`` (an int or 1 to 3 sizes) as three sizes; raises unless each
+    is positive."""
+    return _dims3(dims if isinstance(dims, (int, tuple)) else tuple(dims),
+                  what)
+
+
+@functools.lru_cache(maxsize=1024)
+def _dims3(dims, what):
+    dims = (int(dims),) if isinstance(dims, int) else tuple(map(int, dims))
     if not 1 <= len(dims) <= 3 or min(dims) < 1:
         raise ValueError("%s must be 1 to 3 positive sizes, got %r"
                          % (what, dims))
@@ -178,6 +242,9 @@ def _nvrtc():
 
 
 def _libcuda():
+    lib = _libs.get("cuda")     # set once cuInit has succeeded
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get("cuda")
         if lib is None:
@@ -191,6 +258,7 @@ def _libcuda():
                                                   ctypes.c_int]),
                     ("cuCtxPushCurrent_v2", [vp]),
                     ("cuCtxPopCurrent_v2", [ctypes.POINTER(vp)]),
+                    ("cuCtxGetCurrent", [ctypes.POINTER(vp)]),
                     ("cuModuleLoadData", [ctypes.POINTER(vp), ctypes.c_char_p]),
                     ("cuModuleGetFunction", [ctypes.POINTER(vp), vp,
                                              ctypes.c_char_p]),
@@ -214,34 +282,44 @@ def _check_cu(lib, err, what):
                            % (what, (msg.value or b"?").decode(), err))
 
 
-class _Context:
-    """PyTorch's primary context of one device, current for a ``with``."""
+def _primary_context(lib, index):
+    """PyTorch's primary context of device ``index`` (a ``CUcontext`` as an
+    int), retained once per process."""
+    with _lock:
+        ctx = _contexts.get(index)
+        if ctx is None:
+            dev = ctypes.c_int()
+            _check_cu(lib, lib.cuDeviceGet(ctypes.byref(dev), index),
+                      "cuDeviceGet")
+            handle = ctypes.c_void_p()
+            _check_cu(lib, lib.cuDevicePrimaryCtxRetain(ctypes.byref(handle),
+                                                        dev),
+                      "cuDevicePrimaryCtxRetain")
+            ctx = _contexts[index] = handle.value
+        return ctx
 
-    _handles = {}
 
-    def __init__(self, device):
-        self._lib = _libcuda()
-        index = device.index
+class _Function:
+    """One kernel's ``CUfunction`` on one device, that device's primary
+    context, and the largest dynamic shared memory size set on the
+    function so far (48 KB needs no attribute)."""
+
+    __slots__ = ("handle", "context", "max_shared")
+
+    def __init__(self, handle, context):
+        self.handle = handle
+        self.context = context
+        self.max_shared = _STATIC_SHARED_LIMIT
+
+    def allow_shared(self, lib, nbytes, name):
+        """Raise the function's dynamic shared memory limit to ``nbytes``
+        (its context current); a no-op unless ``nbytes`` grows."""
         with _lock:
-            if index not in self._handles:
-                dev = ctypes.c_int()
-                _check_cu(self._lib, self._lib.cuDeviceGet(ctypes.byref(dev),
-                                                           index),
-                          "cuDeviceGet")
-                ctx = ctypes.c_void_p()
-                _check_cu(self._lib, self._lib.cuDevicePrimaryCtxRetain(
-                    ctypes.byref(ctx), dev), "cuDevicePrimaryCtxRetain")
-                self._handles[index] = ctx
-        self._ctx = self._handles[index]
-
-    def __enter__(self):
-        _check_cu(self._lib, self._lib.cuCtxPushCurrent_v2(self._ctx),
-                  "cuCtxPushCurrent")
-        return self._lib
-
-    def __exit__(self, *exc):
-        popped = ctypes.c_void_p()
-        self._lib.cuCtxPopCurrent_v2(ctypes.byref(popped))
+            if nbytes > self.max_shared:
+                _check_cu(lib, lib.cuFuncSetAttribute(
+                    self.handle, _MAX_DYNAMIC_SHARED, nbytes),
+                    "cuFuncSetAttribute(%s)" % name)
+                self.max_shared = nbytes
 
 
 # ------------------------------------------------------------ CUDA modules
@@ -267,6 +345,7 @@ class CudaModule:
             source, list(options), list(exports))
         self.compile_ms = (time.perf_counter() - t0) * 1e3
         self._loaded = {}     # device index -> CUmodule
+        self._functions = {}  # (device index, name) -> _Function
 
     def _compile(self, source, options, exports):
         lib = _nvrtc()
@@ -317,20 +396,35 @@ class CudaModule:
                                % (what, lib.nvrtcGetErrorString(err).decode()))
 
     def _function(self, name, device, lib):
-        """The CUfunction ``name`` on ``device``, its context current."""
+        """The kernel ``name`` on ``device`` as a ``_Function``, loading the
+        module there at its first use. One ``_Function`` per function and
+        device, shared by every ``CudaKernel`` of it, so the shared memory
+        attribute it tracks is the function's own."""
+        context = _primary_context(lib, device.index)
         with _lock:
-            mod = self._loaded.get(device.index)
-            if mod is None:
-                mod = ctypes.c_void_p()
-                _check_cu(lib, lib.cuModuleLoadData(ctypes.byref(mod),
-                                                    self._cubin),
-                          "cuModuleLoadData")
-                self._loaded[device.index] = mod
-        fn = ctypes.c_void_p()
-        _check_cu(lib, lib.cuModuleGetFunction(
-            ctypes.byref(fn), mod, self._lowered.get(name, name).encode()),
-            "cuModuleGetFunction(%s)" % name)
-        return fn
+            fn = self._functions.get((device.index, name))
+            if fn is not None:
+                return fn
+            _check_cu(lib, lib.cuCtxPushCurrent_v2(context),
+                      "cuCtxPushCurrent")
+            try:
+                mod = self._loaded.get(device.index)
+                if mod is None:
+                    mod = ctypes.c_void_p()
+                    _check_cu(lib, lib.cuModuleLoadData(ctypes.byref(mod),
+                                                        self._cubin),
+                              "cuModuleLoadData")
+                    self._loaded[device.index] = mod
+                handle = ctypes.c_void_p()
+                _check_cu(lib, lib.cuModuleGetFunction(
+                    ctypes.byref(handle), mod,
+                    self._lowered.get(name, name).encode()),
+                    "cuModuleGetFunction(%s)" % name)
+            finally:
+                lib.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+            fn = self._functions[(device.index, name)] = _Function(
+                handle.value, context)
+            return fn
 
     def get_kernel(self, name, signature):
         """The kernel ``name`` (an ``extern "C"`` name or one of
@@ -339,37 +433,59 @@ class CudaModule:
 
 
 class CudaKernel:
-    """One kernel of a ``CudaModule``."""
+    """One kernel of a ``CudaModule``.
+
+    A launch does the least host work it can, so that back-to-back launches
+    wait on the card and not on Python: the function, its context and its
+    shared memory attribute are resolved once per device; the arguments are
+    written into slots made once (``_ArgLayout``); the context is pushed
+    only when another one is current; the stream comes from PyTorch's C
+    entry point (``_kernels.stream``). A lock keeps the slots a launch's own
+    until ``cuLaunchKernel`` has copied them."""
 
     def __init__(self, module, name, signature):
         self._module = module
         self._name = name
-        self._params = _parse_signature(signature)
-        self._functions = {}    # device index -> CUfunction
+        self._layout = _ArgLayout(_parse_signature(signature))
+        self._functions = {}    # device index -> _Function
+        self._current = ctypes.c_void_p()
+        self._popped = ctypes.c_void_p()
+        self._lock = threading.Lock()
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch on ``ctx``'s current stream with ``grid_dims`` blocks of
         ``block_dims`` threads and ``shared_mem`` bytes of dynamic shared
         memory. Asynchronous, like any launch on a stream."""
         device = _cuda_device(ctx)
-        values = _kernel_args(self._params, list(args), device)
         grid, block = _dims(grid_dims, "grid_dims"), _dims(block_dims,
                                                             "block_dims")
-        stream = torch.cuda.current_stream(device).cuda_stream
-        ptrs = (ctypes.c_void_p * max(1, len(values)))(*[
-            ctypes.cast(ctypes.pointer(v), ctypes.c_void_p) for v in values])
-        with _Context(device) as lib:
+        shared_mem = int(shared_mem)
+        with self._lock:
+            self._layout.fill(args, device)
+            lib = _libcuda()
             fn = self._functions.get(device.index)
             if fn is None:
-                fn = self._module._function(self._name, device, lib)
-                self._functions[device.index] = fn
-            if shared_mem > _STATIC_SHARED_LIMIT:
-                _check_cu(lib, lib.cuFuncSetAttribute(
-                    fn, _MAX_DYNAMIC_SHARED, int(shared_mem)),
-                    "cuFuncSetAttribute(%s)" % self._name)
-            _check_cu(lib, lib.cuLaunchKernel(
-                fn, *grid, *block, int(shared_mem), ctypes.c_void_p(stream),
-                ptrs, None), "cuLaunchKernel(%s)" % self._name)
+                fn = self._functions[device.index] = self._module._function(
+                    self._name, device, lib)
+            err = lib.cuCtxGetCurrent(self._current)
+            if err:
+                _check_cu(lib, err, "cuCtxGetCurrent")
+            pushed = self._current.value != fn.context
+            if pushed:
+                _check_cu(lib, lib.cuCtxPushCurrent_v2(fn.context),
+                          "cuCtxPushCurrent")
+            try:
+                if shared_mem > fn.max_shared:
+                    fn.allow_shared(lib, shared_mem, self._name)
+                err = lib.cuLaunchKernel(
+                    fn.handle, *grid, *block, shared_mem,
+                    _kernels.stream(device), self._layout.array,
+                    None)
+                if err:
+                    _check_cu(lib, err, "cuLaunchKernel(%s)" % self._name)
+            finally:
+                if pushed:
+                    lib.cuCtxPopCurrent_v2(self._popped)
         _kernels.count("rtc")
 
 
@@ -387,7 +503,26 @@ class TritonModule:
         return TritonKernel(self._kernel_fn, self._out_shape_fn)
 
 
+_triton = []        # [the triton module], once imported
+
+
+def _import_triton():
+    if not _triton:
+        try:
+            import triton
+        except ImportError as e:
+            raise RuntimeError("TritonModule launches @triton.jit kernels and "
+                               "needs the triton package, which is not "
+                               "installed") from e
+        _triton.append(triton)
+    return _triton[0]
+
+
 class TritonKernel:
+    """One ``@triton.jit`` function, launched through Triton's JIT
+    dispatch, which compiles a specialization at its first launch and finds
+    it by its own key at later ones."""
+
     def __init__(self, kernel_fn, out_shape_fn):
         self._kernel_fn = kernel_fn
         self._out_shape_fn = out_shape_fn
@@ -397,15 +532,14 @@ class TritonKernel:
         and current stream → ``out``, a new tensor. ``meta`` carries the
         kernel's ``tl.constexpr`` arguments and launch options such as
         ``num_warps``."""
-        try:
-            import triton  # noqa: F401  (the launch below needs it)
-        except ImportError as e:
-            raise RuntimeError("TritonModule launches @triton.jit kernels and "
-                               "needs the triton package, which is not "
-                               "installed") from e
+        _import_triton()
         device = _cuda_device(ctx)
+        if torch.cuda.current_device() != device.index:
+            # Triton compiles for, and launches on, the current device
+            with torch.cuda.device(device):
+                return self.launch(args, device, grid_dims, **meta)
         for i, a in enumerate(args):
-            if isinstance(a, torch.Tensor) and a.device != device:
+            if isinstance(a, torch.Tensor) and a.get_device() != device.index:
                 raise ValueError("argument %d lies on %s; the kernel launches "
                                  "on %s" % (i, a.device, device))
         if self._out_shape_fn is not None:
@@ -414,7 +548,6 @@ class TritonKernel:
             shape, dtype = args[0].shape, args[0].dtype
         out = torch.empty(tuple(shape), dtype=dtype, device=device)
         grid = tuple(grid_dims) if grid_dims else (1,)
-        with torch.cuda.device(device):
-            self._kernel_fn[grid](*args, out, **meta)
+        self._kernel_fn[grid](*args, out, **meta)
         _kernels.count("rtc_triton")
         return out

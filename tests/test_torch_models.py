@@ -65,6 +65,21 @@ def test_logits_match_jax(kind, units):
 
 
 @pytest.mark.parametrize("kind", ["bert", "gpt"])
+def test_token_ids_out_of_range_give_nan_where_jax_does(kind):
+    """Row 0 holds the ids V and -V - 1 (out of range: NaN embeddings, which
+    attention spreads over the whole row); row 1 holds -1, which wraps to
+    V - 1 and stays finite."""
+    jnet, tnet, _ = _pair(kind)
+    tok = _tokens()
+    tok[0, 3], tok[0, 10], tok[1, 5] = V, -V - 1, -1
+    ref = jnet(jnd.array(tok)).asnumpy()
+    out = mxt.jit.EvalStep(tnet)(tok).numpy()
+    onp.testing.assert_array_equal(onp.isnan(out), onp.isnan(ref))
+    assert onp.isnan(out[0, 10:]).all() and onp.isfinite(out[1]).all()
+    onp.testing.assert_allclose(out[1], ref[1], **TOL)
+
+
+@pytest.mark.parametrize("kind", ["bert", "gpt"])
 def test_state_dict_keys_are_jax_structural_names(kind):
     jnet, tnet, arrays = _pair(kind)
     assert list(tnet.state_dict()) == list(arrays)
