@@ -62,15 +62,45 @@ Phases, each of which must pass, in order:
    8: its reply must be NaN throughout, as the reference's, the batch's
    replies after it must equal those before it bit for bit, and the card
    must still synchronise.
-6. The training path, after the serving models are freed: full-width BERT
-   (B 64 x S 512, SoftmaxCrossEntropyLoss on the full logits) and GPT
+6. The NDArray layer (``check_ndarray``), after the serving models are
+   freed. (a) The port's op sweep (``test_utils.op_consistency_sweep`` and
+   ``grad_consistency_sweep``, 182 entries of the JAX package's sweep
+   table) with the CPU and the card as its two legs: forward in fp32,
+   bf16 and fp16 at the table's SWEEP_TOLS, gradients of sum(op) in fp32;
+   any mismatch or error fails. (b) Imperative autograd on the card
+   against the same code on the CPU within 1e-5: "write" and "add"
+   variables through two backwards ("write" must equal the last
+   backward's gradient, "add" the sum), ``autograd.grad`` (which must
+   leave ``.grad`` alone), a custom ``autograd.Function``, writes into
+   a parameter's ``data()`` outside and inside ``record()``, and an array
+   taken from a parameter, which ``Trainer.step`` must leave as it was;
+   the indexing operators (``take`` in each
+   mode, ``pick``, ``one_hot``, ``gather_nd``, ``scatter_nd``,
+   ``batch_take``, ``Embedding``) on ids out of range equal to the CPU's,
+   NaN in the same places, with the card still synchronising after them.
+   (c) Full-width BERT (the training config
+   below) through MXNet's Gluon loop on NDArrays — ``with record(): loss
+   = loss_fn(net(x), y)``, ``loss.backward()``, ``trainer.step(64)`` —
+   against five TrainSteps from the same weights (saved to a .params
+   file before and loaded back) and batch: the losses must agree bit for
+   bit or within 1e-3 relative, every weight be finite, and K1, K2, K3
+   each launch layers x steps times in the loop; both step times are
+   printed, from the same run. (d) The trained model saved twice with
+   ``save_parameters`` (the same bytes both times) and loaded into a
+   fresh model on the card: a served batch's forward equal bit for bit.
+   (e) ``nd.random``: ``seed`` repeats the draws on the card, and the
+   moments of 16 M normal and uniform draws lie within 5 standard errors.
+   Prints an {"ndarray": ...} line with these numbers and the card.
+7. The training path, after the NDArray phase's model is freed:
+   full-width BERT (B 64 x S 512, SoftmaxCrossEntropyLoss on the full
+   logits) and GPT
    (B 1 x S 8192, FeaturesView + ChunkedLMLoss) in bfloat16, each through
    gluon.Trainer("adam", lr 1e-4, multi_precision) and jit.TrainStep on a
    fixed batch: BERT 2 warm-up + 8 timed steps, GPT 2 + 4. Every loss
    finite, the last step's mean loss below the first's, every parameter
    finite, every bf16 weight equal to its fp32 master cast to bf16, and
    over the timed steps K1, K2 and K3 each launched layers x steps times.
-7. K4 (ops.conv_bwd) against its plain version (_conv_bwd_reference, dense
+8. K4 (ops.conv_bwd) against its plain version (_conv_bwd_reference, dense
    fp32 matrix products, no conv call) at the four ResNet-50 bottleneck
    3x3 shapes in bf16 at batch 256 and at three odd shapes (C and K of 8,
    16, 24, 40, 72 against 64-wide tiles) in bf16 and fp16 (the tensor-core
@@ -84,7 +114,7 @@ Phases, each of which must pass, in order:
    kernels with torch.profiler; then the entry point: two conv3x3_s1
    backwards under autograd.record launch K4 exactly twice and agree with
    plain.
-8. Small float32 LeNet and ResNet-18 on the card (cuDNN, TF32 off) against
+9. Small float32 LeNet and ResNet-18 on the card (cuDNN, TF32 off) against
    the same weights on the CPU: three SGD-momentum TrainSteps. LeNet: each
    step's losses within 1e-3 of the largest, every parameter after every
    step within 1e-4 of its largest value. ResNet-18: the first two steps'
@@ -93,14 +123,14 @@ Phases, each of which must pass, in order:
    and all changes after it within 5e-2 together (L2), because a 1e-6
    weight difference after a step flips the ReLU mask of the activations
    that close to 0 and reroutes their gradients in the next.
-9. The vision training path: full-width ResNet-50 v1 (bench.py:248-279,
+10. The vision training path: full-width ResNet-50 v1 (bench.py:248-279,
    uncut) at B 256 x 3 x 224 x 224 bf16 with SGD (lr 0.1, momentum 0.9,
    fp32 masters) through jit.TrainStep, 3 warm-up + 10 timed steps: every
    loss finite and the last below the first, every parameter and running
    statistic finite, every bf16 weight equal to its master cast, and no
    hand-written kernel launched (model-zoo convs stay on cuDNN, as the
    JAX package leaves them to XLA).
-10. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
+11. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
@@ -115,18 +145,24 @@ Phases, each of which must pass, in order:
    BLOCK) and held against torch: the path the timings took. Last, a
    launch's host time is split into its parts (``rtc_host_breakdown``).
 
-Prints the card's name and power limit, a {"serving": ...}, a
-{"training": ...}, a {"vision": ...} and a {"kernels": [...]} line and, as
+Prints the card's name and power limit, an {"ndarray": ...}, a
+{"serving": ...}, a {"training": ...}, a {"vision": ...} and a
+{"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when CUDA is absent, the port is not beside this script, or any
 phase fails.
 
     python3 chip_smoke.py --rtc-only [--root DIR]
 
-runs phase 10 alone, on the port found in DIR (by default beside this
+runs phase 11 alone, on the port found in DIR (by default beside this
 script), and prints the card's name and power limit and {"rtc": {...}}:
 the way to time another tree's K5 launch path with the same code, for
 example an unpacked parent commit's.
+
+    python3 chip_smoke.py --imperative-only [--root DIR]
+
+likewise runs phase 6c alone, AB_STEPS steps each of the imperative BERT
+loop and of TrainStep, and prints {"imperative": {...}}.
 """
 import gc
 import itertools
@@ -150,6 +186,9 @@ BERT_TRAIN_B, BERT_TRAIN_STEPS = 64, (2, 8)      # (warm-up, timed)
 GPT_TRAIN_B, GPT_TRAIN_STEPS = 1, (2, 4)
 RESNET_B, RESNET_STEPS = 256, (3, 10)
 RESNET_FLOPS_PER_IMAGE = 24.6e9    # bench.py:32, forward + backward
+NDARRAY_STEPS = 5      # imperative BERT steps, held to TrainStep's
+AB_STEPS = 12          # the same, with --imperative-only
+RANDOM_DRAWS = 1 << 24
 # ResNet-50's bottleneck 3x3/stride-1 convs at batch 256 (N, H, W, C, K),
 # benchmark/conv_bwd_pilot.py:29-35
 CONV_STAGES = ((256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
@@ -462,9 +501,9 @@ def check_small_models_against_cpu():
         .astype("int32")
     for name in ("bert", "gpt"):
         net = _small_pair(name)[0]
-        ref = mxt.jit.EvalStep(net)(tokens)
+        ref = mxt.jit.EvalStep(net)(tokens)._data
         before = _kernels.LAUNCHES.get("flash_fwd", 0)
-        out = mxt.jit.EvalStep(net.to("cuda:0"))(tokens).cpu()
+        out = mxt.jit.EvalStep(net.to("cuda:0"))(tokens)._data.cpu()
         check(_kernels.LAUNCHES.get("flash_fwd", 0) - before == 2,
               "small %s did not run flash_fwd once per layer" % name)
         err = (out - ref).abs().max().item()
@@ -702,7 +741,7 @@ def check_small_training_against_cpu():
             step = mxt.jit.TrainStep(net, loss_fn, mxt.gluon.Trainer(
                 net.collect_params(), "adam", {"learning_rate": 1e-3}))
             _kernels.reset_launches()
-            losses = [step(tokens, tokens).cpu() for _ in range(3)]
+            losses = [step(tokens, tokens)._data.cpu() for _ in range(3)]
             launches = dict(_kernels.LAUNCHES)
             runs[where] = (losses, mxt.to_numpy_params(model))
             check(where == "cpu" or all(
@@ -824,7 +863,7 @@ def serve_full_width():
     step = mxt.jit.EvalStep(bert)
     worst = 0.0
     for i in (0, BERT_REQUESTS - 1):
-        direct = step(bert_rows[i][None])[0].float().cpu().numpy()
+        direct = step(bert_rows[i][None])[0].asnumpy()
         diff = float(onp.abs(direct - replies[i]).max())
         worst = max(worst, diff)
         check(diff <= 0.02 * float(onp.abs(direct).max()) + 1e-3,
@@ -885,6 +924,411 @@ def serve_after_bad_ids(reg, rows):
                 batches_after=again_batches)
 
 
+def _autograd_cases(ctx):
+    """MXNet's imperative autograd on ``ctx``: "write" and "add" variables
+    through two backwards (and each backward alone), ``autograd.grad``, a
+    custom ``Function``, writes into a parameter's ``data()`` (outside and
+    inside ``record()``) and an array taken from a parameter before
+    ``Trainer.step``. Returns name → numpy result."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import autograd, nd
+    rng = onp.random.RandomState(9)
+    x0, h0, h1 = (rng.randn(4, 5).astype("float32") for _ in range(3))
+    out = {}
+    for req, heads in (("write", (h0, h1)), ("add", (h0, h1)),
+                       ("first", (h0,)), ("second", (h1,))):
+        x = nd.array(x0, ctx=ctx)
+        x.attach_grad("add" if req == "add" else "write")
+        for head in heads:
+            with autograd.record():
+                y = nd.tanh(x) * x
+            y.backward(nd.array(head, ctx=ctx))
+        out[req] = x.grad.asnumpy()
+    x = nd.array(x0, ctx=ctx)
+    x.attach_grad()
+    with autograd.record():
+        y = (nd.exp(x * 0.5) * x).sum()
+    out["grad"] = autograd.grad(y, x).asnumpy()
+    out["grad_leaves_dot_grad"] = x.grad.asnumpy()
+
+    class Sigmoid(autograd.Function):
+        def forward(self, a):
+            s = 1 / (1 + nd.exp(-a))
+            self.save_for_backward(s)
+            return s
+
+        def backward(self, ds):
+            (s,) = self.saved_tensors
+            return ds * s * (1 - s)
+    x = nd.array(x0, ctx=ctx)
+    x.attach_grad()
+    with autograd.record():
+        y = Sigmoid()(x * 3)
+    y.backward(nd.array(h0, ctx=ctx))
+    out["function"] = x.grad.asnumpy()
+    net = mxt.gluon.nn.Dense(3, in_units=5)
+    net.initialize(ctx=ctx)
+    net.weight.data()[:] = nd.array(rng.randn(3, 5).astype("float32"),
+                                    ctx=ctx)
+    net.bias.data()[1] = 2.5
+    out["param_write"] = net(nd.array(x0, ctx=ctx)).asnumpy()
+    # inside record() too a write into a variable lands in it, unrecorded
+    with autograd.record():
+        net.weight.data()[0] = 1.5
+        w = net.weight.data()
+        w += 0.25
+        y = (net(nd.array(x0, ctx=ctx)) ** 2).sum()
+    y.backward()
+    out["param_write_in_record"] = net.weight.data().asnumpy()
+    out["param_write_in_record_grad"] = net.weight.grad().asnumpy()
+    # an array taken from a parameter is its own: the step leaves it be
+    flat = net.weight.data().reshape(-1)
+    out["weight_before_step"] = net.weight.data().asnumpy().reshape(-1)
+    mxt.gluon.Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1}).step(4)
+    out["taken_before_step"] = flat.asnumpy()
+    out["weight_after_step"] = net.weight.data().asnumpy().reshape(-1)
+    return out
+
+
+def check_ndarray_sweep():
+    """The port's op sweep (test_utils) with the CPU and the card as its
+    two legs: forward in fp32, bf16 and fp16 at SWEEP_TOLS, gradients in
+    fp32. Any mismatch or error fails."""
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import test_utils
+    t0 = time.perf_counter()
+    legs = [mxt.cpu(), mxt.gpu(0)]
+    rows = test_utils.op_consistency_sweep(ctx_list=legs)
+    grads = test_utils.grad_consistency_sweep(ctx_list=legs)
+    bad = [r for r in rows if r[3] != "ok"] + \
+        [r for r in grads if r[2] != "ok"]
+    check(not bad, "ndarray sweep, card against CPU: %d of %d rows fail: %s"
+          % (len(bad), len(rows) + len(grads), bad[:8]))
+    worst = {}          # dtype -> [relative error, entry]
+    for op, dt, err, _ in rows + [(op, "grad_float32", err, s)
+                                  for op, err, s in grads]:
+        if err >= worst.get(dt, [-1.0])[0]:
+            worst[dt] = [err, op]
+    summary = dict(entries=len({r[0] for r in rows}), forward_rows=len(rows),
+                   grad_rows=len(grads), worst_rel_err=worst,
+                   seconds=time.perf_counter() - t0)
+    log("ndarray sweep, card against CPU: %d entries, %d forward rows "
+        "(fp32/bf16/fp16), %d fp32 gradient rows, all ok in %.1f s; worst "
+        "relative error %s" % (summary["entries"], len(rows), len(grads),
+                               summary["seconds"],
+                               {k: "%.3g (%s)" % tuple(v)
+                                for k, v in worst.items()}))
+    return summary
+
+
+def check_ndarray_autograd():
+    """``_autograd_cases`` on the card against the same code on the CPU,
+    within 1e-5 (fp32 elementwise work and one small matrix product); on
+    each device "write" is the second backward's gradient, "add" the sum
+    of both, and ``autograd.grad`` leaves ``.grad`` at zeros."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    runs = [_autograd_cases(mxt.cpu()), _autograd_cases(mxt.gpu(0))]
+    worst = 0.0
+    for k, want in runs[0].items():
+        got = runs[1][k]
+        check(got.shape == want.shape and onp.allclose(
+            got, want, atol=1e-5, rtol=1e-5),
+            "ndarray autograd %s: card %s vs CPU %s" % (k, got, want))
+        worst = max(worst, float(onp.abs(got - want).max()))
+    for where, r in zip(("CPU", "card"), runs):
+        check(onp.array_equal(r["write"], r["second"]),
+              "%s: 'write' is not the last backward's gradient" % where)
+        check(onp.allclose(r["add"], r["first"] + r["second"], rtol=1e-6,
+                           atol=1e-6),
+              "%s: 'add' is not the sum of the backwards" % where)
+        check(not r["grad_leaves_dot_grad"].any(),
+              "%s: autograd.grad wrote a variable's .grad" % where)
+        check(onp.array_equal(r["taken_before_step"], r["weight_before_step"])
+              and not onp.allclose(r["weight_after_step"],
+                                   r["weight_before_step"]),
+              "%s: an array taken from a parameter moved with its update"
+              % where)
+    log("ndarray autograd, card against CPU: %s agree within %.3g; 'write' "
+        "is the last backward's, 'add' the sum" % (sorted(runs[0]), worst))
+    return dict(cases=sorted(runs[0]), max_abs_diff=worst)
+
+
+def _indexing_cases(ctx):
+    """The indexing operators on ids out of range (clipped, wrapped,
+    filled or dropped as the JAX package's jnp calls do) on ``ctx``."""
+    import numpy as onp
+    from incubator_mxnet_tpu_torch import nd
+    x = nd.array(onp.arange(24, dtype="float32").reshape(6, 4), ctx=ctx)
+    ids = nd.array(onp.array([0, 5, -1, -6, 6, 40, -7], "int32"), ctx=ctx)
+    rows = nd.array(onp.array([1, -1, 4, 9, -9, 0], "int32"), ctx=ctx)
+    nd_ids = nd.array(onp.array([[-1, 9, 0], [3, -8, 2]], "int32"), ctx=ctx)
+    out = {"take_" + m: nd.take(x, ids, mode=m) for m in ("clip", "wrap",
+                                                          "fill")}
+    out["pick"] = nd.pick(x, rows)
+    out["one_hot"] = nd.one_hot(ids, 6)
+    out["gather_nd"] = nd.gather_nd(x, nd_ids)
+    out["batch_take"] = nd.batch_take(x, rows)
+    out["scatter_nd"] = nd.scatter_nd(nd.array([1.0, 2.0, 3.0], ctx=ctx),
+                                      nd_ids, shape=(6, 4))
+    out["embedding"] = nd.Embedding(ids, x)
+    return {k: v.asnumpy() for k, v in out.items()}
+
+
+def check_indexing_out_of_range():
+    """``_indexing_cases`` on the card equal to the CPU's, NaN in the same
+    places, and the card still synchronises (no device-side assert)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    want, got = _indexing_cases(mxt.cpu()), _indexing_cases(mxt.gpu(0))
+    torch.cuda.synchronize()
+    for k in want:
+        check(onp.array_equal(got[k], want[k], equal_nan=True),
+              "%s with ids out of range: card %s vs CPU %s"
+              % (k, got[k], want[k]))
+    check(float((torch.ones(3, device="cuda:0") * 2).sum()) == 6.0,
+          "the card does not compute after the indexing ops")
+    log("ndarray indexing with ids out of range: %s equal on the card and "
+        "the CPU; the card still synchronises" % sorted(want))
+    return sorted(want)
+
+
+def _timed_step(fn):
+    """(result, device ms, host ms) of one step, synchronised after."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - h0) * 1e3
+
+
+def train_bert_imperative(tmp, n=NDARRAY_STEPS):
+    """Full-width BERT (B 64 x S 512, bf16, Adam with fp32 masters) through
+    MXNet's Gluon loop on NDArrays, held to jit.TrainStep: the same initial
+    weights (saved to a .params file before the TrainStep run and loaded
+    back after it) and the same batch, ``n`` steps each. Returns
+    (the trained model, K1-K3 launches of the loop, summary)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import autograd, models, nd
+    from incubator_mxnet_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda", 0)
+    B, S = BERT_TRAIN_B, BERT_S
+    model = models.BERTModel(**BERT)
+    model.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0),
+                     generator=torch.Generator(device=dev).manual_seed(7))
+    model.cast("bfloat16")
+    init_file = os.path.join(tmp, "bert_init.params")
+    model.save_parameters(init_file)
+    tokens = onp.random.RandomState(8).randint(
+        0, BERT["vocab_size"], (B, S)).astype("int32")
+    loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def trainer():
+        return mxt.gluon.Trainer(model.collect_params(), "adam", {
+            "learning_rate": 1e-4, "multi_precision": True})
+
+    step = mxt.jit.TrainStep(model, loss_fn, trainer())
+    batch = torch.from_numpy(tokens).to(dev)
+    ref = [_timed_step(lambda: step(batch, batch)) for _ in range(n)]
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model.load_parameters(init_file)
+    x = nd.array(tokens, ctx=mxt.gpu(0))
+    y = nd.array(tokens, ctx=mxt.gpu(0))
+    gluon_trainer = trainer()
+
+    def imperative_step():
+        with autograd.record():
+            loss = loss_fn(model(x), y)
+        loss.backward()
+        gluon_trainer.step(B)
+        return loss
+
+    _kernels.reset_launches()
+    got = [_timed_step(imperative_step) for _ in range(n)]
+    launches = dict(_kernels.LAUNCHES)
+
+    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launches.get(k, 0) == BERT["num_layers"] * n,
+              "imperative bert: %s launched %d times in %d steps, expected "
+              "%d layers x %d" % (k, launches.get(k, 0), n,
+                                  BERT["num_layers"], n))
+    bitwise, worst = True, 0.0
+    for (a, _, _), (b, _, _) in zip(ref, got):
+        check(isinstance(a, nd.NDArray) and isinstance(b, nd.NDArray)
+              and a.shape == b.shape == (B,),
+              "imperative bert: losses are not (B,) NDArrays")
+        ta, tb = a._data.detach().float(), b._data.detach().float()
+        check(bool(torch.isfinite(tb).all()), "imperative bert: a loss is "
+              "not finite")
+        bitwise &= bool(torch.equal(a._data, b._data))
+        worst = max(worst, float(((ta - tb).abs() / ta.abs()).max()))
+    check(bitwise or worst <= 1e-3, "imperative bert losses differ from "
+          "TrainStep's by %.3g relative" % worst)
+    for name, p in model.collect_params().items():
+        check(bool(torch.isfinite(p.data()._data.float()).all()),
+              "imperative bert: %s is not finite" % name)
+    ms = [g[1] for g in got[1:]]
+    ref_ms = [r[1] for r in ref[1:]]
+    summary = dict(
+        batch=[B, S], steps=n,
+        losses=[float(g[0]._data.detach().float().mean()) for g in got],
+        train_step_losses=[float(r[0]._data.float().mean()) for r in ref],
+        losses_bitwise_equal=bitwise, max_rel_loss_diff=worst,
+        step_ms=sum(ms) / len(ms), step_host_ms=sum(
+            g[2] for g in got[1:]) / len(ms),
+        train_step_ms=sum(ref_ms) / len(ref_ms),
+        train_step_host_ms=sum(r[2] for r in ref[1:]) / len(ref_ms),
+        step_ms_each=[g[1] for g in got],
+        train_step_ms_each=[r[1] for r in ref], launches=launches)
+    log("imperative bert B %d x S %d (record / loss.backward() / "
+        "trainer.step on NDArrays): losses %s TrainStep's (%s, max rel "
+        "diff %.3g); step %.1f ms (host %.1f) against TrainStep's %.1f ms "
+        "(host %.1f), steps after the first; K1/K2/K3 launched %s"
+        % (B, S, "equal bit for bit to" if bitwise else "within 1e-3 of",
+           ["%.4f" % v for v in summary["losses"]], worst, summary["step_ms"],
+           summary["step_host_ms"], summary["train_step_ms"],
+           summary["train_step_host_ms"],
+           [launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dkv",
+                                         "flash_bwd_dq")]))
+    return model, launches, summary
+
+
+def _sha256(path):
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def check_params_round_trip(model, tmp):
+    """The trained model through save_parameters / load_parameters into a
+    fresh model on the card: the file's bytes the same when saved twice,
+    and the forward of a served batch (8 x 512) equal bit for bit."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    t0 = time.perf_counter()
+    files = [os.path.join(tmp, "bert_trained_%d.params" % i) for i in (0, 1)]
+    for f in files:
+        model.save_parameters(f)
+    digests = [_sha256(f) for f in files]
+    check(digests[0] == digests[1], "save_parameters wrote different bytes "
+          "twice: %s" % digests)
+    fresh = models.BERTModel(**BERT)
+    fresh.initialize(mxt.init.Zero(), ctx=mxt.gpu(0), generator=torch
+                     .Generator(device="cuda:0").manual_seed(0))
+    fresh.cast("bfloat16")
+    fresh.load_parameters(files[0])
+    batch = onp.random.RandomState(10).randint(
+        0, BERT["vocab_size"], (BERT_BUCKET, BERT_S)).astype("int32")
+    a = mxt.jit.EvalStep(model)(batch)
+    b = mxt.jit.EvalStep(fresh)(batch)
+    check(a.dtype == b.dtype == "bfloat16" and bool(
+        torch.equal(a._data, b._data)), "the loaded model's forward differs "
+        "from the saved one's")
+    nbytes = os.path.getsize(files[0])
+    for f in files:
+        os.remove(f)
+    del fresh
+    log(".params round trip: %.0f MB written twice with one sha256, loaded "
+        "into a fresh model on the card, served batch %d x %d equal bit for "
+        "bit (%.1f s)" % (nbytes / 1e6, BERT_BUCKET, BERT_S,
+                          time.perf_counter() - t0))
+    return dict(bytes=nbytes, sha256=digests[0], bitwise_equal=True,
+                seconds=time.perf_counter() - t0)
+
+
+def check_random():
+    """nd.random on the card: seed(s) repeats the draws (globally and for
+    the card alone), and the moments of RANDOM_DRAWS normal and uniform
+    draws lie within 5 standard errors."""
+    import math
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ndarray import random
+    gpu = mxt.gpu(0)
+
+    def draw():
+        return (random.normal(shape=(RANDOM_DRAWS,), ctx=gpu),
+                random.uniform(shape=(RANDOM_DRAWS,), ctx=gpu))
+    random.seed(11)
+    a = draw()
+    random.seed(11)
+    b = draw()
+    random.seed(12, ctx=gpu)
+    c = draw()
+    random.seed(12, ctx=gpu)
+    d = draw()
+    for u, v in ((a, b), (c, d)):
+        for p, q in zip(u, v):
+            check(bool((p._data == q._data).all()),
+                  "nd.random.seed did not repeat the draws on the card")
+    check(not bool((a[0]._data == c[0]._data).all()),
+          "two seeds gave the same draws")
+    n = RANDOM_DRAWS
+    moments = {}
+    for name, t, mean, var, var_se in (
+            ("normal", a[0], 0.0, 1.0, math.sqrt(2.0 / n)),
+            ("uniform", a[1], 0.5, 1.0 / 12, math.sqrt(1.0 / 180 / n))):
+        x = t._data.double()
+        m, v = float(x.mean()), float(x.var(unbiased=False))
+        check(abs(m - mean) < 5 * math.sqrt(var / n)
+              and abs(v - var) < 5 * var_se,
+              "nd.random.%s moments off: mean %.6f var %.6f" % (name, m, v))
+        moments[name] = dict(mean=m, var=v)
+    log("nd.random on the card: seed repeats the draws; %d draws: normal "
+        "mean %.5f var %.5f, uniform mean %.5f var %.5f"
+        % (n, moments["normal"]["mean"], moments["normal"]["var"],
+           moments["uniform"]["mean"], moments["uniform"]["var"]))
+    return dict(draws=n, moments=moments, seed_repeats=True)
+
+
+def _build_tmp():
+    """A fresh directory under the checkout's git-ignored build/."""
+    import tempfile
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    return tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
+
+
+def check_ndarray(card):
+    """The NDArray layer on the card: the op sweep, imperative autograd,
+    full-width BERT through the Gluon loop against TrainStep, the .params
+    round trip of the trained model, nd.random. Returns (K1-K3 launches of
+    the imperative BERT, summary)."""
+    import shutil
+    import torch
+    tmp = _build_tmp()
+    try:
+        summary = dict(card=card, sweep=check_ndarray_sweep(),
+                       autograd=check_ndarray_autograd(),
+                       indexing=check_indexing_out_of_range())
+        model, launches, summary["bert"] = train_bert_imperative(tmp)
+        summary["params"] = check_params_round_trip(model, tmp)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary["random"] = check_random()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, summary
+
+
 def train_full_width(bwd):
     """The training path at full width; returns (launches by model,
     summary). ``bwd`` is check_flash_bwd's result: the kernels' ms at the
@@ -918,7 +1362,7 @@ def train_full_width(bwd):
         step = mxt.jit.TrainStep(net, loss_fn, trainer)
         tokens = torch.from_numpy(rng.randint(0, cfg["vocab_size"], (B, S))
                                   .astype("int32")).to(dev)
-        n_params = sum(p.data().numel()
+        n_params = sum(p.data().size
                        for p in net.collect_params().values())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -945,9 +1389,9 @@ def train_full_width(bwd):
         launches_by_model[name] = launches
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-        means = [float(l.float().mean()) for l in losses]
+        means = [float(l._data.float().mean()) for l in losses]
         check(all(onp.isfinite(means)) and all(
-            bool(torch.isfinite(l.float()).all()) for l in losses),
+            bool(torch.isfinite(l._data.float()).all()) for l in losses),
               "%s training: a loss is not finite: %s" % (name, means))
         check(means[-1] < means[0], "%s training: loss did not fall: %s"
               % (name, means))
@@ -959,7 +1403,7 @@ def train_full_width(bwd):
                                                timed, cfg["num_layers"],
                                                timed))
         for j, p in enumerate(trainer._params):
-            w = p.data()
+            w = p.data()._data
             check(bool(torch.isfinite(w.float()).all()),
                   "%s training: parameter %d is not finite" % (name, j))
             check(w.dtype == torch.bfloat16 and torch.equal(
@@ -1195,7 +1639,7 @@ def check_small_vision_against_cpu():
                         "learning_rate": 0.01, "momentum": 0.9}))
                 losses, params = [], []
                 for _ in range(3):
-                    losses.append(step(x, y).cpu().numpy())
+                    losses.append(step(x, y).asnumpy())
                     params.append(mxt.to_numpy_params(net))
                 runs[where] = (losses, params)
             # a step's loss depends on the weights before it: for ResNet-18
@@ -1292,8 +1736,8 @@ def train_resnet_full_width():
     launches = dict(_kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    means = [float(l.float().mean()) for l in losses]
-    check(all(bool(torch.isfinite(l.float()).all()) for l in losses),
+    means = [float(l._data.float().mean()) for l in losses]
+    check(all(bool(torch.isfinite(l._data.float()).all()) for l in losses),
           "resnet50 training: a loss is not finite: %s" % means)
     check(means[-1] < means[0], "resnet50 training: loss did not fall: %s"
           % means)
@@ -1301,7 +1745,7 @@ def train_resnet_full_width():
           "hand-written kernels %s; model-zoo convs stay on cuDNN" % launches)
     n_params = 0
     for j, p in enumerate(trainer._params):
-        w = p.data()
+        w = p.data()._data
         n_params += w.numel() if p.grad_req != "null" else 0
         check(bool(torch.isfinite(w.float()).all()),
               "resnet50 training: parameter %d is not finite" % j)
@@ -1587,19 +2031,21 @@ def step_phases(step, *inputs):
     """One TrainStep, phase by phase as TrainStep.__call__ runs them, with
     CUDA events between: forward (with the loss), backward, update."""
     import torch
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     args = step._prepare(inputs, 1)
     ev[0].record()
     loss = step._forward(args, 1)
     ev[1].record()
-    step._backward(loss)
+    grads = step._backward(loss)
     ev[2].record()
-    step._update(args[0].shape[0])
+    step._update(args[0].shape[0], grads)
     ev[3].record()
     ev[3].synchronize()
     return dict(forward_ms=ev[0].elapsed_time(ev[1]),
                 backward_ms=ev[1].elapsed_time(ev[2]),
-                update_ms=ev[2].elapsed_time(ev[3]), loss=loss.detach())
+                update_ms=ev[2].elapsed_time(ev[3]),
+                loss=NDArray(loss.detach()))
 
 
 def stage_breakdown(net, batch, reps=3):
@@ -1621,7 +2067,7 @@ def stage_breakdown(net, batch, reps=3):
         end.record()
         end.synchronize()
         t1 = time.perf_counter()
-        logits.float().cpu().numpy()
+        logits.asnumpy()
         t2 = time.perf_counter()
         out["forward_device_ms"].append(start.elapsed_time(end))
         out["forward_host_ms"].append((t1 - t0) * 1e3)
@@ -1635,7 +2081,10 @@ def main(argv):
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
                                      "end to end on one NVIDIA GPU.")
     parser.add_argument("--rtc-only", action="store_true",
-                        help="time K5's launch path (phase 10) alone")
+                        help="time K5's launch path (phase 11) alone")
+    parser.add_argument("--imperative-only", action="store_true",
+                        help="time the imperative BERT loop against "
+                        "TrainStep (phase 6c) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -1669,6 +2118,20 @@ def main(argv):
         log(json.dumps({"rtc": dict(rtc_rows, compile_ms=rtc_compile_ms,
                                     root=os.path.abspath(opts.root))}))
         return 0
+    if opts.imperative_only:
+        import shutil
+        tmp = _build_tmp()
+        try:
+            _, _, bert = train_bert_imperative(tmp, AB_STEPS)
+        except SmokeFailure as e:
+            print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
+            return 1
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(card)
+        log(json.dumps({"imperative": dict(bert,
+                                           root=os.path.abspath(opts.root))}))
+        return 0
     try:
         ptxas = build_kernels()
         served = check_flash_fwd()
@@ -1678,6 +2141,9 @@ def main(argv):
         check_small_training_against_cpu()
         check_small_vision_against_cpu()
         serve_launches, serving = serve_full_width()
+        gc.collect()
+        torch.cuda.empty_cache()
+        ndarray_launches, ndarray_summary = check_ndarray(card)
         gc.collect()
         torch.cuda.empty_cache()
         train_launches, training = train_full_width(bwd)
@@ -1691,7 +2157,7 @@ def main(argv):
     # the GPT training shape is the served GPT shape: listed once
     fwd_shapes = served + bwd["fwd"][:1]
     paths = {"serving": serve_launches, "conv3x3_s1": conv_launches,
-             "rtc": rtc_launches,
+             "rtc": rtc_launches, "ndarray_bert": ndarray_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
                for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
@@ -1802,6 +2268,7 @@ def main(argv):
                  "sync inside), graph_ms the launch replayed from a CUDA "
                  "graph; compile_ms is NVRTC's for the module",
             shapes=rows))
+    log(json.dumps({"ndarray": ndarray_summary}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"training": training}))
     log(json.dumps({"vision": vision}))

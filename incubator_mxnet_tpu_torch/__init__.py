@@ -6,6 +6,13 @@ each TPU Pallas kernel on a ported path is a hand-written CUDA kernel for
 Hopper (``ops/csrc``), built with ``nvcc`` at first use. Entry points run
 on ``gpu(0)`` unless the caller passes ``cpu()``.
 
+Its array layer is MXNet's: ``nd.array`` and the ``nd`` operators give
+``NDArray``s, ``autograd.record()``/``backward()`` differentiate them (with
+MXNet's "write"/"add" gradients), ``nd.random`` draws from a seedable
+generator per device, and ``nd.save``/``nd.load`` and
+``Block.save_parameters``/``load_parameters`` read and write MXNet's
+``.params`` format.
+
 It serves BERT and GPT through ``serving.ModelRegistry`` with the
 flash-attention forward kernel, and trains them through ``jit.TrainStep``
 (``gluon.Trainer``, SGD/Adam/AdamW with fp32 masters) with the forward and
@@ -14,10 +21,15 @@ and pooling on cuDNN, batch norm in fp32); ``ops.conv_bwd.conv3x3_s1``
 carries the fused conv-backward kernel, and ``rtc`` compiles user CUDA
 kernels with NVRTC at run time.
 """
+from . import base, error, name, attribute, registry  # noqa: F401
+from .base import MXNetError  # noqa: F401
 from . import autograd, config, context, initializer, ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from .ndarray import random  # noqa: F401
 from . import gluon, jit, models, ops, optimizer, rtc, serving  # noqa: F401
-from .context import Context, cpu, current_context, gpu, num_gpus, tpu  # noqa: F401
+from . import test_utils  # noqa: F401
+from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
+                      gpu, num_gpus, num_tpus, tpu)
 from .convert import from_jax_params, to_numpy_params  # noqa: F401
 from . import initializer as init  # noqa: F401
 

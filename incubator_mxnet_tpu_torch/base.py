@@ -1,7 +1,18 @@
 """Shared small utilities (counterpart of ``incubator_mxnet_tpu/base.py``)."""
 from __future__ import annotations
 
-__all__ = ["Registry", "registry"]
+import numpy as onp
+
+__all__ = ["MXNetError", "string_types", "numeric_types", "Registry",
+           "registry"]
+
+
+class MXNetError(RuntimeError):
+    """The framework's error type (MXNet's ``base.MXNetError``)."""
+
+
+string_types = (str,)
+numeric_types = (float, int, onp.generic)
 
 
 class Registry:

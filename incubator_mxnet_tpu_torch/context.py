@@ -1,7 +1,9 @@
 """Device context (counterpart of ``incubator_mxnet_tpu/context.py``).
 
 ``gpu(i)`` is the first-class context and denotes ``torch.device("cuda",
-i)``; ``tpu(i)`` is kept as a migration alias of ``gpu(i)``. The default
+i)``; ``tpu(i)`` is kept as a migration alias of ``gpu(i)``, and
+``cpu_pinned()`` is host memory in page-locked pages (pinned when CUDA is
+present). The default
 context is ``gpu(0)``. Where CUDA is absent, resolving a GPU context raises:
 the port never falls back to the CPU on its own. Pass ``cpu()`` (or enter
 ``with cpu():``) to run on the CPU.
@@ -12,7 +14,8 @@ import threading
 
 import torch
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_gpus"]
+__all__ = ["Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context",
+           "num_gpus", "num_tpus"]
 
 
 class Context:
@@ -25,7 +28,7 @@ class Context:
             device_type, device_id = device_type.device_type, device_type.device_id
         if device_type == "tpu":
             device_type = "gpu"
-        if device_type not in ("cpu", "gpu"):
+        if device_type not in ("cpu", "gpu", "cpu_pinned"):
             raise ValueError("unknown device_type %r" % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
@@ -35,7 +38,7 @@ class Context:
     def torch_device(self):
         """The ``torch.device`` this context denotes; raises for a GPU
         context when CUDA is absent."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         n = num_gpus()
         if n == 0:
@@ -71,6 +74,11 @@ def cpu(device_id=0):
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id=0):
+    """Host memory whose pages are locked, for fast copies to the card."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id=0):
     """The first-class accelerator context: ``torch.device('cuda', i)``."""
     return Context("gpu", device_id)
@@ -83,6 +91,11 @@ def tpu(device_id=0):
 
 def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_tpus():
+    """The accelerators ``tpu(i)`` can name: the CUDA devices."""
+    return num_gpus()
 
 
 def current_context():
@@ -104,3 +117,11 @@ def as_device(ctx):
     if isinstance(ctx, Context):
         return ctx.torch_device
     return torch.device(ctx)
+
+
+def context_of(tensor):
+    """The Context of a tensor's device."""
+    device = tensor.device
+    if device.type == "cuda":
+        return Context("gpu", device.index or 0)
+    return Context("cpu", 0)

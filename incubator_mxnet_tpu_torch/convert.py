@@ -1,15 +1,18 @@
 """Carry weights between the JAX package and the port.
 
-``arrays`` is a dict of structural name → numpy array, as the JAX package
-gives it::
+``arrays`` is a dict of structural name → numpy array or NDArray (of
+either package: anything with ``asnumpy()``), as the JAX package gives
+it::
 
-    {k: p.data().asnumpy()
+    {k: p.data()
      for k, p in jax_net._collect_params_with_prefix().items()}
 
 The port's blocks use the same structural names, and Dense weights are
 (units, in_units) in both packages, so the copy needs no renaming and no
 transpose. ``to_numpy_params`` gives the port's parameters back in the
-same form.
+same form. A ``.params`` file is the other route: ``save_parameters`` in
+one package and ``load_parameters`` in the other carry the same names,
+bfloat16 bit for bit.
 """
 from __future__ import annotations
 
@@ -38,7 +41,9 @@ def from_jax_params(net, arrays, strict=True):
                        "in arrays %s" % (sorted(mine - theirs),
                                          sorted(theirs - mine)))
     for name in sorted(mine & theirs):
-        p, a = params[name], onp.asarray(arrays[name])
+        a = arrays[name]
+        p, a = params[name], onp.asarray(
+            a.asnumpy() if hasattr(a, "asnumpy") else a)
         if a.dtype.name == "bfloat16":     # ml_dtypes; torch cannot read it
             a = a.astype(onp.float32)
         if tuple(p.shape) != a.shape:
@@ -51,5 +56,5 @@ def from_jax_params(net, arrays, strict=True):
 def to_numpy_params(net):
     """Structural name → a float32 numpy copy of the parameter's value (a
     snapshot: later updates of the parameter do not change it)."""
-    return {name: p.data().detach().float().cpu().numpy().copy()
+    return {name: p._tensor().detach().float().cpu().numpy().copy()
             for name, p in net.collect_params().items()}

@@ -15,6 +15,14 @@ depend on either, so the prefix is accepted and not used, and
 ``name_scope()`` opens an empty scope. Sharing parameters through
 ``params=`` is not ported yet and raises.
 
+Calling a block with NDArray arguments unwraps them once, runs the
+forward on tensors (recorded for ``autograd.backward`` only inside
+``autograd.record()``) and wraps the outputs; called with tensors it
+returns tensors, so no layer inside wraps anything. ``save_parameters``
+and ``load_parameters`` write and read MXNet's ``.params`` format
+(``nd.save``/``nd.load``) keyed by the structural names, the files the
+JAX package writes and reads.
+
 Train/predict behaviour (dropout, batch norm) follows ``autograd``'s
 thread-local training flag, as in the JAX package, not
 ``nn.Module.training``. PyTorch runs eagerly, so ``hybridize()`` has
@@ -26,6 +34,7 @@ import contextlib
 
 import torch
 
+from .. import ndarray as nd
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
@@ -41,6 +50,9 @@ class Block(torch.nn.Module):
                                       "not ported yet")
         self._reg_params = {}
         self.training = False
+
+    def __call__(self, *args, **kwargs):
+        return nd.ndarray._apply(super().__call__, *args, **kwargs)
 
     def name_scope(self):
         """A scope for creating children, as in MXNet; names here are
@@ -85,6 +97,47 @@ class Block(torch.nn.Module):
         context), drawing from ``generator``."""
         self.collect_params().initialize(init, ctx, force_reinit=force_reinit,
                                          generator=generator)
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter, keyed by structural name, to ``filename``
+        in MXNet's ``.params`` format. A parameter shared under two names
+        is written under each (``deduplicate`` is accepted and changes
+        nothing, as in the JAX package)."""
+        params = self._collect_params_with_prefix()
+        nd.save(filename, {k: p.data() for k, p in params.items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Copy the arrays of a ``.params`` file into the parameters of the
+        same structural names, each in the parameter's dtype and on its
+        device; a parameter not yet initialized is initialized on ``ctx``
+        (its shape taken from the file). Every parameter must be in the
+        file unless ``allow_missing``; every name in the file must be a
+        parameter unless ``ignore_extra``. The loaded values take the
+        parameter's dtype, as ``cast_dtype`` with ``dtype_source="current"``
+        does in MXNet; taking the file's dtype ("saved") is not ported."""
+        if cast_dtype and dtype_source != "current":
+            raise NotImplementedError("load_parameters with dtype_source=%r "
+                                      "is not ported" % (dtype_source,))
+        loaded = nd.load(filename)
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise AssertionError("Parameter %s missing in %s"
+                                         % (name, filename))
+        for name, data in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise AssertionError("Parameter %s in file not found in "
+                                         "Block" % name)
+                continue
+            p = params[name]
+            if p._data is None and p._deferred_init is None:
+                p.shape = data.shape
+                p.initialize(ctx=ctx)
+            p.set_data(data)
 
     def cast(self, dtype):
         """Cast every child (each by its own ``cast``, so a BatchNorm keeps

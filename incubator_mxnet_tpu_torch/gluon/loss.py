@@ -1,9 +1,11 @@
 """Loss blocks (counterpart of ``incubator_mxnet_tpu/gluon/loss.py``).
 
 Each loss returns one value per sample: the mean over every axis but
-``batch_axis``, scaled by ``weight`` and ``sample_weight`` when given.
-``jit.TrainStep`` differentiates the sum of that vector, and the trainer's
-``rescale_grad / batch_size`` turns the sum into the batch mean.
+``batch_axis``, scaled by ``weight`` and ``sample_weight`` when given (an
+NDArray for NDArray arguments, as every block's call). ``jit.TrainStep``
+and ``loss.backward()`` seed that vector with ones (the gradient of its
+sum), and the trainer's ``rescale_grad / batch_size`` turns the sum into
+the batch mean.
 """
 from __future__ import annotations
 

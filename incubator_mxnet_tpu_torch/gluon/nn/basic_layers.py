@@ -62,8 +62,8 @@ class Dense(HybridBlock):
             self.weight._finish_deferred_init()
             if self.bias is not None:
                 self.bias._finish_deferred_init()
-        out = nd.FullyConnected(x, self.weight.data(),
-                                self.bias.data() if self.bias is not None
+        out = nd.FullyConnected(x, self.weight._tensor(),
+                                self.bias._tensor() if self.bias is not None
                                 else None,
                                 num_hidden=self._units, flatten=self._flatten,
                                 no_bias=self.bias is None)
@@ -92,7 +92,8 @@ class Embedding(HybridBlock):
                                 init=weight_initializer, dtype=dtype)
 
     def forward(self, x):
-        return nd.Embedding(x, self.weight.data(), input_dim=self._input_dim,
+        return nd.Embedding(x, self.weight._tensor(),
+                            input_dim=self._input_dim,
                             output_dim=self._output_dim)
 
 
@@ -116,7 +117,7 @@ class LayerNorm(HybridBlock):
             for p in (self.gamma, self.beta):
                 p.shape = (c,)
                 p._finish_deferred_init()
-        return nd.LayerNorm(x, self.gamma.data(), self.beta.data(),
+        return nd.LayerNorm(x, self.gamma._tensor(), self.beta._tensor(),
                             axis=self._axis, eps=self._epsilon)
 
 
@@ -160,8 +161,9 @@ class BatchNorm(HybridBlock):
                       self.running_var):
                 p.shape = (c,)
                 p._finish_deferred_init()
-        return nd.BatchNorm(x, self.gamma.data(), self.beta.data(),
-                            self.running_mean.data(), self.running_var.data(),
+        return nd.BatchNorm(x, self.gamma._tensor(), self.beta._tensor(),
+                            self.running_mean._tensor(),
+                            self.running_var._tensor(),
                             eps=self._epsilon, momentum=self._momentum,
                             fix_gamma=not self._scale,
                             use_global_stats=self._use_global_stats,

@@ -63,8 +63,8 @@ class _Conv(HybridBlock):
             self.weight._finish_deferred_init()
             if self.bias is not None:
                 self.bias._finish_deferred_init()
-        out = nd.Convolution(x, self.weight.data(),
-                             self.bias.data() if self.bias is not None
+        out = nd.Convolution(x, self.weight._tensor(),
+                             self.bias._tensor() if self.bias is not None
                              else None, no_bias=self.bias is None,
                              **self._kwargs)
         if self.act_type:

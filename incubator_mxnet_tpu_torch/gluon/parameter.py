@@ -3,25 +3,31 @@
 
 A ``Parameter`` keeps the MXNet contract — a declared shape that may be
 deferred (0 entries) until the first forward, an ``init`` of its own,
-``initialize(init, ctx)``, ``data()`` and ``cast()`` — and holds its value
-as one ``nn.Parameter``. The block that owns it registers that tensor under
-the attribute name, so ``state_dict()`` and ``named_parameters()`` see it.
-``cast`` swaps the tensor's storage in place, which keeps the registered
-object (and any sharing, such as a tied embedding) intact.
+``initialize(init, ctx)``, ``data()``, ``grad()``, ``set_data`` and
+``cast()`` — and holds its value as one ``nn.Parameter``. The block that
+owns it registers that tensor under the attribute name, so
+``state_dict()`` and ``named_parameters()`` see it. ``cast`` swaps the
+tensor's storage in place, which keeps the registered object (and any
+sharing, such as a tied embedding) intact.
 
-The gradient is torch's: ``grad()`` reads the tensor's ``.grad``, which a
-backward fills (a tied weight gets the sum of its uses) and
-``Trainer.step`` / ``TrainStep`` consume. ``lr_mult`` and ``wd_mult``
-scale the optimizer's learning rate and weight decay for this parameter.
+``data()`` is an NDArray over the ``nn.Parameter`` itself (the same object
+each call), so ``p.data()[:] = v`` writes the parameter. ``grad()`` is an
+NDArray over its gradient, which ``autograd.backward`` writes by the
+parameter's ``grad_req`` ("write" replaces, "add" adds; a tied weight gets
+the sum of its uses within one backward) and ``Trainer.step`` reads. The
+package's own layers and the trainer take the tensor through
+``_tensor()``. ``lr_mult`` and ``wd_mult`` scale the optimizer's learning
+rate and weight decay for this parameter.
 """
 from __future__ import annotations
 
 import numpy as onp
 import torch
 
+from .. import autograd
 from .. import initializer as init_mod
-from ..context import as_device
-from ..ndarray import torch_dtype
+from ..context import as_device, context_of
+from ..ndarray import NDArray, torch_dtype
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
 
@@ -37,7 +43,7 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False):
         self.name = name
-        self.grad_req = grad_req
+        self._grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         if isinstance(shape, int):
@@ -53,6 +59,19 @@ class Parameter:
     @property
     def shape(self):
         return self._shape
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be 'write', 'add' or 'null', got "
+                             "%r" % (req,))
+        self._grad_req = req
+        if self._data is not None:
+            autograd._mark(self._data, req)
 
     @shape.setter
     def shape(self, new_shape):
@@ -111,10 +130,12 @@ class Parameter:
         if self._data is None:
             self._data = torch.nn.Parameter(
                 data, requires_grad=self.grad_req != "null")
+            autograd._mark(self._data, self.grad_req)
             for module, attr in self._owners:
                 module._parameters[attr] = self._data
         else:
             self._data.data = data
+            self._data._mx_grad = None
         self._deferred_init = None
 
     def _finish_deferred_init(self):
@@ -126,7 +147,8 @@ class Parameter:
         self._finish_init(*self._deferred_init)
 
     # ----------------------------------------------------------------
-    def data(self, ctx=None):
+    def _tensor(self):
+        """The ``nn.Parameter``: what the package's own code computes on."""
         if self._data is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(
@@ -137,36 +159,52 @@ class Parameter:
                                ".initialize() first." % self.name)
         return self._data
 
+    def data(self, ctx=None):
+        """An NDArray over the parameter's tensor (it shares the storage;
+        the same object on every call)."""
+        t = self._tensor()
+        nd = getattr(t, "_mx_nd", None)
+        if nd is None or nd._data is not t:
+            nd = t._mx_nd = NDArray(t)
+        return nd
+
     def grad(self, ctx=None):
-        """The gradient of the last backward(s), zeros before any."""
+        """An NDArray over the gradient: the last backward's for "write",
+        the sum of the backwards for "add", zeros before any."""
         if self.grad_req == "null":
             raise RuntimeError("Parameter %s has grad_req='null'" % self.name)
-        data = self.data()
-        return data.grad if data.grad is not None else torch.zeros_like(data)
+        return autograd._grad_array(self._tensor())
 
+    @torch.no_grad()
     def zero_grad(self):
-        if self._data is not None:
-            self._data.grad = None
+        """Set the gradient to zeros, in place."""
+        g = getattr(self._data, "_mx_grad", None)
+        if g is not None:
+            g._data.zero_()
 
     def list_ctx(self):
         """[the Context this parameter lives on]."""
-        from ..context import Context
-        device = self.data().device
-        return [Context("gpu" if device.type == "cuda" else "cpu",
-                        device.index or 0)]
+        return [context_of(self._tensor())]
 
     @torch.no_grad()
     def set_data(self, data):
-        """Copy ``data`` (tensor or numpy array) into this parameter, in its
-        dtype and on its device."""
-        if not isinstance(data, torch.Tensor):
+        """Copy ``data`` (an NDArray, a tensor or a numpy array) into this
+        parameter, in its dtype and on its device. A parameter whose shape
+        waits for a forward takes ``data``'s shape and is initialized."""
+        if isinstance(data, NDArray):
+            data = data._data
+        elif not isinstance(data, torch.Tensor):
             data = torch.from_numpy(onp.array(data))
-        self.data().copy_(data)
+        if self._data is None and self._deferred_init is not None:
+            self.shape = data.shape
+            self._finish_deferred_init()
+        self._tensor().copy_(data)
 
     def cast(self, dtype):
         self.dtype = dtype
         if self._data is not None:
             self._data.data = self._data.data.to(torch_dtype(dtype))
+            self._data._mx_grad = None
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,

@@ -4,8 +4,9 @@ A ``Trainer`` owns an optimizer and one optimizer state per parameter,
 keyed by the parameter's position in the list it was given (names are
 structural only at the block level: every Dense's weight is "weight").
 ``step(batch_size)`` applies ``rescale_grad / batch_size`` and updates each
-parameter from its gradient, in place; ``jit.TrainStep`` runs the same
-update loop inside one call.
+parameter from the gradient ``autograd.backward`` wrote (``Parameter.grad()``,
+which the step leaves as it is), in place; ``jit.TrainStep`` runs the same
+update loop on the gradients of its own backward.
 
 Local only: ``kvstore`` "device", "local" or None. A "dist*" kvstore waits
 for the multi-GPU slice of the port; ``save_states`` and ``load_states``
@@ -13,6 +14,7 @@ are not ported yet.
 """
 from __future__ import annotations
 
+from .. import autograd
 from .. import optimizer as opt
 from .parameter import Parameter, ParameterDict
 
@@ -73,7 +75,7 @@ class Trainer:
             if param.grad_req != "null" and self._states[i] is None:
                 self._states[i] = \
                     self._optimizer.create_state_multi_precision(
-                        i, param.data())
+                        i, param._tensor())
         self._states_initialized = True
 
     def step(self, batch_size, ignore_stale_grad=False):
@@ -83,29 +85,28 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update of ``step`` (with one local copy there is nothing to
-        all-reduce first). A parameter with ``grad_req="write"`` has its
-        gradient consumed: the next backward writes it afresh, as MXNet's
-        "write" does. A missing gradient counts as zeros."""
+        all-reduce first). A gradient no backward has written counts as
+        zeros."""
         self._update(batch_size)
-        for param in self._params:
-            if param.grad_req == "write":
-                param.zero_grad()
 
-    def _update(self, batch_size, t=None):
+    def _update(self, batch_size, t=None, grads=None):
         """The update loop of ``step`` and ``jit.TrainStep``: every
         parameter from its gradient scaled by ``rescale_grad / batch_size``,
-        in place. ``t`` is Adam's bias-correction step for every parameter
-        (``TrainStep`` passes its own step count); None takes each
-        parameter's update count."""
+        in place. ``grads`` (one per parameter, None for zeros) replaces
+        the parameters' own gradients; ``t`` is Adam's bias-correction step
+        for every parameter (``TrainStep`` passes its own step count); None
+        takes each parameter's update count."""
         if not self._states_initialized:
             self._init_states()
         self._optimizer.rescale_grad = self._scale / batch_size
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
-            data = param.data()
+            data = param._tensor()
+            g = autograd._grad_array(data)._data if grads is None \
+                else grads[i]
             self._states[i] = self._optimizer.update_multi_precision(
-                i, data, data.grad, self._states[i], t)
+                i, data, g, self._states[i], t)
 
     def allreduce_grads(self):
         """Nothing to reduce with one local copy of each parameter."""

@@ -121,7 +121,7 @@ class BERTEncoder(HybridBlock):
 
     def forward(self, x, mask=None):
         S = x.shape[1]
-        pos = nd.slice_axis(self.position_weight.data(), 0, 0, S)
+        pos = nd.slice_axis(self.position_weight._tensor(), 0, 0, S)
         x = x + pos.unsqueeze(0)
         for layer in self.layers:
             x = layer(x, mask)
@@ -168,5 +168,5 @@ class ChunkedMLMLoss(ChunkedHeadLossBase):
     ``FeaturesView(bert)``."""
 
     def _head_params(self):
-        return (self._model.mlm_decoder.weight.data(),
-                self._model.mlm_decoder.bias.data())
+        return (self._model.mlm_decoder.weight._tensor(),
+                self._model.mlm_decoder.bias._tensor())

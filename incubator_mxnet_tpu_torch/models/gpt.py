@@ -63,7 +63,8 @@ class GPTModel(HybridBlock):
                 "sequence length %d exceeds max_length %d (position table); "
                 "construct GPTModel(max_length=...) large enough" %
                 (S, self._max_length))
-        pos = nd.arange(S, dtype="int32", ctx=token_ids.device).reshape(1, S)
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=token_ids.device).reshape(1, S)
         h = self.tok_embed(token_ids) + self.pos_embed(pos)
         h = self.layers(h)
         return self.ln_f(h)
@@ -71,7 +72,7 @@ class GPTModel(HybridBlock):
     def forward(self, token_ids):
         h = self.features(token_ids)
         # weight-tied head: logits = h Eᵀ
-        e = self.tok_embed.weight.data()
+        e = self.tok_embed.weight._tensor()
         return torch.matmul(h, e.t().to(h.dtype))
 
 
@@ -86,7 +87,7 @@ class ChunkedLMLoss(ChunkedHeadLossBase):
     gather's in the one ``tok_embed.weight`` gradient."""
 
     def _head_params(self):
-        return self._model.tok_embed.weight.data(), None
+        return self._model.tok_embed.weight._tensor(), None
 
 
 class FeaturesView(HybridBlock):

@@ -61,7 +61,7 @@ class BlockServable:
         return step
 
     def predict_batch(self, *stacked_inputs, replica=0):
-        out = self._step(replica)(*stacked_inputs)
+        out = self._step(replica)._run(*stacked_inputs)
         outs = out if isinstance(out, tuple) else (out,)
         return tuple(
             (o.float() if o.dtype == torch.bfloat16 else o).cpu().numpy()

@@ -61,7 +61,7 @@ def test_logits_match_jax(kind, units):
     ref = jnet(jnd.array(tok)).asnumpy()
     out = mxt.jit.EvalStep(tnet)(tok)
     assert out.shape == ref.shape == (2, S, V)
-    onp.testing.assert_allclose(out.numpy(), ref, **TOL)
+    onp.testing.assert_allclose(out.asnumpy(), ref, **TOL)
 
 
 @pytest.mark.parametrize("kind", ["bert", "gpt"])
@@ -73,7 +73,7 @@ def test_token_ids_out_of_range_give_nan_where_jax_does(kind):
     tok = _tokens()
     tok[0, 3], tok[0, 10], tok[1, 5] = V, -V - 1, -1
     ref = jnet(jnd.array(tok)).asnumpy()
-    out = mxt.jit.EvalStep(tnet)(tok).numpy()
+    out = mxt.jit.EvalStep(tnet)(tok).asnumpy()
     onp.testing.assert_array_equal(onp.isnan(out), onp.isnan(ref))
     assert onp.isnan(out[0, 10:]).all() and onp.isfinite(out[1]).all()
     onp.testing.assert_allclose(out[1], ref[1], **TOL)
@@ -104,9 +104,9 @@ def test_cast_to_bf16_keeps_tied_weights_and_registration():
     tnet.cast("bfloat16")
     sd = tnet.state_dict(keep_vars=True)
     assert all(t.dtype == torch.bfloat16 for t in sd.values())
-    assert sd["tok_embed.weight"] is tnet.tok_embed.weight.data()
+    assert sd["tok_embed.weight"] is tnet.tok_embed.weight.data()._data
     out = mxt.jit.EvalStep(tnet)(_tokens(B=1))
-    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert out.dtype == "bfloat16" and onp.isfinite(out.asnumpy()).all()
 
 
 def test_deferred_dense_and_layernorm_shapes():
@@ -148,22 +148,51 @@ def test_ring_and_ulysses_wait_for_the_multi_gpu_slice():
             tmodels.MultiHeadAttention(64, 2, attention=attention)
 
 
+#: modules every walk of the port must reach (those of the array layer)
+PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
+                "autograd", "base", "error", "name", "attribute", "registry",
+                "context", "test_utils", "convert", "gluon.parameter",
+                "gluon.block", "gluon.trainer", "gluon.loss", "jit")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, pkgutil, importlib\n"
         "import incubator_mxnet_tpu_torch as m\n"
+        "seen = set()\n"
         "for i in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
         "    importlib.import_module(i.name)\n"
+        "    seen.add(i.name[len(m.__name__) + 1:])\n"
+        "missing = set(%r) - seen\n"
+        "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'incubator_mxnet_tpu' or "
         "n.startswith('incubator_mxnet_tpu.'))\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print('ok')\n") % (PORT_MODULES,)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, cwd=root)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
         proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """Every import statement of chip_smoke.py, at any depth."""
+    import ast
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert "incubator_mxnet_tpu_torch" in names
+    bad = sorted(n for n in names if n.split(".")[0] in (
+        "jax", "jaxlib", "incubator_mxnet_tpu"))
+    assert not bad, bad
 
 
 def test_default_context_raises_without_cuda():

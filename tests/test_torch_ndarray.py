@@ -15,6 +15,14 @@ Each test feeds the same numpy inputs, made from a seed, to
 Keywords of the other audited operators that the reference ignores
 (``LayerNorm``'s ``output_mean_var``, ``Dropout``'s ``mode``,
 ``log_softmax``'s ``length``) stay ignored; the rest work or raise.
+
+The ``NDArray`` class, exact against the JAX package's: MXNet's reshape
+codes, a slice being a copy (a write into it never shows in the parent),
+the dtype rules of ``nd.array`` and of mixed-type arithmetic, the basic
+methods, ``take``/``gather_nd``/``batch_take``/``one_hot``/``pick``/
+``scatter_nd`` on ids out of range, and the default context raising
+without CUDA. The operator families are swept in
+``test_torch_ndarray_sweep.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -214,4 +222,238 @@ def test_embedding_out_of_range_on_the_card_leaves_the_context_usable():
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, equal_nan=True, atol=0,
                                rtol=0)
+    assert float((torch.ones(3, device="cuda") * 2).sum()) == 6.0
+
+
+# ---------------------------------------------------------------- NDArray
+# The NDArray class against the JAX package's: the same numpy inputs
+# through both, results exact (no arithmetic beyond the JAX package's).
+
+
+def _t(x, **kw):
+    from incubator_mxnet_tpu_torch import cpu
+    return tnd.array(x, ctx=cpu(), **kw)
+
+
+@pytest.mark.parametrize("shape,code", [
+    ((2, 3, 4), (0, -1)), ((2, 3, 4), (-2,)), ((2, 3, 4), (-3, 4)),
+    ((2, 3, 4), (2, -4, 3, 1, 4)), ((2, 3, 4), (0, -4, -1, 1, 0)),
+    ((6, 4), (-4, 2, 3, -2)), ((2, 3, 4), (4, 0, -1))])
+def test_reshape_codes_match_the_reference(shape, code):
+    x = onp.arange(int(onp.prod(shape)), dtype="float32").reshape(shape)
+    ref = jnd.array(x).reshape(code)
+    got = _t(x).reshape(code)
+    assert got.shape == ref.shape
+    onp.testing.assert_array_equal(got.asnumpy(), ref.asnumpy())
+    assert tnd.reshape(_t(x), shape=code).shape == ref.shape
+
+
+def test_a_write_into_a_slice_does_not_show_in_the_parent():
+    x = _t(onp.arange(6, dtype="float32").reshape(2, 3))
+    row = x[1]
+    row[:] = 0
+    part = x[:, 1:]
+    part += 100
+    onp.testing.assert_array_equal(x.asnumpy(), [[0, 1, 2], [3, 4, 5]])
+    x[0, 2] = -1
+    onp.testing.assert_array_equal(row.asnumpy(), [0, 0, 0])
+    assert x.asnumpy()[0, 2] == -1
+    b = tnd.broadcast_to(_t([[1.0, 2.0]]), (3, 2))
+    b += 1                            # a broadcast view: rebinds, no error
+    onp.testing.assert_array_equal(b.asnumpy(), [[2, 3]] * 3)
+    y = x.copy()
+    y[:] = 7
+    assert x.asnumpy()[1, 1] == 4
+    n = x.asnumpy()
+    n[:] = 9
+    assert x.asnumpy()[1, 1] == 4
+
+
+_DERIVED = {
+    "reshape": lambda nd, x: x.reshape(-1),
+    "reshape_code": lambda nd, x: nd.reshape(x, shape=(0, -1)),
+    "transpose": lambda nd, x: x.T,
+    "expand_dims": lambda nd, x: x.expand_dims(0),
+    "squeeze": lambda nd, x: x.expand_dims(1).squeeze(1),
+    "broadcast_to": lambda nd, x: nd.broadcast_to(x.expand_dims(0),
+                                                  (2, 2, 3)),
+    "flatten": lambda nd, x: nd.flatten(x),
+    "astype": lambda nd, x: x.astype("float32"),
+    "cast": lambda nd, x: nd.cast(x, "float32"),
+    "make_loss": lambda nd, x: nd.make_loss(x, grad_scale=2.0),
+    "identity": lambda nd, x: nd.identity(x),
+    "BlockGrad": lambda nd, x: nd.BlockGrad(x),
+    "detach": lambda nd, x: x.detach(),
+    "add_n": lambda nd, x: nd.add_n(x),
+    "split": lambda nd, x: nd.split(x, 3, axis=1)[1],
+    "slice_axis": lambda nd, x: nd.slice_axis(x, 1, 0, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DERIVED))
+def test_a_derived_array_does_not_share_memory_with_its_source(name):
+    """As JAX arrays, every NDArray is an array of its own: a write into
+    the source does not show in an array derived from it, nor the other
+    way round (torch returns views or the input itself for these)."""
+    x0 = onp.arange(6, dtype="float32").reshape(2, 3)
+    res = []
+    for nd, x in ((jnd, jnd.array(x0)), (tnd, _t(x0))):
+        y = _DERIVED[name](nd, x)
+        before = y.asnumpy()
+        x += 1
+        x[0, 0] = -5.0
+        after_source_write = y.asnumpy()
+        y[:] = 0
+        res.append((before, after_source_write, x.asnumpy()))
+    (jb, ja, jx), (tb, ta, tx) = res
+    onp.testing.assert_array_equal(tb, jb)
+    onp.testing.assert_array_equal(ta, jb)
+    onp.testing.assert_array_equal(ta, ja)
+    onp.testing.assert_array_equal(tx, jx)
+
+
+def test_make_loss_of_scale_one_is_its_input_as_in_the_reference():
+    j = jnd.array(onp.ones((2, 3), "float32"))
+    assert jnd.make_loss(j) is j
+    x = _t(onp.ones((2, 3), "float32"))
+    assert tnd.make_loss(x) is x
+    t = torch.ones(3)
+    assert tnd.make_loss(t) is t
+    onp.testing.assert_array_equal(tnd.make_loss(x, grad_scale=0.5)
+                                   .asnumpy(), onp.full((2, 3), 0.5))
+
+
+def test_dtype_rules_match_the_reference():
+    cases = [[1, 2, 3], [1.5, 2.5], onp.arange(3, dtype="float64"),
+             onp.arange(3, dtype="int64"), onp.arange(3, dtype="int32"),
+             onp.arange(3, dtype="uint8"), onp.array([True, False]), 2.5]
+    for c in cases:
+        ref, got = jnd.array(c), _t(c)
+        assert got.dtype == ref.dtype, (c, got.dtype, ref.dtype)
+        assert got.dtype == onp.dtype(str(ref.dtype))
+    b = _t([1.0, 2.0]).astype("bfloat16")
+    assert b.dtype == "bfloat16" and b.dtype == jnd.array([1.0]).astype(
+        "bfloat16").dtype.name
+    assert b.asnumpy().dtype == onp.float32            # no ml_dtypes needed
+    i = _t(onp.arange(3, dtype="int32"))
+    f16 = _t([1.0]).astype("float16")
+    for got, ref in ((i + 2.5, jnd.array(onp.arange(3, dtype="int32")) + 2.5),
+                     (i * 2, jnd.array(onp.arange(3, dtype="int32")) * 2),
+                     (i / i, jnd.array(onp.arange(3, dtype="int32"))
+                      / jnd.array(onp.arange(3, dtype="int32"))),
+                     (b + _t([1.0]), jnd.array([1.0, 2.0]).astype("bfloat16")
+                      + jnd.array([1.0])),
+                     (b + f16, jnd.array([1.0, 2.0]).astype("bfloat16")
+                      + jnd.array([1.0]).astype("float16")),
+                     (i == 1, jnd.array(onp.arange(3, dtype="int32")) == 1),
+                     (tnd.greater(i, 1.5), jnd.greater(
+                         jnd.array(onp.arange(3, dtype="int32")), 1.5))):
+        assert str(got.dtype) == str(ref.dtype), (got.dtype, ref.dtype)
+        onp.testing.assert_array_equal(got.asnumpy(),
+                                       ref.asnumpy().astype("float32")
+                                       if str(ref.dtype) == "bfloat16"
+                                       else ref.asnumpy())
+
+
+def test_basics_match_the_reference():
+    x = onp.arange(6, dtype="float32").reshape(2, 3)
+    ref, got = jnd.array(x), _t(x)
+    assert (got.shape, got.size, got.ndim, len(got)) == \
+        (ref.shape, ref.size, ref.ndim, len(ref))
+    assert got.stype == "default" and hash(got) == id(got)
+    assert float(got[1, 2]) == float(ref[1, 2]) == 5.0
+    assert got[1, 2].asscalar() == 5.0 and got.sum().item() == 15.0
+    onp.testing.assert_array_equal(got.T.asnumpy(), ref.T.asnumpy())
+    onp.testing.assert_array_equal((-got).abs().asnumpy(), x)
+    onp.testing.assert_array_equal((2 - got).asnumpy(), (2 - ref).asnumpy())
+    onp.testing.assert_array_equal((x + got).asnumpy(), 2 * x)
+    onp.testing.assert_array_equal(got.sum(axis=1, keepdims=True).asnumpy(),
+                                   ref.sum(axis=1, keepdims=True).asnumpy())
+    onp.testing.assert_array_equal(got.argmax(axis=1).asnumpy(),
+                                   ref.argmax(axis=1).asnumpy())
+    assert got.argmax(axis=1).dtype == onp.float32
+    onp.testing.assert_array_equal(
+        got[_t([1.0, 0.0])].asnumpy(), x[[1, 0]])
+    from incubator_mxnet_tpu_torch import cpu
+    assert got.context == cpu() and got.as_in_context(cpu()) is got
+    c = got.copyto(cpu())
+    c[:] = 0
+    assert got.asnumpy().sum() == 15.0
+    got.copyto(c)
+    onp.testing.assert_array_equal(c.asnumpy(), x)
+    import pickle
+    back = pickle.loads(pickle.dumps(got.astype("bfloat16")))
+    assert back.dtype == "bfloat16"
+    onp.testing.assert_array_equal(back.asnumpy(), x)
+    assert "NDArray 2x3 @cpu(0)" in repr(got)
+
+
+def test_ops_take_tensors_and_give_tensors_back():
+    """Tensors pass _apply straight through: the layers' hot path."""
+    x = torch.arange(6.0).reshape(2, 3)
+    out = tnd.relu(tnd.reshape(x, (3, 2)))
+    assert type(out) is torch.Tensor
+    assert isinstance(tnd.reshape(_t(x.numpy()), (3, 2)), tnd.NDArray)
+    mixed = tnd.add(_t(x.numpy()), x)
+    assert isinstance(mixed, tnd.NDArray)
+
+
+def test_the_default_context_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default context resolves")
+    for make in (lambda: tnd.array([1.0]), lambda: tnd.zeros((2,)),
+                 lambda: tnd.arange(3), lambda: tnd.random.normal(shape=2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    from incubator_mxnet_tpu_torch import cpu
+    with cpu():
+        assert tnd.ones((2,)).context == cpu()
+
+
+@pytest.mark.parametrize("mode", ["clip", "wrap", "fill"])
+def test_take_out_of_range_follows_the_reference(mode):
+    w = onp.arange(12, dtype="float32").reshape(4, 3)
+    ids = onp.array([0, 3, -1, -4, 4, 9, -5], dtype="int32")
+    ref = jnd.take(jnd.array(w), jnd.array(ids), mode=mode).asnumpy()
+    got = tnd.take(_t(w), _t(ids), mode=mode).asnumpy()
+    onp.testing.assert_array_equal(got, ref)
+
+
+def test_indexing_ops_out_of_range_follow_the_reference():
+    x = onp.arange(12, dtype="float32").reshape(4, 3)
+    ids = onp.array([[-1, 5, 0], [2, -7, 9]], dtype="int32")
+    for name, args in (("gather_nd", (x, ids)),
+                       ("batch_take", (x, onp.array([0, -1, 3, -9],
+                                                    "int32"))),
+                       ("one_hot", (onp.array([-1, 2, 5], "int32"), 3)),
+                       ("pick", (x, onp.array([0, 7, -2, 1], "int32")))):
+        ref = getattr(jnd, name)(*[jnd.array(a) if isinstance(a, onp.ndarray)
+                                   else a for a in args]).asnumpy()
+        got = getattr(tnd, name)(*[_t(a) if isinstance(a, onp.ndarray)
+                                   else a for a in args]).asnumpy()
+        onp.testing.assert_array_equal(got, ref, err_msg=name)
+    upd = onp.array([1.0, 2.0, 3.0, 4.0], "float32")
+    sids = onp.array([[1, -1, 7, -9], [0, 0, 0, 0]], "int32")
+    ref = jnd.scatter_nd(jnd.array(upd), jnd.array(sids), shape=(4, 2))
+    got = tnd.scatter_nd(_t(upd), _t(sids), shape=(4, 2))
+    onp.testing.assert_array_equal(got.asnumpy(), ref.asnumpy())
+
+
+@pytest.mark.cuda
+def test_indexing_out_of_range_on_the_card_leaves_the_context_usable():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from incubator_mxnet_tpu_torch import cpu, gpu
+    w = onp.arange(12, dtype="float32").reshape(4, 3)
+    ids = onp.array([0, 3, -1, -4, 4, 9, -5], dtype="int32")
+    for mode in ("clip", "wrap", "fill"):
+        want = tnd.take(tnd.array(w, ctx=cpu()), tnd.array(ids, ctx=cpu()),
+                        mode=mode).asnumpy()
+        got = tnd.take(tnd.array(w, ctx=gpu(0)), tnd.array(ids, ctx=gpu(0)),
+                       mode=mode).asnumpy()
+        onp.testing.assert_array_equal(got, want)
+    bt = tnd.batch_take(tnd.array(w, ctx=gpu(0)), tnd.array(
+        onp.array([0, 9, -7, 12], "int32"), ctx=gpu(0))).asnumpy()
+    assert bt[0] == 0.0 and onp.isnan(bt[1:]).all()
+    torch.cuda.synchronize()
     assert float((torch.ones(3, device="cuda") * 2).sum()) == 6.0

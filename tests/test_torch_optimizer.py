@@ -108,22 +108,24 @@ def _dense(seed=0):
 
 
 def test_trainer_step_updates_from_grads_and_consumes_them():
-    """Trainer.step(B) rescales by 1/B, updates every parameter in place and
-    releases the 'write' gradients, so the next backward writes afresh."""
+    """Trainer.step(B) rescales by 1/B and updates every parameter in
+    place from the gradients the backward wrote, which it leaves as they
+    are (the JAX package's grad() after a step is the step's gradient);
+    the next backward writes them afresh ("write")."""
     net = _dense()
     x = torch.from_numpy(onp.random.RandomState(0).randn(6, 4)
                          .astype("float32"))
     trainer = mxt.gluon.Trainer(net.collect_params(), "sgd",
                                 {"learning_rate": 0.5})
-    w0 = net.weight.data().detach().clone()
+    w0 = net.weight.data().asnumpy()
     with mxt.autograd.record():
         loss = net(x).sum(dim=1)
     mxt.autograd.backward(loss)
-    g = net.weight.grad().clone()
+    g = net.weight.grad().asnumpy()
     trainer.step(6)
-    torch.testing.assert_close(net.weight.data().detach(), w0 - 0.5 * g / 6)
-    assert net.weight.data().grad is None
-    assert torch.equal(net.weight.grad(), torch.zeros_like(w0))
+    onp.testing.assert_allclose(net.weight.data().asnumpy(),
+                                w0 - 0.5 * g / 6, rtol=1.3e-6, atol=1e-5)
+    assert onp.array_equal(net.weight.grad().asnumpy(), g)
     assert trainer.learning_rate == 0.5
     trainer.set_learning_rate(0.1)
     assert trainer.optimizer.lr == 0.1

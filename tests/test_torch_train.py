@@ -103,8 +103,8 @@ def test_train_steps_match_jax(jax_run):
     tok = _tokens()
     for ref in ref_losses:
         loss = step(tok, tok)
-        assert loss.shape == (B,) and not loss.requires_grad
-        onp.testing.assert_allclose(loss.numpy(), ref, **LOSS_TOL)
+        assert loss.shape == (B,) and not loss._data.requires_grad
+        onp.testing.assert_allclose(loss.asnumpy(), ref, **LOSS_TOL)
     after = mxt.to_numpy_params(net)
     assert set(after) == set(ref_after)
     moved = 0
@@ -117,12 +117,12 @@ def test_train_steps_match_jax(jax_run):
 
 @pytest.mark.parametrize("kind", ["bert", "gpt"])
 def test_train_step_equals_the_eager_step(kind):
-    """TrainStep = autograd.record() forward, backward, Trainer.step(B),
-    exactly, over two steps."""
+    """TrainStep = autograd.record() forward, backward, Trainer.step(B)
+    on NDArrays, exactly, over two steps."""
     arrays = _random_arrays(kind)
     nets = [_port_net(kind, arrays) for _ in range(2)]
-    tok = torch.from_numpy(onp.random.RandomState(1)
-                           .randint(0, V, (B, S)).astype("int32"))
+    tok = mxt.nd.array(onp.random.RandomState(1).randint(0, V, (B, S))
+                       .astype("int32"), ctx=mxt.cpu())
     step_net, loss_fn = _port_step(kind, nets[0])
     step = mxt.jit.TrainStep(step_net, loss_fn, mxt.gluon.Trainer(
         step_net.collect_params(), "adam", {"learning_rate": 1e-3}))
@@ -133,12 +133,13 @@ def test_train_step_equals_the_eager_step(kind):
         a = step(tok, tok)
         with mxt.autograd.record():
             b = eager_loss(eager_net(tok), tok)
-        mxt.autograd.backward(b)
+        b.backward()
         trainer.step(B)
-        assert torch.equal(a, b.detach())
+        assert onp.array_equal(a.asnumpy(), b.asnumpy())
     for name, p in nets[0].collect_params().items():
-        assert torch.equal(p.data(), nets[1].collect_params()[name].data()), \
-            name
+        assert onp.array_equal(
+            p.data().asnumpy(),
+            nets[1].collect_params()[name].data().asnumpy()), name
 
 
 def test_train_step_finishes_deferred_init_and_takes_batch_size():
@@ -146,7 +147,7 @@ def test_train_step_finishes_deferred_init_and_takes_batch_size():
     inside the first step, on its parameters' device, and the step equals
     the eager one; ``batch_size=`` sets the rescale's denominator."""
     rng = onp.random.RandomState(6)
-    x, y = (torch.from_numpy(rng.randn(4, n).astype("float32"))
+    x, y = (mxt.nd.array(rng.randn(4, n).astype("float32"), ctx=mxt.cpu())
             for n in (5, 3))
     nets = []
     for _ in range(2):
@@ -168,18 +169,20 @@ def test_train_step_finishes_deferred_init_and_takes_batch_size():
         b = loss_fn(nets[1](x), y)
     mxt.autograd.backward(b)
     trainer.step(8)
-    assert torch.equal(a, b.detach())
+    assert onp.array_equal(a.asnumpy(), b.asnumpy())
     for name in ("weight", "bias"):
-        assert torch.equal(getattr(nets[0], name).data(),
-                           getattr(nets[1], name).data()), name
+        assert onp.array_equal(getattr(nets[0], name).data().asnumpy(),
+                               getattr(nets[1], name).data().asnumpy()), name
 
 
 def test_train_step_gives_trainer_params_outside_the_net_fresh_grads():
     """A trainer parameter that lives outside the net (here the loss's
     scale) is updated from this step's gradient only: three TrainSteps
-    equal three eager steps, and its gradient is released after each."""
+    equal three eager steps on NDArrays, and each TrainStep leaves its
+    gradient as it was (zeros: no backward wrote it), as the JAX
+    TrainStep does."""
     rng = onp.random.RandomState(7)
-    x, y = (torch.from_numpy(rng.randn(4, n).astype("float32"))
+    x, y = (mxt.nd.array(rng.randn(4, n).astype("float32"), ctx=mxt.cpu())
             for n in (5, 3))
     runs = []
     for _ in range(2):
@@ -200,15 +203,19 @@ def test_train_step_gives_trainer_params_outside_the_net_fresh_grads():
     step = mxt.jit.TrainStep(net_a, loss_a, trainer_a)
     for _ in range(3):
         a = step(x, y)
-        assert scale_a.data().grad is None
+        assert onp.array_equal(scale_a.grad().asnumpy(),
+                               onp.zeros(1, "float32"))
         with mxt.autograd.record():
             b = loss_b(net_b(x), y)
         mxt.autograd.backward(b)
         trainer_b.step(4)
-        assert torch.equal(a, b.detach())
-    assert not torch.equal(scale_a.data(), torch.ones(1))
-    assert torch.equal(scale_a.data(), scale_b.data())
-    assert torch.equal(net_a.weight.data(), net_b.weight.data())
+        assert onp.array_equal(a.asnumpy(), b.asnumpy())
+    assert not onp.array_equal(scale_a.data().asnumpy(),
+                               onp.ones(1, "float32"))
+    assert onp.array_equal(scale_a.data().asnumpy(),
+                           scale_b.data().asnumpy())
+    assert onp.array_equal(net_a.weight.data().asnumpy(),
+                           net_b.weight.data().asnumpy())
 
 
 def test_train_step_and_sgd_refuse_options_the_port_has_not():

@@ -63,7 +63,7 @@ def test_resnet_keys_and_inference_forward_match_jax(name):
     jnet, tnet = _pair(name, x)
     assert set(tnet.collect_params().keys()) == set(_jax_arrays(jnet))
     ref = jnet(mx.nd.array(x)).asnumpy()
-    got = mxt.jit.EvalStep(tnet)(x).numpy()
+    got = mxt.jit.EvalStep(tnet)(x).asnumpy()
     assert got.shape == (2, 10)
     _assert_rel(got, ref, 1e-5, name)
 
@@ -115,7 +115,7 @@ def test_lenet_train_steps_match_jax():
     order only)."""
     x, y = _batch((4, 1, 28, 28))
     jnet, tnet, jstep, tstep, before = _steps("lenet", x, y, 0.01)
-    got = [tstep(x, y).numpy() for _ in range(3)]
+    got = [tstep(x, y).asnumpy() for _ in range(3)]
     for i, g in enumerate(got):
         _assert_rel(g, jstep(mx.nd.array(x), mx.nd.array(y)).asnumpy(), 1e-5,
                     "loss of step %d" % i)
@@ -143,7 +143,7 @@ def test_resnet18_train_steps_match_jax():
     losses = []
     for i in range(2):
         ref = jstep(mx.nd.array(x), mx.nd.array(y)).asnumpy()
-        losses.append(tstep(x, y).numpy())
+        losses.append(tstep(x, y).asnumpy())
         _assert_rel(losses[-1], ref, 2e-4, "loss of step %d" % i)
         ref_p, got_p = _jax_arrays(jnet), mxt.to_numpy_params(tnet)
         assert set(ref_p) == set(got_p)
@@ -160,11 +160,12 @@ def test_resnet18_train_steps_match_jax():
 
 
 def test_train_step_equals_the_eager_step_for_a_resnet():
-    """TrainStep = autograd.record() forward, backward, Trainer.step(B),
-    exactly, over two steps, running statistics included."""
+    """TrainStep = autograd.record() forward, backward, Trainer.step(B)
+    on NDArrays, exactly, over two steps, running statistics included."""
     rng = onp.random.RandomState(11)
-    x = torch.from_numpy(rng.randn(8, 3, 32, 32).astype("float32"))
-    y = torch.from_numpy(rng.randint(0, 10, 8).astype("float32"))
+    x = mxt.nd.array(rng.randn(8, 3, 32, 32).astype("float32"),
+                     ctx=mxt.cpu())
+    y = mxt.nd.array(rng.randint(0, 10, 8).astype("float32"), ctx=mxt.cpu())
     nets = []
     for _ in range(2):
         net = tvision.resnet18_v1(classes=10)
@@ -181,9 +182,10 @@ def test_train_step_equals_the_eager_step_for_a_resnet():
         a = step(x, y)
         with mxt.autograd.record():
             b = loss_fn(nets[1](x), y)
-        mxt.autograd.backward(b)
+        b.backward()
         trainer.step(8)
-        assert torch.equal(a, b.detach())
+        assert onp.array_equal(a.asnumpy(), b.asnumpy())
     for name, p in nets[0].collect_params().items():
-        assert torch.equal(p.data(), nets[1].collect_params()[name].data()), \
-            name
+        assert onp.array_equal(
+            p.data().asnumpy(),
+            nets[1].collect_params()[name].data().asnumpy()), name
