@@ -93,13 +93,26 @@ Phases, each of which must pass, in order:
    Prints an {"ndarray": ...} line with these numbers and the card.
 7. The training path, after the NDArray phase's model is freed:
    full-width BERT (B 64 x S 512, SoftmaxCrossEntropyLoss on the full
-   logits) and GPT
-   (B 1 x S 8192, FeaturesView + ChunkedLMLoss) in bfloat16, each through
-   gluon.Trainer("adam", lr 1e-4, multi_precision) and jit.TrainStep on a
-   fixed batch: BERT 2 warm-up + 8 timed steps, GPT 2 + 4. Every loss
-   finite, the last step's mean loss below the first's, every parameter
-   finite, every bf16 weight equal to its fp32 master cast to bf16, and
-   over the timed steps K1, K2 and K3 each launched layers x steps times.
+   logits) and GPT (B 1 x S 8192, FeaturesView + ChunkedLMLoss) in
+   bfloat16, each through gluon.Trainer("adam", lr 1e-4, multi_precision)
+   and jit.TrainStep, which captures its step into a CUDA graph at the
+   first call and replays it after, on a fixed batch: BERT 2 warm-up + 8
+   timed steps, GPT 2 + 4, then 3 replays under torch.profiler (the
+   device's idle share) and 3 issued on an idle card (the host's own cost
+   of a step). Every loss finite, the last step's mean loss below the
+   first's, every parameter finite, every bf16 weight equal to its fp32
+   master cast to bf16, and over the timed steps K1, K2 and K3 each
+   launched layers x steps times (counted at each replay). Then, in the
+   same process from the same weights, TrainStep's eager body (uncaptured)
+   for 5 steps, the second phase by phase (``step_phases``), the last 3
+   timed, then profiled and issued the same way: the fifth step's mean
+   loss of the two runs within 1e-3 relative (the measured value is
+   printed). Each run reports step ms (CUDA events), host ms (host clock,
+   no synchronisation inside), idle share and peak memory. Last, GPT
+   through TrainStep(remat=True): its second step's mean loss within 1e-3
+   relative of TrainStep's without remat from the same weights, step ms
+   and peak memory, K1 launched twice a layer and step (the recomputed
+   forward), K2 and K3 once.
 8. K4 (ops.conv_bwd) against its plain version (_conv_bwd_reference, dense
    fp32 matrix products, no conv call) at the four ResNet-50 bottleneck
    3x3 shapes in bf16 at batch 256 and at three odd shapes (C and K of 8,
@@ -123,14 +136,29 @@ Phases, each of which must pass, in order:
    and all changes after it within 5e-2 together (L2), because a 1e-6
    weight difference after a step flips the ReLU mask of the activations
    that close to 0 and reroutes their gradients in the next.
-10. The vision training path: full-width ResNet-50 v1 (bench.py:248-279,
+10. TrainStep's CUDA graphs against its eager body, small float32 BERT,
+   GPT (K1-K3) and ResNet-18 (cuDNN with deterministic algorithms, whose
+   default backward algorithms differ run to run) from the same weights,
+   4 steps each: losses and parameters, running statistics included,
+   equal bit for bit, with a set_data (in place: the graph stays), a
+   set_learning_rate and, in the captured run, replaced optimizer states
+   (a second capture) between steps; K1-K3 launched layers x steps times
+   through the replays. A small BERT with dropout 0.1 at learning rate 0:
+   every replay's losses differ (fresh masks) and are finite. A step
+   whose loss reads a value back to the host fails its capture with an
+   error naming the loss; after it the default stream is current again,
+   the allocator gives a freed 1 GiB block back to the card, and a sound
+   step captures.
+11. The vision training path: full-width ResNet-50 v1 (bench.py:248-279,
    uncut) at B 256 x 3 x 224 x 224 bf16 with SGD (lr 0.1, momentum 0.9,
-   fp32 masters) through jit.TrainStep, 3 warm-up + 10 timed steps: every
-   loss finite and the last below the first, every parameter and running
-   statistic finite, every bf16 weight equal to its master cast, and no
-   hand-written kernel launched (model-zoo convs stay on cuDNN, as the
-   JAX package leaves them to XLA).
-11. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
+   fp32 masters) through the captured jit.TrainStep, 3 warm-up + 10
+   timed steps: every loss finite and the last below the first, every
+   parameter and running statistic finite, every bf16 weight equal to
+   its master cast, and no hand-written kernel launched (model-zoo convs
+   stay on cuDNN, as the JAX package leaves them to XLA); then the eager
+   body from the same weights as in phase 7, the running statistics after
+   5 steps within 1e-3 of their largest value as well.
+12. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
@@ -146,15 +174,15 @@ Phases, each of which must pass, in order:
    launch's host time is split into its parts (``rtc_host_breakdown``).
 
 Prints the card's name and power limit, an {"ndarray": ...}, a
-{"serving": ...}, a {"training": ...}, a {"vision": ...} and a
-{"kernels": [...]} line and, as
+{"serving": ...}, a {"captured": ...}, a {"training": ...}, a
+{"vision": ...} and a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when CUDA is absent, the port is not beside this script, or any
 phase fails.
 
     python3 chip_smoke.py --rtc-only [--root DIR]
 
-runs phase 11 alone, on the port found in DIR (by default beside this
+runs phase 12 alone, on the port found in DIR (by default beside this
 script), and prints the card's name and power limit and {"rtc": {...}}:
 the way to time another tree's K5 launch path with the same code, for
 example an unpacked parent commit's.
@@ -167,6 +195,7 @@ loop and of TrainStep, and prints {"imperative": {...}}.
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -187,6 +216,11 @@ GPT_TRAIN_B, GPT_TRAIN_STEPS = 1, (2, 4)
 RESNET_B, RESNET_STEPS = 256, (3, 10)
 RESNET_FLOPS_PER_IMAGE = 24.6e9    # bench.py:32, forward + backward
 NDARRAY_STEPS = 5      # imperative BERT steps, held to TrainStep's
+EAGER_STEPS = 5        # TrainStep's eager body, held to its captured graph
+CAPTURE_REL_TOL = 1e-3     # full width: step EAGER_STEPS's loss, relative
+PROFILED_STEPS = 3     # steps under torch.profiler for the idle share
+REMAT_STEPS = (2, 3)   # GPT with remat: (first, timed) steps
+SMALL_CAPTURED_STEPS = 4
 AB_STEPS = 12          # the same, with --imperative-only
 RANDOM_DRAWS = 1 << 24
 # ResNet-50's bottleneck 3x3/stride-1 convs at batch 256 (N, H, W, C, K),
@@ -1329,15 +1363,253 @@ def check_ndarray(card):
     return launches, summary
 
 
+def _eager_step(step, *inputs):
+    """One step of TrainStep's eager body (what its CUDA graph captures),
+    run uncaptured: _prepare, _forward, _backward, _update."""
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    args = step._prepare(inputs, 1)
+    loss = step._forward(args, 1)
+    step._update(args[0].shape[0], step._backward(loss))
+    return NDArray(loss.detach())
+
+
+def _device_events(prof):
+    """(start, end) in microseconds of every device activity (kernels,
+    copies, fills) torch.profiler recorded, sorted."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def device_idle_share(fn, steps=PROFILED_STEPS):
+    """``steps`` calls of ``fn`` under torch.profiler (CPU and CUDA
+    activity): the device's busy time (the union of its activity
+    intervals), the window (host clock from the first call to the end of a
+    final synchronise, the profiler's own cost included), the idle share
+    1 - busy / window, and the device activities a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    busy, cur = 0.0, None
+    events = _device_events(prof)
+    for start, end in events:
+        if cur is None or start > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    check(events, "torch.profiler recorded no device activity")
+    return dict(idle_share=1.0 - busy / window_us, busy_ms=busy / 1e3,
+                window_ms=window_us / 1e3,
+                device_activities_per_step=len(events) / steps)
+
+
+def kernels_in(fn):
+    """The device activities (kernels, copies, fills) torch.profiler
+    records while ``fn()`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return len(_device_events(prof))
+
+
+def _timed_steps(fn, n):
+    """(results, device ms a step by CUDA events, host ms a step by the
+    host clock with no synchronisation inside) of ``n`` calls of ``fn``."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    start.record()
+    out = [fn() for _ in range(n)]
+    host_ms = (time.perf_counter() - h0) * 1e3 / n
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / n, host_ms
+
+
+def _reset(params, init):
+    """Write the initial values back into the parameters, in place."""
+    import torch
+    with torch.no_grad():
+        for p, t in zip(params, init):
+            p._tensor().copy_(t)
+
+
+def issue_ms(fn, n=3):
+    """Host ms to issue one call of ``fn`` with the card idle before it
+    (synchronised first, not after): the host's own cost of a step, with
+    no launch queue to wait on. The median of ``n``."""
+    import torch
+    got = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        got.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(got)[n // 2]
+
+
+def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
+                             warm, timed, extra_check=None):
+    """``net`` trained from its current weights through the captured
+    TrainStep (a first step that captures, ``warm - 1`` replays, ``timed``
+    timed replays, then PROFILED_STEPS replays under the profiler and 3
+    issued with the card idle), then from the same weights through the
+    eager body for EAGER_STEPS steps (the second phase by phase,
+    ``step_phases``; the last EAGER_STEPS - 2 timed), then PROFILED_STEPS
+    under the profiler, 3 issued with the card idle and one more whose
+    update's device activities are counted. ``extra_check(trainer, losses,
+    launches)`` runs on the captured run before its trainer goes. Step
+    EAGER_STEPS's mean loss of the two runs must agree within
+    CAPTURE_REL_TOL relative, and the running statistics (any parameter
+    named "running_*") after EAGER_STEPS steps within it of their largest
+    value. Returns (the captured run's launches over the timed steps,
+    summary row)."""
+    import torch
+    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.ops import _kernels
+
+    params = list(net.collect_params().values())
+    running = [p for p in params if p.name.startswith("running")]
+    init = [p._tensor().detach().clone() for p in params]
+
+    def snap():
+        return [p._tensor().detach().float().clone() for p in running]
+
+    # -- captured
+    trainer = make_trainer()
+    step = jit.TrainStep(net, loss_fn, trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(*inputs)]
+    capture_s = time.perf_counter() - t0
+    for _ in range(warm - 1):
+        losses.append(step(*inputs))
+    held = snap() if len(losses) == EAGER_STEPS else None
+    _kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    start.record()
+    for _ in range(timed):
+        losses.append(step(*inputs))
+        if len(losses) == EAGER_STEPS:
+            held = snap()
+    host_ms = (time.perf_counter() - h0) * 1e3 / timed
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / timed
+    launches = dict(_kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    profiled = device_idle_share(lambda: step(*inputs))
+    issue = issue_ms(lambda: step(*inputs))
+    check(step.captures == 1, "%s: %d captures of one signature"
+          % (name, step.captures))
+    if extra_check is not None:
+        extra_check(trainer, losses, launches)
+    means = [float(l._data.float().mean()) for l in losses]
+    del step, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- eager, from the same weights
+    _reset(params, init)
+    del init
+    trainer = make_trainer()
+    step = jit.TrainStep(net, loss_fn, trainer)
+    torch.cuda.reset_peak_memory_stats()
+    eager = [_eager_step(step, *inputs)]
+    phases = step_phases(step, *inputs)
+    eager.append(phases.pop("loss"))
+    got, eager_ms, eager_host_ms = _timed_steps(
+        lambda: _eager_step(step, *inputs), EAGER_STEPS - 2)
+    eager += got
+    eager_held = snap()
+    eager_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eager_profiled = device_idle_share(lambda: _eager_step(step, *inputs))
+    eager_issue = issue_ms(lambda: _eager_step(step, *inputs))
+    args = step._prepare(inputs, 1)
+    grads = step._backward(step._forward(args, 1))
+    update_kernels = kernels_in(
+        lambda: step._update(args[0].shape[0], grads))
+    del step, trainer, args, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eager_means = [float(l._data.float().mean()) for l in eager]
+    rel = [abs(a - b) / abs(b) for a, b in zip(means, eager_means)]
+    check(all(math.isfinite(v) for v in means + eager_means),
+          "%s: a loss is not finite" % name)
+    check(rel[EAGER_STEPS - 1] <= CAPTURE_REL_TOL, "%s: step %d's loss "
+          "captured %.6f against eager %.6f (%.3g relative)" % (
+              name, EAGER_STEPS, means[EAGER_STEPS - 1],
+              eager_means[EAGER_STEPS - 1], rel[EAGER_STEPS - 1]))
+    stats_rel = max([float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(held, eager_held)] or [0.0])
+    check(stats_rel <= CAPTURE_REL_TOL, "%s: running statistics after %d "
+          "steps differ captured vs eager by %.3g of their largest value"
+          % (name, EAGER_STEPS, stats_rel))
+    row = dict(
+        warmup_steps=warm, timed_steps=timed, step_ms=step_ms,
+        step_host_ms=host_ms, issue_ms=issue, capture_step_s=capture_s,
+        peak_memory_gb=peak_gb, peak_reserved_gb=reserved_gb,
+        idle_share=profiled["idle_share"], profiled=profiled,
+        losses=means, launches=launches,
+        eager=dict(steps=EAGER_STEPS, step_ms=eager_ms,
+                   step_host_ms=eager_host_ms, issue_ms=eager_issue,
+                   peak_memory_gb=eager_peak_gb,
+                   idle_share=eager_profiled["idle_share"],
+                   profiled=eager_profiled, losses=eager_means,
+                   step_phases_ms=phases,
+                   update_device_activities=update_kernels),
+        captured_vs_eager_rel_loss_diff=rel,
+        running_stats_rel_diff=stats_rel if running else None)
+    log("%s: captured step %.1f ms (host %.2f a step over the timed run, "
+        "%.2f to issue one on an idle card), idle %.1f%% over %d profiled "
+        "steps, first step (capture) %.1f s, peak %.2f GB (%.2f GB "
+        "reserved); eager body %.1f ms (host %.1f, issue %.1f), idle "
+        "%.1f%%, peak %.2f GB, phases fwd %.1f / bwd %.1f / update %.1f "
+        "ms, update %d device activities; step-%d loss captured vs eager "
+        "%.3g relative (all %s)%s" % (
+            name, step_ms, host_ms, issue, 100 * profiled["idle_share"],
+            PROFILED_STEPS, capture_s, peak_gb, reserved_gb, eager_ms,
+            eager_host_ms, eager_issue, 100 * eager_profiled["idle_share"],
+            eager_peak_gb, phases["forward_ms"], phases["backward_ms"],
+            phases["update_ms"], update_kernels, EAGER_STEPS,
+            rel[EAGER_STEPS - 1], ["%.2g" % r for r in rel],
+            "; running statistics %.3g of their largest" % stats_rel
+            if running else ""))
+    return launches, row
+
+
 def train_full_width(bwd):
-    """The training path at full width; returns (launches by model,
-    summary). ``bwd`` is check_flash_bwd's result: the kernels' ms at the
-    training shapes, for their share of a step."""
+    """The training path at full width, through the captured TrainStep and
+    its eager body from the same weights (``train_captured_and_eager``),
+    then GPT with remat; returns (launches by model, summary). ``bwd`` is
+    check_flash_bwd's result: the kernels' ms at the training shapes, for
+    their share of a step."""
     import numpy as onp
     import torch
     import incubator_mxnet_tpu_torch as mxt
     from incubator_mxnet_tpu_torch import models
-    from incubator_mxnet_tpu_torch.ops import _kernels
 
     dev = torch.device("cuda", 0)
     rng = onp.random.RandomState(3)
@@ -1356,94 +1628,132 @@ def train_full_width(bwd):
         else:
             net, loss_fn = models.FeaturesView(model), \
                 models.ChunkedLMLoss(model)
-        trainer = mxt.gluon.Trainer(net.collect_params(), "adam",
-                                    {"learning_rate": 1e-4,
-                                     "multi_precision": True})
-        step = mxt.jit.TrainStep(net, loss_fn, trainer)
+
+        def make_trainer(net=net):
+            return mxt.gluon.Trainer(net.collect_params(), "adam", {
+                "learning_rate": 1e-4, "multi_precision": True})
         tokens = torch.from_numpy(rng.randint(0, cfg["vocab_size"], (B, S))
                                   .astype("int32")).to(dev)
         n_params = sum(p.data().size
                        for p in net.collect_params().values())
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         setup_s = time.perf_counter() - t0
-
-        losses = [step(tokens, tokens)]
-        phases = step_phases(step, tokens, tokens)  # the second warm-up step
-        losses.append(phases.pop("loss"))
-        for _ in range(warm - 2):
-            losses.append(step(tokens, tokens))
-        torch.cuda.synchronize()
-        _kernels.reset_launches()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        start.record()
-        for _ in range(timed):
-            losses.append(step(tokens, tokens))
-        end.record()
-        end.synchronize()
-        host_ms = (time.perf_counter() - h0) * 1e3 / timed
-        step_ms = start.elapsed_time(end) / timed
-        launches = dict(_kernels.LAUNCHES)
-        launches_by_model[name] = launches
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-        means = [float(l._data.float().mean()) for l in losses]
-        check(all(onp.isfinite(means)) and all(
-            bool(torch.isfinite(l._data.float()).all()) for l in losses),
-              "%s training: a loss is not finite: %s" % (name, means))
-        check(means[-1] < means[0], "%s training: loss did not fall: %s"
-              % (name, means))
         expected = cfg["num_layers"] * timed
-        for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-            check(launches.get(k, 0) == expected,
-                  "%s training: %s launched %d times over %d timed steps, "
-                  "expected %d layers x %d" % (name, k, launches.get(k, 0),
-                                               timed, cfg["num_layers"],
-                                               timed))
-        for j, p in enumerate(trainer._params):
-            w = p.data()._data
-            check(bool(torch.isfinite(w.float()).all()),
-                  "%s training: parameter %d is not finite" % (name, j))
-            check(w.dtype == torch.bfloat16 and torch.equal(
-                w, trainer._states[j][0].to(torch.bfloat16)),
-                "%s training: parameter %d is not its fp32 master cast to "
-                "bf16" % (name, j))
 
+        def extra_check(trainer, losses, launches, name=name,
+                        expected=expected):
+            means = [float(l._data.float().mean()) for l in losses]
+            check(all(onp.isfinite(means)) and all(
+                bool(torch.isfinite(l._data.float()).all()) for l in losses),
+                "%s training: a loss is not finite: %s" % (name, means))
+            check(means[-1] < means[0], "%s training: loss did not fall: %s"
+                  % (name, means))
+            for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+                check(launches.get(k, 0) == expected,
+                      "%s training: %s launched %d times over the timed "
+                      "steps, expected %d (layers x steps)"
+                      % (name, k, launches.get(k, 0), expected))
+            for j, p in enumerate(trainer._params):
+                w = p.data()._data
+                check(bool(torch.isfinite(w.float()).all()),
+                      "%s training: parameter %d is not finite" % (name, j))
+                check(w.dtype == torch.bfloat16 and torch.equal(
+                    w, trainer._states[j][0].to(torch.bfloat16)),
+                    "%s training: parameter %d is not its fp32 master cast "
+                    "to bf16" % (name, j))
+
+        launches, row = train_captured_and_eager(
+            name, net, loss_fn, make_trainer, (tokens, tokens), warm, timed,
+            extra_check)
+        launches_by_model[name] = launches
         shape_i = 0 if name == "bert" else 1
         kernel_ms = {k: bwd[key][shape_i]["ms"] for k, key in (
             ("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
             ("flash_bwd_dq", "dq"))}
         attn_ms = sum(kernel_ms[k] * launches[k] for k in kernel_ms) / timed
-        row = dict(
-            batch=[B, S], params=n_params, warmup_steps=warm,
-            timed_steps=timed, step_ms=step_ms, step_host_ms=host_ms,
-            tokens_per_s=B * S / (step_ms / 1e3), peak_memory_gb=peak_gb,
-            losses=means, setup_s=setup_s, launches=launches,
-            attention_kernels_ms_per_step=attn_ms,
-            attention_kernels_share=attn_ms / step_ms,
-            warm_step_phases_ms=phases)
+        row.update(batch=[B, S], params=n_params, setup_s=setup_s,
+                   tokens_per_s=B * S / (row["step_ms"] / 1e3),
+                   attention_kernels_ms_per_step=attn_ms,
+                   attention_kernels_share=attn_ms / row["step_ms"])
         if name == "bert":
             flops = 6.0 * n_params * B * S \
                 + cfg["num_layers"] * 12.0 * B * S * S * cfg["units"]
-            row["share_of_989_tflops"] = flops / (step_ms / 1e3) \
+            row["share_of_989_tflops"] = flops / (row["step_ms"] / 1e3) \
                 / PEAK_BF16_FLOPS
+        else:
+            row["remat"] = train_remat(net, loss_fn, make_trainer, tokens,
+                                       cfg["num_layers"])
         summary[name] = row
-        log("training %s: %d params, B %d x S %d; step %.1f ms (host %.1f); "
-            "%.0f tokens/s; peak memory %.2f GB; losses %.4f -> %.4f; warm "
-            "step fwd %.1f / bwd %.1f / update %.1f ms; K1+K2+K3 %.1f ms "
-            "per step (%.0f%%)%s"
-            % (name, n_params, B, S, step_ms, host_ms, row["tokens_per_s"],
-               peak_gb, means[0], means[-1], phases["forward_ms"],
-               phases["backward_ms"], phases["update_ms"], attn_ms,
+        log("training %s: %d params, B %d x S %d; step %.1f ms (host %.2f); "
+            "%.0f tokens/s; peak memory %.2f GB; losses %.4f -> %.4f; "
+            "K1+K2+K3 %.1f ms per step (%.0f%%)%s"
+            % (name, n_params, B, S, row["step_ms"], row["step_host_ms"],
+               row["tokens_per_s"], row["peak_memory_gb"], row["losses"][0],
+               row["losses"][-1], attn_ms,
                100 * row["attention_kernels_share"],
                "; %.1f%% of 989 TFLOP/s" % (100 * row["share_of_989_tflops"])
                if name == "bert" else ""))
-        del model, net, loss_fn, trainer, step, tokens, losses
+        del model, net, loss_fn, tokens
         gc.collect()
         torch.cuda.empty_cache()
     return launches_by_model, summary
+
+
+def train_remat(net, loss_fn, make_trainer, tokens, layers):
+    """GPT through TrainStep(remat=True) from its current weights: the
+    first REMAT_STEPS[0] steps (the first captures) held to TrainStep
+    without remat from the same weights (the last one's mean loss within
+    CAPTURE_REL_TOL relative: the recomputed forward's gradients), then
+    REMAT_STEPS[1] timed replays; step ms, host ms and peak memory. The
+    recomputed forward launches K1 twice a layer and step; K2 and K3
+    once."""
+    import torch
+    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    params = list(net.collect_params().values())
+    init = [p._tensor().detach().clone() for p in params]
+    plain = jit.TrainStep(net, loss_fn, make_trainer())
+    ref = [float(plain(tokens, tokens)._data.float().mean())
+           for _ in range(REMAT_STEPS[0])]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset(params, init)
+    del init
+    step = jit.TrainStep(net, loss_fn, make_trainer(), remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = [step(tokens, tokens) for _ in range(REMAT_STEPS[0])]
+    _kernels.reset_launches()
+    losses, ms, host_ms = _timed_steps(lambda: step(tokens, tokens),
+                                       REMAT_STEPS[1])
+    launches = dict(_kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    means = [float(l._data.float().mean()) for l in first + losses]
+    check(all(math.isfinite(v) for v in means), "gpt remat: a loss is not "
+          "finite: %s" % means)
+    n = REMAT_STEPS[0] - 1
+    rel = abs(means[n] - ref[n]) / abs(ref[n])
+    check(rel <= CAPTURE_REL_TOL, "gpt remat: step %d's loss %.6f against "
+          "%.6f without remat (%.3g relative)" % (n + 1, means[n], ref[n],
+                                                  rel))
+    steps = REMAT_STEPS[1]
+    for k, m in (("flash_fwd", 2), ("flash_bwd_dkv", 1), ("flash_bwd_dq", 1)):
+        check(launches.get(k, 0) == m * layers * steps, "gpt remat: %s "
+              "launched %d times in %d steps, expected %d x %d layers"
+              % (k, launches.get(k, 0), steps, m, layers))
+    log("gpt remat: step %.1f ms (host %.2f), peak memory %.2f GB, losses "
+        "%s; step %d's loss against no remat from the same weights %.3g "
+        "relative; launches %s" % (ms, host_ms, peak_gb,
+                                   ["%.4f" % v for v in means], n + 1, rel,
+                                   launches))
+    captures = step.captures
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, step_ms=ms, step_host_ms=host_ms,
+                peak_memory_gb=peak_gb, losses=means, launches=launches,
+                captures=captures, no_remat_losses=ref,
+                rel_loss_diff_to_no_remat=rel)
 
 
 def conv_bound_ms(shape):
@@ -1689,13 +1999,182 @@ def check_small_vision_against_cpu():
         torch.backends.cudnn.allow_tf32 = tf32
 
 
+def check_captured_small():
+    """TrainStep's CUDA graphs against its eager body on the card, small
+    float32 models (BERT and GPT through K1-K3, ResNet-18 on cuDNN with
+    deterministic algorithms: cuDNN's default backward algorithms differ
+    run to run), from the same weights, SMALL_CAPTURED_STEPS steps each:
+    losses and parameters (running statistics included) equal bit for
+    bit. Between steps both runs take the same ``set_data`` (written in
+    place, so the graph stays), the same ``set_learning_rate`` and, for
+    the captured run, replaced optimizer states (new tensors, so it
+    captures again). K1-K3 launch layers x steps times through the
+    replays. Then a small BERT with dropout 0.1 at learning rate 0: its
+    replays' losses all differ (fresh masks) and are finite."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.gluon.trainer import _clone
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    tokens = torch.from_numpy(onp.random.RandomState(2).randint(
+        0, 1000, (2, 256)).astype("int32")).cuda()
+    summary = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in ("bert", "gpt", "resnet18_v1"):
+            runs = {}
+            for mode in ("captured", "eager"):
+                if kind == "resnet18_v1":
+                    model, x, y = _vision_pair(kind)
+                    net, loss_fn = model, \
+                        mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+                    inputs, opt = (x.cuda(), y.cuda()), ("sgd", {
+                        "learning_rate": 0.01, "momentum": 0.9})
+                else:
+                    model, net, loss_fn = _small_pair(kind)
+                    inputs, opt = (tokens, tokens), ("adam", {
+                        "learning_rate": 1e-3})
+                model.to("cuda:0")
+                trainer = mxt.gluon.Trainer(net.collect_params(), *opt)
+                step = mxt.jit.TrainStep(net, loss_fn, trainer)
+                first = list(net.collect_params().values())[0]
+                _kernels.reset_launches()
+                losses = []
+                for i in range(SMALL_CAPTURED_STEPS):
+                    if i == 1:
+                        first.set_data(first.data()._data * 0.5)
+                    if i == 2:
+                        trainer.set_learning_rate(
+                            trainer.learning_rate * 2)
+                        if mode == "captured":
+                            trainer._states = [_clone(st) for st in
+                                               trainer._states]
+                    losses.append(step(*inputs)._data.clone()
+                                  if mode == "captured"
+                                  else _eager_step(step, *inputs)._data)
+                torch.cuda.synchronize()
+                runs[mode] = (losses, mxt.to_numpy_params(model),
+                              dict(_kernels.LAUNCHES), step.captures)
+            (la, pa, launches, captures), (lb, pb, _, _) = \
+                runs["captured"], runs["eager"]
+            check(all(torch.equal(a, b) for a, b in zip(la, lb)),
+                  "small %s: captured losses %s differ from eager %s"
+                  % (kind, [a.float().mean().item() for a in la],
+                     [b.float().mean().item() for b in lb]))
+            bad = [k for k in pa if not onp.array_equal(pa[k], pb[k])]
+            check(not bad, "small %s: parameters differ captured vs eager: "
+                  "%s" % (kind, bad[:5]))
+            check(captures == 2, "small %s: %d captures, expected 2 (the "
+                  "replaced states)" % (kind, captures))
+            if kind != "resnet18_v1":
+                check(all(launches.get(k, 0) == 2 * SMALL_CAPTURED_STEPS
+                          for k in ("flash_fwd", "flash_bwd_dkv",
+                                    "flash_bwd_dq")),
+                      "small %s captured: launches %s, expected 2 layers x "
+                      "%d steps" % (kind, launches, SMALL_CAPTURED_STEPS))
+            summary[kind] = dict(bitwise_equal=True, captures=captures,
+                                 launches=launches, losses=[
+                                     a.float().mean().item() for a in la])
+            log("small %s fp32, captured vs eager body: %d steps with "
+                "set_data, set_learning_rate and replaced states between, "
+                "losses and parameters%s equal bit for bit; %d captures; "
+                "launches %s" % (kind, SMALL_CAPTURED_STEPS,
+                                 " and running statistics"
+                                 if kind == "resnet18_v1" else "", captures,
+                                 launches))
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    net = models.BERTModel(vocab_size=1000, units=128, num_layers=2,
+                           num_heads=2, max_length=256, attention="flash",
+                           hidden_size=512, dropout=0.1)
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                   .Generator(device="cuda:0").manual_seed(1))
+    step = mxt.jit.TrainStep(net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             mxt.gluon.Trainer(net.collect_params(), "sgd",
+                                               {"learning_rate": 0.0}))
+    losses = [step(tokens, tokens)._data.clone()
+              for _ in range(SMALL_CAPTURED_STEPS)]
+    means = [l.float().mean().item() for l in losses]
+    check(all(math.isfinite(v) for v in means), "dropout bert: a loss is "
+          "not finite: %s" % means)
+    check(len({tuple(l.tolist()) for l in losses}) == len(losses),
+          "dropout bert at lr 0: replays repeat a loss (one mask): %s"
+          % means)
+    log("small bert, dropout 0.1, lr 0, captured: losses %s, all distinct "
+        "(fresh masks each replay)" % ["%.5f" % v for v in means])
+    summary["dropout_bert"] = dict(losses=means, distinct=True,
+                                   captures=step.captures)
+    summary["failed_capture"] = check_failed_capture(tokens)
+    return summary
+
+
+def check_failed_capture(tokens):
+    """A step whose loss reads a value back to the host (which a CUDA
+    graph cannot hold) raises at its capture, naming the loss's line, and
+    runs nothing eagerly in its place; the capture leaves neither its side
+    stream current nor the allocator routing to its pool (empty_cache
+    gives a freed block back); the card then captures and replays a sound
+    step of the same model."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    model, net, base = _small_pair("bert")
+    model.to("cuda:0")
+
+    def host_read_loss(out, label):
+        loss = base(out, label)
+        if float(loss.sum()) < 0:           # a host read inside the step
+            loss = -loss
+        return loss
+
+    def trainer():
+        return mxt.gluon.Trainer(net.collect_params(), "sgd",
+                                 {"learning_rate": 0.01})
+    step = mxt.jit.TrainStep(net, host_read_loss, trainer())
+    try:
+        step(tokens, tokens)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and "capturing the step into a CUDA graph "
+          "failed" in raised and "host_read_loss" in raised,
+          "a step reading the card's values on the host did not fail its "
+          "capture by name: %r" % raised)
+    check(step.captures == 0, "the failed capture was kept")
+    del step
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(torch.cuda.current_stream() == torch.cuda.default_stream(),
+          "a failed capture left its side stream current")
+    probe = torch.empty(1 << 30, dtype=torch.uint8, device="cuda:0")
+    held = torch.cuda.memory_reserved()
+    del probe
+    torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_reserved()
+    check(freed >= 1 << 30, "after a failed capture the allocator frees "
+          "nothing (%d bytes of a 1 GiB block given back)" % freed)
+    good = mxt.jit.TrainStep(net, base, trainer())
+    losses = [good(tokens, tokens)._data.float().mean().item()
+              for _ in range(2)]
+    check(good.captures == 1 and all(math.isfinite(v) for v in losses),
+          "no sound capture after a failed one: %s" % losses)
+    log("failed capture: %s; the allocator then gave back a freed 1 GiB "
+        "block, and a sound step captured and replayed, losses %s"
+        % (raised.splitlines()[0][:300], losses))
+    return dict(message=raised.splitlines()[0][:300], after=losses)
+
+
 def train_resnet_full_width():
-    """ResNet-50 v1 training at full width and depth; returns (launches
-    over the timed steps, summary)."""
+    """ResNet-50 v1 training at full width and depth, through the captured
+    TrainStep and its eager body from the same weights
+    (``train_captured_and_eager``); returns (launches over the timed
+    steps, summary)."""
     import torch
     import incubator_mxnet_tpu_torch as mxt
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-    from incubator_mxnet_tpu_torch.ops import _kernels
 
     dev = torch.device("cuda", 0)
     warm, timed = RESNET_STEPS
@@ -1708,76 +2187,58 @@ def train_resnet_full_width():
         .to(torch.bfloat16)
     y = torch.randint(0, 1000, (RESNET_B,), generator=gen, device=dev) \
         .float()
-    trainer = mxt.gluon.Trainer(net.collect_params(), "sgd", {
-        "learning_rate": 0.1, "momentum": 0.9, "multi_precision": True})
-    step = mxt.jit.TrainStep(net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
-                             trainer)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    with mxt.autograd.pause(train_mode=False):
+        net(x[:2])                 # finishes the deferred shapes
     setup_s = time.perf_counter() - t0
 
-    losses = [step(x, y)]          # finishes the deferred shapes first
-    phases = step_phases(step, x, y)
-    losses.append(phases.pop("loss"))
-    for _ in range(warm - 2):
-        losses.append(step(x, y))
-    torch.cuda.synchronize()
-    _kernels.reset_launches()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    h0 = time.perf_counter()
-    start.record()
-    for _ in range(timed):
-        losses.append(step(x, y))
-    end.record()
-    end.synchronize()
-    host_ms = (time.perf_counter() - h0) * 1e3 / timed
-    step_ms = start.elapsed_time(end) / timed
-    launches = dict(_kernels.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    def make_trainer():
+        return mxt.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9, "multi_precision": True})
 
-    means = [float(l._data.float().mean()) for l in losses]
-    check(all(bool(torch.isfinite(l._data.float()).all()) for l in losses),
-          "resnet50 training: a loss is not finite: %s" % means)
-    check(means[-1] < means[0], "resnet50 training: loss did not fall: %s"
-          % means)
-    check(not any(launches.values()), "resnet50 training launched "
-          "hand-written kernels %s; model-zoo convs stay on cuDNN" % launches)
-    n_params = 0
-    for j, p in enumerate(trainer._params):
-        w = p.data()._data
-        n_params += w.numel() if p.grad_req != "null" else 0
-        check(bool(torch.isfinite(w.float()).all()),
-              "resnet50 training: parameter %d is not finite" % j)
-        if w.dtype == torch.bfloat16:
-            check(torch.equal(w, trainer._states[j][0].to(torch.bfloat16)),
-                  "resnet50 training: parameter %d is not its fp32 master "
-                  "cast to bf16" % j)
-        else:
-            check(w.dtype == torch.float32 and p.name in (
-                "gamma", "beta", "running_mean", "running_var"),
-                "resnet50 training: parameter %d (%s) is %s"
-                % (j, p.name, w.dtype))
-    img_s = RESNET_B / (step_ms / 1e3)
-    summary = dict(
-        batch=[RESNET_B, 3, 224, 224], params=n_params, warmup_steps=warm,
-        timed_steps=timed, step_ms=step_ms, step_host_ms=host_ms,
-        images_per_s=img_s,
-        share_of_989_tflops=img_s * RESNET_FLOPS_PER_IMAGE / PEAK_BF16_FLOPS,
-        peak_memory_gb=peak_gb, losses=means, setup_s=setup_s,
-        launches=launches, warm_step_phases_ms=phases)
+    def extra_check(trainer, losses, launches):
+        means = [float(l._data.float().mean()) for l in losses]
+        check(all(bool(torch.isfinite(l._data.float()).all())
+                  for l in losses),
+              "resnet50 training: a loss is not finite: %s" % means)
+        check(means[-1] < means[0], "resnet50 training: loss did not fall: "
+              "%s" % means)
+        check(not any(launches.values()), "resnet50 training launched "
+              "hand-written kernels %s; model-zoo convs stay on cuDNN"
+              % launches)
+        for j, p in enumerate(trainer._params):
+            w = p.data()._data
+            check(bool(torch.isfinite(w.float()).all()),
+                  "resnet50 training: parameter %d is not finite" % j)
+            if w.dtype == torch.bfloat16:
+                check(torch.equal(w, trainer._states[j][0].to(
+                    torch.bfloat16)), "resnet50 training: parameter %d is "
+                    "not its fp32 master cast to bf16" % j)
+            else:
+                check(w.dtype == torch.float32 and p.name in (
+                    "gamma", "beta", "running_mean", "running_var"),
+                    "resnet50 training: parameter %d (%s) is %s"
+                    % (j, p.name, w.dtype))
+
+    launches, row = train_captured_and_eager(
+        "resnet50", net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
+        make_trainer, (x, y), warm, timed, extra_check)
+    n_params = sum(p.data().size for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    img_s = RESNET_B / (row["step_ms"] / 1e3)
+    row.update(batch=[RESNET_B, 3, 224, 224], params=n_params,
+               images_per_s=img_s, setup_s=setup_s,
+               share_of_989_tflops=img_s * RESNET_FLOPS_PER_IMAGE
+               / PEAK_BF16_FLOPS)
     log("training resnet50_v1: %d params, B %d x 3 x 224 x 224 bf16; step "
-        "%.1f ms (host %.1f); %.0f img/s; %.2f%% of 989 TFLOP/s at 24.6 "
-        "GFLOP/img; peak memory %.2f GB; losses %.4f -> %.4f; warm step fwd "
-        "%.1f / bwd %.1f / update %.1f ms" % (
-            n_params, RESNET_B, step_ms, host_ms, img_s,
-            100 * summary["share_of_989_tflops"], peak_gb, means[0],
-            means[-1], phases["forward_ms"], phases["backward_ms"],
-            phases["update_ms"]))
-    del net, trainer, step, x, y, losses
+        "%.1f ms (host %.2f); %.0f img/s; %.2f%% of 989 TFLOP/s at 24.6 "
+        "GFLOP/img; peak memory %.2f GB; losses %.4f -> %.4f" % (
+            n_params, RESNET_B, row["step_ms"], row["step_host_ms"], img_s,
+            100 * row["share_of_989_tflops"], row["peak_memory_gb"],
+            row["losses"][0], row["losses"][-1]))
+    del net, x, y
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, summary
+    return launches, row
 
 
 RTC_SOURCE = r"""
@@ -2081,7 +2542,7 @@ def main(argv):
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
                                      "end to end on one NVIDIA GPU.")
     parser.add_argument("--rtc-only", action="store_true",
-                        help="time K5's launch path (phase 11) alone")
+                        help="time K5's launch path (phase 12) alone")
     parser.add_argument("--imperative-only", action="store_true",
                         help="time the imperative BERT loop against "
                         "TrainStep (phase 6c) alone")
@@ -2140,6 +2601,7 @@ def main(argv):
         check_small_models_against_cpu()
         check_small_training_against_cpu()
         check_small_vision_against_cpu()
+        captured = check_captured_small()
         serve_launches, serving = serve_full_width()
         gc.collect()
         torch.cuda.empty_cache()
@@ -2270,6 +2732,7 @@ def main(argv):
             shapes=rows))
     log(json.dumps({"ndarray": ndarray_summary}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"captured": captured}))
     log(json.dumps({"training": training}))
     log(json.dumps({"vision": vision}))
     log(json.dumps({"kernels": kernels}))

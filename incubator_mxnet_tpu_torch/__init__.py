@@ -16,7 +16,9 @@ generator per device, and ``nd.save``/``nd.load`` and
 It serves BERT and GPT through ``serving.ModelRegistry`` with the
 flash-attention forward kernel, and trains them through ``jit.TrainStep``
 (``gluon.Trainer``, SGD/Adam/AdamW with fp32 masters) with the forward and
-the two backward kernels. It trains LeNet and the model zoo's ResNets (conv
+the two backward kernels; on the card ``TrainStep`` replays its whole step
+as one captured CUDA graph per input signature. ``contrib.amp`` carries
+MXNet's mixed-precision helpers. It trains LeNet and the model zoo's ResNets (conv
 and pooling on cuDNN, batch norm in fp32); ``ops.conv_bwd.conv3x3_s1``
 carries the fused conv-backward kernel, and ``rtc`` compiles user CUDA
 kernels with NVRTC at run time.
@@ -26,7 +28,8 @@ from .base import MXNetError  # noqa: F401
 from . import autograd, config, context, initializer, ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import random  # noqa: F401
-from . import gluon, jit, models, ops, optimizer, rtc, serving  # noqa: F401
+from . import contrib, gluon, jit, models, ops  # noqa: F401
+from . import optimizer, rtc, serving  # noqa: F401
 from . import test_utils  # noqa: F401
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
                       gpu, num_gpus, num_tpus, tpu)

@@ -25,6 +25,13 @@ record and differentiate, and keeps MXNet's contract on top:
   gradients). ``grad(...)`` returns the gradients and leaves ``.grad``
   alone. ``Function`` is a custom differentiable function written in
   NDArray operations, run through ``torch.autograd.Function``.
+- ``remat_contexts`` is the ``context_fn`` of ``jit.TrainStep``'s
+  rematerialisation (``torch.utils.checkpoint``): the recomputation in
+  the backward runs with the forward's flags, takes back the values the
+  forward kept for it (``_remat_keep``: dropout masks, batch norm's
+  running mean as it was) and leaves batch norm's running statistics alone
+  (``_recomputing``), as ``jax.checkpoint`` does. It reads no generator
+  state, so a CUDA graph can capture it.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ class _State(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        self.remat = None       # ("record" | "replay", _RematTape)
 
 
 _STATE = _State()
@@ -107,6 +115,74 @@ def train_mode():
 
 def predict_mode():
     return _Scope(None, False)
+
+
+# ================================================================== remat
+
+class _RematTape:
+    """What a rematerialised forward leaves for its recomputation: the
+    recording and training flags and the values it kept, in order."""
+
+    def __init__(self):
+        self.flags = None
+        self.kept = []
+        self.pos = 0
+
+
+class _RematScope:
+    """The forward's ("record") or the recomputation's ("replay") side of a
+    ``_RematTape``. The recomputation runs on autograd's thread, whose
+    flags are its own: "replay" sets the forward's."""
+
+    def __init__(self, kind, tape):
+        self._kind, self._tape = kind, tape
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = (_STATE.recording, _STATE.training, _STATE.remat)
+        if self._kind == "record":
+            self._tape.flags = (_STATE.recording, _STATE.training)
+        else:
+            _STATE.recording, _STATE.training = self._tape.flags
+            self._tape.pos = 0
+        _STATE.remat = (self._kind, self._tape)
+        return self
+
+    def __exit__(self, *exc):
+        _STATE.recording, _STATE.training, _STATE.remat = self._prev
+
+
+def remat_contexts():
+    """(forward context, recomputation context) sharing one tape: the
+    ``context_fn`` of a non-reentrant ``torch.utils.checkpoint``."""
+    tape = _RematTape()
+    return _RematScope("record", tape), _RematScope("replay", tape)
+
+
+def _in_remat():
+    """True inside a rematerialised forward or its recomputation."""
+    return _STATE.remat is not None
+
+
+def _remat_keep(make):
+    """``make()`` (a random mask, a snapshot of a state the forward then
+    updates), kept for the recomputation inside a rematerialised forward
+    and taken back, in order, inside it."""
+    if _STATE.remat is None:
+        return make()
+    kind, tape = _STATE.remat
+    if kind == "record":
+        value = make()
+        tape.kept.append(value)
+        return value
+    value = tape.kept[tape.pos]
+    tape.pos += 1
+    return value
+
+
+def _recomputing():
+    """True inside the recomputation of a rematerialised forward."""
+    return _STATE.remat is not None and _STATE.remat[0] == "replay"
 
 
 # ================================================================ variables

@@ -2,10 +2,11 @@
 ``incubator_mxnet_tpu/config.py``): every knob the port reads is declared,
 typed and documented here, and ``get_env(name)`` is the one accessor.
 
-Only the knobs the port reads are declared: the serving knobs and the gate
-of the conv-backward kernel. The flash-attention block/force/interpret
-knobs of the JAX package are TPU tiling and Pallas interpret switches and
-have no counterpart here.
+Only the knobs the port reads are declared: the serving knobs, the gate
+of the conv-backward kernel and the training step's (``jit.TrainStep``:
+remat, donation, the bound on its captured graphs). The flash-attention
+block/force/interpret knobs of the JAX package are TPU tiling and Pallas
+interpret switches and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -44,6 +45,26 @@ ENV_VARS = {
         "is Pallas): ops.conv_bwd.conv3x3_s1 routes its backward through "
         "it when the shape is legal. 0 takes the library conv's gradient "
         "instead. Model-zoo convs never take it."),
+    "MXTPU_AOT_CACHE_SIZE": (
+        int, 64,
+        "Bound on each jit.TrainStep's captured CUDA graphs, one per input "
+        "shape signature (the JAX package's process-wide AOT cache of "
+        "compiled programs): past it the least recently replayed graph "
+        "and its memory pool are released, and its signature captures "
+        "again on its next call."),
+    "MXTPU_NO_DONATE": (
+        bool, False,
+        "Debugging: jit.TrainStep's update writes new tensors and rebinds "
+        "the parameters and optimizer states to them instead of updating "
+        "them in place, so a tensor taken before the step keeps its "
+        "values. Moving addresses cannot be replayed, so the step runs "
+        "eagerly (uncaptured) on the card."),
+    "MXTPU_REMAT": (
+        bool, False,
+        "Default remat (rematerialisation) for jit.TrainStep when the "
+        "caller does not pass remat= explicitly: the forward and loss run "
+        "under torch.utils.checkpoint and are recomputed in the backward "
+        "(MXNET_BACKWARD_DO_MIRROR analog)."),
 }
 
 

@@ -5,8 +5,11 @@ keyed by the parameter's position in the list it was given (names are
 structural only at the block level: every Dense's weight is "weight").
 ``step(batch_size)`` applies ``rescale_grad / batch_size`` and updates each
 parameter from the gradient ``autograd.backward`` wrote (``Parameter.grad()``,
-which the step leaves as it is), in place; ``jit.TrainStep`` runs the same
-update loop on the gradients of its own backward.
+which the step leaves as it is), in place, through the optimizer's one
+multi-tensor update (``Optimizer.update_all``) with its learning rates,
+weight decays, steps and rescale as device tensors; ``jit.TrainStep`` runs
+the same update on the gradients of its own backward (``_scalars`` then
+``_apply``, which its CUDA graph captures).
 
 Local only: ``kvstore`` "device", "local" or None. A "dist*" kvstore waits
 for the multi-GPU slice of the port; ``save_states`` and ``load_states``
@@ -89,24 +92,73 @@ class Trainer:
         zeros."""
         self._update(batch_size)
 
-    def _update(self, batch_size, t=None, grads=None):
-        """The update loop of ``step`` and ``jit.TrainStep``: every
-        parameter from its gradient scaled by ``rescale_grad / batch_size``,
-        in place. ``grads`` (one per parameter, None for zeros) replaces
-        the parameters' own gradients; ``t`` is Adam's bias-correction step
-        for every parameter (``TrainStep`` passes its own step count); None
-        takes each parameter's update count."""
+    def _live(self):
+        """Indices of the parameters the update touches (grad_req not
+        "null")."""
+        return [i for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+
+    def _scalars(self, batch_size, t=None):
+        """Advance the update counts and return the step's host fp32
+        vector ``[lrs, wds, ts, rescale]`` over the live parameters
+        (``Optimizer.step_scalars``), with ``rescale_grad / batch_size``.
+        ``t`` is Adam's bias-correction step for every parameter
+        (``TrainStep`` passes its own step count); None takes each
+        parameter's update count."""
         if not self._states_initialized:
             self._init_states()
         self._optimizer.rescale_grad = self._scale / batch_size
-        for i, param in enumerate(self._params):
-            if param.grad_req == "null":
-                continue
-            data = param._tensor()
-            g = autograd._grad_array(data)._data if grads is None \
-                else grads[i]
-            self._states[i] = self._optimizer.update_multi_precision(
-                i, data, g, self._states[i], t)
+        return self._optimizer.step_scalars(self._live(), t)
+
+    def _apply(self, grads, scalars):
+        """``Optimizer.update_all`` of the live parameters from ``grads``
+        (one per parameter, None for zeros) with ``scalars``, a
+        ``_scalars`` vector on the parameters' device."""
+        live = self._live()
+        self._optimizer.update_all(
+            [self._params[i]._tensor() for i in live],
+            [grads[i] for i in live], [self._states[i] for i in live],
+            *self._optimizer.split_scalars(scalars))
+
+    def _update(self, batch_size, t=None, grads=None, donate=True):
+        """The update of ``step`` and ``jit.TrainStep``: every parameter
+        from its gradient scaled by ``rescale_grad / batch_size``, in
+        place. ``grads`` (one per parameter, None for zeros) replaces the
+        parameters' own gradients; ``t`` as in ``_scalars``. With
+        ``donate`` False the update writes new tensors and rebinds the
+        parameters and states to them, so a tensor taken before the step
+        keeps its values (``MXTPU_NO_DONATE``)."""
+        scalars = self._scalars(batch_size, t)
+        live = self._live()
+        if not live:
+            return
+        if grads is None:
+            grads = [None] * len(self._params)
+            for i in live:
+                grads[i] = autograd._grad_array(
+                    self._params[i]._tensor())._data
+        if not donate:
+            for i in live:
+                data = self._params[i]._tensor()
+                data.data = data.detach().clone()
+                self._states[i] = _clone(self._states[i])
+        self._apply(grads, _upload(scalars,
+                                   self._params[live[0]]._tensor().device))
 
     def allreduce_grads(self):
         """Nothing to reduce with one local copy of each parameter."""
+
+
+def _upload(host, device):
+    """The host tensor on ``device``; to a card through pinned memory, so
+    the host does not wait for the card's queue."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _clone(state):
+    """A copy of an optimizer state (None, a tensor or nested tuples)."""
+    if isinstance(state, (tuple, list)):
+        return tuple(_clone(s) for s in state)
+    return None if state is None else state.detach().clone()

@@ -605,7 +605,7 @@ def _as_tensor(x, like):
     if isinstance(x, torch.Tensor):
         return x if x.device == like.device or x.dim() == 0 \
             else x.to(like.device)
-    return torch.tensor(x, device=like.device)
+    return torch.full((), x, device=like.device)   # no copy: capture-safe
 
 
 def _binary(fn):
@@ -1679,7 +1679,8 @@ def Dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     for a in axes or ():
         shape[a] = 1
     keep = 1.0 - p
-    mask = torch.rand(shape, generator=generator, device=data.device) < keep
+    mask = autograd._remat_keep(lambda: torch.rand(
+        shape, generator=generator, device=data.device) < keep)
     return data * mask.to(data.dtype) / keep
 
 
@@ -1844,12 +1845,17 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
         raise NotImplementedError("BatchNorm output_mean_var is not ported")
     axis = axis % data.dim()
     if autograd.is_training() and not use_global_stats:
-        mean_, var = _batch_stats(data, moving_mean, axis)
+        shift = moving_mean
+        if autograd._in_remat():     # the recomputation shifts as the forward
+            shift = autograd._remat_keep(lambda: moving_mean.detach().clone())
+        mean_, var = _batch_stats(data, shift, axis)
         out = _BatchNormTrain.apply(data, gamma, beta, mean_, var, eps, axis,
                                     fix_gamma)
-        with torch.no_grad():
-            moving_mean.copy_(momentum * moving_mean + (1 - momentum) * mean_)
-            moving_var.copy_(momentum * moving_var + (1 - momentum) * var)
+        if not autograd._recomputing():     # a remat replay updates once
+            with torch.no_grad():
+                moving_mean.copy_(momentum * moving_mean
+                                  + (1 - momentum) * mean_)
+                moving_var.copy_(momentum * moving_var + (1 - momentum) * var)
         return out
     bshape = _bshape(data, axis)
     g = torch.ones_like(gamma) if fix_gamma else gamma

@@ -12,7 +12,10 @@ module, and this machine may have no ``nvcc``.
 entry point returns the launch's ``cudaError_t``, which ``launched`` turns
 into an exception or a count. ``LAUNCHES`` counts each kernel's launches: a
 wrapper calls ``count(name)`` (through ``launched``) right after its kernel
-was launched, and nowhere else.
+was launched, and nowhere else. A CUDA graph's capture runs the wrappers
+but launches nothing: ``take_launches`` takes what the capture counted back
+out, and each replay adds it again (``add_launches``), so ``LAUNCHES``
+counts the kernels that ran.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import subprocess
 import threading
 
 __all__ = ["build", "load", "bind", "launched", "stream", "count",
-           "reset_launches", "LAUNCHES", "BUILD_LOG", "NVCC_FLAGS"]
+           "reset_launches", "take_launches", "add_launches", "LAUNCHES",
+           "BUILD_LOG", "NVCC_FLAGS"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -52,6 +56,24 @@ def reset_launches():
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def take_launches(before):
+    """Take the launches counted since ``before`` (a copy of ``LAUNCHES``)
+    back out of ``LAUNCHES`` and return them, by kernel."""
+    with _count_lock:
+        taken = {name: n - before.get(name, 0)
+                 for name, n in LAUNCHES.items() if n != before.get(name, 0)}
+        for name, n in taken.items():
+            LAUNCHES[name] -= n
+    return taken
+
+
+def add_launches(counts):
+    """Count ``counts`` (kernel name -> launches), as a graph replay does."""
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def _nvcc():

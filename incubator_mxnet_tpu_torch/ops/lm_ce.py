@@ -6,7 +6,9 @@ per-token cross-entropy of a (V, U) vocabulary head without holding the
 full (T, V) logits: token chunks are projected one at a time, each to an
 fp32 log-sum-exp minus the label's logit. The backward recomputes each
 chunk's logits from its (chunk, U) input (``torch.utils.checkpoint``), so
-no (n, chunk, V) stack of softmax residuals stays alive either. One chunk
+no (n, chunk, V) stack of softmax residuals stays alive either. A chunk
+draws no random numbers, so the checkpoint keeps no generator state
+(reading it would break a CUDA graph's capture). One chunk
 is the dense path, with nothing recomputed.
 """
 from __future__ import annotations
@@ -61,6 +63,7 @@ def chunked_lm_cross_entropy(hidden, head_w, labels, chunk=None,
         losses = _chunk_ce(h, head_w, y, head_b)
     else:
         losses = torch.cat([
-            checkpoint(_chunk_ce, hc, head_w, yc, head_b, use_reentrant=False)
+            checkpoint(_chunk_ce, hc, head_w, yc, head_b, use_reentrant=False,
+                       preserve_rng_state=False)
             for hc, yc in zip(h.split(chunk), y.split(chunk))])
     return losses[:T].reshape(shape)

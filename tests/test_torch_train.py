@@ -342,7 +342,6 @@ def test_train_step_options_wait_for_their_slices():
     net = _port_net("gpt", _random_arrays("gpt"))
     trainer = mxt.gluon.Trainer(net.collect_params(), "sgd")
     loss = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
-    for kw in (dict(mesh=object()), dict(zero=True), dict(remat=True),
-               dict(grad_postprocess=lambda g: g)):
+    for kw in (dict(mesh=object()), dict(zero=True)):
         with pytest.raises(NotImplementedError, match="slice"):
             mxt.jit.TrainStep(net, loss, trainer, **kw)
