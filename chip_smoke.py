@@ -158,7 +158,45 @@ Phases, each of which must pass, in order:
    stay on cuDNN, as the JAX package leaves them to XLA); then the eager
    body from the same weights as in phase 7, the running statistics after
    5 steps within 1e-3 of their largest value as well.
-12. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
+12. The Gluon training loop (``gluon_loop``). (a) Every registered
+   optimizer (RMSProp in both forms) on a small fp32 MLP, 3 steps from
+   the same weights: the captured TrainStep and the eager loop (record,
+   backward, Trainer.step) on the card each within 1e-6 of the largest
+   weight of the same loop on the CPU (SGLD with its noise off); SGLD
+   captured with a zero gradient draws fresh N(0, lr) noise each replay.
+   (b) A hybridized small fp32 BERT, GPT and ResNet-18 (cuDNN
+   deterministic) in the Gluon loop against the same loop without
+   hybridize: losses and parameters equal bit for bit over 6 steps (a
+   signature runs eagerly at its first call and is captured at its
+   second) with a set_data (a new capture) and a second batch size (a
+   second signature) between; 3 captures each; K1-K3 counted layers x
+   steps through the replays. (c) Full-width BERT B 64 x S 512 bf16 as LAMB
+   pre-training runs it: ArrayDataset -> DataLoader(2 threads,
+   pin_memory) -> hybridized model under record() ->
+   SoftmaxCrossEntropyLoss -> backward -> clip_global_norm(1.0) ->
+   Trainer("lamb", wd 0.01, fp32 masters, PolyScheduler with warm-up) ->
+   Speedometer, 8 steps: losses finite and falling, K1-K3 layers x steps,
+   one capture; Perplexity and Accuracy on the card within 1e-6 relative
+   of a host computation of the same batch; save_parameters and
+   save_states after step 4, load_parameters (a new capture) and a fresh
+   Trainer's load_states, and the last 4 steps' losses equal the
+   uninterrupted run's bit for bit; the loop with the clip off against
+   TrainStep with the same optimizer and scheduler, 3 steps, losses bit
+   for bit or within 1e-3; the LAMB and Adam updates of this model,
+   device ms and device activities. (d) Full-width GPT S 8192 through the
+   same loop (FeaturesView, ChunkedLMLoss, Adam), hybridized and not from
+   the same weights: 2 + 4 steps, step ms, host ms, issue ms, idle share
+   under torch.profiler, peak memory; the fifth loss within 1e-3
+   relative; K1-K3 layers x steps over the hybridized timed steps.
+   (e) ResNet-50 v1 B 256 bf16 fed by an ArrayDataset of seeded uint8
+   224 x 224 x 3 images through transform_first(Compose([
+   RandomFlipLeftRight(), ToTensor(), Normalize])) and a DataLoader with
+   4 thread workers and pin_memory into TrainStep with "nag" under a
+   CosineScheduler with warm-up: the loader's img/s alone, the loop's
+   img/s and the same step fed from the card; every loss finite;
+   Accuracy and TopKAccuracy(5) on the card equal to the host's. Prints
+   a {"gluon_loop": ...} line.
+13. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
@@ -175,14 +213,15 @@ Phases, each of which must pass, in order:
 
 Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
-{"vision": ...} and a {"kernels": [...]} line and, as
+{"vision": ...}, a {"gluon_loop": ...} and a {"kernels": [...]} line
+and, as
 the last line, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when CUDA is absent, the port is not beside this script, or any
 phase fails.
 
     python3 chip_smoke.py --rtc-only [--root DIR]
 
-runs phase 12 alone, on the port found in DIR (by default beside this
+runs phase 13 alone, on the port found in DIR (by default beside this
 script), and prints the card's name and power limit and {"rtc": {...}}:
 the way to time another tree's K5 launch path with the same code, for
 example an unpacked parent commit's.
@@ -190,7 +229,8 @@ example an unpacked parent commit's.
     python3 chip_smoke.py --imperative-only [--root DIR]
 
 likewise runs phase 6c alone, AB_STEPS steps each of the imperative BERT
-loop and of TrainStep, and prints {"imperative": {...}}.
+loop and of TrainStep, and prints {"imperative": {...}}; ``--gluon-only``
+runs phase 12 alone and prints {"gluon_loop": {...}}.
 """
 import gc
 import itertools
@@ -2241,6 +2281,761 @@ def train_resnet_full_width():
     return launches, row
 
 
+# --------------------------------------------------------- the Gluon loop
+SWEEP_CASES = {
+    "sgd": dict(learning_rate=0.05, momentum=0.9),
+    "nag": dict(learning_rate=0.05, momentum=0.9),
+    "signum": dict(learning_rate=0.01, wd_lh=0.01),
+    "sgld": dict(learning_rate=0.01),
+    "dcasgd": dict(learning_rate=0.05, momentum=0.5),
+    "adam": dict(learning_rate=0.01),
+    "adamw": dict(learning_rate=0.01),
+    "adamax": dict(learning_rate=0.01),
+    "nadam": dict(learning_rate=0.01),
+    "rmsprop": dict(learning_rate=0.01, clip_weights=1.5),
+    "rmsprop_centered": dict(learning_rate=0.01, centered=True),
+    "adagrad": dict(learning_rate=0.05),
+    "adadelta": dict(rho=0.9),
+    "ftrl": dict(learning_rate=0.1),
+    "ftml": dict(learning_rate=0.01),
+    "lamb": dict(learning_rate=0.01),
+    "lars": dict(learning_rate=0.1, momentum=0.9),
+    "test": dict(),
+}
+SWEEP_STEPS = 3
+SWEEP_TOL = 1e-6           # of the largest value of each weight
+HYBRID_SMALL_STEPS = 6
+GLUON_BERT_STEPS, GLUON_BERT_SAVE_AT = 8, 4
+GLUON_BERT_AB = 3          # imperative LAMB loop against TrainStep
+GLUON_GPT_STEPS = (2, 4)   # (warm-up, timed), hybridized and eager
+GLUON_RESNET_BATCHES = 12
+LOADER_WORKERS = 4
+METRIC_REL_TOL = 1e-6
+
+
+class _LoopParam:
+    """What a callback reads: the epoch, the batch count, the metric."""
+
+    def __init__(self, epoch, nbatch, eval_metric):
+        self.epoch, self.nbatch, self.eval_metric = epoch, nbatch, eval_metric
+
+
+def _max_rel(a, b):
+    """max |a - b| over the largest |b|."""
+    import numpy as onp
+    return float(onp.abs(a - b).max()) / max(float(onp.abs(b).max()),
+                                              1e-30)
+
+
+def check_optimizer_sweep():
+    """Every registered optimizer (RMSProp in both forms) updates three
+    parameters of different shapes (lr_mult and wd_mult on two) from the
+    same weights, SWEEP_STEPS steps of the same gradients, three ways: the
+    captured TrainStep on the card, the eager Gluon loop (record,
+    backward, Trainer.step) on the card, and the same loop on the CPU;
+    every weight within SWEEP_TOL of its largest value of the CPU's. The
+    net's output is sum(w_i * c_i), so the gradients are the inputs c_i
+    exactly on both devices, and only the update's arithmetic is held
+    (the gradients of a real net differ in their last bits between the
+    devices, which Adam-like updates, g / sqrt(v), carry into the step).
+    SGLD's noise is off for this (the card's and the CPU's generators
+    differ); then SGLD alone on a Dense net, captured, with a zero
+    gradient: each replay's step is fresh noise of variance lr (mean and
+    variance within 5 standard errors, no two steps equal)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import autograd, nd
+    from incubator_mxnet_tpu_torch import optimizer as topt
+
+    shapes = [(64, 32), (32,), (4, 8, 16)]
+    mults = [(1.0, 1.0), (0.5, 2.0), (1.0, 0.0)]
+    rng = onp.random.RandomState(12)
+    w0 = [rng.randn(*sh).astype("float32") for sh in shapes]
+    grads = [[rng.randn(*sh).astype("float32") * 2 for sh in shapes]
+             for _ in range(SWEEP_STEPS)]
+
+    class Exact(mxt.gluon.HybridBlock):
+        def __init__(self, ctx):
+            super().__init__()
+            for i, (sh, (lm, wm)) in enumerate(zip(shapes, mults)):
+                p = mxt.gluon.Parameter("w%d" % i, shape=sh, lr_mult=lm,
+                                        wd_mult=wm)
+                p.initialize(ctx=ctx)
+                p.set_data(w0[i])
+                setattr(self, "w%d" % i, p)
+
+        def forward(self, *cs):
+            return sum((getattr(self, "w%d" % i)._tensor() * c).sum()
+                       for i, c in enumerate(cs)).reshape(1)
+
+    rows = {}
+    noise = topt.SGLD._noise
+    topt.SGLD._noise = lambda self, ws: [torch.zeros_like(w) for w in ws]
+    try:
+        for case, kw in SWEEP_CASES.items():
+            name = "rmsprop" if case.startswith("rmsprop") else case
+            kw = dict(kw, wd=0.01, clip_gradient=2.5)
+            got = {}
+            for mode in ("captured", "eager", "cpu"):
+                ctx = mxt.cpu() if mode == "cpu" else mxt.gpu(0)
+                net = Exact(ctx)
+                trainer = mxt.gluon.Trainer(net.collect_params(), name,
+                                            dict(kw))
+                if mode == "captured":
+                    step = mxt.jit.TrainStep(net, lambda out: out, trainer)
+                    for gs in grads:
+                        step(*[torch.from_numpy(g).cuda() for g in gs],
+                             batch_size=4, n_net_inputs=len(gs))
+                    check(step.captures == 1, "sweep %s: %d captures"
+                          % (case, step.captures))
+                else:
+                    for gs in grads:
+                        with autograd.record():
+                            out = net(*[nd.array(g, ctx=ctx) for g in gs])
+                        out.backward()
+                        trainer.step(4)
+                got[mode] = [p.data().asnumpy() for p in
+                             net.collect_params().values()]
+            ref = got["cpu"]
+            check(all(not onp.array_equal(r, w) for r, w in zip(ref, w0)),
+                  "sweep %s: the weights did not move" % case)
+            errs = {m: max(_max_rel(a, b) for a, b in zip(got[m], ref))
+                    for m in ("captured", "eager")}
+            check(max(errs.values()) <= SWEEP_TOL, "sweep %s: card against "
+                  "CPU %s of the largest weight (tolerance %g)"
+                  % (case, errs, SWEEP_TOL))
+            rows[case] = errs
+    finally:
+        topt.SGLD._noise = noise
+
+    def net_on(ctx, units, in_units):
+        net = mxt.gluon.nn.HybridSequential()
+        net.add(mxt.gluon.nn.Dense(units, activation="relu",
+                                   in_units=in_units),
+                mxt.gluon.nn.Dense(8, in_units=units))
+        net.initialize(mxt.init.Xavier(), ctx=ctx,
+                       generator=torch.Generator().manual_seed(3))
+        return net
+
+    lr = 0.25
+    net = net_on(mxt.gpu(0), units=256, in_units=256)
+    trainer = mxt.gluon.Trainer(net.collect_params(), "sgld",
+                                {"learning_rate": lr})
+    step = mxt.jit.TrainStep(net, lambda out, label: out.sum(dim=1) * 0,
+                             trainer)
+    xd = torch.randn(4, 256, device="cuda:0")
+
+    def flat():
+        return torch.cat([p.data()._data.detach().flatten()
+                          for p in net.collect_params().values()])
+    before = flat()
+    deltas = []
+    for _ in range(4):
+        step(xd, xd[:, 0])
+        now = flat()
+        deltas.append((now - before) / math.sqrt(lr))
+        before = now
+    n = deltas[0].numel()
+    moments = [(float(d.mean()), float(d.var())) for d in deltas]
+    check(step.captures == 1 and all(
+        abs(m) < 5 / math.sqrt(n) and abs(v - 1) < 5 * math.sqrt(2.0 / n)
+        for m, v in moments), "sgld captured: step noise moments %s over "
+        "%d values, expected N(0, 1)" % (moments, n))
+    check(len({tuple(d[:8].tolist()) for d in deltas}) == len(deltas),
+          "sgld captured: a replay repeated its noise")
+    log("optimizer sweep: %d optimizers, %d steps each on a small fp32 MLP, "
+        "captured TrainStep and eager Trainer.step on the card against "
+        "the CPU: worst %.3g of the largest weight; SGLD captured noise "
+        "moments %s" % (len(rows), SWEEP_STEPS, max(
+            max(r.values()) for r in rows.values()), moments))
+    return dict(rel_to_cpu=rows, sgld_noise_moments=moments)
+
+
+def _loop_round(net, loss_fn, x, y):
+    """One record / loss / backward round; returns the loss tensor."""
+    from incubator_mxnet_tpu_torch import autograd
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    autograd.backward(loss)          # seeded with ones, as loss.backward()
+    return loss._data.detach() if hasattr(loss, "_data") else \
+        loss.detach()
+
+
+def check_hybridized_small():
+    """A hybridized small fp32 BERT, GPT (K1-K3) and ResNet-18 (cuDNN
+    deterministic) in the Gluon loop (record, loss, backward,
+    Trainer.step) against the same loop without hybridize from the same
+    weights, HYBRID_SMALL_STEPS steps: losses and parameters (running
+    statistics included) equal bit for bit. A signature runs eagerly at
+    its first call and is captured at its second; before step 3 both runs
+    take a set_data (the hybridized block captures again), steps 4 and 5
+    take half the batch (a second signature: eager, then captured), step
+    6 the whole batch again (a replay): 3 captures. K1-K3 launch layers x
+    steps times in the hybridized run, through the replays."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    tokens = torch.from_numpy(onp.random.RandomState(2).randint(
+        0, 1000, (2, 256)).astype("int32")).cuda()
+    summary = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in ("bert", "gpt", "resnet18_v1"):
+            runs = {}
+            for mode in ("hybridized", "eager"):
+                if kind == "resnet18_v1":
+                    model, x, y = _vision_pair(kind)
+                    net, loss_fn = model, \
+                        mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+                    x, y = x.cuda(), y.cuda()
+                    opt = ("sgd", {"learning_rate": 0.01, "momentum": 0.9})
+                else:
+                    model, net, loss_fn = _small_pair(kind)
+                    x = y = tokens
+                    opt = ("adam", {"learning_rate": 1e-3})
+                model.to("cuda:0")
+                if mode == "hybridized":
+                    net.hybridize()
+                trainer = mxt.gluon.Trainer(net.collect_params(), *opt)
+                first = list(net.collect_params().values())[0]
+                _kernels.reset_launches()
+                losses = []
+                for i in range(HYBRID_SMALL_STEPS):
+                    if i == 2:
+                        first.set_data(first.data()._data * 0.5)
+                    xs, ys = (x[:x.shape[0] // 2], y[:y.shape[0] // 2]) \
+                        if i in (3, 4) else (x, y)
+                    losses.append(_loop_round(net, loss_fn, xs, ys).clone())
+                    trainer.step(xs.shape[0])
+                torch.cuda.synchronize()
+                runs[mode] = (losses, mxt.to_numpy_params(model),
+                              dict(_kernels.LAUNCHES), net._captures)
+            (la, pa, launches, captures), (lb, pb, _, _) = \
+                runs["hybridized"], runs["eager"]
+            check(all(torch.equal(a, b) for a, b in zip(la, lb)),
+                  "hybridized small %s: losses %s differ from eager %s"
+                  % (kind, [a.float().mean().item() for a in la],
+                     [b.float().mean().item() for b in lb]))
+            bad = [k for k in pa if not onp.array_equal(pa[k], pb[k])]
+            check(not bad, "hybridized small %s: parameters differ from "
+                  "eager: %s" % (kind, bad[:5]))
+            check(captures == 3, "hybridized small %s: %d captures, "
+                  "expected 3 (first signature, set_data, second batch "
+                  "size)" % (kind, captures))
+            if kind != "resnet18_v1":
+                check(all(launches.get(k, 0) == 2 * HYBRID_SMALL_STEPS
+                          for k in ("flash_fwd", "flash_bwd_dkv",
+                                    "flash_bwd_dq")),
+                      "hybridized small %s: launches %s, expected 2 layers "
+                      "x %d steps" % (kind, launches, HYBRID_SMALL_STEPS))
+            summary[kind] = dict(bitwise_equal=True, captures=captures,
+                                 launches=launches, losses=[
+                                     a.float().mean().item() for a in la])
+            log("hybridized small %s fp32 against eager, %d Gluon-loop "
+                "steps with set_data and a second batch size between: "
+                "losses and parameters equal bit for bit; %d captures; "
+                "launches %s" % (kind, HYBRID_SMALL_STEPS, captures,
+                                 launches))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return summary
+
+
+def _device_metrics_against_host(out, labels):
+    """Perplexity (of softmax(out)) and Accuracy (argmax over the last
+    axis) computed on the card, and the same from host copies with the
+    JAX package's numpy arithmetic; both within METRIC_REL_TOL."""
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch import metric, nd
+    probs = nd.softmax(out, axis=-1)
+    ppl, acc = metric.Perplexity(), metric.Accuracy(axis=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppl.update([labels], [probs])
+    acc.update([labels], [out])
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    card = (ppl.get()[1], acc.get()[1])
+    check(isinstance(ppl.sum_metric, torch.Tensor)
+          and ppl.sum_metric.device.type == "cuda",
+          "Perplexity kept its sum on the host")
+    lab = labels.asnumpy().astype("int32").flatten()
+    p = probs.asnumpy()
+    picked = p.reshape(-1, p.shape[-1])[onp.arange(lab.size), lab]
+    del p
+    host_ppl = math.exp(-float(onp.log(onp.maximum(
+        picked.astype("float64"), 1e-10)).sum()) / lab.size)
+    logits = out.asnumpy()
+    host_acc = float((logits.argmax(axis=-1).astype("int32").flatten()
+                      == lab).sum()) / lab.size
+    del logits
+    rel = (abs(card[0] - host_ppl) / host_ppl,
+           abs(card[1] - host_acc) / max(host_acc, 1e-30))
+    check(max(rel) <= METRIC_REL_TOL, "metrics on the card %s against the "
+          "host %s: %s relative" % (card, (host_ppl, host_acc), rel))
+    return dict(perplexity=card[0], accuracy=card[1],
+                host_perplexity=host_ppl, host_accuracy=host_acc,
+                rel_diff=rel, update_ms=update_ms)
+
+
+def _bert_loop(model, loss_fn, trainer, batches, clip, speed=None,
+               start=0):
+    """The Gluon loop over ``batches``: record, loss, backward,
+    (clip_global_norm), Trainer.step, the Speedometer. Returns [(loss
+    tensor, device ms, host ms)] of each step."""
+    from incubator_mxnet_tpu_torch import autograd, gluon
+    params = [p for p in model.collect_params().values()
+              if p.grad_req != "null"]
+    out = []
+    for i, (x, y) in enumerate(batches):
+        def one(x=x, y=y):
+            with autograd.record():
+                loss = loss_fn(model(x), y)
+            loss.backward()
+            if clip:
+                gluon.utils.clip_global_norm([p.grad() for p in params], 1.0)
+            trainer.step(x.shape[0])
+            return loss._data.detach()
+        out.append(_timed_step(one))
+        if speed is not None:
+            speed(_LoopParam(0, start + i, None))
+    return out
+
+
+def train_bert_lamb(tmp):
+    """Full-width BERT (B 64 x S 512, bf16) pre-training as the LAMB paper
+    runs it, through the Gluon loop: a seeded ArrayDataset of token ids
+    drawn from the first 1024 ids (labels the same ids; every batch
+    differs) -> DataLoader(num_workers=2, pin_memory=True) ->
+    the hybridized BERTModel under record() -> SoftmaxCrossEntropyLoss ->
+    backward -> clip_global_norm(1.0) -> Trainer("lamb", wd 0.01, fp32
+    masters, PolyScheduler with warm-up) -> the Speedometer; Perplexity
+    and Accuracy on the card held to a host computation of one batch.
+    save_parameters and save_states after step GLUON_BERT_SAVE_AT; the
+    same model loads them back (load_parameters captures again), a fresh
+    Trainer and scheduler load_states, and the remaining steps' losses
+    must equal the uninterrupted run's bit for bit. Then, clip off,
+    GLUON_BERT_AB steps of the loop against TrainStep with the same
+    optimizer from the same weights and batch: losses bit for bit or
+    within 1e-3 (PR 7's gate). Last, the LAMB and Adam updates of this
+    model (device ms, device activities). Returns (K1-K3 launches of the
+    loop's first GLUON_BERT_SAVE_AT steps, summary)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import callback, gluon, lr_scheduler
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.gluon import data as gdata
+    from incubator_mxnet_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda", 0)
+    B, S, n = BERT_TRAIN_B, BERT_S, GLUON_BERT_STEPS
+    t0 = time.perf_counter()
+    model = models.BERTModel(**BERT)
+    model.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0),
+                     generator=torch.Generator(device=dev).manual_seed(17))
+    model.cast("bfloat16")
+    init_file = os.path.join(tmp, "bert_lamb_init.params")
+    model.save_parameters(init_file)
+    # ids from the first 1024 of the vocabulary: a signal a few steps can
+    # learn (which ids occur) on batches that all differ
+    tokens = onp.random.RandomState(18).randint(
+        0, 1024, (B * n, S)).astype("int32")
+    dataset = gdata.ArrayDataset(tokens, tokens)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    setup_s = time.perf_counter() - t0
+
+    def trainer():
+        return gluon.Trainer(model.collect_params(), "lamb", {
+            "learning_rate": 5e-3, "wd": 0.01, "multi_precision": True,
+            "lr_scheduler": lr_scheduler.PolyScheduler(
+                max_update=20, base_lr=5e-3, pwr=1, warmup_steps=2,
+                warmup_begin_lr=1e-3)})
+
+    def loader(start=0):
+        return gdata.DataLoader(dataset, batch_size=B, num_workers=2,
+                                pin_memory=True, sampler=gdata.
+                                SequentialSampler(B * (n - start),
+                                                  B * start))
+
+    # -- the uninterrupted run, saving after step GLUON_BERT_SAVE_AT
+    k = GLUON_BERT_SAVE_AT
+    model.hybridize()
+    tr = trainer()
+    speed = callback.Speedometer(B, frequent=2)
+    _kernels.reset_launches()
+    first = _bert_loop(model, loss_fn, tr, itertools.islice(loader(), k),
+                       True, speed)
+    launches = dict(_kernels.LAUNCHES)
+    mid_params = os.path.join(tmp, "bert_lamb_mid.params")
+    mid_states = os.path.join(tmp, "bert_lamb_mid.states")
+    t1 = time.perf_counter()
+    model.save_parameters(mid_params)
+    tr.save_states(mid_states)
+    save_s = time.perf_counter() - t1
+    rest = _bert_loop(model, loss_fn, tr, loader(k), True, speed, start=k)
+    run = first + rest
+    means = [float(l.float().mean()) for l, _, _ in run]
+    check(all(math.isfinite(v) for v in means) and means[-1] < means[0],
+          "bert lamb loop: losses not finite or not falling: %s" % means)
+    for kname in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launches.get(kname, 0) == BERT["num_layers"] * k,
+              "bert lamb loop: %s launched %d times in %d steps, expected "
+              "%d layers x %d" % (kname, launches.get(kname, 0), k,
+                                  BERT["num_layers"], k))
+    for j, p in enumerate(tr._params):
+        w = p.data()._data
+        check(bool(torch.isfinite(w.float()).all()) and torch.equal(
+            w, tr._states[j][0].to(torch.bfloat16)), "bert lamb loop: "
+            "parameter %d is not finite or not its master cast" % j)
+    captures = model._captures
+    check(captures == 1, "bert lamb loop: %d captures of one signature"
+          % captures)
+    x_last, y_last = next(iter(gdata.DataLoader(
+        dataset, batch_size=B, sampler=gdata.SequentialSampler(B))))
+    with mxt.autograd.predict_mode():
+        out = model(x_last)
+    metrics = _device_metrics_against_host(out, y_last)
+    del out, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- resumed from step k
+    t1 = time.perf_counter()
+    model.load_parameters(mid_params)
+    tr = trainer()
+    tr.load_states(mid_states)
+    load_s = time.perf_counter() - t1
+    before = model._captures
+    resumed = _bert_loop(model, loss_fn, tr, loader(k), True)
+    bitwise_resume = len(resumed) == n - k and all(
+        torch.equal(a[0], b[0]) for a, b in zip(rest, resumed))
+    check(bitwise_resume, "bert lamb: the resumed run's losses %s differ "
+          "from the uninterrupted run's %s" % (
+              [float(l.float().mean()) for l, _, _ in resumed], means[k:]))
+    check(model._captures == before + 1, "bert lamb: load_parameters did "
+          "not capture again (%d -> %d)" % (before, model._captures))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the imperative loop (clip off) against TrainStep
+    batch = torch.from_numpy(tokens[:B]).to(dev)
+    model.load_parameters(init_file)
+    tr = trainer()
+    step = mxt.jit.TrainStep(model, loss_fn, tr)
+    ref = [_timed_step(lambda: step(batch, batch)._data)
+           for _ in range(GLUON_BERT_AB)]
+    del step, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.load_parameters(init_file)
+    tr = trainer()
+    same = [(mxt.nd.NDArray(batch), mxt.nd.NDArray(batch))] * GLUON_BERT_AB
+    got = _bert_loop(model, loss_fn, tr, same, False)
+    bitwise, worst = True, 0.0
+    for (a, _, _), (b, _, _) in zip(ref, got):
+        bitwise &= bool(torch.equal(a, b))
+        worst = max(worst, float(((a.float() - b.float()).abs()
+                                  / a.float().abs()).max()))
+    check(bitwise or worst <= 1e-3, "bert lamb: the loop's losses differ "
+          "from TrainStep's by %.3g relative" % worst)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the LAMB update against Adam's on this model (eager body)
+    model.hybridize(False)
+    update = {}
+    for name in ("lamb", "adam"):
+        model.load_parameters(init_file)
+        tr = gluon.Trainer(model.collect_params(), name, {
+            "learning_rate": 1e-4, "multi_precision": True})
+        step = mxt.jit.TrainStep(model, loss_fn, tr)
+        _eager_step(step, batch, batch)
+        phases = step_phases(step, batch, batch)
+        args = step._prepare((batch, batch), 1)
+        grads = step._backward(step._forward(args, 1))
+        update[name] = dict(update_ms=phases["update_ms"],
+                            device_activities=kernels_in(
+                                lambda: step._update(B, grads)))
+        del step, tr, args, grads, phases
+        gc.collect()
+        torch.cuda.empty_cache()
+    ms = [r[1] for r in run[1:]]
+    summary = dict(
+        batch=[B, S], steps=n, saved_after=k, setup_s=setup_s,
+        losses=means, step_ms=sum(ms) / len(ms),
+        step_host_ms=sum(r[2] for r in run[1:]) / len(ms),
+        step_ms_each=[r[1] for r in run],
+        speedometer_samples_per_s=speed.last_speed, captures=captures,
+        launches=launches, save_states_and_params_s=save_s, load_s=load_s,
+        state_file_gb=os.path.getsize(mid_states) / 1e9,
+        resumed_losses_bitwise_equal=bitwise_resume,
+        imperative_vs_train_step=dict(
+            steps=GLUON_BERT_AB, bitwise_equal=bitwise, max_rel_diff=worst,
+            loop_ms=[g[1] for g in got], train_step_ms=[r[1] for r in ref]),
+        metrics=metrics, update=update)
+    log("gluon loop bert B %d x S %d (DataLoader 2 threads, pinned; "
+        "hybridized; LAMB + PolyScheduler; clip_global_norm): step %.1f ms "
+        "(host %.1f), Speedometer %.0f samples/s, losses %s; resumed from "
+        "step %d bit for bit (states %.2f GB, save %.1f s, load %.1f s); "
+        "loop vs TrainStep %s (max rel %.3g); perplexity %.2f accuracy "
+        "%.5f on the card = host within %s; update LAMB %.1f ms / %d "
+        "activities, Adam %.1f ms / %d" % (
+            B, S, summary["step_ms"], summary["step_host_ms"],
+            speed.last_speed or 0.0, ["%.4f" % v for v in means], k,
+            summary["state_file_gb"], save_s, load_s,
+            "bit for bit" if bitwise else "within 1e-3", worst,
+            metrics["perplexity"], metrics["accuracy"], metrics["rel_diff"],
+            update["lamb"]["update_ms"],
+            update["lamb"]["device_activities"],
+            update["adam"]["update_ms"],
+            update["adam"]["device_activities"]))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def train_gpt_hybridized():
+    """Full-width GPT (B 1 x S 8192, bf16, Adam with fp32 masters) through
+    the Gluon loop — record, FeaturesView(model), ChunkedLMLoss, backward,
+    Trainer.step — hybridized (forward and backward graphs) and not, from
+    the same weights: GLUON_GPT_STEPS warm-up and timed steps each, then
+    PROFILED_STEPS under the profiler (idle share) and 3 issued on an idle
+    card. Step EAGER_STEPS's loss of the two runs within CAPTURE_REL_TOL
+    relative; K1-K3 launched layers x steps times over the hybridized
+    timed steps. Returns (those launches, summary)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda", 0)
+    model = models.GPTModel(**GPT)
+    model.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0),
+                     generator=torch.Generator(device=dev).manual_seed(21))
+    model.cast("bfloat16")
+    net, loss_fn = models.FeaturesView(model), models.ChunkedLMLoss(model)
+    params = list(net.collect_params().values())
+    init = [p._tensor().detach().clone() for p in params]
+    tokens = mxt.nd.array(onp.random.RandomState(22).randint(
+        0, GPT["vocab_size"], (GPT_TRAIN_B, GPT_S)).astype("int32"),
+        ctx=mxt.gpu(0))
+    warm, timed = GLUON_GPT_STEPS
+    rows = {}
+    for mode in ("hybridized", "eager"):
+        _reset(params, init)
+        net.hybridize(mode == "hybridized")
+        trainer = mxt.gluon.Trainer(net.collect_params(), "adam", {
+            "learning_rate": 1e-4, "multi_precision": True})
+
+        def one():
+            loss = _loop_round(net, loss_fn, tokens, tokens)
+            trainer.step(GPT_TRAIN_B)
+            return loss
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [one() for _ in range(warm)]
+        _kernels.reset_launches()
+        got, ms, host_ms = _timed_steps(one, timed)
+        launches = dict(_kernels.LAUNCHES)
+        losses += got
+        profiled = device_idle_share(one)
+        # the profiler's window also holds its own cost, which the
+        # replays' steps show more of: the device's busy time over the
+        # timed steps' own time is the second reading
+        rows[mode] = dict(
+            step_ms=ms, step_host_ms=host_ms, issue_ms=issue_ms(one),
+            idle_share=profiled["idle_share"], profiled=profiled,
+            idle_share_of_timed_step=1.0 - profiled["busy_ms"]
+            / PROFILED_STEPS / ms,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            losses=[float(l.float().mean()) for l in losses],
+            launches=launches, captures=net._captures)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    hyb, eag = rows["hybridized"], rows["eager"]
+    i = EAGER_STEPS - 1
+    rel = abs(hyb["losses"][i] - eag["losses"][i]) / abs(eag["losses"][i])
+    check(all(math.isfinite(v) for v in hyb["losses"] + eag["losses"])
+          and hyb["losses"][-1] < hyb["losses"][0],
+          "gpt gluon loop: losses not finite or not falling: %s"
+          % hyb["losses"])
+    check(rel <= CAPTURE_REL_TOL, "gpt gluon loop: step %d's loss "
+          "hybridized %.6f against eager %.6f (%.3g relative)"
+          % (i + 1, hyb["losses"][i], eag["losses"][i], rel))
+    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(hyb["launches"].get(k, 0) == GPT["num_layers"] * timed,
+              "gpt gluon loop hybridized: %s launched %d times in %d steps, "
+              "expected %d layers x %d" % (k, hyb["launches"].get(k, 0),
+                                           timed, GPT["num_layers"], timed))
+    check(hyb["captures"] == 1, "gpt gluon loop: %d captures of one "
+          "signature" % hyb["captures"])
+    log("gluon loop gpt S %d: hybridized step %.1f ms (host %.2f, issue "
+        "%.2f), idle %.1f%% profiled / %.1f%% of the timed step, peak %.2f "
+        "GB; eager %.1f ms (host %.2f, issue %.2f), idle %.1f%% / %.1f%%, "
+        "peak %.2f GB; step-%d loss %.3g relative apart"
+        % (GPT_S, hyb["step_ms"], hyb["step_host_ms"], hyb["issue_ms"],
+           100 * hyb["idle_share"], 100 * hyb["idle_share_of_timed_step"],
+           hyb["peak_memory_gb"], eag["step_ms"], eag["step_host_ms"],
+           eag["issue_ms"], 100 * eag["idle_share"],
+           100 * eag["idle_share_of_timed_step"], eag["peak_memory_gb"],
+           i + 1, rel))
+    net.hybridize(False)
+    del model, net, loss_fn, init, tokens, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hyb["launches"], dict(hybridized=hyb, eager=eag,
+                                 rel_loss_diff=rel,
+                                 batch=[GPT_TRAIN_B, GPT_S])
+
+
+def train_resnet_loader():
+    """ResNet-50 v1 (B 256 bf16) fed by the Gluon data pipeline: a seeded
+    ArrayDataset of uint8 224 x 224 x 3 images and labels ->
+    transform_first(Compose([RandomFlipLeftRight(), ToTensor(),
+    Normalize(mean, std)])) -> DataLoader(shuffle, LOADER_WORKERS thread
+    workers, pin_memory) -> TrainStep with "nag" (momentum 0.9, fp32
+    masters) under a CosineScheduler with warm-up. The loader's img/s
+    alone (one epoch, nothing else running), the same TrainStep fed one
+    batch already on the card (after its capture), and the loop's img/s
+    (an epoch, the loader started inside the timed window, host clock to
+    a final synchronise); then Accuracy and
+    TopKAccuracy(5) of an EvalStep forward on the card, held to a host
+    computation. Every loss finite."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import lr_scheduler, metric
+    from incubator_mxnet_tpu_torch.gluon import data as gdata
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+
+    dev = torch.device("cuda", 0)
+    B, nb = RESNET_B, GLUON_RESNET_BATCHES
+    rng = onp.random.RandomState(31)
+    t0 = time.perf_counter()
+    images = rng.randint(0, 256, (B * nb, 224, 224, 3), dtype=onp.uint8)
+    labels = rng.randint(0, 1000, B * nb).astype("float32")
+    tf = gdata.transforms
+    dataset = gdata.ArrayDataset(images, labels).transform_first(
+        tf.Compose([tf.RandomFlipLeftRight(), tf.ToTensor(),
+                    tf.Normalize((0.485, 0.456, 0.406),
+                                 (0.229, 0.224, 0.225))]))
+    data_s = time.perf_counter() - t0
+
+    def loader():
+        return gdata.DataLoader(dataset, batch_size=B, shuffle=True,
+                                num_workers=LOADER_WORKERS, pin_memory=True,
+                                last_batch="discard")
+    onp.random.seed(32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count = 0
+    for x, y in loader():
+        count += x.shape[0]
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+    check(count == B * nb and x.context == mxt.gpu(0)
+          and x.shape == (B, 3, 224, 224) and x.dtype == "float32",
+          "resnet loader: %d images, last batch %s on %s"
+          % (count, x.shape, x.context))
+    loader_img_s = count / loader_s
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=gen)
+    net.cast("bfloat16")
+    with mxt.autograd.pause(train_mode=False):
+        net(torch.zeros(2, 3, 224, 224, dtype=torch.bfloat16, device=dev))
+    trainer = mxt.gluon.Trainer(net.collect_params(), "nag", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+        "multi_precision": True, "lr_scheduler":
+        lr_scheduler.CosineScheduler(max_update=100, base_lr=0.1,
+                                     warmup_steps=2, warmup_begin_lr=0.01)})
+    step = mxt.jit.TrainStep(net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             trainer)
+    xd, yd = x.astype("bfloat16"), y
+    first = [step(xd, yd)]            # the eager step and the capture
+    _, fed_ms, _ = _timed_steps(lambda: step(xd, yd), 3)
+    onp.random.seed(34)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in loader():
+        losses.append(step(x.astype("bfloat16"), y))
+    torch.cuda.synchronize()
+    loop_img_s = B * len(losses) / (time.perf_counter() - t0)
+    means = [float(l._data.float().mean()) for l in first + losses]
+    check(all(math.isfinite(v) for v in means), "resnet loop: a loss is not "
+          "finite: %s" % means)
+    check(step.captures == 1, "resnet loop: %d captures" % step.captures)
+    out = mxt.jit.EvalStep(net)(xd)
+    acc, top5 = metric.Accuracy(), metric.TopKAccuracy(5)
+    acc.update([yd], [out])
+    top5.update([yd], [out])
+    logits = out.asnumpy()
+    lab = yd.asnumpy().astype("int32")
+    host_acc = float((logits.argmax(axis=1) == lab).mean())
+    # top-5 with ties at the fifth value counted either way: the card's
+    # topk and a host partition may break a tie differently
+    mine = logits[onp.arange(lab.size), lab][:, None]
+    host_top5 = (float(((logits > mine).sum(axis=1) < 5).mean()),
+                 float(((logits >= mine).sum(axis=1) <= 5).mean()))
+    card_top5 = top5.get()[1]
+    check(abs(acc.get()[1] - host_acc) <= METRIC_REL_TOL
+          and min(host_top5) - METRIC_REL_TOL <= card_top5
+          <= max(host_top5) + METRIC_REL_TOL,
+          "resnet metrics on the card %s against the host %s"
+          % ((acc.get()[1], card_top5), (host_acc, host_top5)))
+    summary = dict(
+        batch=[B, 3, 224, 224], batches=nb, workers=LOADER_WORKERS,
+        data_setup_s=data_s, loader_images_per_s=loader_img_s,
+        loop_images_per_s=loop_img_s, fed_step_ms=fed_ms,
+        fed_images_per_s=B / (fed_ms / 1e3), losses=means,
+        accuracy=acc.get()[1], top5=top5.get()[1],
+        host_accuracy=host_acc, host_top5=host_top5)
+    log("gluon loop resnet50 B %d: loader alone %.0f img/s (%d thread "
+        "workers, pinned); loop with TrainStep nag + CosineScheduler %.0f "
+        "img/s; the same TrainStep fed from the card %.1f ms (%.0f img/s); "
+        "losses %s; accuracy %.4f top-5 %.4f (= host)" % (
+            B, loader_img_s, LOADER_WORKERS, loop_img_s, fed_ms,
+            summary["fed_images_per_s"], ["%.4f" % v for v in means],
+            acc.get()[1], top5.get()[1]))
+    del step, trainer, net, x, y, xd, yd, out, dataset, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def gluon_loop(card):
+    """The Gluon training loop on the card: the optimizer sweep, hybridized
+    small models against eager, full-width BERT with LAMB, GPT hybridized
+    and ResNet-50 fed by the DataLoader. Returns (K1-K3 launches by path,
+    summary)."""
+    import shutil
+    import torch
+    tmp = _build_tmp()
+    try:
+        summary = dict(card=card, optimizers=check_optimizer_sweep(),
+                       hybridized_small=check_hybridized_small())
+        bert_launches, summary["bert"] = train_bert_lamb(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_launches, summary["gpt"] = train_gpt_hybridized()
+    summary["resnet50"] = train_resnet_loader()
+    return {"gluon_bert": bert_launches, "gluon_gpt": gpt_launches}, summary
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -2542,10 +3337,13 @@ def main(argv):
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
                                      "end to end on one NVIDIA GPU.")
     parser.add_argument("--rtc-only", action="store_true",
-                        help="time K5's launch path (phase 12) alone")
+                        help="time K5's launch path (phase 13) alone")
     parser.add_argument("--imperative-only", action="store_true",
                         help="time the imperative BERT loop against "
                         "TrainStep (phase 6c) alone")
+    parser.add_argument("--gluon-only", action="store_true",
+                        help="run the Gluon training loop (phase 12) "
+                        "alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -2593,6 +3391,17 @@ def main(argv):
         log(json.dumps({"imperative": dict(bert,
                                            root=os.path.abspath(opts.root))}))
         return 0
+    if opts.gluon_only:
+        try:
+            build_kernels()
+            _, gluon = gluon_loop(card)
+        except SmokeFailure as e:
+            print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
+            return 1
+        log(card)
+        log(json.dumps({"gluon_loop": dict(gluon, root=os.path.abspath(
+            opts.root))}))
+        return 0
     try:
         ptxas = build_kernels()
         served = check_flash_fwd()
@@ -2610,6 +3419,7 @@ def main(argv):
         torch.cuda.empty_cache()
         train_launches, training = train_full_width(bwd)
         train_launches["resnet50"], vision = train_resnet_full_width()
+        gluon_launches, gluon = gluon_loop(card)
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -2620,6 +3430,7 @@ def main(argv):
     fwd_shapes = served + bwd["fwd"][:1]
     paths = {"serving": serve_launches, "conv3x3_s1": conv_launches,
              "rtc": rtc_launches, "ndarray_bert": ndarray_launches,
+             **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
                for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
@@ -2735,6 +3546,7 @@ def main(argv):
     log(json.dumps({"captured": captured}))
     log(json.dumps({"training": training}))
     log(json.dumps({"vision": vision}))
+    log(json.dumps({"gluon_loop": gluon}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -22,6 +22,14 @@ MXNet's mixed-precision helpers. It trains LeNet and the model zoo's ResNets (co
 and pooling on cuDNN, batch norm in fp32); ``ops.conv_bwd.conv3x3_s1``
 carries the fused conv-backward kernel, and ``rtc`` compiles user CUDA
 kernels with NVRTC at run time.
+
+Around the model it carries MXNet's Gluon training loop: ``gluon.data``
+(datasets, samplers, a ``DataLoader`` that batches on the host and moves
+each batch to the card once), ``lr_scheduler``, the 17 optimizers of the
+JAX package's registry, ``Trainer.save_states``/``load_states``,
+``metric`` (reduced on the card), ``callback``, ``gluon.utils`` and
+``HybridBlock.hybridize`` (one forward and backward CUDA graph per call
+signature on the card).
 """
 from . import base, error, name, attribute, registry  # noqa: F401
 from .base import MXNetError  # noqa: F401
@@ -29,6 +37,7 @@ from . import autograd, config, context, initializer, ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import random  # noqa: F401
 from . import contrib, gluon, jit, models, ops  # noqa: F401
+from . import callback, lr_scheduler, metric  # noqa: F401
 from . import optimizer, rtc, serving  # noqa: F401
 from . import test_utils  # noqa: F401
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401

@@ -216,6 +216,8 @@ def _take_grad(tensor):
     ``_write_grad`` does."""
     from .ndarray import NDArray
     g, tensor.grad = tensor.grad, None
+    if g is None:           # reached with no gradient: left as it was
+        return
     buf = getattr(tensor, "_mx_grad", None)
     if buf is None:
         tensor._mx_grad = NDArray(g)

@@ -1,0 +1,110 @@
+"""Training callbacks (counterpart of ``incubator_mxnet_tpu/callback.py``).
+
+A callback takes the loop's ``param`` (``epoch``, ``nbatch``,
+``eval_metric``) and logs: ``Speedometer`` (samples a second, by
+``time.perf_counter``), ``ProgressBar``, ``log_train_metric`` and
+``LogValidationMetricsCallback``. Reading a metric is its one host read.
+``module_checkpoint`` and ``do_checkpoint`` save through the Module API
+and ``model.py``, which the port has not yet (the symbolic and legacy API,
+a later slice): they raise.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    raise NotImplementedError("module_checkpoint saves through the Module "
+                              "API, which comes with the port of the "
+                              "symbolic and legacy API (module/, model.py)")
+
+
+def do_checkpoint(prefix, period=1):
+    raise NotImplementedError("do_checkpoint saves through model.py, which "
+                              "comes with the port of the symbolic and "
+                              "legacy API (module/, model.py)")
+
+
+def log_train_metric(period, auto_reset=False):
+    """Log the training metric every ``period`` batches."""
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            for name, value in param.eval_metric.get_name_value():
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset_local()
+    return _callback
+
+
+class Speedometer:
+    """Log samples a second (and the metric) every ``frequent`` batches."""
+
+    def __init__(self, batch_size, frequent=50, auto_reset=True):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self.init = False
+        self.tic = 0
+        self.last_count = 0
+        self.auto_reset = auto_reset
+        self.last_speed = None
+
+    def __call__(self, param):
+        count = param.nbatch
+        if self.last_count > count:
+            self.init = False
+        self.last_count = count
+        if not self.init:
+            self.init = True
+            self.tic = time.perf_counter()
+            return
+        if count % self.frequent:
+            return
+        try:
+            speed = self.frequent * self.batch_size / (
+                time.perf_counter() - self.tic)
+        except ZeroDivisionError:
+            speed = float("inf")
+        self.last_speed = speed
+        if param.eval_metric is not None:
+            name_value = param.eval_metric.get_name_value()
+            if self.auto_reset:
+                param.eval_metric.reset_local()
+            msg = "Epoch[%d] Batch [%d-%d]\tSpeed: %.2f samples/sec"
+            msg += "\t%s=%f" * len(name_value)
+            logging.info(msg, param.epoch, count - self.frequent, count,
+                         speed, *sum(name_value, ()))
+        else:
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
+                         param.epoch, count, speed)
+        self.tic = time.perf_counter()
+
+
+class ProgressBar:
+    """Log a progress bar of ``nbatch`` out of ``total``."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = int(round(100.0 * count / float(self.total)))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s", prog_bar, percents, "%")
+
+
+class LogValidationMetricsCallback:
+    """Log each validation metric at the end of an epoch."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

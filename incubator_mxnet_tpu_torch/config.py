@@ -4,7 +4,8 @@ typed and documented here, and ``get_env(name)`` is the one accessor.
 
 Only the knobs the port reads are declared: the serving knobs, the gate
 of the conv-backward kernel and the training step's (``jit.TrainStep``:
-remat, donation, the bound on its captured graphs). The flash-attention
+remat, donation, the bound on its captured graphs, which also bounds a
+hybridized block's). The flash-attention
 block/force/interpret knobs of the JAX package are TPU tiling and Pallas
 interpret switches and have no counterpart here.
 """
@@ -48,7 +49,9 @@ ENV_VARS = {
     "MXTPU_AOT_CACHE_SIZE": (
         int, 64,
         "Bound on each jit.TrainStep's captured CUDA graphs, one per input "
-        "shape signature (the JAX package's process-wide AOT cache of "
+        "shape signature, and on each hybridized block's (one forward "
+        "and backward pair per call signature; the JAX package's "
+        "process-wide AOT cache of "
         "compiled programs): past it the least recently replayed graph "
         "and its memory pool are released, and its signature captures "
         "again on its next call."),

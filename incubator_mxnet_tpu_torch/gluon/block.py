@@ -25,16 +25,20 @@ JAX package writes and reads.
 
 Train/predict behaviour (dropout, batch norm) follows ``autograd``'s
 thread-local training flag, as in the JAX package, not
-``nn.Module.training``. PyTorch runs eagerly, so ``hybridize()`` has
-nothing to compile and is accepted as a no-op.
+``nn.Module.training``. ``HybridBlock.hybridize()`` captures the calls of a
+block on the card into CUDA graphs, one per signature
+(``gluon/_functional.py``); on the CPU it changes nothing.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 
 import torch
 
 from .. import ndarray as nd
+from . import _functional
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
@@ -151,7 +155,31 @@ class Block(torch.nn.Module):
 
 
 class HybridBlock(Block):
-    """Block whose forward the JAX package can compile as one program."""
+    """A block whose forward can be captured: ``hybridize()`` makes calls
+    on the card replay one CUDA graph per signature (plus one of its
+    backward under ``autograd.record()``); on the CPU the forward runs
+    eagerly as before (``gluon/_functional.py``)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix, params)
+        self._active = False
+        self._graphs = collections.OrderedDict()
+        self._captures = 0
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API parity; PyTorch runs the forward eagerly."""
+        """Capture this block's calls on the card from now on (``active``),
+        or run them eagerly again. MXNet's CachedOp flags
+        (``static_alloc``, ``static_shape``) are accepted: a CUDA graph
+        holds its memory and shapes anyway. Any earlier captures go."""
+        self._active = active
+        self._graphs.clear()
+
+    def __call__(self, *args, **kwargs):
+        if not self._active or _functional.in_plain():
+            return super().__call__(*args, **kwargs)
+        return nd.ndarray._apply(functools.partial(_functional.call, self),
+                                 *args, **kwargs)
+
+    def export(self, path, epoch=0, example_inputs=None):
+        raise NotImplementedError("HybridBlock.export comes with the port "
+                                  "of serving's exported artifacts")

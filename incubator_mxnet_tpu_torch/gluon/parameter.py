@@ -17,7 +17,9 @@ parameter's ``grad_req`` ("write" replaces, "add" adds; a tied weight gets
 the sum of its uses within one backward) and ``Trainer.step`` reads. The
 package's own layers and the trainer take the tensor through
 ``_tensor()``. ``lr_mult`` and ``wd_mult`` scale the optimizer's learning
-rate and weight decay for this parameter.
+rate and weight decay for this parameter. ``_version`` counts the
+rewrites (``set_data``, ``cast``, a re-initialisation), which a
+hybridized block's captured graphs compare.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ class Parameter:
         self._data = None            # nn.Parameter once initialized
         self._deferred_init = None   # (init, default_init, device, generator)
         self._owners = []            # (module, attribute) registrations
+        self._version = 0            # bumped when rewritten or rebound
 
     @property
     def shape(self):
@@ -136,6 +139,7 @@ class Parameter:
         else:
             self._data.data = data
             self._data._mx_grad = None
+        self._version += 1
         self._deferred_init = None
 
     def _finish_deferred_init(self):
@@ -199,12 +203,14 @@ class Parameter:
             self.shape = data.shape
             self._finish_deferred_init()
         self._tensor().copy_(data)
+        self._version += 1
 
     def cast(self, dtype):
         self.dtype = dtype
         if self._data is not None:
             self._data.data = self._data.data.to(torch_dtype(dtype))
             self._data._mx_grad = None
+            self._version += 1
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,

@@ -11,9 +11,18 @@ weight decays, steps and rescale as device tensors; ``jit.TrainStep`` runs
 the same update on the gradients of its own backward (``_scalars`` then
 ``_apply``, which its CUDA graph captures).
 
+``save_states``/``load_states`` write and read the JAX package's state
+file (``Updater.get_states``: a pickle of numpy states by parameter
+index), so a file written by either package loads in the other. The port
+writes ``(states, info)``, info holding the optimizer's update counts; the
+JAX package reads the states alone, and the port restores the counts when
+a file has them (so a resumed run continues its bias correction and
+``lr_scheduler``; a JAX package file restarts them, as there). Loaded
+states land on each parameter's device as new tensors, so a captured
+``jit.TrainStep`` captures again.
+
 Local only: ``kvstore`` "device", "local" or None. A "dist*" kvstore waits
-for the multi-GPU slice of the port; ``save_states`` and ``load_states``
-are not ported yet.
+for the multi-GPU slice of the port.
 """
 from __future__ import annotations
 
@@ -147,6 +156,29 @@ class Trainer:
 
     def allreduce_grads(self):
         """Nothing to reduce with one local copy of each parameter."""
+
+    def save_states(self, fname):
+        """Write every parameter's optimizer state and the optimizer's
+        update counts to ``fname``."""
+        if not self._states_initialized:
+            self._init_states()
+        updater = opt.Updater(self._optimizer)
+        updater.states = {i: s for i, s in enumerate(self._states)
+                          if s is not None}
+        with open(fname, "wb") as f:
+            f.write(updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Read a ``save_states`` file (either package's): each state onto
+        its parameter's device, and the update counts when it has them."""
+        updater = opt.Updater(self._optimizer)
+        with open(fname, "rb") as f:
+            updater.set_states(f.read())
+        self._init_states()
+        for i, s in updater.states.items():
+            i = int(i)
+            self._states[i] = opt.optimizer._state_to(
+                s, self._params[i]._tensor().device)
 
 
 def _upload(host, device):

@@ -31,6 +31,8 @@ for the multi-GPU slice.
 
 ``EvalStep`` moves its inputs to the net's device and runs the forward
 without recording (under ``torch.inference_mode()`` for the serving path).
+Both steps run a hybridized net's plain forward (``gluon._functional
+.plain``): ``TrainStep`` captures the whole step, and graphs do not nest.
 Inputs may be NDArrays, tensors or numpy arrays; both steps return
 NDArrays, as the JAX package's do.
 """
@@ -112,12 +114,14 @@ class _GraphCapture:
             t.record_stream(self.current)
         return out
 
-    def capture(self, fn):
-        """(the graph of ``fn``, its output) captured on the side stream.
-        If ``fn`` or the capture's end fails, the capture is ended and its
-        memory pool given back before the error goes on: left as
-        ``torch.cuda.graph`` leaves them, the allocator would route to the
-        dead capture and never free a cached block again."""
+    def capture(self, fn, pool=None):
+        """(the graph of ``fn``, its output) captured on the side stream,
+        into ``pool`` (a new memory pool by default; ``self.pool`` is the
+        last one used, for a second graph that shares it). If ``fn`` or
+        the capture's end fails, the capture is ended and its memory pool
+        given back before the error goes on: left as ``torch.cuda.graph``
+        leaves them, the allocator would route to the dead capture and
+        never free a cached block again."""
         graph = torch.cuda.CUDAGraph()
         if hasattr(graph, "register_generator_state"):
             # nd.random's generator, for draws inside the step (dropout
@@ -125,7 +129,9 @@ class _GraphCapture:
             graph.register_generator_state(_random._generator(self.device))
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
-        pool = torch.cuda.graph_pool_handle()   # known even if it fails
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()   # known even if it fails
+        self.pool = pool
         with torch.cuda.stream(self.side):
             graph.capture_begin(pool=pool)
             try:
@@ -251,11 +257,13 @@ class TrainStep:
     def _forward(self, args, n_net_inputs):
         """The loss tensor, recorded; under ``remat`` checkpointed, to be
         recomputed in the backward."""
+        from .gluon._functional import plain
+
         def run(*a):
             loss = self.loss_fn(self.net(*a[:n_net_inputs]),
                                 *a[n_net_inputs:])
             return loss._data if isinstance(loss, NDArray) else loss
-        with autograd.record(train_mode=True):
+        with autograd.record(train_mode=True), plain():
             if self.remat:
                 return checkpoint(run, *args, use_reentrant=False,
                                   preserve_rng_state=False,
@@ -370,14 +378,16 @@ class EvalStep:
         self.net = net
 
     def __call__(self, *inputs):
+        from .gluon._functional import plain
         from .ndarray.ndarray import _wrap
         args = _to_device(inputs, net_device(self.net))
-        with torch.no_grad():
+        with torch.no_grad(), plain():
             return _wrap(self.net(*args), args)
 
     def _run(self, *inputs):
         """The forward's tensors, unwrapped, under ``torch.inference_mode()``
         (the serving path's call; its tensors cannot be written outside
         inference mode, so the NDArrays of ``__call__`` are not these)."""
-        with torch.inference_mode():
+        from .gluon._functional import plain
+        with torch.inference_mode(), plain():
             return self.net(*_to_device(inputs, net_device(self.net)))

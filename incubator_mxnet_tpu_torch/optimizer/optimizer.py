@@ -17,18 +17,34 @@ a pure function returning a new weight and state, the port's
 parameters themselves) and the state tensors in place, under
 ``torch.no_grad()``: the counterpart of the JAX step's donated buffers.
 
-Ported so far: SGD (with momentum), Adam and AdamW. The other optimizers of
-the JAX package's registry are not ported yet.
+All 17 optimizers of the JAX package's registry are here. Per-tensor norms
+(LAMB, LARS) come from ``torch._foreach_norm`` and their trust ratios from a
+device ``torch.where``; Nadam's momentum schedule, host state in the JAX
+package, is a float64 device scalar advanced by a running product over the
+parameters in index order; SGLD draws its noise from ``nd.random``'s
+generator of the weights' device, which a captured step registers, so each
+replay draws afresh. ``lr_scheduler`` is evaluated on the host
+(``step_scalars``) and reaches the device vector of learning rates.
+
+``Updater`` keeps one state per index and writes and reads the JAX
+package's state pickles (``get_states``/``set_states``: numpy arrays in
+nested tuples), which ``gluon.Trainer.save_states``/``load_states`` use.
 """
 from __future__ import annotations
 
 import math
+import pickle
 
+import numpy as onp
 import torch
 
 from ..base import registry
+from ..ndarray import random as _random
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "NAG", "RMSProp", "AdaGrad",
+           "AdaDelta", "Adamax", "Nadam", "Ftrl", "FTML", "LAMB", "LARS",
+           "Signum", "SGLD", "DCASGD", "Test", "create", "register",
+           "Updater", "get_updater"]
 
 _REG = registry("optimizer")
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -49,13 +65,14 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  begin_num_update=0, multi_precision=False, param_dict=None,
                  **kwargs):
-        if lr_scheduler is not None:
-            raise NotImplementedError("lr_scheduler is not ported yet")
         if kwargs:
             raise TypeError("unexpected optimizer arguments %s"
                             % sorted(kwargs))
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.lr_mult = {}
         self.wd_mult = {}
@@ -95,7 +112,8 @@ class Optimizer:
                               self.num_update)
 
     def _get_lr(self, index):
-        lr = self.lr
+        lr = self.lr_scheduler(self.num_update) \
+            if self.lr_scheduler is not None else self.lr
         if index in self.param_dict:
             lr *= self.param_dict[index].lr_mult
         elif index in self.lr_mult:
@@ -121,10 +139,15 @@ class Optimizer:
         self.wd_mult = dict(args_wd_mult)
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise UserWarning("lr_scheduler is set; cannot set learning "
+                              "rate directly")
         self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     # -- the update rule (override in subclasses) ----------------------
@@ -191,6 +214,7 @@ class Optimizer:
             else:
                 w32.append(w if w.dtype == torch.float32 else w.float())
                 inner.append(s)
+        self._rescale = rescale
         self.multi_update_rule(w32, g32, inner, lrs, wds, t)
         back = [(w, w2) for w, w2 in zip(weights, w32) if w2 is not w]
         if back:
@@ -302,3 +326,557 @@ class AdamW(Adam):
         torch._foreach_add_(steps, _wd_terms(weights, wds))
         torch._foreach_mul_(steps, list(lr_t.unbind(0)))
         torch._foreach_sub_(weights, steps)
+
+
+def _each(x, n):
+    """``x`` as ``n`` per-weight scalars: the entries of a device vector,
+    or a device scalar or host number ``n`` times."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return list(x.unbind(0))
+    return [x] * n
+
+
+def _zeros(weight):
+    return torch.zeros(weight.shape, dtype=torch.float32,
+                       device=weight.device)
+
+
+def _norms(tensors):
+    """The L2 norm of each tensor, as one fp32 device vector."""
+    return torch.stack(torch._foreach_norm(tensors))
+
+
+@register
+class Test(Optimizer):
+    """``w += g * rescale_grad`` (on a gradient already rescaled)."""
+
+    def create_state(self, index, weight):
+        return torch.zeros(weight.shape, dtype=weight.dtype,
+                           device=weight.device)
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(weights, torch._foreach_mul(grads,
+                                                        self._rescale))
+
+
+@register
+class NAG(SGD):
+    """Nesterov momentum: ``mom = momentum * mom + g'``,
+    ``w -= lr * (g' + momentum * mom)`` with ``g' = g + wd * w``."""
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        if self.momentum == 0.0:
+            torch._foreach_sub_(weights, torch._foreach_mul(
+                grads, list(lrs.unbind(0))))
+            return
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_add_(states, grads)
+        step = torch._foreach_add(grads, states, alpha=self.momentum)
+        torch._foreach_mul_(step, list(lrs.unbind(0)))
+        torch._foreach_sub_(weights, step)
+
+
+@register
+class Signum(Optimizer):
+    """signSGD with momentum: ``w = w * (1 - lr * wd_lh) + lr *
+    sign(mom)``, ``mom = momentum * mom - (1 - momentum) * (g + wd * w)``
+    (``sign(g + wd * w)`` without momentum)."""
+
+    def __init__(self, momentum=0.9, wd_lh=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros(weight)
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        lr = list(lrs.unbind(0))
+        if self.momentum == 0.0:
+            signs = torch._foreach_sign(grads)
+            torch._foreach_mul_(signs, lr)
+            signs = torch._foreach_neg(signs)
+        else:
+            torch._foreach_mul_(states, self.momentum)
+            torch._foreach_add_(states, grads, alpha=-(1 - self.momentum))
+            signs = torch._foreach_sign(states)
+            torch._foreach_mul_(signs, lr)
+        torch._foreach_mul_(weights, list((1 - lrs * self.wd_lh).unbind(0)))
+        torch._foreach_add_(weights, signs)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: ``w -= lr / 2 * (g + wd * w)``
+    plus normal noise of variance ``lr``, drawn from ``nd.random``'s
+    generator of the weights' device."""
+
+    def _noise(self, weights):
+        """One standard normal draw of each weight's shape."""
+        return [torch.randn(w.shape, dtype=torch.float32, device=w.device,
+                            generator=_random._generator(w.device))
+                for w in weights]
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        torch._foreach_mul_(grads, list((lrs / 2).unbind(0)))
+        noise = self._noise(weights)
+        torch._foreach_mul_(noise, list(torch.sqrt(lrs).unbind(0)))
+        torch._foreach_sub_(weights, grads)
+        torch._foreach_add_(weights, noise)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD: ``m = momentum * mom - lr * (g + wd * w +
+    lamda * g² * (w - prev_w))``, ``w += m``, ``prev_w = w``; ``prev_w``
+    starts as a copy of the weight."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), weight.detach().float().clone())
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        moms = [s[0] for s in states]
+        prevs = [s[1] for s in states]
+        comp = torch._foreach_sub(weights, prevs)
+        torch._foreach_mul_(comp, torch._foreach_mul(grads, grads))
+        torch._foreach_mul_(comp, self.lamda)
+        torch._foreach_add_(comp, grads)
+        torch._foreach_add_(comp, _wd_terms(weights, wds))
+        torch._foreach_mul_(comp, list(lrs.unbind(0)))
+        torch._foreach_mul_(moms, self.momentum)
+        torch._foreach_sub_(moms, comp)
+        torch._foreach_add_(weights, moms)
+        torch._foreach_copy_(prevs, weights)
+
+
+@register
+class Adamax(Optimizer):
+    """Adam in the infinity norm: ``u = max(beta2 * u, |g|)``, ``w -= lr /
+    (1 - beta1^t) * m / (u + 1e-8)``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        ms = [s[0] for s in states]
+        us = [s[1] for s in states]
+        lr_t = lrs / (1 - self.beta1 ** t)
+        torch._foreach_mul_(ms, self.beta1)
+        torch._foreach_add_(ms, grads, alpha=1 - self.beta1)
+        torch._foreach_mul_(us, self.beta2)
+        torch._foreach_maximum_(us, torch._foreach_abs(grads))
+        denom = torch._foreach_add(us, 1e-8)
+        step = torch._foreach_div(ms, denom)
+        torch._foreach_mul_(step, _each(lr_t, len(weights)))
+        torch._foreach_sub_(weights, step)
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum and the momentum schedule ``beta1 * (1 -
+    0.5 * 0.96^(t * schedule_decay))``. The schedule's running product
+    (``m_schedule``) advances once per parameter update, in index order, as
+    the JAX package's eager update advances it: a float64 device scalar
+    here, so a captured step advances it on the card."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self._m_schedule = None
+
+    @property
+    def m_schedule(self):
+        """The running product on the host (a read of the card)."""
+        return 1.0 if self._m_schedule is None else float(self._m_schedule)
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def _momentum(self, t, n, device):
+        """(momentum at t, at t + 1): float64 device vectors of n."""
+        t = t.double() if isinstance(t, torch.Tensor) else \
+            torch.full((n,), float(t), dtype=torch.float64, device=device)
+        t = t.expand(n)
+        b1, sd = self.beta1, self.schedule_decay
+        return (b1 * (1 - 0.5 * 0.96 ** (t * sd)),
+                b1 * (1 - 0.5 * 0.96 ** ((t + 1) * sd)))
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        n, device = len(weights), weights[0].device
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        if self._m_schedule is None:
+            self._m_schedule = torch.ones((), dtype=torch.float64,
+                                          device=device)
+        mt, mt1 = self._momentum(t, n, device)
+        sched = self._m_schedule * torch.cumprod(mt, 0)
+        self._m_schedule.copy_(sched[-1])
+        ms = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        g_prime = torch._foreach_div(grads, _each(
+            (1 - sched).float(), n))
+        torch._foreach_mul_(ms, self.beta1)
+        torch._foreach_add_(ms, grads, alpha=1 - self.beta1)
+        torch._foreach_mul_(vs, self.beta2)
+        torch._foreach_addcmul_(vs, grads, grads, value=1 - self.beta2)
+        m_prime = torch._foreach_div(ms, _each((1 - sched * mt1).float(), n))
+        v_prime = torch._foreach_div(vs, _each(1 - self.beta2 ** t, n))
+        torch._foreach_mul_(g_prime, _each((1 - mt).float(), n))
+        torch._foreach_mul_(m_prime, _each(mt1.float(), n))
+        m_bar = torch._foreach_add(g_prime, m_prime)
+        denom = torch._foreach_sqrt(v_prime)
+        torch._foreach_add_(denom, self.epsilon)
+        step = torch._foreach_div(m_bar, denom)
+        torch._foreach_mul_(step, list(lrs.unbind(0)))
+        torch._foreach_sub_(weights, step)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp: ``n = (1 - gamma1) g² + gamma1 n``, ``w -= lr * g /
+    sqrt(n + eps)``; centred (Graves): also ``gm = (1 - gamma1) g + gamma1
+    gm``, ``delta = gamma2 * delta - lr * g / sqrt(n - gm² + eps)``,
+    ``w += delta``. ``clip_weights`` clips the result."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2, self.epsilon = gamma1, gamma2, epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros(weight), _zeros(weight), _zeros(weight))
+        return (_zeros(weight),)
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        g1 = self.gamma1
+        ns = [s[0] for s in states]
+        torch._foreach_mul_(ns, g1)
+        torch._foreach_addcmul_(ns, grads, grads, value=1 - g1)
+        step = torch._foreach_mul(grads, list(lrs.unbind(0)))
+        if self.centered:
+            gms = [s[1] for s in states]
+            deltas = [s[2] for s in states]
+            torch._foreach_mul_(gms, g1)
+            torch._foreach_add_(gms, grads, alpha=1 - g1)
+            denom = torch._foreach_sub(ns, torch._foreach_mul(gms, gms))
+            torch._foreach_add_(denom, self.epsilon)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_mul_(deltas, self.gamma2)
+            torch._foreach_sub_(deltas, torch._foreach_div(step, denom))
+            torch._foreach_add_(weights, deltas)
+        else:
+            denom = torch._foreach_add(ns, self.epsilon)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_sub_(weights, torch._foreach_div(step, denom))
+        if self.clip_weights:
+            torch._foreach_clamp_min_(weights, -self.clip_weights)
+            torch._foreach_clamp_max_(weights, self.clip_weights)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: ``h += g²``, ``w -= lr * g / sqrt(h + eps)``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        torch._foreach_addcmul_(states, grads, grads)
+        denom = torch._foreach_add(states, self.float_stable_eps)
+        torch._foreach_sqrt_(denom)
+        step = torch._foreach_mul(grads, list(lrs.unbind(0)))
+        torch._foreach_sub_(weights, torch._foreach_div(step, denom))
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (no learning rate): ``delta = sqrt(acc_delta + eps) /
+    sqrt(acc_g + eps) * g``, ``w -= delta``."""
+
+    def __init__(self, rho=0.9, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        acc_g = [s[0] for s in states]
+        acc_d = [s[1] for s in states]
+        rho = self.rho
+        torch._foreach_mul_(acc_g, rho)
+        torch._foreach_addcmul_(acc_g, grads, grads, value=1 - rho)
+        num = torch._foreach_add(acc_d, self.epsilon)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(acc_g, self.epsilon)
+        torch._foreach_sqrt_(den)
+        delta = torch._foreach_div(num, den)
+        torch._foreach_mul_(delta, grads)
+        torch._foreach_mul_(acc_d, rho)
+        torch._foreach_addcmul_(acc_d, delta, delta, value=1 - rho)
+        torch._foreach_sub_(weights, delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal: ``z += g - (sqrt(n + g²) - sqrt(n)) / lr * w``,
+    ``n += g²``, ``w = (sign(z) * lamda1 - z) / ((beta + sqrt(n)) / lr +
+    wd)`` where ``|z| > lamda1``, else 0."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        zs = [s[0] for s in states]
+        ns = [s[1] for s in states]
+        lr = list(lrs.unbind(0))
+        sq_n = torch._foreach_sqrt(ns)
+        torch._foreach_addcmul_(ns, grads, grads)
+        sigma = torch._foreach_sqrt(ns)
+        torch._foreach_sub_(sigma, sq_n)
+        torch._foreach_div_(sigma, lr)
+        torch._foreach_add_(zs, grads)
+        torch._foreach_sub_(zs, torch._foreach_mul(sigma, weights))
+        num = torch._foreach_sign(zs)
+        torch._foreach_mul_(num, self.lamda1)
+        torch._foreach_sub_(num, zs)
+        den = torch._foreach_sqrt(ns)
+        torch._foreach_add_(den, self.beta)
+        torch._foreach_div_(den, lr)
+        torch._foreach_add_(den, list(wds.unbind(0)))
+        new = torch._foreach_div(num, den)
+        torch._foreach_mul_(new, [(z.abs() > self.lamda1).float()
+                                  for z in zs])
+        torch._foreach_copy_(weights, new)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader: ``d_t = (1 - beta1^t) / lr * (sqrt(v / (1
+    - beta2^t)) + eps)``, ``z = beta1 z + (1 - beta1) g - (d_t - beta1 d)
+    w``, ``w = -z / d_t``."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight), _zeros(weight))
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        n = len(weights)
+        torch._foreach_add_(grads, _wd_terms(weights, wds))
+        ds = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        zs = [s[2] for s in states]
+        b1, b2 = self.beta1, self.beta2
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, grads, grads, value=1 - b2)
+        d_t = torch._foreach_div(vs, _each(1 - b2 ** t, n))
+        torch._foreach_sqrt_(d_t)
+        torch._foreach_add_(d_t, self.epsilon)
+        torch._foreach_mul_(d_t, _each((1 - b1 ** t) / lrs, n))
+        sigma = torch._foreach_add(d_t, ds, alpha=-b1)
+        torch._foreach_mul_(zs, b1)
+        torch._foreach_add_(zs, grads, alpha=1 - b1)
+        torch._foreach_sub_(zs, torch._foreach_mul(sigma, weights))
+        torch._foreach_copy_(ds, d_t)
+        torch._foreach_copy_(weights, torch._foreach_neg(
+            torch._foreach_div(zs, d_t)))
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments: ``r = m̂ / (sqrt(v̂) + eps) + wd * w``
+    with Adam's moments (bias-corrected at step ``t`` by default), then
+    ``w -= lr * ratio * r`` with the trust ratio ``||w|| / ||r||`` (``||w||``
+    clamped to ``lower_bound``/``upper_bound`` when set; 1 where either
+    norm is 0), one norm per tensor."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        n = len(weights)
+        b1, b2 = self.beta1, self.beta2
+        ms = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, grads, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, grads, grads, value=1 - b2)
+        if self.bias_correction:
+            mh = torch._foreach_div(ms, _each(1 - b1 ** t, n))
+            vh = torch._foreach_div(vs, _each(1 - b2 ** t, n))
+        else:
+            mh, vh = ms, vs
+        denom = torch._foreach_sqrt(vh)
+        torch._foreach_add_(denom, self.epsilon)
+        r = torch._foreach_div(mh, denom)
+        torch._foreach_add_(r, _wd_terms(weights, wds))
+        w_norm = _norms(weights)
+        if self.lower_bound:
+            w_norm = torch.clamp_min(w_norm, self.lower_bound)
+        if self.upper_bound:
+            w_norm = torch.clamp_max(w_norm, self.upper_bound)
+        r_norm = _norms(r)
+        ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        torch._foreach_mul_(r, list((lrs * ratio).unbind(0)))
+        torch._foreach_sub_(weights, r)
+
+
+@register
+class LARS(SGD):
+    """Layer-wise adaptive rate scaling: SGD on ``g * trust`` with ``trust
+    = eta * ||w|| / (||g|| + wd * ||w|| + eps)`` (1 where either norm is
+    0), one norm per tensor."""
+
+    def __init__(self, eta=0.001, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.eta, self.epsilon = eta, epsilon
+
+    def multi_update_rule(self, weights, grads, states, lrs, wds, t):
+        w_norm = _norms(weights)
+        g_norm = _norms(grads)
+        trust = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            self.eta * w_norm / (g_norm + wds * w_norm + self.epsilon),
+            torch.ones_like(w_norm))
+        torch._foreach_mul_(grads, list(trust.unbind(0)))
+        super().multi_update_rule(weights, grads, states, lrs, wds, t)
+
+
+# ------------------------------------------------------------ Updater
+
+class Updater:
+    """One optimizer state per index: ``updater(index, grad, weight)``
+    updates ``weight`` in place. ``get_states``/``set_states`` write and
+    read the JAX package's pickle of numpy states (``{index: state}``,
+    each state None, an array or a tuple of them)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+
+    def __call__(self, index, grad, weight):
+        weight, grad = _tensor_of(weight), _tensor_of(grad)
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        else:
+            self.states[index] = _state_to(self.states[index], weight.device)
+        new_state = self.optimizer.update_multi_precision(
+            index, weight, grad, self.states[index])
+        if new_state is not None:
+            self.states[index] = new_state
+
+    def get_states(self, dump_optimizer=False):
+        """The states as a pickle; with ``dump_optimizer``, ``(states,
+        info)``, info being the optimizer's class name and update counts
+        as a plain dict (MXNet pickles the optimizer object itself; a dict
+        keeps the file readable by both packages, and the JAX package
+        reads the states alone)."""
+        st = {k: _state_to_np(v) for k, v in self.states.items()}
+        if not dump_optimizer:
+            return pickle.dumps(st)
+        opt = self.optimizer
+        return pickle.dumps((st, dict(
+            optimizer=type(opt).__name__, num_update=opt.num_update,
+            index_update_count=dict(opt._index_update_count))))
+
+    def set_states(self, states):
+        """Load a ``get_states`` pickle (either package's); the states
+        become host tensors until an update or ``Trainer.load_states``
+        moves them. Update counts in the pickle are restored."""
+        st = pickle.loads(states)
+        info = None
+        if isinstance(st, tuple):
+            st, info = st[0], (st[1] if len(st) > 1 else None)
+        self.states = {k: _state_from_np(v) for k, v in st.items()}
+        self.states_synced = {k: False for k in self.states}
+        if isinstance(info, dict) and "index_update_count" in info:
+            opt = self.optimizer
+            opt._index_update_count = dict(info["index_update_count"])
+            opt.num_update = info["num_update"]
+
+
+def _tensor_of(x):
+    return x._data if hasattr(x, "_data") and not isinstance(
+        x, torch.Tensor) else x
+
+
+def _state_to_np(s):
+    """A state as numpy (bf16 widened to float32, as ``asnumpy`` does)."""
+    if s is None:
+        return None
+    if isinstance(s, torch.Tensor):
+        s = s.detach()
+        if s.dtype == torch.bfloat16:
+            s = s.float()
+        return s.cpu().numpy().copy()
+    if isinstance(s, (tuple, list)):
+        return tuple(_state_to_np(x) for x in s)
+    return s
+
+
+def _state_from_np(s, device=None):
+    """A numpy state as tensors (on ``device``, default the host)."""
+    if s is None:
+        return None
+    if isinstance(s, onp.ndarray):
+        return torch.from_numpy(s.copy()).to(device or "cpu")
+    if isinstance(s, tuple):
+        return tuple(_state_from_np(x, device) for x in s)
+    return s
+
+
+def _state_to(s, device):
+    """A state's tensors on ``device`` (the same objects when there)."""
+    if isinstance(s, torch.Tensor):
+        return s if s.device == device else s.to(device)
+    if isinstance(s, tuple):
+        return tuple(_state_to(x, device) for x in s)
+    return s
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

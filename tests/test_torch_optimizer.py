@@ -93,7 +93,7 @@ def test_options_are_applied_as_jax_applies_them(option):
 def test_registry_and_lr_wd_mult():
     assert isinstance(topt.create("Adam"), topt.Adam)
     with pytest.raises(ValueError, match="not registered"):
-        topt.create("nadam")
+        topt.create("no_such_optimizer")
     p = mxt.gluon.Parameter("weight", shape=(2,), lr_mult=0.5, wd_mult=0.0)
     opt = topt.create("sgd", learning_rate=0.2, wd=0.1,
                       param_dict={0: p})
