@@ -196,7 +196,38 @@ Phases, each of which must pass, in order:
    img/s and the same step fed from the card; every loss finite;
    Accuracy and TopKAccuracy(5) on the card equal to the host's. Prints
    a {"gluon_loop": ...} line.
-13. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
+13. BASELINE config 5, the LSTM language model (``lstm_lm``). (a) At a
+   small width (vocab 200, 32 / 32, 2 layers; TF32 off, cuDNN
+   deterministic): dropout off, the card (cuDNN's RNN) against the CPU from
+   the same weights, the first forward's logits, states and gradients and
+   the weights after 3 steps of the word-LM Gluon loop within 1e-4 of
+   their largest value; dropout 0.5 from one seed, the hybridized model
+   against the plain one over 4 steps, losses and weights bit for bit, one
+   capture; two replays on one batch give different logits (fresh masks).
+   (b) Full width (vocab 10000, embed and hidden 650, 2 layers, dropout
+   0.5, fp32; Zaremba et al.'s medium PTB model) on a seeded token stream
+   with learnable structure (successor tables over the first 1000 ids)
+   cut into (35, 20) batches, through the Gluon
+   loop a word-LM trainer writes (begin_state; states detached each batch;
+   record → model → SoftmaxCrossEntropyLoss → backward →
+   clip_global_norm(5 · 20) → Trainer("sgd", lr 1).step(20)), hybridized
+   and plain from the same weights and seed, 2 + 18 steps: losses finite
+   and falling, the two runs within 1e-3; step ms, tokens/s, host ms, issue
+   ms, idle share, peak memory. (c) The same model through jit.TrainStep
+   (n_net_inputs 3: tokens, h0, c0; the clip on the card), captured and
+   its eager body (phase by phase) from the same weights and seed, on each
+   route of the recurrence (cuDNN's fused RNN and the step loop): losses
+   within 1e-3. (d) A captured TrainStep right after a recorded forward
+   whose states the caller holds undetached. Prints an {"rnn": ...} line.
+14. The model zoo's new families (``model_zoo``): VGG-16, AlexNet,
+   DenseNet-121, SqueezeNet 1.0, MobileNet 1.0, MobileNet v2 1.0 and
+   Inception v3, each on the card against the CPU at a small input (fp32,
+   TF32 off: logits within 1e-4), then at its published widths (B 32 x
+   224², 299² for Inception v3, bf16 with fp32 masters): an eager forward
+   (logits finite) and the captured TrainStep with SGD-momentum (a first
+   step, a replay, 5 timed): losses finite, no hand-written kernel
+   launched; img/s and peak memory. Prints a {"model_zoo": ...} line.
+15. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
@@ -213,15 +244,15 @@ Phases, each of which must pass, in order:
 
 Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
-{"vision": ...}, a {"gluon_loop": ...} and a {"kernels": [...]} line
-and, as
+{"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
+{"model_zoo": ...} and a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when CUDA is absent, the port is not beside this script, or any
 phase fails.
 
     python3 chip_smoke.py --rtc-only [--root DIR]
 
-runs phase 13 alone, on the port found in DIR (by default beside this
+runs phase 15 alone, on the port found in DIR (by default beside this
 script), and prints the card's name and power limit and {"rtc": {...}}:
 the way to time another tree's K5 launch path with the same code, for
 example an unpacked parent commit's.
@@ -230,7 +261,9 @@ example an unpacked parent commit's.
 
 likewise runs phase 6c alone, AB_STEPS steps each of the imperative BERT
 loop and of TrainStep, and prints {"imperative": {...}}; ``--gluon-only``
-runs phase 12 alone and prints {"gluon_loop": {...}}.
+runs phase 12 alone and prints {"gluon_loop": {...}}, ``--rnn-only``
+phase 13 ({"rnn": {...}}) and ``--zoo-only`` phase 14
+({"model_zoo": {...}}).
 """
 import gc
 import itertools
@@ -263,6 +296,24 @@ REMAT_STEPS = (2, 3)   # GPT with remat: (first, timed) steps
 SMALL_CAPTURED_STEPS = 4
 AB_STEPS = 12          # the same, with --imperative-only
 RANDOM_DRAWS = 1 << 24
+# BASELINE config 5, the LSTM LM at its defaults: Zaremba et al.'s
+# "medium" PTB model, trained as they do (batch 20, BPTT 35, SGD lr 1.0,
+# gradient norm clipped at 5), fp32
+LSTM_LM = dict(vocab_size=10000, embed_size=650, hidden_size=650,
+               num_layers=2, dropout=0.5)
+LM_BPTT, LM_BATCH, LM_LR, LM_CLIP = 35, 20, 1.0, 5.0
+LM_STEPS = (2, 18)     # Gluon loop: (warm-up, timed), hybridized and plain
+LM_STEP_TIMED = 10     # TrainStep timed steps, captured and eager
+LM_SMALL = dict(vocab_size=200, embed_size=32, hidden_size=32, num_layers=2)
+LM_SMALL_TOL = 1e-4    # card (cuDNN RNN, TF32 off) vs CPU, fp32
+LM_USED_IDS = 1000     # the token stream's ids: the loss can fall in 20 steps
+# the new model-zoo families: (get_model name, published input side, the
+# small side for card = CPU)
+ZOO = (("vgg16", 224, 32), ("alexnet", 224, 63), ("densenet121", 224, 224),
+       ("squeezenet1.0", 224, 48), ("mobilenet1.0", 224, 32),
+       ("mobilenetv2_1.0", 224, 32), ("inceptionv3", 299, 299))
+ZOO_BATCH, ZOO_TIMED = 32, 5
+ZOO_SMALL_TOL = 1e-4
 # ResNet-50's bottleneck 3x3/stride-1 convs at batch 256 (N, H, W, C, K),
 # benchmark/conv_bwd_pilot.py:29-35
 CONV_STAGES = ((256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
@@ -1403,13 +1454,13 @@ def check_ndarray(card):
     return launches, summary
 
 
-def _eager_step(step, *inputs):
+def _eager_step(step, *inputs, n_net_inputs=1):
     """One step of TrainStep's eager body (what its CUDA graph captures),
     run uncaptured: _prepare, _forward, _backward, _update."""
     from incubator_mxnet_tpu_torch.ndarray import NDArray
-    args = step._prepare(inputs, 1)
-    loss = step._forward(args, 1)
-    step._update(args[0].shape[0], step._backward(loss))
+    args = step._prepare(inputs, n_net_inputs)
+    loss = step._forward(args, n_net_inputs)
+    step._update(args[0].shape[step.batch_axis], step._backward(loss))
     return NDArray(loss.detach())
 
 
@@ -3036,6 +3087,625 @@ def gluon_loop(card):
     return {"gluon_bert": bert_launches, "gluon_gpt": gpt_launches}, summary
 
 
+# ---------------------------------------------------------------- LSTM LM
+
+def lm_token_stream(n_tokens, used, seed):
+    """A seeded token stream a language model can learn, over the ids
+    below ``used``: each token is followed by its first successor in a
+    fixed random table (4 successors a token) 60 % of the time, by one of
+    the four 30 %, by any of the ids 10 %."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    succ = rng.randint(0, used, (used, 4))
+    r = rng.rand(n_tokens)
+    k = rng.randint(0, 4, n_tokens)
+    u = rng.randint(0, used, n_tokens)
+    out = onp.empty(n_tokens, "int32")
+    t = int(rng.randint(used))
+    for i in range(n_tokens):
+        out[i] = t
+        t = int(u[i]) if r[i] < 0.1 else int(succ[t, 0 if r[i] < 0.7
+                                                 else k[i]])
+    return out
+
+
+def lm_batches(n_batches, used, seed, bptt=LM_BPTT, batch=LM_BATCH):
+    """``n_batches`` (data, target) pairs of (bptt, batch) int32 tokens cut
+    from ``batch`` parallel streams (``lm_token_stream`` over the ids below
+    ``used``), as the word-LM example batchifies: the target is the data
+    one token on."""
+    stream = lm_token_stream(n_batches * bptt * batch + batch, used, seed)
+    cols = stream[:(n_batches * bptt + 1) * batch].reshape(batch, -1).T
+    return [(cols[i * bptt:(i + 1) * bptt], cols[i * bptt + 1:
+                                                  (i + 1) * bptt + 1])
+            for i in range(n_batches)]
+
+
+def _lm_loop_round(model, loss_fn, trainer, params, x, y, hidden, vocab):
+    """One step of the word-LM Gluon loop: states detached, record → model
+    → SoftmaxCrossEntropyLoss over every token → backward →
+    clip_global_norm(LM_CLIP · batch) → Trainer.step(batch) (the gradient
+    of the per-sequence sum over BPTT steps, averaged over the batch,
+    clipped at LM_CLIP, as Zaremba et al. train). Returns (the loss tensor,
+    the new states)."""
+    import incubator_mxnet_tpu_torch as mxt
+    hidden = [h.detach() for h in hidden]
+    with mxt.autograd.record():
+        out, hidden = model(x, hidden)
+        loss = loss_fn(out.reshape((-1, vocab)), y.reshape((-1,)))
+    loss.backward()
+    n = x.shape[1]
+    mxt.gluon.utils.clip_global_norm([p.grad() for p in params], LM_CLIP * n)
+    trainer.step(n)
+    return loss._data.detach(), hidden
+
+
+def _lm_clip(max_norm):
+    """TrainStep's grad_postprocess: the gradients scaled on the card so
+    their joint norm is at most ``max_norm`` (no host read)."""
+    import torch
+
+    def clip(grads):
+        norm = torch.stack(torch._foreach_norm(grads)).norm()
+        return torch._foreach_mul(grads, (max_norm / (norm + 1e-8))
+                                  .clamp(max=1.0))
+    return clip
+
+
+def _lm_step(model, lr, vocab, batch=LM_BATCH):
+    """jit.TrainStep over the LSTM LM with n_net_inputs = 3 (tokens, h0,
+    c0): loss on the logits, SGD at ``lr``, the clip on the card."""
+    import incubator_mxnet_tpu_torch as mxt
+    ce = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(out, y):
+        return ce(out[0].reshape((-1, vocab)), y.reshape((-1,)))
+    trainer = mxt.gluon.Trainer(model.collect_params(), "sgd",
+                                {"learning_rate": lr})
+    return mxt.jit.TrainStep(model, loss_fn, trainer, batch_axis=1,
+                             grad_postprocess=_lm_clip(LM_CLIP * batch))
+
+
+def _seed_all(seed):
+    """The card's two generators: torch's (nd.Dropout) and nd.random's (the
+    RNN's inter-layer masks)."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    torch.cuda.manual_seed(seed)
+    mxt.random.seed(seed)
+
+
+def check_lstm_lm_small():
+    """The LSTM LM at a small width (vocab 200, 32 / 32, 2 layers) on the
+    card, TF32 off and cuDNN deterministic: (a) dropout off, the card
+    (cuDNN's RNN) against the CPU from the same weights: the first
+    forward's logits and states and the gradients of its loss within
+    LM_SMALL_TOL of their largest value, then the weights after 3 Gluon
+    loop steps (SGD, the clip) within LM_SMALL_TOL; (b) dropout 0.5 from
+    one seed, the hybridized model against the plain one in the Gluon
+    loop, 4 steps (eager, capture + replay, replays): losses and weights
+    bit for bit, one capture; (c) two replays on the same batch with the
+    weights fixed give different logits (fresh masks). Returns a
+    summary."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    vocab = LM_SMALL["vocab_size"]
+    batches = lm_batches(4, vocab, 41, bptt=12, batch=6)
+    out = {}
+    try:
+        def build(ctx, dropout, weights=None):
+            model = models.LSTMLanguageModel(dropout=dropout, **LM_SMALL)
+            model.initialize(mxt.init.Uniform(0.1), ctx=ctx,
+                             generator=torch.Generator().manual_seed(5)
+                             if ctx.device_type == "cpu" else
+                             torch.Generator(device="cuda").manual_seed(5))
+            if weights is not None:
+                mxt.from_jax_params(model, weights)
+            return model
+
+        def rounds(model, ctx, steps, lr=0.5):
+            params = list(model.collect_params().values())
+            trainer = mxt.gluon.Trainer(model.collect_params(), "sgd",
+                                        {"learning_rate": lr})
+            loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+            with ctx:
+                hidden = model.begin_state(6)
+            got = []
+            for i in range(steps):
+                x, y = (mxt.nd.array(a, ctx=ctx, dtype="int32")
+                        for a in batches[i % len(batches)])
+                loss, hidden = _lm_loop_round(model, loss_fn, trainer,
+                                              params, x, y, hidden, vocab)
+                got.append(loss.float().cpu().numpy())
+            return got
+
+        # (a) card = CPU
+        cpu = build(mxt.cpu(), 0.0)
+        weights = mxt.to_numpy_params(cpu)
+        gpu = build(mxt.gpu(0), 0.0, weights)
+        first = {}
+        for name, model, ctx in (("cpu", cpu, mxt.cpu()),
+                                 ("gpu", gpu, mxt.gpu(0))):
+            x = mxt.nd.array(batches[0][0], ctx=ctx, dtype="int32")
+            y = mxt.nd.array(batches[0][1], ctx=ctx, dtype="int32")
+            with ctx:
+                hidden = model.begin_state(6)
+            with mxt.autograd.record():
+                logits, states = model(x, hidden)
+                loss = mxt.gluon.loss.SoftmaxCrossEntropyLoss()(
+                    logits.reshape((-1, vocab)), y.reshape((-1,)))
+            loss.backward()
+            first[name] = dict(
+                logits=logits.asnumpy(), h=states[0].asnumpy(),
+                c=states[1].asnumpy(),
+                **{"grad " + k: p.grad().asnumpy() for k, p in
+                   model._collect_params_with_prefix().items()})
+            rounds(model, ctx, 3)
+            first[name]["weights"] = mxt.to_numpy_params(model)
+        errs = {k: _max_rel(first["gpu"][k], first["cpu"][k])
+                for k in first["cpu"] if k != "weights"}
+        errs.update({"weight " + k: _max_rel(
+            first["gpu"]["weights"][k], v) for k, v in
+            first["cpu"]["weights"].items()})
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= LM_SMALL_TOL, "lstm lm small: card vs CPU %s "
+              "%.3g of its largest value" % (worst, errs[worst]))
+        out["card_vs_cpu_worst"] = [worst, errs[worst]]
+        # (b) hybridized = eager with dropout on, one seed
+        runs = []
+        for hybrid in (True, False):
+            model = build(mxt.gpu(0), 0.5, weights)
+            model.hybridize(hybrid)
+            _seed_all(11)
+            losses = rounds(model, mxt.gpu(0), 4)
+            runs.append((losses, mxt.to_numpy_params(model),
+                         model._captures))
+        (lh, wh, caps), (le, we, _) = runs
+        check(caps == 1, "lstm lm small: %d captures of one signature"
+              % caps)
+        check(all(onp.array_equal(a, b) for a, b in zip(lh, le))
+              and all(onp.array_equal(wh[k], we[k]) for k in we),
+              "lstm lm small: hybridized differs from eager with dropout "
+              "from one seed")
+        check(len({float(a.mean()) for a in lh}) == len(lh),
+              "lstm lm small: the steps' losses repeat")
+        # (c) two replays draw different masks
+        model = build(mxt.gpu(0), 0.5, weights)
+        model.hybridize()
+        x = mxt.nd.array(batches[0][0], ctx=mxt.gpu(0), dtype="int32")
+        with mxt.gpu(0):
+            hidden = model.begin_state(6)
+        with mxt.autograd.train_mode():
+            got = [model(x, hidden)[0].asnumpy() for _ in range(4)]
+        check(model._captures == 1 and not onp.array_equal(got[2], got[3])
+              and all(onp.isfinite(g).all() for g in got),
+              "lstm lm small: two replays gave the same logits (the "
+              "dropout masks did not change)")
+        out["hybridized_equal_eager_bitwise"] = True
+        out["replays_differ"] = True
+        log("lstm lm small: card vs CPU worst %s %.3g of its largest; "
+            "hybridized = eager bit for bit with dropout 0.5 from one "
+            "seed; replays draw fresh masks" % (worst, errs[worst]))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    return out
+
+
+def _lm_full_model(seed):
+    """The full-width LSTM LM (BASELINE config 5) on the card,
+    uniform(-0.05, 0.05) from ``seed``."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    model = models.LSTMLanguageModel(**LSTM_LM)
+    model.initialize(mxt.init.Uniform(0.05), ctx=mxt.gpu(0),
+                     generator=torch.Generator(device="cuda")
+                     .manual_seed(seed))
+    return model
+
+
+def train_lstm_lm_loop(batches, init_seed=31):
+    """The full-width LSTM LM through the word-LM Gluon loop
+    (``_lm_loop_round``), hybridized and plain, from the same weights and
+    one seed: LM_STEPS warm-up and timed steps (the hybridized model runs
+    its first step eagerly and captures at its second), then
+    PROFILED_STEPS under the profiler and 3 issued on an idle card. Every
+    loss finite, the last 3 steps' mean loss below the first 3's, and the
+    two runs' losses within CAPTURE_REL_TOL. Returns a summary."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    vocab = LSTM_LM["vocab_size"]
+    model = _lm_full_model(init_seed)
+    params = list(model.collect_params().values())
+    init = [p._tensor().detach().clone() for p in params]
+    data = [tuple(mxt.nd.array(a, ctx=mxt.gpu(0), dtype="int32") for a in b)
+            for b in batches]
+    loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+    warm, timed = LM_STEPS
+    rows = {}
+    for mode in ("hybridized", "plain"):
+        _reset(params, init)
+        model.hybridize(mode == "hybridized")
+        trainer = mxt.gluon.Trainer(model.collect_params(), "sgd",
+                                    {"learning_rate": LM_LR})
+        with mxt.gpu(0):
+            state = {"hidden": model.begin_state(LM_BATCH), "i": 0}
+
+        def one():
+            x, y = data[state["i"] % len(data)]
+            state["i"] += 1
+            loss, state["hidden"] = _lm_loop_round(
+                model, loss_fn, trainer, params, x, y, state["hidden"],
+                vocab)
+            return loss
+        _seed_all(12)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [one() for _ in range(warm)]
+        got, ms, host_ms = _timed_steps(one, timed)
+        losses += got
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        profiled = device_idle_share(one)
+        rows[mode] = dict(
+            step_ms=ms, step_host_ms=host_ms,
+            tokens_per_s=LM_BPTT * LM_BATCH / ms * 1e3,
+            issue_ms=issue_ms(one), idle_share=profiled["idle_share"],
+            idle_share_of_timed_step=1.0 - profiled["busy_ms"]
+            / PROFILED_STEPS / ms, profiled=profiled,
+            peak_memory_gb=peak,
+            losses=[float(l.float().mean()) for l in losses],
+            captures=model._captures)
+        del trainer
+    model.hybridize(False)
+    hyb, pla = rows["hybridized"], rows["plain"]
+    for mode, row in rows.items():
+        ls = row["losses"]
+        check(all(math.isfinite(v) for v in ls)
+              and sum(ls[-3:]) < sum(ls[:3]),
+              "lstm lm gluon loop %s: losses not finite or not falling: %s"
+              % (mode, ls))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hyb["losses"],
+                                                   pla["losses"]))
+    check(rel <= CAPTURE_REL_TOL, "lstm lm gluon loop: hybridized losses "
+          "%.3g relative from the plain loop's" % rel)
+    check(hyb["captures"] == 1, "lstm lm gluon loop: %d captures of one "
+          "signature" % hyb["captures"])
+    del model, params, init, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(hybridized=hyb, plain=pla, max_rel_loss_diff=rel)
+
+
+def _loop_layer(mode, x, h0, c0, weights):
+    """The recurrence the port did not keep, timed beside it: one layer of
+    ``rnn_op._rnn`` by the JAX package's arithmetic step by step (the
+    input's products for every step at once, then an h2h product and the
+    gates each step), in place of ``rnn_op._fused_layer`` (cuDNN's RNN)."""
+    import torch
+    import torch.nn.functional as F
+    outs, hs, cs = [], [], []
+    for d, (wi, wh, bi, bh) in enumerate(weights):
+        xw = F.linear(x, wi, bi)
+        h, c = h0[d], None if c0 is None else c0[d]
+        ys = [None] * x.shape[0]
+        steps = range(x.shape[0] - 1, -1, -1) if d else range(x.shape[0])
+        for t in steps:
+            hw = F.linear(h, wh, bh)
+            if mode == "lstm":
+                i, f, g, o = (xw[t] + hw).chunk(4, dim=-1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h = torch.sigmoid(o) * torch.tanh(c)
+            else:
+                raise ValueError("the loop route times the LSTM only")
+            ys[t] = h
+        outs.append(torch.stack(ys))
+        hs.append(h)
+        cs.append(c)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1),
+            torch.stack(hs), None if c0 is None else torch.stack(cs))
+
+
+def train_lstm_lm_step(batches, route, timed, init_seed=31):
+    """The full-width LSTM LM through jit.TrainStep (n_net_inputs = 3,
+    zero states each step) with the recurrence on ``route`` ("fused", the
+    port's: cuDNN's RNN; "loop", ``_loop_layer`` put in its place for this
+    run): captured (a first step that captures, one replay, ``timed``
+    timed replays, then the profiler and the idle-card issue), then its
+    eager body from the same weights and seed (phase by phase once, then
+    ``timed`` timed). Losses finite, the two runs' within CAPTURE_REL_TOL.
+    Returns a summary."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ndarray import rnn_op
+    vocab = LSTM_LM["vocab_size"]
+    fused = rnn_op._fused_layer
+    if route == "loop":
+        rnn_op._fused_layer = _loop_layer
+    try:
+        model = _lm_full_model(init_seed)
+        params = list(model.collect_params().values())
+        init = [p._tensor().detach().clone() for p in params]
+        with mxt.gpu(0):
+            h0, c0 = model.begin_state(LM_BATCH)
+        data = [tuple(mxt.nd.array(a, ctx=mxt.gpu(0), dtype="int32")
+                      for a in b) for b in batches]
+        pos = {"i": 0}
+
+        def args():
+            x, y = data[pos["i"] % len(data)]
+            pos["i"] += 1
+            return x, h0, c0, y
+
+        step = _lm_step(model, LM_LR, vocab)
+        _seed_all(13)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step(*args(), n_net_inputs=3)]
+        capture_s = time.perf_counter() - t0
+        losses.append(step(*args(), n_net_inputs=3))
+        got, ms, host_ms = _timed_steps(
+            lambda: step(*args(), n_net_inputs=3), timed)
+        losses += got
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        profiled = device_idle_share(lambda: step(*args(), n_net_inputs=3))
+        issue = issue_ms(lambda: step(*args(), n_net_inputs=3))
+        check(step.captures == 1, "lstm lm TrainStep: %d captures of one "
+              "signature" % step.captures)
+        captured = [float(l._data.float().mean()) for l in losses]
+        del step
+        _reset(params, init)
+        pos["i"] = 0
+        step = _lm_step(model, LM_LR, vocab)
+        _seed_all(13)
+        torch.cuda.reset_peak_memory_stats()
+        eager = [_eager_step(step, *args(), n_net_inputs=3)]
+        phases = step_phases(step, *args(), n_net_inputs=3)
+        eager.append(phases.pop("loss"))
+        got, eager_ms, eager_host_ms = _timed_steps(
+            lambda: _eager_step(step, *args(), n_net_inputs=3), timed)
+        eager += got
+        eager_peak = torch.cuda.max_memory_allocated() / 1e9
+        eager_profiled = device_idle_share(
+            lambda: _eager_step(step, *args(), n_net_inputs=3))
+        eager_issue = issue_ms(
+            lambda: _eager_step(step, *args(), n_net_inputs=3))
+        eager_losses = [float(l._data.float().mean()) for l in eager]
+        del step
+    finally:
+        rnn_op._fused_layer = fused
+    rel = max(abs(a - b) / abs(b) for a, b in zip(captured, eager_losses))
+    check(all(math.isfinite(v) for v in captured + eager_losses),
+          "lstm lm TrainStep (%s): a loss is not finite" % route)
+    check(rel <= CAPTURE_REL_TOL, "lstm lm TrainStep (%s): captured losses "
+          "%.3g relative from the eager body's" % (route, rel))
+    del model, params, init, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        route=route, captured=dict(
+            step_ms=ms, step_host_ms=host_ms,
+            tokens_per_s=LM_BPTT * LM_BATCH / ms * 1e3, issue_ms=issue,
+            idle_share=profiled["idle_share"], profiled=profiled,
+            capture_step_s=capture_s, peak_memory_gb=peak,
+            losses=captured),
+        eager=dict(
+            step_ms=eager_ms, step_host_ms=eager_host_ms,
+            tokens_per_s=LM_BPTT * LM_BATCH / eager_ms * 1e3,
+            issue_ms=eager_issue, idle_share=eager_profiled["idle_share"],
+            profiled=eager_profiled, peak_memory_gb=eager_peak,
+            step_phases_ms=phases, losses=eager_losses),
+        max_rel_loss_diff=rel)
+
+
+def check_lstm_lm_undetached(batches):
+    """A captured TrainStep right after a recorded forward whose states the
+    caller holds undetached (their graph alive, made on the default
+    stream): it captures (the port raised here before its capture read the
+    parameters through detached leaves) and two steps give finite
+    losses."""
+    import incubator_mxnet_tpu_torch as mxt
+    vocab = LSTM_LM["vocab_size"]
+    model = _lm_full_model(32)
+    x, y = (mxt.nd.array(a, ctx=mxt.gpu(0), dtype="int32")
+            for a in batches[0])
+    with mxt.gpu(0):
+        hidden = model.begin_state(LM_BATCH)
+    with mxt.autograd.record():
+        _, held = model(x, hidden)
+    check(held[0]._data.requires_grad, "lstm lm: the held states carry no "
+          "graph")
+    step = _lm_step(model, LM_LR, vocab)
+    losses = [float(step(x, held[0], held[1], y, n_net_inputs=3)
+                    ._data.float().mean()) for _ in range(2)]
+    check(step.captures == 1 and all(math.isfinite(v) for v in losses),
+          "lstm lm: TrainStep after an undetached forward: captures %d, "
+          "losses %s" % (step.captures, losses))
+    del model, step, held, hidden
+    gc.collect()
+    return dict(captures=1, losses=losses)
+
+
+def lstm_lm(card):
+    """BASELINE config 5 on the card: the small-width checks, the
+    full-width Gluon loop (hybridized and plain), TrainStep captured and
+    eager on the port's recurrence (cuDNN's RNN) and on the step loop it
+    did not keep, and a capture after an undetached forward. Returns
+    (kernel launches over the main path, summary)."""
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    summary = dict(card=card, small=check_lstm_lm_small(),
+                   config=dict(LSTM_LM, bptt=LM_BPTT, batch=LM_BATCH,
+                               lr=LM_LR, clip=LM_CLIP, dtype="float32"))
+    batches = lm_batches(sum(LM_STEPS) + PROFILED_STEPS + 3, LM_USED_IDS,
+                         40)
+    _kernels.reset_launches()
+    summary["gluon_loop"] = train_lstm_lm_loop(batches)
+    launches = dict(_kernels.LAUNCHES)
+    summary["train_step"] = {
+        route: train_lstm_lm_step(batches, route, LM_STEP_TIMED)
+        for route in ("fused", "loop")}
+    summary["undetached_capture"] = check_lstm_lm_undetached(batches)
+    loop, ts = summary["gluon_loop"], summary["train_step"]
+    log("lstm lm (vocab %d, %d/%d, %d layers, B %d x BPTT %d, fp32): "
+        "gluon loop hybridized %.2f ms (%.0f tokens/s, issue %.2f ms, idle "
+        "%.1f%%), plain %.2f ms (%.0f tokens/s, issue %.2f, idle %.1f%%); "
+        "TrainStep captured fused %.2f / loop %.2f ms, eager body fused "
+        "%.2f / loop %.2f ms; losses %.3f -> %.3f"
+        % (LSTM_LM["vocab_size"], LSTM_LM["embed_size"],
+           LSTM_LM["hidden_size"], LSTM_LM["num_layers"], LM_BATCH, LM_BPTT,
+           loop["hybridized"]["step_ms"], loop["hybridized"]["tokens_per_s"],
+           loop["hybridized"]["issue_ms"],
+           100 * loop["hybridized"]["idle_share"],
+           loop["plain"]["step_ms"], loop["plain"]["tokens_per_s"],
+           loop["plain"]["issue_ms"], 100 * loop["plain"]["idle_share"],
+           ts["fused"]["captured"]["step_ms"],
+           ts["loop"]["captured"]["step_ms"],
+           ts["fused"]["eager"]["step_ms"], ts["loop"]["eager"]["step_ms"],
+           loop["hybridized"]["losses"][0],
+           loop["hybridized"]["losses"][-1]))
+    return launches, summary
+
+
+# --------------------------------------------------------------- model zoo
+
+def check_zoo_small():
+    """Each new model-zoo family (its ZOO model) at a small input in fp32,
+    TF32 off and cuDNN deterministic: an eval-mode forward on the card
+    within ZOO_SMALL_TOL of the same weights' forward on the CPU."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    errs = {}
+    try:
+        for name, _, small in ZOO:
+            x = onp.random.RandomState(51).uniform(
+                -1, 1, (2, 3, small, small)).astype("float32")
+            nets = []
+            for ctx in (mxt.cpu(), mxt.gpu(0)):
+                net = vision.get_model(name)
+                net.initialize(mxt.init.Xavier("gaussian", "in", 2), ctx=ctx,
+                               generator=torch.Generator().manual_seed(52)
+                               if ctx.device_type == "cpu" else
+                               torch.Generator(device="cuda")
+                               .manual_seed(52))
+                with ctx:
+                    net(mxt.nd.array(x, ctx=ctx))
+                if nets:
+                    mxt.from_jax_params(net, mxt.to_numpy_params(nets[0]))
+                nets.append(net)
+            got = [net(mxt.nd.array(x, ctx=ctx)).asnumpy() for net, ctx in
+                   zip(nets, (mxt.cpu(), mxt.gpu(0)))]
+            errs[name] = _max_rel(got[1], got[0])
+            check(onp.isfinite(got[1]).all() and errs[name] <= ZOO_SMALL_TOL,
+                  "model zoo %s: card vs CPU %.3g of the largest logit"
+                  % (name, errs[name]))
+            del nets
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    log("model zoo card vs CPU (fp32, small inputs): %s"
+        % ", ".join("%s %.2g" % kv for kv in errs.items()))
+    return errs
+
+
+def train_zoo_model(name, size):
+    """One family at its published widths: batch ZOO_BATCH x 3 x size²
+    bf16 (fp32 masters, batch norm statistics fp32), Xavier from a seed:
+    one eager forward (logits finite, (batch, 1000)), then jit.TrainStep
+    with SGD-momentum, captured: a first step, one replay, ZOO_TIMED timed
+    replays; losses finite, no hand-written kernel launched. Returns a
+    row."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    net = vision.get_model(name)
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=gen)
+    net.cast("bfloat16")
+    x = torch.randn(ZOO_BATCH, 3, size, size, device=dev, generator=gen) \
+        .to(torch.bfloat16)
+    y = torch.randint(0, 1000, (ZOO_BATCH,), device=dev, generator=gen) \
+        .float()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits = net(x)                   # deferred shapes
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = net(x)
+        end.record()
+        end.synchronize()
+    check(tuple(logits.shape) == (ZOO_BATCH, 1000)
+          and bool(torch.isfinite(logits).all()),
+          "model zoo %s: eager logits %s, finite %s" % (
+              name, tuple(logits.shape), bool(torch.isfinite(logits).all())))
+    trainer = mxt.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.01, "momentum": 0.9, "multi_precision": True})
+    step = mxt.jit.TrainStep(net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             trainer)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(x, y)]
+    capture_s = time.perf_counter() - t0
+    losses.append(step(x, y))
+    got, ms, host_ms = _timed_steps(lambda: step(x, y), ZOO_TIMED)
+    losses = [float(l._data.float().mean()) for l in losses + got]
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    check(all(math.isfinite(v) for v in losses) and step.captures == 1
+          and not launches, "model zoo %s: losses %s, captures %d, "
+          "hand-written kernels launched %s" % (name, losses, step.captures,
+                                                launches))
+    row = dict(batch=ZOO_BATCH, size=size, dtype="bfloat16",
+               eager_forward_ms=start.elapsed_time(end), step_ms=ms,
+               step_host_ms=host_ms, img_per_s=ZOO_BATCH / ms * 1e3,
+               capture_step_s=capture_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               params=sum(p._tensor().numel() for p in
+                          net.collect_params().values()), losses=losses)
+    del net, step, trainer, x, y, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def model_zoo(card):
+    """The new model-zoo families on the card: card = CPU at small inputs,
+    then each at its published widths through TrainStep. Returns
+    (kernel launches over the main path, summary)."""
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    summary = dict(card=card, card_vs_cpu=check_zoo_small())
+    _kernels.reset_launches()
+    summary["train"] = {name: train_zoo_model(name, size)
+                        for name, size, _ in ZOO}
+    launches = dict(_kernels.LAUNCHES)
+    log("model zoo, B %d bf16 TrainStep captured: %s" % (ZOO_BATCH, ", ".join(
+        "%s %.1f ms (%.0f img/s, %.1f GB)" % (
+            k, r["step_ms"], r["img_per_s"], r["peak_memory_gb"])
+        for k, r in summary["train"].items())))
+    return launches, summary
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -3283,19 +3953,19 @@ def graph_ms(fn, iters, replays=5):
     return start.elapsed_time(end) / (replays * iters)
 
 
-def step_phases(step, *inputs):
+def step_phases(step, *inputs, n_net_inputs=1):
     """One TrainStep, phase by phase as TrainStep.__call__ runs them, with
     CUDA events between: forward (with the loss), backward, update."""
     import torch
     from incubator_mxnet_tpu_torch.ndarray import NDArray
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    args = step._prepare(inputs, 1)
+    args = step._prepare(inputs, n_net_inputs)
     ev[0].record()
-    loss = step._forward(args, 1)
+    loss = step._forward(args, n_net_inputs)
     ev[1].record()
     grads = step._backward(loss)
     ev[2].record()
-    step._update(args[0].shape[0], grads)
+    step._update(args[0].shape[step.batch_axis], grads)
     ev[3].record()
     ev[3].synchronize()
     return dict(forward_ms=ev[0].elapsed_time(ev[1]),
@@ -3337,13 +4007,18 @@ def main(argv):
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
                                      "end to end on one NVIDIA GPU.")
     parser.add_argument("--rtc-only", action="store_true",
-                        help="time K5's launch path (phase 13) alone")
+                        help="time K5's launch path (phase 15) alone")
     parser.add_argument("--imperative-only", action="store_true",
                         help="time the imperative BERT loop against "
                         "TrainStep (phase 6c) alone")
     parser.add_argument("--gluon-only", action="store_true",
                         help="run the Gluon training loop (phase 12) "
                         "alone")
+    parser.add_argument("--rnn-only", action="store_true",
+                        help="run the LSTM language model (phase 13) "
+                        "alone")
+    parser.add_argument("--zoo-only", action="store_true",
+                        help="run the model-zoo families (phase 14) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -3402,6 +4077,18 @@ def main(argv):
         log(json.dumps({"gluon_loop": dict(gluon, root=os.path.abspath(
             opts.root))}))
         return 0
+    for flag, key, phase in ((opts.rnn_only, "rnn", lstm_lm),
+                             (opts.zoo_only, "model_zoo", model_zoo)):
+        if flag:
+            try:
+                _, got = phase(card)
+            except SmokeFailure as e:
+                print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
+                return 1
+            log(card)
+            log(json.dumps({key: dict(got, root=os.path.abspath(
+                opts.root))}))
+            return 0
     try:
         ptxas = build_kernels()
         served = check_flash_fwd()
@@ -3420,6 +4107,10 @@ def main(argv):
         train_launches, training = train_full_width(bwd)
         train_launches["resnet50"], vision = train_resnet_full_width()
         gluon_launches, gluon = gluon_loop(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rnn_launches, rnn = lstm_lm(card)
+        zoo_launches, zoo = model_zoo(card)
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -3430,6 +4121,7 @@ def main(argv):
     fwd_shapes = served + bwd["fwd"][:1]
     paths = {"serving": serve_launches, "conv3x3_s1": conv_launches,
              "rtc": rtc_launches, "ndarray_bert": ndarray_launches,
+             "lstm_lm": rnn_launches, "model_zoo": zoo_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -3547,6 +4239,8 @@ def main(argv):
     log(json.dumps({"training": training}))
     log(json.dumps({"vision": vision}))
     log(json.dumps({"gluon_loop": gluon}))
+    log(json.dumps({"rnn": rnn}))
+    log(json.dumps({"model_zoo": zoo}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -18,10 +18,12 @@ flash-attention forward kernel, and trains them through ``jit.TrainStep``
 (``gluon.Trainer``, SGD/Adam/AdamW with fp32 masters) with the forward and
 the two backward kernels; on the card ``TrainStep`` replays its whole step
 as one captured CUDA graph per input signature. ``contrib.amp`` carries
-MXNet's mixed-precision helpers. It trains LeNet and the model zoo's ResNets (conv
-and pooling on cuDNN, batch norm in fp32); ``ops.conv_bwd.conv3x3_s1``
-carries the fused conv-backward kernel, and ``rtc`` compiles user CUDA
-kernels with NVRTC at run time.
+MXNet's mixed-precision helpers. It trains LeNet, the model zoo (ResNet,
+VGG, AlexNet, DenseNet, SqueezeNet, MobileNet v1/v2, Inception v3; conv
+and pooling on cuDNN, batch norm in fp32) and the LSTM language model
+(``gluon.rnn`` over ``nd.RNN``'s recurrence, cuDNN's fused RNN on the
+card); ``ops.conv_bwd.conv3x3_s1`` carries the fused conv-backward
+kernel, and ``rtc`` compiles user CUDA kernels with NVRTC at run time.
 
 Around the model it carries MXNet's Gluon training loop: ``gluon.data``
 (datasets, samplers, a ``DataLoader`` that batches on the host and moves

@@ -9,26 +9,60 @@ it::
 
 The port's blocks use the same structural names, and Dense weights are
 (units, in_units) in both packages, so the copy needs no renaming and no
-transpose. ``to_numpy_params`` gives the port's parameters back in the
-same form. A ``.params`` file is the other route: ``save_parameters`` in
-one package and ``load_parameters`` in the other carry the same names,
-bfloat16 bit for bit.
+transpose. The one exception is the fused RNN layers: the JAX package
+keeps their parameters in lists (``_i2h``, ``_h2h``, ``_i2hb``,
+``_h2hb``, one entry per layer and direction), out of its structural
+names, where the port registers them as MXNet does
+(``lstm.l0_i2h_weight`` …). Given the JAX net itself,
+``from_jax_params`` takes them from those lists under the port's names
+(``jax_arrays``). ``to_numpy_params`` gives the port's parameters back in
+the same form. A ``.params`` file is the other route: ``save_parameters``
+in one package and ``load_parameters`` in the other carry the same names,
+bfloat16 bit for bit (but for the fused RNN layers' weights, which the
+JAX package's file leaves out).
 """
 from __future__ import annotations
 
 import numpy as onp
 
-__all__ = ["from_jax_params", "to_numpy_params"]
+__all__ = ["from_jax_params", "jax_arrays", "to_numpy_params"]
+
+
+def jax_arrays(jax_net):
+    """Structural name → array of every parameter of a JAX package block:
+    its ``_collect_params_with_prefix()`` and, for each fused RNN layer in
+    it, the entries of its parameter lists under MXNet's names (index
+    ``layer · directions + direction`` is ``{l,r}{layer}_…``)."""
+    out = {k: p.data() for k, p in
+           jax_net._collect_params_with_prefix().items()}
+
+    def walk(block, prefix):
+        if hasattr(block, "_i2h"):
+            for kind, params in (("i2h_weight", block._i2h),
+                                 ("h2h_weight", block._h2h),
+                                 ("i2h_bias", block._i2hb),
+                                 ("h2h_bias", block._h2hb)):
+                for idx, p in enumerate(params):
+                    layer, d = divmod(idx, block._dir)
+                    out["%s%s%d_%s" % (prefix, "lr"[d], layer, kind)] = \
+                        p.data()
+        for name, child in block._children.items():
+            walk(child, prefix + name + ".")
+    walk(jax_net, "")
+    return out
 
 
 def from_jax_params(net, arrays, strict=True):
-    """Copy ``arrays`` into ``net``'s initialized parameters, each in the
+    """Copy ``arrays`` (or the parameters of a JAX package block, through
+    ``jax_arrays``) into ``net``'s initialized parameters, each in the
     parameter's dtype and on its device. With ``strict`` the two key sets
     must be equal; every shared key's shape must match. A net whose keys
     all share one first component (a wrapper such as ``FeaturesView``,
     whose child is ``model``) also takes the arrays of the block it wraps,
     keyed without that prefix. Returns ``net``."""
-    params = dict(net.collect_params().items())
+    if hasattr(arrays, "_collect_params_with_prefix"):
+        arrays = jax_arrays(arrays)
+    params = net._collect_params_with_prefix()
     heads = {k.split(".", 1)[0] + "." for k in params}
     if set(params) != set(arrays) and len(heads) == 1:
         head = heads.pop()

@@ -3,8 +3,10 @@
 ``gluon/block.py``, MXNet's CachedOp).
 
 A hybridized block on a CUDA device keeps one captured call per
-signature: the training flag, whether the call records a backward, and
-its inputs' shapes, dtypes and gradient needs (the JAX package keys its
+signature: the training flag, whether the call records a backward, the
+structure of its arguments (tensors, None, and tuples, lists and dicts of
+them, as the word-LM call ``model(x, [h, c])`` passes) and its tensors'
+shapes, dtypes and gradient needs (the JAX package keys its
 compiled programs the same way, ``block.py:341``). The first call of a
 signature runs eagerly (which also finishes deferred initialisation); at
 its second call, once the first call's backward has set up what a
@@ -91,21 +93,47 @@ def _uses_graphs(device):
     return device.type == "cuda"
 
 
+def _flatten(tree, leaves):
+    """Append the leaves of ``tree`` (nested tuples, lists and dicts) to
+    ``leaves``; return its structure, hashable, for ``_unflatten``."""
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_flatten(t, leaves) for t in tree))
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        return (dict, keys, tuple(_flatten(tree[k], leaves) for k in keys))
+    leaves.append(tree)
+    return None
+
+
+def _unflatten(spec, leaves):
+    """The tree of structure ``spec`` over the iterator ``leaves``."""
+    if spec is None:
+        return next(leaves)
+    if spec[0] is dict:
+        return {k: _unflatten(s, leaves) for k, s in zip(spec[1], spec[2])}
+    return spec[0](_unflatten(s, leaves) for s in spec[1])
+
+
 def _flat(out, name):
-    """(the tensors of a forward's output, how to rebuild it): a tensor,
-    or a tuple or list of tensors."""
-    if isinstance(out, torch.Tensor):
-        return [out], None
-    if isinstance(out, (tuple, list)) and all(
-            isinstance(o, torch.Tensor) for o in out):
-        return list(out), type(out)
-    raise TypeError("hybridized %s returned %s: a captured forward returns "
-                    "a tensor or a tuple or list of tensors"
-                    % (name, type(out).__name__))
+    """(the tensors of a forward's output, its structure): a tensor, or
+    tuples and lists of them, nested."""
+    outs = []
+    spec = _flatten(out, outs)
+    if not all(isinstance(o, torch.Tensor) for o in outs):
+        raise TypeError("hybridized %s returned %s: a captured forward "
+                        "returns tensors, or tuples and lists of them"
+                        % (name, type(out).__name__))
+    return outs, spec
 
 
-def _rebuild(outs, kind):
-    return outs[0] if kind is None else kind(outs)
+def _rebuild(outs, spec):
+    return _unflatten(spec, iter(outs))
+
+
+def _plain_call(block, args, kwargs):
+    """The block's forward through ``nn.Module.__call__``: the caller
+    (``HybridBlock.__call__``) has run the MXNet hooks."""
+    return torch.nn.Module.__call__(block, *args, **kwargs)
 
 
 class _Instance:
@@ -209,20 +237,21 @@ def _bindings(params):
 
 def call(block, *args, **kwargs):
     """A hybridized block's call on tensors (``HybridBlock.__call__`` has
-    unwrapped any NDArrays)."""
-    from .block import Block
-    names = sorted(kwargs)
-    inputs = list(args) + [kwargs[k] for k in names]
+    unwrapped any NDArrays). Arguments are tensors, None, or tuples,
+    lists and dicts of them."""
+    inputs = []
+    spec = _flatten((args, kwargs), inputs)
     for x in inputs:
         if x is not None and not isinstance(x, torch.Tensor):
-            raise TypeError("hybridized %s takes arrays (or None), got %s"
+            raise TypeError("hybridized %s takes arrays (or None), or lists "
+                            "of them, got %s"
                             % (type(block).__name__, type(x).__name__))
     device = next((x.device for x in inputs if x is not None), None)
     if device is None or not _uses_graphs(device):
         with plain():
-            return Block.__call__(block, *args, **kwargs)
+            return _plain_call(block, args, kwargs)
     recording = torch.is_grad_enabled()
-    sig = (autograd.is_training(), recording, tuple(names), tuple(
+    sig = (autograd.is_training(), recording, spec, tuple(
         None if x is None else (tuple(x.shape), x.dtype, x.requires_grad)
         for x in inputs))
     cache = block._graphs
@@ -230,7 +259,7 @@ def call(block, *args, **kwargs):
     params = _params(block)
     if entry is None or any(p._data is None for p in params):
         with plain():
-            out = Block.__call__(block, *args, **kwargs)
+            out = _plain_call(block, args, kwargs)
         _store(cache, sig, _Entry(_bindings(_params(block))))
         return out
     bindings = _bindings(params)
@@ -238,7 +267,7 @@ def call(block, *args, **kwargs):
         entry = _Entry(bindings)           # rebound or rewritten: again
     inst = next((i for i in entry.instances if i.owner is None), None)
     if inst is None:
-        inst = _capture(block, args, names, kwargs, params, recording)
+        inst = _capture(block, spec, inputs, params, recording)
         entry.instances.append(inst)
     _store(cache, sig, entry)
     if inst.bwd is None:
@@ -253,15 +282,12 @@ def _store(cache, sig, entry):
         cache.popitem(last=False)
 
 
-def _capture(block, args, names, kwargs, params, recording):
+def _capture(block, spec, inputs, params, recording):
     """Capture the block's forward (and, when ``recording`` and anything
-    needs a gradient, its backward) for calls like this one; runs
-    nothing."""
-    from .block import Block
+    needs a gradient, its backward) for calls like this one (arguments of
+    structure ``spec`` over ``inputs``); runs nothing."""
     name = type(block).__name__
     inst = _Instance()
-    n_args = len(args)
-    inputs = list(args) + [kwargs[k] for k in names]
     inst.inputs = [None if x is None else
                    x.detach().clone().requires_grad_(x.requires_grad)
                    for x in inputs]
@@ -282,8 +308,8 @@ def _capture(block, args, names, kwargs, params, recording):
             p._data = t
         try:
             with plain(), torch.set_grad_enabled(recording):
-                out = Block.__call__(block, *static[:n_args], **dict(
-                    zip(names, static[n_args:])))
+                args, kwargs = _unflatten(spec, iter(static))
+                out = _plain_call(block, args, kwargs)
         finally:
             for p, t in zip(params, saved):
                 p._data = t

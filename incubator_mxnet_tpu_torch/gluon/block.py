@@ -12,8 +12,29 @@ keyed by the same names.
 Blocks take MXNet's ``prefix=`` keyword and offer ``name_scope()``, which
 model code such as the model zoo uses; the structural names above do not
 depend on either, so the prefix is accepted and not used, and
-``name_scope()`` opens an empty scope. Sharing parameters through
-``params=`` is not ported yet and raises.
+``name_scope()`` opens an empty scope.
+
+``params=`` shares parameters: given another block's ``params`` (its own
+parameters) or ``collect_params()`` (its whole tree), a parameter this
+block (or a child, at any depth) registers under a structural name found
+there is that one ``Parameter`` object. A shared parameter has one
+structural name in each block that holds it: ``save_parameters`` writes
+it under each, as the JAX package does, and ``collect_params()`` lists it
+once (under its first name), so a ``Trainer`` updates it once with the sum
+of its uses' gradients.
+
+``register_forward_pre_hook(hook)`` and ``register_forward_hook(hook)``
+are MXNet's: ``hook(block, args)`` before and ``hook(block, args, out)``
+after every call, ``args`` as the caller passed them (NDArrays stay
+NDArrays), return values ignored; each returns a ``HookHandle`` (its
+``detach()``, or torch's name ``remove()``, unregisters it). They
+override ``nn.Module``'s methods of the same names; torch's own module
+hooks stay reachable as ``torch.nn.Module.register_forward_hook(block,
+...)`` and run inside the call, on tensors. A hybridized block runs its
+own hooks at every call; its children's run where their forward runs: at
+a signature's eager call and its capture, not at replays (the JAX
+package runs them when it traces). ``apply(fn)`` is ``nn.Module``'s:
+``fn`` on every child, depth first, then on the block.
 
 Calling a block with NDArray arguments unwraps them once, runs the
 forward on tensors (recorded for ``autograd.backward`` only inside
@@ -34,6 +55,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import re
 
 import torch
 
@@ -41,7 +63,44 @@ from .. import ndarray as nd
 from . import _functional
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "HookHandle", "SymbolBlock"]
+
+
+class HookHandle:
+    """A registered forward hook: ``detach()`` (or ``remove()``) takes it
+    off; as a context manager it detaches on exit."""
+
+    def __init__(self, hooks, hook):
+        self._hooks = hooks
+        self._hook = hook
+
+    def detach(self):
+        if self._hook in self._hooks:
+            self._hooks.remove(self._hook)
+
+    remove = detach
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.detach()
+
+
+def _under(shared, name):
+    """The entries of ``shared`` below the structural name ``name``."""
+    head = name + "."
+    return {k[len(head):]: v for k, v in shared.items() if k.startswith(head)}
+
+
+def _adopt(shared, declared):
+    """``shared`` in place of the parameter ``declared``: its shape takes
+    what ``declared`` knows (0 is unknown); a conflict raises."""
+    if shared.shape is not None and declared.shape is not None:
+        shared.shape = tuple(d if d else s for s, d in
+                             zip(shared.shape, declared.shape)) \
+            if len(shared.shape) == len(declared.shape) else declared.shape
+    return shared
 
 
 class Block(torch.nn.Module):
@@ -49,14 +108,65 @@ class Block(torch.nn.Module):
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
-        if params is not None:
-            raise NotImplementedError("sharing parameters through params= is "
-                                      "not ported yet")
         self._reg_params = {}
+        self._shared = None if params is None else dict(params.items())
+        self._mx_pre_hooks = []
+        self._mx_hooks = []
         self.training = False
 
     def __call__(self, *args, **kwargs):
+        if self._mx_pre_hooks or self._mx_hooks:
+            return self._hooked(args, kwargs, functools.partial(
+                nd.ndarray._apply, super().__call__))
         return nd.ndarray._apply(super().__call__, *args, **kwargs)
+
+    def _hooked(self, args, kwargs, call):
+        """``call(*args, **kwargs)`` between this block's MXNet hooks, which
+        see arrays as NDArrays (a child inside a forward is called with
+        tensors; the hook gets NDArrays over them, as MXNet's would)."""
+        if self._mx_pre_hooks:
+            shown = nd.ndarray._as_ndarrays(args)
+            for hook in list(self._mx_pre_hooks):
+                hook(self, shown)
+        out = call(*args, **kwargs)
+        if self._mx_hooks:
+            shown = nd.ndarray._as_ndarrays(args)
+            for hook in list(self._mx_hooks):
+                hook(self, shown, nd.ndarray._as_ndarrays(out))
+        return out
+
+    def register_forward_pre_hook(self, hook):
+        """Run ``hook(block, args)`` before every call of this block."""
+        self._mx_pre_hooks.append(hook)
+        return HookHandle(self._mx_pre_hooks, hook)
+
+    def register_forward_hook(self, hook):
+        """Run ``hook(block, args, out)`` after every call of this block."""
+        self._mx_hooks.append(hook)
+        return HookHandle(self._mx_hooks, hook)
+
+    @property
+    def params(self):
+        """This block's own parameters (not its children's), by attribute
+        name: what another block's ``params=`` takes to share them."""
+        ret = ParameterDict()
+        ret.update(self._reg_params)
+        return ret
+
+    def _share(self, shared):
+        """Take the parameters of ``shared`` (structural name → Parameter,
+        relative to this block) in place of this block's own and its
+        children's of the same names, now and for parameters and children
+        registered later."""
+        if not shared:
+            return
+        self._shared = {**shared, **(self._shared or {})}
+        for name, p in list(self._reg_params.items()):
+            if name in shared and shared[name] is not p:
+                setattr(self, name, p)   # __setattr__ puts shared[name] in
+        for name, child in self._modules.items():
+            if isinstance(child, Block):
+                child._share(_under(self._shared, name))
 
     def name_scope(self):
         """A scope for creating children, as in MXNet; names here are
@@ -64,10 +174,15 @@ class Block(torch.nn.Module):
         return contextlib.nullcontext(self)
 
     def __setattr__(self, name, value):
+        shared = self.__dict__.get("_shared")
         if isinstance(value, Parameter):
+            if shared and name in shared:
+                value = _adopt(shared[name], value)
             self.__dict__["_reg_params"][name] = value
             value._attach(self, name)
             return
+        if shared and isinstance(value, Block):
+            value._share(_under(shared, name))
         super().__setattr__(name, value)
 
     def __getattr__(self, name):
@@ -77,7 +192,10 @@ class Block(torch.nn.Module):
         return super().__getattr__(name)
 
     def register_child(self, block, name=None):
-        self.add_module(name or str(len(self._modules)), block)
+        name = name or str(len(self._modules))
+        if self._shared and isinstance(block, Block):
+            block._share(_under(self._shared, name))
+        self.add_module(name, block)
 
     def _collect_params_with_prefix(self, prefix=""):
         if prefix:
@@ -88,11 +206,17 @@ class Block(torch.nn.Module):
                 ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
 
-    def collect_params(self):
+    def collect_params(self, select=None):
         """Every parameter of this block and its children, keyed by
-        structural name."""
-        ret = ParameterDict()
-        ret.update(self._collect_params_with_prefix())
+        structural name, each once (a shared parameter under its first
+        name); with ``select``, those whose name the regular expression
+        matches."""
+        pattern = re.compile(select) if select else None
+        seen, ret = set(), ParameterDict()
+        for name, p in self._collect_params_with_prefix().items():
+            if id(p) not in seen and (pattern is None or pattern.match(name)):
+                seen.add(id(p))
+                ret.update({name: p})
         return ret
 
     def initialize(self, init=None, ctx=None, verbose=False,
@@ -177,9 +301,27 @@ class HybridBlock(Block):
     def __call__(self, *args, **kwargs):
         if not self._active or _functional.in_plain():
             return super().__call__(*args, **kwargs)
-        return nd.ndarray._apply(functools.partial(_functional.call, self),
-                                 *args, **kwargs)
+        call = functools.partial(nd.ndarray._apply,
+                                 functools.partial(_functional.call, self))
+        if self._mx_pre_hooks or self._mx_hooks:
+            return self._hooked(args, kwargs, call)
+        return call(*args, **kwargs)
 
     def export(self, path, epoch=0, example_inputs=None):
         raise NotImplementedError("HybridBlock.export comes with the port "
-                                  "of serving's exported artifacts")
+                                  "of serving's exported artifacts "
+                                  "(ROADMAP.md §1 item 8)")
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a Symbol graph: waits for the port of ``symbol/``
+    (ROADMAP.md §1 item 7), so building one or ``imports`` raises."""
+
+    def __init__(self, outputs, inputs, params=None):
+        raise NotImplementedError("SymbolBlock comes with the port of "
+                                  "symbol/ (ROADMAP.md §1 item 7)")
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        raise NotImplementedError("SymbolBlock.imports comes with the port "
+                                  "of symbol/ (ROADMAP.md §1 item 7)")

@@ -6,16 +6,20 @@ import math
 
 import torch
 
+from ... import initializer
 from ... import ndarray as nd
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
-           "BatchNorm", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
+           "BatchNorm", "SyncBatchNorm", "InstanceNorm", "LayerNorm",
+           "GroupNorm", "Flatten", "Lambda", "HybridLambda", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU", "Identity"]
 
 
-class HybridSequential(HybridBlock):
-    """Children named "0", "1", … run in order."""
+class _Stack:
+    """Children named "0", "1", … run in order; indexing by a slice gives a
+    new stack of those children."""
 
     def add(self, *blocks):
         for block in blocks:
@@ -27,10 +31,31 @@ class HybridSequential(HybridBlock):
         return x
 
     def __getitem__(self, key):
-        return list(self._modules.values())[key]
+        layers = list(self._modules.values())[key]
+        if isinstance(layers, list):
+            net = type(self)()
+            net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._modules.values())
 
     def __len__(self):
         return len(self._modules)
+
+
+class Sequential(_Stack, Block):
+    """Blocks run in order; ``hybridize`` hybridizes each child."""
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._modules.values():
+            if isinstance(child, Block) and hasattr(child, "hybridize"):
+                child.hybridize(active, **kwargs)
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Blocks run in order, captured as one when hybridized."""
 
 
 class Dense(HybridBlock):
@@ -175,6 +200,77 @@ class BatchNorm(HybridBlock):
         return super().cast(dtype)
 
 
+class SyncBatchNorm(BatchNorm):
+    """Batch normalisation whose statistics MXNet synchronises across
+    devices. On one device it is ``BatchNorm``, as in the JAX package;
+    across devices (``num_devices`` > 1) it waits for the multi-GPU slice
+    (ROADMAP.md §1 item 6)."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        if num_devices is not None and num_devices > 1:
+            raise NotImplementedError("SyncBatchNorm across devices comes "
+                                      "with the multi-GPU slice (ROADMAP.md "
+                                      "§1 item 6)")
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
+class _ChannelNorm(HybridBlock):
+    """gamma and beta, one per channel of axis 1, deferred when
+    ``in_channels`` is 0."""
+
+    def __init__(self, center, scale, beta_initializer, gamma_initializer,
+                 in_channels, **kwargs):
+        super().__init__(**kwargs)
+        self.gamma = Parameter("gamma", grad_req="write" if scale else "null",
+                               shape=(in_channels,), init=gamma_initializer,
+                               allow_deferred_init=True)
+        self.beta = Parameter("beta", grad_req="write" if center else "null",
+                              shape=(in_channels,), init=beta_initializer,
+                              allow_deferred_init=True)
+
+    def _affine(self, x):
+        if self.gamma._data is None:
+            for p in (self.gamma, self.beta):
+                p.shape = (x.shape[1],)
+                p._finish_deferred_init()
+        return self.gamma._tensor(), self.beta._tensor()
+
+
+class InstanceNorm(_ChannelNorm):
+    """Normalise each sample's channel over its spatial axes
+    (``nd.InstanceNorm``); gamma is fixed at ones unless ``scale``."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(center, scale, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+
+    def forward(self, x):
+        gamma, beta = self._affine(x)
+        return nd.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class GroupNorm(_ChannelNorm):
+    """Normalise each sample over ``num_groups`` channel groups
+    (``nd.GroupNorm``)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(center, scale, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+
+    def forward(self, x):
+        gamma, beta = self._affine(x)
+        return nd.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                            eps=self._epsilon)
+
+
 class Flatten(HybridBlock):
     """(N, ...) → (N, prod(...))."""
 
@@ -191,3 +287,96 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return nd.Activation(x, act_type=self._act_type)
+
+
+class Identity(HybridBlock):
+    """Its input, unchanged."""
+
+    def forward(self, x):
+        return x
+
+
+class Lambda(Block):
+    """A block over ``function``: a callable, or the name of an ``nd``
+    operator."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_impl = getattr(nd, function) \
+            if isinstance(function, str) else function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``Lambda``, hybridizable."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_impl = getattr(nd, function) \
+            if isinstance(function, str) else function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class LeakyReLU(HybridBlock):
+    """x, or ``alpha`` x below 0."""
+
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return nd.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """x, or alpha x below 0 with a learned ``alpha`` per channel
+    (``in_channels`` of them; 0.25 at first)."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1, **kwargs):
+        super().__init__(**kwargs)
+        self.alpha = Parameter("alpha", shape=(in_channels,),
+                               init=alpha_initializer
+                               or initializer.Constant(0.25))
+
+    def forward(self, x):
+        return nd.LeakyReLU(x, self.alpha._tensor(), act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """x, or ``alpha`` (eˣ - 1) below 0."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return nd.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU (Klambauer et al., 2017)."""
+
+    def forward(self, x):
+        return nd.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """x Φ(x), exact (erf)."""
+
+    def forward(self, x):
+        return nd.LeakyReLU(x, act_type="gelu")
+
+
+class Swish(HybridBlock):
+    """x σ(``beta`` x)."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)

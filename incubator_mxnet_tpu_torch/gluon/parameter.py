@@ -28,10 +28,12 @@ import torch
 
 from .. import autograd
 from .. import initializer as init_mod
-from ..context import as_device, context_of
+from ..context import as_device, context_of, cpu
 from ..ndarray import NDArray, torch_dtype
+from ..ndarray.ndarray import _mx_dtype, array as nd_array
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(Exception):
@@ -217,6 +219,34 @@ class Parameter:
                                                      self.dtype)
 
 
+class _ValueInit(init_mod.Initializer):
+    """Fills a parameter with one fixed array (``Constant``'s value)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def _init_weight(self, name, arr, generator):
+        arr.copy_(self.value)
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` (an NDArray, a tensor or anything
+    numpy takes) and is never trained: ``grad_req`` "null", and its own
+    initializer writes ``value`` (a block's ``initialize`` keeps it,
+    whatever default it is given). ``save_parameters`` writes it as any
+    parameter, in ``value``'s dtype."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, (NDArray, torch.Tensor)):
+            value = nd_array(value, ctx=cpu())     # JAX's dtype narrowing
+        if isinstance(value, NDArray):
+            value = value._data
+        self.value = value.detach().cpu()
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=_mx_dtype(value.dtype),
+                         init=_ValueInit(self.value))
+
+
 class ParameterDict:
     """Ordered name → Parameter map."""
 
@@ -243,6 +273,23 @@ class ParameterDict:
 
     def __len__(self):
         return len(self._params)
+
+    def get(self, name, **kwargs):
+        """The parameter ``name``, made with ``kwargs`` if the dict has none
+        (MXNet's idiom ``self.weight = self.params.get("weight", ...)``:
+        the attribute registers it)."""
+        if name not in self._params:
+            self._params[name] = Parameter(name, **kwargs)
+        return self._params[name]
+
+    def get_constant(self, name, value=None):
+        """The ``Constant`` ``name``, made from ``value`` if the dict has
+        none."""
+        if name not in self._params:
+            if value is None:
+                raise KeyError("No constant named %s" % name)
+            self._params[name] = Constant(name, value)
+        return self._params[name]
 
     def update(self, other):
         for k, v in other.items():

@@ -8,13 +8,16 @@ given. The generator and the tensor lie on the same device (the caller,
 from __future__ import annotations
 
 import math
+import re
 
+import numpy as onp
 import torch
 
 from .base import registry
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Normal", "Xavier",
-           "register", "create"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
+           "Mixed", "register", "create"]
 
 _REG = registry("initializer")
 register = _REG.register
@@ -55,6 +58,17 @@ _REG.register(One, "ones")
 
 
 @register
+class Constant(Initializer):
+    """Every entry ``value``."""
+
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def _init_weight(self, name, arr, generator):
+        arr.fill_(self.value)
+
+
+@register
 class Uniform(Initializer):
     def __init__(self, scale=0.07):
         self.scale = scale
@@ -70,6 +84,29 @@ class Normal(Initializer):
 
     def _init_weight(self, name, arr, generator):
         arr.normal_(0.0, self.sigma, generator=generator)
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times the orthonormal factor of a (out, prod(rest)) draw,
+    uniform(-1, 1) or normal(0, 1) (``rand_type``): its rows (or columns)
+    are orthonormal, so ``QᵀQ = scale²·I`` on the smaller side."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr, generator):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:]) if arr.dim() > 1 else 1
+        tmp = torch.empty((nout, nin), device=arr.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=generator)
+        else:
+            tmp.normal_(0.0, 1.0, generator=generator)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr.copy_((self.scale * q).reshape(arr.shape))
 
 
 @register
@@ -95,6 +132,65 @@ class Xavier(Initializer):
             arr.uniform_(-scale, scale, generator=generator)
         else:
             arr.normal_(0.0, scale, generator=generator)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He initialisation for PReLU nets: normal with variance
+    ``2 / ((1 + slope²) · fan)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel over the last two axes, for a
+    transposed convolution that upsamples."""
+
+    def _init_weight(self, name, arr, generator):
+        shape = tuple(arr.shape)
+        f = shape[3] / 2.0
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = onp.arange(shape[3]).reshape(1, -1)
+        y = onp.arange(shape[2]).reshape(-1, 1)
+        kernel = (1 - onp.abs(x / f - c)) * (1 - onp.abs(y / f - c))
+        weight = onp.broadcast_to(kernel, shape).astype(onp.float32)
+        arr.copy_(torch.from_numpy(weight))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, but ``forget_bias`` on the forget gate's slice [H, 2H) of an
+    LSTM's (4H,) bias (gates i, f, g, o)."""
+
+    def __init__(self, forget_bias=1.0):
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr, generator):
+        num_hidden = arr.shape[0] // 4
+        arr.zero_()
+        arr[num_hidden:2 * num_hidden] = self.forget_bias
+
+
+class Mixed(Initializer):
+    """The first initializer whose pattern matches the parameter's name
+    (``re.match``) fills it; no match raises."""
+
+    def __init__(self, patterns, initializers):
+        self.map = [(re.compile(p), create(i))
+                    for p, i in zip(patterns, initializers)]
+
+    @torch.no_grad()
+    def __call__(self, name, arr, generator=None):
+        for pat, init in self.map:
+            if pat.match(str(name)):
+                init(name, arr, generator)
+                return
+        raise ValueError("no initializer pattern matches %r" % (name,))
+
+    def _init_weight(self, name, arr, generator):
+        self(name, arr, generator)
 
 
 def create(name, **kwargs):

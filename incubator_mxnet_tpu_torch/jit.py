@@ -11,7 +11,10 @@ one real step eagerly on a side stream, then captures the same body into a
 weight decays, step and gradient rescale in one device vector; every later
 call copies its inputs and that vector into the buffers and replays the
 graph. The capture runs nothing, so the step and the optimizer's counts
-advance once per real step, and step k is the JAX step's step k. A
+advance once per real step, and step k is the JAX step's step k. The
+step reads its inputs detached and the parameters through detached leaves
+over their storage (``_on_leaves``), so a graph the caller still holds on
+either (a recorded forward's states, not detached) does not enter it. A
 parameter or optimizer state rebound to another tensor after a capture
 (``cast``, ``_states`` replaced) forces a new capture: the graph keeps the
 tensors it was captured on and compares their addresses each call. The
@@ -64,8 +67,10 @@ def net_device(net):
 
 
 def _to_device(inputs, device):
+    """The inputs as tensors on ``device``, detached: a step reads them as
+    data, and no autograd graph they carry enters it."""
     inputs = [x._data if isinstance(x, NDArray) else x for x in inputs]
-    return [x.to(device) if isinstance(x, torch.Tensor)
+    return [x.detach().to(device) if isinstance(x, torch.Tensor)
             else torch.as_tensor(onp.asarray(x)).to(device) for x in inputs]
 
 
@@ -330,8 +335,9 @@ class TrainStep:
             entry, loss = self._capture(args, n_net_inputs, scalars,
                                         tensors, bindings)
         else:
-            for buf, a in zip(entry.inputs, args):
-                buf.copy_(a)
+            with torch.no_grad():
+                for buf, a in zip(entry.inputs, args):
+                    buf.copy_(a)
             entry.upload(entry.scalars, scalars)
             entry.graph.replay()
             _kernels.add_launches(entry.launches)
@@ -342,22 +348,42 @@ class TrainStep:
             self._graphs.popitem(last=False)
         return loss
 
+    def _on_leaves(self, fn):
+        """``fn()`` with every parameter of the net and the trainer read
+        through a detached leaf of its own over the same storage (the
+        update writes that storage in place), so no autograd node of a
+        graph the caller still holds on them (made on another stream, say
+        by a forward whose states were not detached) enters the step or
+        its capture; ``_to_device`` has detached the inputs."""
+        params = list({id(p): p for p in
+                       list(self.net.collect_params().values())
+                       + self.trainer._params}.values())
+        saved = [p._data for p in params]
+        for p, t in zip(params, saved):
+            p._data = t.detach().requires_grad_(t.requires_grad)
+        try:
+            return fn()
+        finally:
+            for p, t in zip(params, saved):
+                p._data = t
+
     def _capture(self, args, n_net_inputs, scalars, tensors, bindings):
         """This call's step, run eagerly on a side stream, then the same
         body captured (running nothing) on static copies of ``args`` and
-        ``scalars``. Returns (the capture, the eager step's loss)."""
+        ``scalars``, both on the parameters' detached leaves
+        (``_on_leaves``). Returns (the capture, the eager step's loss)."""
         cap = _GraphCapture(args[0].device)
 
         def first_step():
             inputs = [a.clone() for a in args]
             static = scalars.to(args[0].device)
-            return [self._body(inputs, n_net_inputs, static), static,
-                    *inputs]
+            return [self._on_leaves(lambda: self._body(
+                inputs, n_net_inputs, static)), static, *inputs]
         first, static, *inputs = cap.eager(first_step)
         before = dict(_kernels.LAUNCHES)
         try:
-            graph, loss = cap.capture(
-                lambda: self._body(inputs, n_net_inputs, static))
+            graph, loss = cap.capture(lambda: self._on_leaves(
+                lambda: self._body(inputs, n_net_inputs, static)))
         except Exception as exc:
             _kernels.take_launches(before)
             first_error, where = _where(exc)

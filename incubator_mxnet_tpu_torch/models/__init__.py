@@ -4,3 +4,4 @@ from .bert import (BERTModel, BERTEncoder, ChunkedMLMLoss,  # noqa: F401
 from .gpt import (ChunkedLMLoss, FeaturesView, GPTModel,  # noqa: F401
                   TransformerDecoderLayer)
 from .lenet import LeNet  # noqa: F401
+from .lstm_lm import LSTMLanguageModel  # noqa: F401

@@ -72,8 +72,12 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "hard_sigmoid", "digamma", "IdentityAttachKLSparseReg",
            # nn-style
            "FullyConnected", "Activation", "LeakyReLU", "LayerNorm",
-           "Embedding", "softmax", "log_softmax", "Dropout", "Convolution",
+           "GroupNorm", "InstanceNorm", "Embedding", "softmax",
+           "log_softmax", "Dropout", "Convolution", "Deconvolution",
            "Pooling", "BatchNorm",
+           # sequences
+           "sequence_mask", "SequenceMask", "SequenceLast",
+           "SequenceReverse",
            # files
            "save", "load"]
 
@@ -540,6 +544,17 @@ def _wrap(out, inputs=()):
     return out
 
 
+def _as_ndarrays(tree):
+    """``tree`` (tuples and lists, nested) with every tensor an NDArray
+    over it (no copy; NDArrays stay as they are): what a block's hooks
+    see."""
+    if isinstance(tree, torch.Tensor):
+        return NDArray(tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_as_ndarrays(t) for t in tree)
+    return tree
+
+
 def _shares_storage(a, b):
     return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
@@ -996,26 +1011,36 @@ def repeat(data, repeats, axis=None):
     return torch.repeat_interleave(data, repeats, dim=axis)
 
 
-_PAD_MODES = {"edge": "replicate", "reflect": "reflect"}
+def _pad_index(n, before, after, mode, device):
+    """Indices into an axis of size ``n`` that pad it by ``before`` and
+    ``after`` as numpy's "edge" or "reflect" mode (the edge not repeated,
+    reflecting again past the far end), made on ``device``."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j < n, j, period - j)
 
 
 @_op
 def pad(data, mode="constant", pad_width=None, constant_value=0):
     """``pad_width`` in MXNet's flat (before, after) order, one pair per
-    axis. "constant" pads any axis; "edge" and "reflect" pad the spatial
-    axes of 4-D/5-D data and leave the first two unpadded, as MXNet's."""
+    axis; any axis may be padded in each mode ("constant", "edge",
+    "reflect"), as ``jnp.pad`` pads in the JAX package."""
     pw = [(pad_width[2 * i], pad_width[2 * i + 1])
           for i in range(len(pad_width) // 2)]
     if mode == "constant":
         flat = [p for pair in reversed(pw) for p in pair]
         return F.pad(data, flat, value=constant_value)
-    if mode not in _PAD_MODES:
+    if mode not in ("edge", "reflect"):
         raise ValueError("unsupported pad mode %r" % (mode,))
-    if data.dim() not in (4, 5) or any(pw[0]) or any(pw[1]):
-        raise ValueError("pad mode %r takes 4-D or 5-D data with the first "
-                         "two axes unpadded" % mode)
-    flat = [p for pair in reversed(pw[2:]) for p in pair]
-    return F.pad(data, flat, mode=_PAD_MODES[mode])
+    out = data
+    for axis, (before, after) in enumerate(pw):
+        if before or after:
+            out = out.index_select(axis, _pad_index(
+                data.shape[axis], before, after, mode, data.device))
+    return out
 
 
 @_op
@@ -1600,13 +1625,29 @@ def Activation(data, act_type="relu", **kw):
 
 
 @_op
-def LeakyReLU(data, act_type="leaky", **kw):
-    """Only the exact (erf) GELU is ported so far: any other act_type
-    raises, so its keywords (``slope``, ``gamma``, the bounds) are never
-    silently ignored; GELU takes none of them, in the JAX package too."""
-    if act_type != "gelu":
-        raise ValueError("unsupported act_type %r" % act_type)
-    return F.gelu(data, approximate="none")
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334, **kw):
+    """MXNet's LeakyReLU family: "leaky" (``slope`` x below 0), "prelu"
+    (the learned ``gamma``, one per channel of axis 1, or broadcast as
+    given), "elu" (``slope`` (eˣ - 1) below 0), "selu", "gelu" (exact, erf)
+    and "rrelu" with the mean of its slope bounds, as the JAX package
+    computes it (MXNet's inference-mode rrelu)."""
+    x = data
+    if act_type == "leaky":
+        return torch.where(x >= 0, x, slope * x)
+    if act_type == "elu":
+        return torch.where(x >= 0, x, slope * torch.expm1(x))
+    if act_type == "selu":
+        return torch.selu(x)
+    if act_type == "gelu":
+        return F.gelu(x, approximate="none")
+    if act_type == "prelu":
+        if x.dim() > 1 and gamma.dim() == 1:
+            gamma = gamma.reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x >= 0, x, gamma * x)
+    if act_type == "rrelu":
+        return torch.where(x >= 0, x, (lower_bound + upper_bound) / 2.0 * x)
+    raise ValueError("unsupported act_type %r" % act_type)
 
 
 @_op
@@ -1618,6 +1659,36 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, **kw):
     shp = [1] * data.ndim
     shp[axis if axis >= 0 else data.ndim + axis] = data.shape[axis]
     out = (xf - m) * torch.rsqrt(v + eps) * gamma.reshape(shp) \
+        + beta.reshape(shp)
+    return out.to(data.dtype)
+
+
+@_op
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5, **kw):
+    """Normalise (N, C, ...) data over each of ``num_groups`` channel
+    groups and its spatial axes, in float32, then scale and shift per
+    channel; cast back to the input type."""
+    n, c = data.shape[:2]
+    xf = data.float().reshape((n, num_groups, c // num_groups)
+                              + tuple(data.shape[2:]))
+    axes = tuple(range(2, xf.dim()))
+    m = xf.mean(dim=axes, keepdim=True)
+    v = xf.var(dim=axes, keepdim=True, unbiased=False)
+    xn = ((xf - m) * torch.rsqrt(v + eps)).reshape(data.shape)
+    shp = (1, c) + (1,) * (data.dim() - 2)
+    return (xn * gamma.reshape(shp) + beta.reshape(shp)).to(data.dtype)
+
+
+@_op
+def InstanceNorm(data, gamma, beta, eps=1e-3, **kw):
+    """Normalise (N, C, ...) data over its spatial axes per sample and
+    channel, then scale and shift per channel, in the input's type (as the
+    JAX package computes it)."""
+    axes = tuple(range(2, data.dim()))
+    m = data.mean(dim=axes, keepdim=True)
+    v = data.var(dim=axes, keepdim=True, unbiased=False)
+    shp = (1, data.shape[1]) + (1,) * (data.dim() - 2)
+    out = (data - m) * torch.rsqrt(v + eps) * gamma.reshape(shp) \
         + beta.reshape(shp)
     return out.to(data.dtype)
 
@@ -1716,56 +1787,124 @@ def Convolution(data, weight, bias=None, kernel=None, stride=(1, 1),
     return y + bias.reshape((1, -1) + (1,) * n)
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@_op
+def Deconvolution(data, weight, bias=None, kernel=None, stride=(1, 1),
+                  dilate=(1, 1), pad=(0, 0), adj=(0, 0), num_filter=None,
+                  num_group=1, no_bias=False, target_shape=None, layout=None,
+                  **kw):
+    """Transposed convolution, channel first, with MXNet's (in, out /
+    num_group, *kernel) weight: output size s·(i - 1) + d·(k - 1) + 1 -
+    2·pad + adj along each spatial axis. A ``target_shape`` with any
+    nonzero entry sets pad and adj from the output size it asks for, as
+    MXNet's ``InferPad`` does: total = s·(i - 1) + d·(k - 1) + 1 - target,
+    adj = total mod 2, pad = ⌈total / 2⌉."""
+    n = len(kernel) if kernel else weight.dim() - 2
+    if n not in _CONV_T:
+        raise ValueError("Deconvolution takes 1 to 3 spatial axes, got %d"
+                         % n)
+    if layout is not None and not str(layout).startswith("NC"):
+        raise ValueError("Deconvolution takes channel-first layouts, got %r"
+                         % (layout,))
+    stride, dilate = _fit(stride, n, 1), _fit(dilate, n, 1)
+    pad, adj = _fit(pad, n, 0), _fit(adj, n, 0)
+    if target_shape is not None and any(target_shape):
+        k = weight.shape[2:]
+        total = [s * (i - 1) + d * (kk - 1) + 1 - t for s, i, d, kk, t in
+                 zip(stride, data.shape[2:], dilate, k, _fit(target_shape,
+                                                             n, 0))]
+        if any(t < 0 for t in total):
+            raise ValueError("Deconvolution: target_shape %s is too big"
+                             % (tuple(target_shape),))
+        adj = tuple(t % 2 for t in total)
+        pad = tuple((t + 1) // 2 for t in total)
+    if data.dtype in (torch.float16, torch.bfloat16):
+        # accumulate in float32 and round once, as XLA does for the JAX
+        # package: cuDNN's fp16 transposed convolution rounds partial sums
+        # (5 % off a small output of the op sweep on the H100)
+        y = _CONV_T[n](data.float(), weight.float(), None, stride, pad, adj,
+                       num_group, dilate).to(data.dtype)
+    else:
+        y = _CONV_T[n](data, weight, None, stride, pad, adj, num_group,
+                       dilate)
+    if no_bias or bias is None:
+        return y
+    return y + bias.reshape((1, -1) + (1,) * n)
+
+
 @_op
 def Pooling(data, kernel=None, pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
             count_include_pad=True, layout=None, **kw):
-    """Max, avg or sum pooling over the two spatial axes of NCHW data, or
-    over every spatial axis with ``global_pool`` (where avg and sum both
-    take the mean, as the JAX package does).
+    """Max, avg, sum or lp pooling over the 1 to 3 spatial axes of
+    channel-first data (NCW, NCHW, NCDHW), or over every spatial axis with
+    ``global_pool`` (where every type but max takes the mean, as the JAX
+    package does).
 
     Padding is explicit, as the JAX package's ``reduce_window`` padding is:
     ``pad`` on both sides, and with ``pooling_convention="full"`` the extra
     high-side padding that makes the last partial window count (not
     PyTorch's ``ceil_mode`` rule, which drops a window that starts in the
-    padding). Max pads with -inf; avg and sum with zeros, and avg divides
+    padding). Max pads with -inf; avg, sum and lp with zeros. Avg divides
     by the kernel's size (``count_include_pad``) or by the count of real
-    elements in the window."""
+    elements in the window; lp is (Σ|x|ᵖ)^(1/p) with ``p_value`` (2)."""
     if global_pool:
         axes = tuple(range(2, data.dim()))
         if pool_type == "max":
             return data.amax(dim=axes, keepdim=True)
         return data.mean(dim=axes, keepdim=True)
-    if data.dim() != 4:
-        raise ValueError("Pooling takes NCHW data (2 spatial axes), got "
-                         "shape %s" % (tuple(data.shape),))
-    if layout is not None and layout != "NCHW":
-        raise ValueError("Pooling takes the NCHW layout, got %r" % (layout,))
-    kernel = _fit(kernel, 2, 1)
-    stride = _fit(stride, 2, 1)
-    pad = _fit(pad, 2, 0)
-    extra = [0, 0]
+    n = data.dim() - 2
+    if n not in (1, 2, 3):
+        raise ValueError("Pooling takes channel-first data with 1 to 3 "
+                         "spatial axes, got shape %s" % (tuple(data.shape),))
+    if layout is not None and layout != ("NCW", "NCHW", "NCDHW")[n - 1]:
+        raise ValueError("Pooling takes channel-first layouts, got %r"
+                         % (layout,))
+    kernel = _fit(kernel, n, 1)
+    stride = _fit(stride, n, 1)
+    pad = _fit(pad, n, 0)
+    extra = [0] * n
     if pooling_convention == "full":
-        for i in range(2):
+        for i in range(n):
             rem = (data.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
             extra[i] = (stride[i] - rem) % stride[i] if rem else 0
     elif pooling_convention != "valid":
         raise ValueError("unknown pooling_convention %r" % pooling_convention)
-    padding = (pad[1], pad[1] + extra[1], pad[0], pad[0] + extra[0])
+    padding = [p for i in reversed(range(n))
+               for p in (pad[i], pad[i] + extra[i])]
+    if n == 1:        # as 2-D pooling over (1, W)
+        kernel, stride = (1,) + kernel, (1,) + stride
+    max_pool = F.max_pool3d if n == 3 else F.max_pool2d
+    sum_pool = functools.partial(F.avg_pool3d if n == 3 else F.avg_pool2d,
+                                 kernel_size=kernel, stride=stride,
+                                 divisor_override=1)
+
+    def spatial(x):
+        return x.unsqueeze(2) if n == 1 else x
+
+    def out(y):
+        return y.squeeze(2) if n == 1 else y
+
     if pool_type == "max":
-        return F.max_pool2d(F.pad(data, padding, value=-math.inf), kernel,
-                            stride)
+        return out(max_pool(spatial(F.pad(data, padding, value=-math.inf)),
+                            kernel, stride))
+    if pool_type == "lp":
+        p = kw.get("p_value", 2) or 2
+        return out(sum_pool(spatial(F.pad(data.abs() ** p, padding)))) \
+            ** (1.0 / p)
     if pool_type not in ("avg", "sum"):
         raise ValueError("unsupported pool_type %r" % pool_type)
-    s = F.avg_pool2d(F.pad(data, padding), kernel, stride, divisor_override=1)
+    s = out(sum_pool(spatial(F.pad(data, padding))))
     if pool_type == "sum":
         return s
     if count_include_pad:
         return s / math.prod(kernel)
     ones_ = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
                        device=data.device)
-    return s / F.avg_pool2d(F.pad(ones_, padding), kernel, stride,
-                            divisor_override=1)
+    return s / out(sum_pool(spatial(F.pad(ones_, padding))))
 
 
 def _bshape(data, axis):
@@ -1862,6 +2001,63 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     scale = g.reshape(bshape) * torch.rsqrt(moving_var.reshape(bshape) + eps)
     out = (data - moving_mean.reshape(bshape)) * scale + beta.reshape(bshape)
     return out.to(data.dtype)
+
+
+# ================================================================ sequences
+
+def _batch_axis(axis):
+    return 1 - axis if axis in (0, 1) else 0
+
+
+@_op
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """``value`` at the steps of ``axis`` (time) at or past each sequence's
+    length (``sequence_length``, one per sample of the other of axes 0 and
+    1); the data as it is without ``use_sequence_length``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    shp = [1] * data.dim()
+    shp[axis] = data.shape[axis]
+    pos = torch.arange(data.shape[axis], device=data.device).reshape(shp)
+    lshp = [1] * data.dim()
+    lshp[_batch_axis(axis)] = data.shape[_batch_axis(axis)]
+    keep = pos < sequence_length.to(torch.int32).reshape(lshp)
+    return data.masked_fill(~keep, value)
+
+
+SequenceMask = sequence_mask
+
+
+@_op
+def SequenceLast(data, sequence_length=None, use_sequence_length=False,
+                 axis=0):
+    """Each sequence's last valid step along ``axis`` (its length less
+    one; the last step without ``use_sequence_length``)."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, -1)
+    xm = torch.movedim(data, axis, 0)
+    t = xm.shape[0]
+    idx = sequence_length.to(torch.int64) - 1
+    idx = torch.where(idx < 0, idx + t, idx).clamp(0, t - 1)
+    return xm[idx, torch.arange(xm.shape[1], device=data.device)]
+
+
+@_op
+def SequenceReverse(data, sequence_length=None, use_sequence_length=False,
+                    axis=0):
+    """Each sequence's first ``sequence_length`` steps reversed along axis
+    0 (time, the only axis MXNet takes with lengths), the steps past it
+    left in place; the whole of ``axis`` flipped without
+    ``use_sequence_length``."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    t, n = data.shape[:2]
+    pos = torch.arange(t, device=data.device).reshape(t, 1)
+    ln = sequence_length.to(torch.int64).reshape(1, n)
+    idx = torch.where(pos < ln, ln - 1 - pos, pos)
+    idx = idx.reshape((t, n) + (1,) * (data.dim() - 2)).expand(data.shape)
+    return torch.gather(data, 0, idx)
 
 
 # ===================================================================== files

@@ -21,7 +21,7 @@ import torch
 from . import autograd
 from . import ndarray as nd
 from .context import cpu, current_context
-from .ndarray import NDArray
+from .ndarray import NDArray, rnn_param_size
 
 __all__ = ["default_context", "set_default_context", "assert_almost_equal",
            "almost_equal", "rand_ndarray", "rand_shape_2d", "rand_shape_3d",
@@ -144,7 +144,8 @@ def _sweep_table():
     input specs, opts), with the same names, specs and opts. ``M`` is the
     ``nd`` namespace the operator is drawn from. Spec kinds: 'f' float in
     (-2, 2), 'pos' |f|+0.5, 'unit' (-0.9, 0.9), 'gt1' |f|+1.5, 'perm'
-    distinct floats, 'b' 0/1 floats, ('i', hi) int32 in [0, hi). opts:
+    distinct floats, 'b' 0/1 floats, ('i', hi) int32 in [0, hi), 'lenN'
+    float lengths in [1, N]. opts:
     'op' (the operator's name when the entry's differs), 'nondiff' (no
     gradient walk)."""
 
@@ -335,20 +336,40 @@ def _sweep_table():
     t.append(mk("Pooling_avg", f(2, 4, 8, 8), op="Pooling",
                 call=lambda M, x: M.Pooling(x, kernel=(2, 2),
                                             pool_type="avg", stride=(2, 2))))
+    t.append(mk("Deconvolution", f(2, 4, 8, 8), f(4, 8, 3, 3), tag="mm",
+                call=lambda M, x, w: M.Deconvolution(
+                    x, w, None, kernel=(3, 3), num_filter=8, pad=(1, 1),
+                    no_bias=True)))
     t.append(mk("BatchNorm", f(2, 4, 8, 8), f(4), pos(4), f(4), pos(4),
                 call=lambda M, x, g, b, mm, mv: M.BatchNorm(
                     x, g, b, mm, mv, fix_gamma=False,
                     use_global_stats=True)))
     t.append(mk("LayerNorm", f(4, 16), f(16), f(16),
                 call=lambda M, x, g, b: M.LayerNorm(x, g, b, axis=-1)))
+    t.append(mk("GroupNorm", f(2, 4, 8, 8), f(4), f(4),
+                call=lambda M, x, g, b: M.GroupNorm(x, g, b, num_groups=2)))
+    t.append(mk("InstanceNorm", f(2, 4, 8, 8), f(4), f(4)))
     t.append(kw("Dropout", dict(p=0.0), f(4, 16)))
     t.append(kw("Activation", dict(act_type="softrelu"), f(4, 16),
                 tag="trans"))
+    t.append(kw("LeakyReLU", dict(act_type="leaky", slope=0.1), f(4, 16)))
     for n in ["softmax", "log_softmax"]:
         t.append(kw(n, dict(axis=-1), f(4, 16), tag="trans"))
     t.append(mk("Embedding", idx(6, hi=16), f(16, 8),
                 call=lambda M, i, w: M.Embedding(i, w, input_dim=16,
                                                  output_dim=8)))
+
+    _rnn_n = rnn_param_size("rnn_tanh", 4, 8, 1)
+    t.append(mk("RNN", f(3, 2, 4), f(_rnn_n), f(1, 2, 8), tag="trans",
+                call=lambda M, x, p, s: M.RNN(x, p, s, state_size=8,
+                                              num_layers=1,
+                                              mode="rnn_tanh")))
+
+    # sequence family (float lengths, mask semantics)
+    for n in ("sequence_mask", "SequenceMask", "SequenceLast",
+              "SequenceReverse"):
+        t.append(kw(n, dict(use_sequence_length=True), f(5, 3, 4),
+                    ((3,), "len5"), nondiff=True))
 
     # creation (nullary)
     t.append(mk("zeros", call=lambda M: M.zeros((3, 4)), nondiff=True))
@@ -384,6 +405,9 @@ def _gen_input(rng, shape, kind):
     if kind == "perm":
         n = int(onp.prod(shape)) if shape else 1
         return (rng.permutation(n).astype("float32") / n).reshape(shape)
+    if kind.startswith("len"):
+        return rng.randint(1, int(kind[3:] or 4) + 1,
+                           size=shape).astype("float32")
     a = rng.uniform(-2.0, 2.0, size=shape).astype("float32")
     if kind == "pos":
         a = onp.abs(a) + 0.5
@@ -405,9 +429,19 @@ def _norm_outputs(o):
     return [_as_np(x).astype("float32") for x in outs]
 
 
+#: entries whose products run on cuDNN but are not tagged "mm": cuDNN's
+#: RNN takes TF32 for float32 as its convolutions do
+_CUDNN_PRODUCTS = {"RNN"}
+
+
+def _tf32_off(name, tag):
+    """Whether an entry's legs run with TF32 off (``_full_precision``)."""
+    return tag == "mm" or name in _CUDNN_PRODUCTS
+
+
 @contextlib.contextmanager
 def _full_precision(on):
-    """TF32 off for matmuls and cuDNN convolutions while ``on``."""
+    """TF32 off for matmuls and cuDNN convolutions and RNNs while ``on``."""
     if not on:
         yield
         return
@@ -455,7 +489,7 @@ def op_consistency_sweep(dtypes=("float32", "bfloat16", "float16"),
                           else SWEEP_TOLS)[dt]
             try:
                 outs = []
-                with _full_precision(tag == "mm"):
+                with _full_precision(_tf32_off(name, tag)):
                     for ctx in ctx_list:
                         arrs = _sweep_arrays(specs, inputs, ctx, dt)
                         with ctx:
@@ -502,7 +536,7 @@ def grad_consistency_sweep(ctx_list=None, quick=False, seed=0):
         rtol, atol = (2e-3, 1e-4) if tag == "trans" else (1e-4, 1e-5)
         try:
             grads = []
-            with _full_precision(tag == "mm"):
+            with _full_precision(_tf32_off(name, tag)):
                 for ctx in ctx_list:
                     grads.append(_sum_grads(fn, inputs, ctx))
             err, ok = 0.0, True

@@ -162,13 +162,24 @@ def test_leaky_relu_gelu_matches_the_reference(kw):
 
 @pytest.mark.parametrize("act_type,kw", [
     ("leaky", dict(slope=0.1)), ("elu", dict(slope=0.7)), ("selu", {}),
-    ("prelu", {}), ("rrelu", dict(lower_bound=0.2, upper_bound=0.5))])
+    ("prelu", dict(gamma=[0.3, -0.2, 0.6])),
+    ("rrelu", dict(lower_bound=0.2, upper_bound=0.5))])
 def test_leaky_relu_raises_for_an_act_type_it_does_not_port(act_type, kw):
-    """The reference honours these (and their keywords): the port must
-    raise, never answer with GELU or ignore ``slope``."""
+    """The reference honours these act_types and their keywords, and so
+    does the port now (it raised for them before they were ported): equal
+    to the JAX package's within TOL, never GELU, ``slope`` and the bounds
+    taken; an act_type neither package has still raises."""
     x = onp.random.RandomState(13).randn(2, 3).astype("float32")
+    gamma = kw.pop("gamma", None)
+    ref = jnd.LeakyReLU(jnd.array(x), None if gamma is None else
+                        jnd.array(gamma), act_type=act_type, **kw).asnumpy()
+    out = tnd.LeakyReLU(torch.from_numpy(x), None if gamma is None else
+                        torch.tensor(gamma), act_type=act_type, **kw)
+    onp.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert not onp.allclose(ref, jnd.LeakyReLU(
+        jnd.array(x), act_type="gelu").asnumpy())
     with pytest.raises(ValueError, match="unsupported act_type"):
-        tnd.LeakyReLU(torch.from_numpy(x), act_type=act_type, **kw)
+        tnd.LeakyReLU(torch.from_numpy(x), act_type=act_type + "x")
 
 
 @pytest.mark.parametrize("op", [

@@ -37,10 +37,7 @@ REF = {jtu._norm_entry(e)[0]: jtu._norm_entry(e) for e in jtu._sweep_table()}
 PORT = {e[0]: e for e in ttu._sweep_table()}
 #: reference entries whose operator the port defines but the entry needs
 #: what the port leaves out (ROADMAP.md §1 item 5 lists them)
-PORT_LEAVES_OUT = {
-    "LeakyReLU": "act_type 'leaky' is not ported: only GELU is, and the "
-                 "other act_types raise",
-}
+PORT_LEAVES_OUT = {}
 FLOAT_KINDS = ("f", "pos", "unit", "gt1", "perm", "pmf")
 
 

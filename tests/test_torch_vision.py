@@ -231,8 +231,11 @@ def test_conv_layers_defer_channels_and_refuse_other_layouts():
                   lambda: mxt.gluon.nn.MaxPool2D(layout="NHWC")):
         with pytest.raises(ValueError, match="NCHW"):
             layer()
-    with pytest.raises(NotImplementedError, match="params="):
-        mxt.gluon.nn.Dense(3, params=mxt.gluon.ParameterDict())
+    # params= shares now (it raised before sharing was ported): an empty
+    # dict shares nothing, another Dense's params its weight and bias
+    alone = mxt.gluon.nn.Dense(3, params=mxt.gluon.ParameterDict())
+    shared = mxt.gluon.nn.Dense(3, params=alone.params)
+    assert shared.weight is alone.weight and shared.bias is alone.bias
 
 
 def test_model_zoo_names_and_pretrained():
@@ -242,8 +245,10 @@ def test_model_zoo_names_and_pretrained():
                       tvision.ResNetV2)
     with pytest.raises(RuntimeError, match="pretrained"):
         tvision.resnet18_v1(pretrained=True)
+    # vgg16 is ported now; a name the zoo does not hold still raises
+    assert isinstance(mxt.gluon.model_zoo.get_model("vgg16"), tvision.VGG)
     with pytest.raises(ValueError, match="not supported"):
-        mxt.gluon.model_zoo.get_model("vgg16")
+        mxt.gluon.model_zoo.get_model("vgg17")
 
 
 def test_numpy_params_carry_running_statistics_as_a_snapshot():
