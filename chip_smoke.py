@@ -64,7 +64,7 @@ Phases, each of which must pass, in order:
    must still synchronise.
 6. The NDArray layer (``check_ndarray``), after the serving models are
    freed. (a) The port's op sweep (``test_utils.op_consistency_sweep`` and
-   ``grad_consistency_sweep``, 182 entries of the JAX package's sweep
+   ``grad_consistency_sweep``, 195 entries of the JAX package's sweep
    table) with the CPU and the card as its two legs: forward in fp32,
    bf16 and fp16 at the table's SWEEP_TOLS, gradients of sum(op) in fp32;
    any mismatch or error fails. (b) Imperative autograd on the card
@@ -226,8 +226,35 @@ Phases, each of which must pass, in order:
    224², 299² for Inception v3, bf16 with fp32 masters): an eager forward
    (logits finite) and the captured TrainStep with SGD-momentum (a first
    step, a replay, 5 timed): losses finite, no hand-written kernel
-   launched; img/s and peak memory. Prints a {"model_zoo": ...} line.
-15. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
+   launched; img/s and peak memory (SqueezeNet 1.0 drawn Gaussian "in" at
+   magnitude 2, so its loss can fall). Prints a {"model_zoo": ...} line.
+15. BASELINE config 4, SSD-512 (``ssd_phase``). (a) Every operator of
+   ops/multibox.py, ops/detection.py and the ported nd.contrib on the card
+   against the CPU (fp32, TF32 off): index outputs equal, values and the
+   gradients of roi_align, bilinear_sampler, spatial_transformer and
+   RROIAlign within 1e-5 of the largest. (b) SSD at base 8 on 64² inputs,
+   fp32, TF32 off, cuDNN deterministic: the eval forward and one Gluon-loop
+   step card vs CPU within 1e-4. (c) SSD-512 at its defaults (20 classes,
+   base 64, 512² inputs, 87,040 anchors; its forward FLOP an image counted
+   from the convolutions as they run and held to 66.92 GFLOP) at batch 32
+   in bf16 with fp32 masters, SGD-momentum 0.9, wd 5e-4, on the synthetic
+   recipe's boxes (example/detection/train_ssd.py), labels padded to 4
+   rows; the loss: MultiBoxTarget (hard negatives at 3) under
+   autograd.pause(), softmax cross-entropy over the anchors whose target
+   is at least 0 plus smooth-L1 under the box mask. The captured TrainStep
+   against its eager body from the same weights, 3 steps, cuDNN
+   deterministic: losses and parameters bit for bit. Then the captured
+   TrainStep (a capture, a replay, 5 timed, then profiled and issued on an
+   idle card): step ms, img/s, share of 989 TFLOP/s (3 x forward FLOP),
+   issue ms, idle share, one capture, peak allocated and reserved; the
+   hybridized Gluon loop (record, forward, MultiBoxTarget and the loss
+   eagerly, backward, Trainer.step; 2 + 6 steps): losses finite and falling
+   over the timed steps, step and issue ms, MultiBoxTarget's own ms; and
+   detection (EvalStep's forward, softmax, MultiBoxDetection with nms_topk
+   400 and threshold 0.45): at most 400 detections an image, forward and
+   detection ms, img/s. No hand-written kernel launches on this path.
+   Prints an {"ssd": ...} line.
+16. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
@@ -245,14 +272,14 @@ Phases, each of which must pass, in order:
 Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
-{"model_zoo": ...} and a {"kernels": [...]} line and, as
+{"model_zoo": ...}, an {"ssd": ...} and a {"kernels": [...]} line and, as
 the last line, {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, when CUDA is absent, the port is not beside this script, or any
 phase fails.
 
     python3 chip_smoke.py --rtc-only [--root DIR]
 
-runs phase 15 alone, on the port found in DIR (by default beside this
+runs phase 16 alone, on the port found in DIR (by default beside this
 script), and prints the card's name and power limit and {"rtc": {...}}:
 the way to time another tree's K5 launch path with the same code, for
 example an unpacked parent commit's.
@@ -262,8 +289,8 @@ example an unpacked parent commit's.
 likewise runs phase 6c alone, AB_STEPS steps each of the imperative BERT
 loop and of TrainStep, and prints {"imperative": {...}}; ``--gluon-only``
 runs phase 12 alone and prints {"gluon_loop": {...}}, ``--rnn-only``
-phase 13 ({"rnn": {...}}) and ``--zoo-only`` phase 14
-({"model_zoo": {...}}).
+phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
+({"model_zoo": {...}}) and ``--ssd-only`` phase 15 ({"ssd": {...}}).
 """
 import gc
 import itertools
@@ -314,6 +341,25 @@ ZOO = (("vgg16", 224, 32), ("alexnet", 224, 63), ("densenet121", 224, 224),
        ("mobilenetv2_1.0", 224, 32), ("inceptionv3", 299, 299))
 ZOO_BATCH, ZOO_TIMED = 32, 5
 ZOO_SMALL_TOL = 1e-4
+# Xavier's arguments where the default uniform "avg" draw does not do:
+# SqueezeNet 1.0's fire modules shrink it to a flat loss; the Gaussian "in"
+# draw at magnitude 2 (tests/test_torch_model_zoo.py's) lets it fall
+ZOO_INIT = {"squeezenet1.0": ("gaussian", "in", 2)}
+# BASELINE config 4, SSD-512 (MXNet's example/ssd): SSD's own defaults (20
+# classes, base 64) at 512², batch 32 (example/ssd/train.py's), bf16 with
+# fp32 masters, SGD-momentum 0.9, wd 5e-4 and lr 0.004 (its defaults);
+# labels padded to 4 rows; hard negatives at 3 (symbol_builder.py)
+SSD = dict(num_classes=20, base_channels=64)
+SSD_SIZE, SSD_BATCH, SSD_LABEL_ROWS = 512, 32, 4
+SSD_LR, SSD_NEG_RATIO, SSD_NMS_TOPK = 0.004, 3, 400
+SSD_ANCHORS = 4 * (128 ** 2 + 64 ** 2 + 32 ** 2 + 16 ** 2)     # 87,040
+SSD_FLOPS = 66.92e9   # forward FLOP an image from the conv shapes
+SSD_TIMED = 5          # captured TrainStep: timed replays
+SSD_LOOP_STEPS = (2, 6)    # Gluon loop: (warm-up, timed)
+SSD_EXACT_STEPS = 3    # captured against eager, bit for bit
+SSD_SMALL, SSD_SMALL_SIZE = dict(num_classes=20, base_channels=8), 64
+SSD_SMALL_TOL = 1e-4   # card (cuDNN, TF32 off) vs CPU, fp32
+DET_SMALL_TOL = 1e-5   # detection operators card vs CPU, fp32
 # ResNet-50's bottleneck 3x3/stride-1 convs at batch 256 (N, H, W, C, K),
 # benchmark/conv_bwd_pilot.py:29-35
 CONV_STAGES = ((256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
@@ -3628,8 +3674,8 @@ def check_zoo_small():
 
 def train_zoo_model(name, size):
     """One family at its published widths: batch ZOO_BATCH x 3 x size²
-    bf16 (fp32 masters, batch norm statistics fp32), Xavier from a seed:
-    one eager forward (logits finite, (batch, 1000)), then jit.TrainStep
+    bf16 (fp32 masters, batch norm statistics fp32), Xavier from a seed
+    (ZOO_INIT's arguments for SqueezeNet 1.0): one eager forward (logits finite, (batch, 1000)), then jit.TrainStep
     with SGD-momentum, captured: a first step, one replay, ZOO_TIMED timed
     replays; losses finite, no hand-written kernel launched. Returns a
     row."""
@@ -3640,7 +3686,8 @@ def train_zoo_model(name, size):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(53)
     net = vision.get_model(name)
-    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=gen)
+    net.initialize(mxt.init.Xavier(*ZOO_INIT.get(name, ())), ctx=mxt.gpu(0),
+                   generator=gen)
     net.cast("bfloat16")
     x = torch.randn(ZOO_BATCH, 3, size, size, device=dev, generator=gen) \
         .to(torch.bfloat16)
@@ -3703,6 +3750,638 @@ def model_zoo(card):
         "%s %.1f ms (%.0f img/s, %.1f GB)" % (
             k, r["step_ms"], r["img_per_s"], r["peak_memory_gb"])
         for k, r in summary["train"].items())))
+    return launches, summary
+
+
+# -------------------------------------------------------------------- SSD
+
+def _ssd_synthetic(batch, size, seed, rows=SSD_LABEL_ROWS):
+    """example/detection/train_ssd.py's synthetic_batches at ``size``²:
+    images of noise with a class-coloured square each, and its box as the
+    label, padded to ``rows`` rows of class -1. Numpy, from ``seed``."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    img = rng.rand(batch, 3, size, size).astype("float32") * 0.1
+    label = onp.full((batch, rows, 5), -1.0, "float32")
+    for i in range(batch):
+        cls = rng.randint(0, 3)
+        x1, y1 = rng.uniform(0.05, 0.5, 2)
+        w = rng.uniform(0.2, 0.4)
+        label[i, 0] = (cls, x1, y1, min(x1 + w, 0.95), min(y1 + w, 0.95))
+        xa, ya, wb = int(x1 * size), int(y1 * size), int(w * size)
+        img[i, cls, ya: ya + wb, xa: xa + wb] += 0.8
+    return img, label
+
+
+def _ssd_loss():
+    """The SSD loss, per image, in float32: MultiBoxTarget (hard negatives
+    at SSD_NEG_RATIO, as MXNet's example/ssd/symbol/symbol_builder.py sets
+    it) under autograd.pause(), softmax cross-entropy over the anchors
+    whose target is at least 0 (the ignored ones, -1, masked out: pick
+    clips -1 to 0) plus smooth-L1 (scalar 1) under the box mask, each
+    divided by its count of valid terms (symbol_builder.py's
+    normalization="valid"; summed, the loss of 87,040 anchors diverges at
+    example/ssd's learning rate). ``nd`` operators, so it runs on the
+    NDArrays of the Gluon loop and on the tensors of a TrainStep."""
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ops import MultiBoxTarget
+    nd = mxt.nd
+
+    def loss(out, label):
+        anchors, cls_preds, loc_preds = out
+        cls_preds = nd.cast(cls_preds, "float32")
+        loc_preds = nd.cast(loc_preds, "float32")
+        with mxt.autograd.pause():
+            loc_t, loc_mask, cls_t = MultiBoxTarget(
+                anchors, label, cls_preds,
+                negative_mining_ratio=SSD_NEG_RATIO)
+        valid = nd.cast(cls_t >= 0, "float32")
+        logp = nd.log_softmax(cls_preds, axis=1)
+        ce = -(nd.pick(logp, nd.relu(cls_t), axis=1) * valid).sum(axis=1)
+        box = (nd.smooth_l1(loc_preds - loc_t, scalar=1.0) * loc_mask) \
+            .sum(axis=1)
+        return ce / nd.maximum(valid.sum(axis=1), 1.0) + \
+            box / nd.maximum(loc_mask.sum(axis=1), 1.0)
+    return loss
+
+
+def _ssd_model(ctx, seed, dtype="float32", **config):
+    """``models.SSD(**config)`` on ``ctx`` with Xavier weights from
+    ``seed`` (a generator on that device), in ``dtype`` (bf16 weights keep
+    fp32 batch-norm statistics); shapes finished by one forward."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    net = models.SSD(**config)
+    dev = "cuda" if ctx.device_type == "gpu" else "cpu"
+    net.initialize(mxt.init.Xavier(), ctx=ctx,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    if dtype != "float32":
+        net.cast(dtype)
+    with torch.no_grad(), ctx:
+        net(torch.zeros(1, 3, 64, 64, device=dev,
+                        dtype=getattr(torch, dtype)))
+    return net
+
+
+def _ssd_sgd(net):
+    import incubator_mxnet_tpu_torch as mxt
+    return mxt.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": SSD_LR, "momentum": 0.9, "wd": 5e-4,
+        "multi_precision": True})
+
+
+def _detection_cases():
+    """(name, fn(ctx) -> list of numpy outputs, indices of the outputs held
+    exactly) for every operator of ops/multibox.py, ops/detection.py and
+    the ported nd.contrib, on inputs from seeds; the gradients of
+    roi_align, bilinear_sampler and spatial_transformer are outputs too."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ndarray import contrib
+    from incubator_mxnet_tpu_torch.ops import detection as det
+    from incubator_mxnet_tpu_torch.ops import multibox as mb
+    rng = onp.random.RandomState(61)
+    feat = rng.randn(2, 3, 8, 8).astype("float32")
+    rois = onp.array([[0, 0.5, 0.5, 5.5, 4.0], [1, 2.0, 1.0, 7.5, 7.0],
+                      [0, 3.2, 2.1, 3.9, 2.9], [5, -1.0, -2.0, 9.0, 9.5]],
+                     "float32")
+    grid = rng.uniform(-1.2, 1.2, (2, 2, 5, 6)).astype("float32")
+    theta = (onp.array([[0.9, 0.1, 0.05, -0.1, 1.1, -0.2]] * 2)
+             + rng.randn(2, 6) * 0.1).astype("float32")
+    anc_in = onp.zeros((1, 1, 6, 6), "float32")
+    label = onp.array([[[1, 0.1, 0.1, 0.45, 0.5], [0, 0.5, 0.4, 0.9, 0.95],
+                        [-1, 0, 0, 0, 0]],
+                       [[2, 0.2, 0.3, 0.6, 0.7], [-1, 0, 0, 0, 0],
+                        [-1, 0, 0, 0, 0]]], "float32")
+    cls_pred = rng.randn(2, 4, 144).astype("float32")
+    logits = rng.randn(2, 4, 144).astype("float32") * 2
+    prob = (onp.exp(logits) / onp.exp(logits).sum(1, keepdims=True)) \
+        .astype("float32")
+    loc = (rng.randn(2, 144 * 4) * 0.5).astype("float32")
+
+    def boxes(n, batch=()):
+        xy = rng.rand(*batch, n, 2) * 0.7
+        return onp.concatenate([xy, xy + rng.rand(*batch, n, 2) * 0.4
+                                + 0.05], -1).astype("float32")
+    b6, b4 = boxes(6, (2,)), boxes(4, (2,))
+    rows = onp.concatenate([rng.randint(0, 3, (2, 12, 1)),
+                            rng.rand(2, 12, 1), boxes(12, (2,))], -1) \
+        .astype("float32")
+    scores = rng.rand(5, 4).astype("float32")
+    rpn = (rng.rand(2, 12, 4, 5).astype("float32"),
+           (rng.randn(2, 24, 4, 5) * 0.2).astype("float32"),
+           onp.array([[30, 38, 1], [26, 40, 1]], "float32"))
+    sig = rng.randn(3, 2, 8).astype("float32")
+    qkv = rng.randn(5, 3, 24).astype("float32")
+    att = rng.rand(6, 5, 5).astype("float32")
+    q, kv = rng.randn(5, 3, 8).astype("float32"), \
+        rng.randn(7, 3, 16).astype("float32")
+    att2 = rng.rand(6, 5, 7).astype("float32")
+    bn = [rng.randn(4, 3, 2, 2).astype("float32"),
+          rng.rand(3).astype("float32") + 0.5, rng.randn(3).astype("float32"),
+          rng.randn(3).astype("float32"), rng.rand(3).astype("float32") + 0.5]
+    rroi = onp.array([[0, 3.5, 4.0, 4.0, 3.0, 0.3],
+                      [1, 5.0, 3.0, 6.0, 2.0, -1.1]], "float32")
+    kw_rpn = dict(feature_stride=8, scales=(2, 4), ratios=(0.5, 1, 2),
+                  rpn_pre_nms_top_n=40, rpn_post_nms_top_n=9, threshold=0.6,
+                  rpn_min_size=4)
+
+    def nd_(ctx, *arrays):
+        return [mxt.nd.array(a, ctx=ctx) for a in arrays]
+
+    def out(*arrays):
+        return [a.asnumpy() if hasattr(a, "asnumpy") else
+                onp.asarray(a.detach().cpu()) for a in arrays]
+
+    def grads(fn, arrays, ctx):
+        dev = "cuda" if ctx.device_type == "gpu" else "cpu"
+        ts = [torch.tensor(a, device=dev, requires_grad=True)
+              for a in arrays]
+        y = fn(*ts)
+        cot = torch.from_numpy(onp.random.RandomState(62).randn(
+            *y.shape).astype("float32")).to(dev)
+        return out(y, *torch.autograd.grad(y, ts, cot))
+
+    def adagrad(ctx):
+        w, g, h = nd_(ctx, bn[0][:, :, 0, 0], bn[0][:, :, 1, 1],
+                      onp.ones((4, 1), "float32"))
+        contrib.group_adagrad_update(w, g, h, 0.1, clip_gradient=0.5)
+        return out(w, h)
+
+    return [
+        ("MultiBoxPrior", lambda c: out(mb.MultiBoxPrior(
+            *nd_(c, anc_in), sizes=(0.25, 0.4), ratios=(1, 2, 0.5),
+            clip=True)), ()),
+        ("multibox.box_iou", lambda c: out(mb.box_iou(*nd_(c, b6[0], b4[0]))),
+         ()),
+        ("MultiBoxTarget", lambda c: out(*mb.MultiBoxTarget(*nd_(
+            c, mb.MultiBoxPrior(mxt.nd.array(anc_in, ctx=mxt.cpu()),
+                                sizes=(0.25, 0.4), ratios=(1, 2, 0.5))
+            .asnumpy(), label, cls_pred), negative_mining_ratio=3,
+            overlap_threshold=0.4)), (1, 2)),
+        ("MultiBoxDetection", lambda c: out(mb.MultiBoxDetection(*nd_(
+            c, prob, loc, mb.MultiBoxPrior(mxt.nd.array(anc_in, ctx=mxt.cpu()),
+                                           sizes=(0.25, 0.4),
+                                           ratios=(1, 2, 0.5)).asnumpy()),
+            nms_threshold=0.45)[:, :, 0], mb.MultiBoxDetection(*nd_(
+                c, prob, loc, mb.MultiBoxPrior(
+                    mxt.nd.array(anc_in, ctx=mxt.cpu()), sizes=(0.25, 0.4),
+                    ratios=(1, 2, 0.5)).asnumpy()), nms_threshold=0.45,
+                nms_topk=7)), (0,)),
+        ("roi_align", lambda c: grads(lambda d, r: det.roi_align(
+            d, r, (3, 2), 0.75, 2), [feat, rois], c), ()),
+        ("roi_pooling", lambda c: out(det.roi_pooling(
+            *nd_(c, feat, rois), (2, 3), 1.0)), ()),
+        ("grid_generator", lambda c: out(det.grid_generator(
+            *nd_(c, theta), "affine", (5, 4))), ()),
+        ("bilinear_sampler", lambda c: grads(det.bilinear_sampler,
+                                             [feat, grid], c), ()),
+        ("spatial_transformer", lambda c: grads(
+            lambda d, t: det.spatial_transformer(d, t, (6, 5)),
+            [feat, theta], c), ()),
+        ("detection.box_iou", lambda c: out(det.box_iou(
+            *nd_(c, b6, b4), "center")), ()),
+        ("box_nms", lambda c: out(det.box_nms(*nd_(c, rows), id_index=0,
+                                              topk=5)), (0,)),
+        ("bipartite_matching", lambda c: out(*det.bipartite_matching(
+            *nd_(c, scores), 0.2)), (0, 1)),
+        ("multi_proposal", lambda c: out(det.multi_proposal(
+            *nd_(c, *rpn), **kw_rpn)), ()),
+        ("fft", lambda c: out(det.fft(*nd_(c, sig))), ()),
+        ("ifft", lambda c: out(det.ifft(*nd_(c, onp.concatenate(
+            [sig, sig], -1)))), ()),
+        ("contrib.isinf/isnan/isfinite", lambda c: out(*[
+            getattr(contrib, n)(*nd_(c, onp.array([1.0, onp.inf, onp.nan],
+                                                  "float32")))
+            for n in ("isinf", "isnan", "isfinite")]), (0, 1, 2)),
+        ("contrib.ROIAlign", lambda c: out(contrib.ROIAlign(
+            *nd_(c, feat, rois * 2), (2, 2), 0.5)), ()),
+        ("contrib.AdaptiveAvgPooling2D", lambda c: out(
+            contrib.AdaptiveAvgPooling2D(*nd_(c, feat), (3, 5))), ()),
+        ("contrib.boolean_mask", lambda c: out(contrib.boolean_mask(
+            *nd_(c, feat[0, 0], onp.array([1, 0, 1, 1, 0, 0, 1, 0],
+                                          "float32")))), ()),
+        ("contrib.index_copy", lambda c: out(contrib.index_copy(
+            *nd_(c, feat[0, 0], onp.array([4, 1], "float32"),
+                 feat[1, 0, :2]))), ()),
+        ("contrib.gradientmultiplier/quadratic", lambda c: out(
+            contrib.gradientmultiplier(*nd_(c, feat), 0.25),
+            contrib.quadratic(*nd_(c, feat), 0.5, -1.0, 2.0)), ()),
+        ("contrib.allclose", lambda c: out(contrib.allclose(
+            *nd_(c, feat, feat + 1e-7))), (0,)),
+        ("contrib.arange_like", lambda c: out(contrib.arange_like(
+            *nd_(c, feat), start=2.0, step=0.5)), ()),
+        ("contrib.SyncBatchNorm", lambda c: out(contrib.SyncBatchNorm(
+            *nd_(c, *bn), ndev=1)), ()),
+        ("contrib.SparseEmbedding", lambda c: out(contrib.SparseEmbedding(
+            *nd_(c, onp.array([[0, 5], [2, 2]], "float32"), feat[0, 0, :6]),
+            6, 8)), ()),
+        ("contrib.index_array", lambda c: out(contrib.index_array(
+            *nd_(c, feat), (3, 0))), (0,)),
+        ("contrib.group_adagrad_update", adagrad, ()),
+        ("contrib.interleaved_matmul_*", lambda c: out(
+            contrib.interleaved_matmul_selfatt_qk(*nd_(c, qkv), heads=2),
+            contrib.interleaved_matmul_selfatt_valatt(*nd_(c, qkv, att),
+                                                      heads=2),
+            contrib.interleaved_matmul_encdec_qk(*nd_(c, q, kv), heads=2),
+            contrib.interleaved_matmul_encdec_valatt(*nd_(c, kv, att2),
+                                                     heads=2)), ()),
+        ("contrib.box_encode/box_decode", lambda c: out(
+            *contrib.box_encode(*nd_(c, onp.array([[1, 0, 1, 1, 0, 1]] * 2,
+                                                  "float32"),
+                                     onp.array([[0, -1, 2, 1, 0, 2]] * 2,
+                                               "float32"), b6, boxes(3, (2,)))),
+            contrib.box_decode(*nd_(c, (b6 - 0.3) * 0.5, b6), clip=0.1)),
+         (1,)),
+        ("contrib.RROIAlign", lambda c: grads(
+            lambda d, r: contrib.RROIAlign(d, r, (2, 3), 1.0),
+            [feat, rroi], c)[:2], ()),
+    ]
+
+
+def check_detection_small():
+    """Every operator of ops/multibox.py, ops/detection.py and the ported
+    nd.contrib on the card against the CPU, float32 with TF32 off: index
+    outputs (class ids, masks, matches, kept rows) equal, values (and the
+    gradients of roi_align, bilinear_sampler, spatial_transformer and
+    RROIAlign) within DET_SMALL_TOL of the largest. Returns the largest
+    relative error by operator."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for name, fn, exact in _detection_cases():
+            cases = _detection_cases()       # the same seeds for each leg
+            fn_cpu = next(f for n, f, _ in cases if n == name)
+            with mxt.cpu():
+                want = fn_cpu(mxt.cpu())
+            with mxt.gpu(0):
+                got = fn(mxt.gpu(0))
+            check(len(got) == len(want), "%s: %d outputs on the card, %d on "
+                  "the CPU" % (name, len(got), len(want)))
+            err = 0.0
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(g.shape == w.shape, "%s output %d: shape %s vs %s"
+                      % (name, i, g.shape, w.shape))
+                if i in exact:
+                    check(onp.array_equal(g, w), "%s output %d: card != CPU"
+                          % (name, i))
+                    continue
+                check(onp.array_equal(onp.isnan(g), onp.isnan(w)),
+                      "%s output %d: NaNs differ" % (name, i))
+                scale = max(float(onp.nanmax(onp.abs(w))) if w.size else 0,
+                            1e-30)
+                e = float(onp.nan_to_num(onp.abs(g.astype("float64") - w))
+                          .max()) / scale if w.size else 0.0
+                check(e <= DET_SMALL_TOL, "%s output %d: card vs CPU %.3g of "
+                      "the largest" % (name, i, e))
+                err = max(err, e)
+            errs[name] = err
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    log("detection ops card vs CPU (fp32, TF32 off): %d operators, largest "
+        "%.2g" % (len(errs), max(errs.values())))
+    return errs
+
+
+def check_ssd_small():
+    """SSD at base_channels SSD_SMALL["base_channels"] on SSD_SMALL_SIZE²
+    inputs, fp32, TF32 off and cuDNN deterministic: the same weights on
+    the card and the CPU, the eval forward's anchors, class and box
+    predictions and one Gluon-loop step (record, the SSD loss, backward,
+    Trainer.step) on the same batch: losses and every parameter after it
+    within SSD_SMALL_TOL of their largest value."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    img, label = _ssd_synthetic(4, SSD_SMALL_SIZE, 63)
+    loss_fn = _ssd_loss()
+    runs = []
+    try:
+        for ctx in (mxt.cpu(), mxt.gpu(0)):
+            net = _ssd_model(ctx, 64, **SSD_SMALL)
+            if runs:          # the CPU's weights on the card
+                mxt.from_jax_params(net, runs[0]["init"], strict=True)
+            init = mxt.to_numpy_params(net)
+            with ctx:
+                x = mxt.nd.array(img, ctx=ctx)
+                y = mxt.nd.array(label, ctx=ctx)
+                fwd = [o.asnumpy() for o in net(x)]
+                trainer = _ssd_sgd(net)
+                with mxt.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                trainer.step(x.shape[0])
+            runs.append(dict(init=init, fwd=fwd, loss=loss.asnumpy(),
+                             after=mxt.to_numpy_params(net)))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    cpu, card = runs
+    errs = {"forward": max(_max_rel(g, w) for g, w in zip(card["fwd"],
+                                                           cpu["fwd"])),
+            "loss": _max_rel(card["loss"], cpu["loss"]),
+            "weights": max(_max_rel(card["after"][k], cpu["after"][k])
+                           for k in cpu["after"])}
+    check(all(onp.isfinite(v) and v <= SSD_SMALL_TOL for v in errs.values()),
+          "SSD small card vs CPU: %s" % errs)
+    log("SSD small (base %d, %d², fp32) card vs CPU: forward %.2g, loss "
+        "%.2g, weights after a step %.2g" % (
+            SSD_SMALL["base_channels"], SSD_SMALL_SIZE, errs["forward"],
+            errs["loss"], errs["weights"]))
+    return errs
+
+
+def ssd_conv_flops(net, size):
+    """Forward FLOPs of one image from the convolutions' shapes as they
+    run: 2 · output elements · (input channels / groups · kernel area) for
+    every Conv2D, counted by forward hooks on a one-image forward."""
+    import torch
+    total = [0]
+
+    def hook(mod, inputs, output):
+        total[0] += 2 * output.numel() * mod.weight._tensor()[0].numel()
+    hooks = [torch.nn.Module.register_forward_hook(m, hook)
+             for m in net.modules() if type(m).__name__ == "Conv2D"]
+    w = next(p._tensor() for p in net.collect_params().values())
+    try:
+        with torch.no_grad():
+            net(torch.zeros(1, 3, size, size, device=w.device,
+                            dtype=w.dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def check_ssd_captured_equals_eager(net, x, y, init):
+    """From ``init``, SSD_EXACT_STEPS steps of the captured TrainStep and
+    of its eager body, cuDNN deterministic: losses and every parameter
+    (running statistics and the fp32 masters' casts included) equal bit
+    for bit. Returns the number of steps held."""
+    import torch
+    from incubator_mxnet_tpu_torch import jit
+    params = list(net.collect_params().values())
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for mode in ("captured", "eager"):
+            _reset(params, init)
+            step = jit.TrainStep(net, _ssd_loss(), _ssd_sgd(net))
+            if mode == "captured":
+                losses = [step(x, y)._data.clone()
+                          for _ in range(SSD_EXACT_STEPS)]
+                check(step.captures == 1, "SSD: %d captures for one "
+                      "signature" % step.captures)
+            else:
+                losses = [_eager_step(step, x, y)._data.clone()
+                          for _ in range(SSD_EXACT_STEPS)]
+            runs.append((losses, [p._tensor().detach().clone()
+                                  for p in params]))
+            del step
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (lc, pc), (le, pe) = runs
+    check(all(torch.equal(a, b) for a, b in zip(lc, le)),
+          "SSD: captured losses %s != eager %s" % (
+              [float(v.mean()) for v in lc], [float(v.mean()) for v in le]))
+    bad = [p.name for p, a, b in zip(params, pc, pe) if not torch.equal(a, b)]
+    check(not bad, "SSD: captured != eager after %d steps in %s"
+          % (SSD_EXACT_STEPS, bad[:5]))
+    _reset(params, init)
+    return SSD_EXACT_STEPS
+
+
+def top_kernels(fn, n=10):
+    """The ``n`` CUDA kernels taking the most device time over one call of
+    ``fn`` (after a warm-up), from torch.profiler: [name (240 characters),
+    ms, share of the call's device time]; [] when the profiler records no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [(e.key[:240], getattr(e, "device_time_total", 0.0) / 1e3)
+             for e in prof.key_averages()]
+    total = sum(ms for _, ms in times) or 1.0
+    return [[k, ms, ms / total] for k, ms in
+            sorted(times, key=lambda t: -t[1])[:n] if ms > 0]
+
+
+def train_ssd_captured(net, x, y, flops):
+    """SSD-512 through the captured TrainStep (SGD-momentum, fp32 masters):
+    a first step (which captures), a replay, SSD_TIMED timed replays,
+    PROFILED_STEPS under the profiler, 3 issued with the card idle, and
+    one split by kernel (``top_kernels``). Losses finite, one capture, no
+    hand-written kernel launched. Returns a row."""
+    import torch
+    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    step = jit.TrainStep(net, _ssd_loss(), _ssd_sgd(net))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(x, y)]
+    capture_s = time.perf_counter() - t0
+    losses.append(step(x, y))
+    got, ms, host_ms = _timed_steps(lambda: step(x, y), SSD_TIMED)
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    idle = device_idle_share(lambda: step(x, y))
+    issue = issue_ms(lambda: step(x, y))
+    kernels = top_kernels(lambda: step(x, y))
+    losses = [float(v._data.float().mean()) for v in losses + got]
+    batch = x.shape[0]
+    check(all(math.isfinite(v) for v in losses) and step.captures == 1
+          and not launches,
+          "SSD TrainStep: losses %s, captures %d, hand-written kernels "
+          "launched %s" % (losses, step.captures, launches))
+    row = dict(step_ms=ms, step_host_ms=host_ms, issue_ms=issue,
+               img_per_s=batch / ms * 1e3,
+               share_of_peak=3 * flops * batch / (ms * 1e-3) / PEAK_BF16_FLOPS,
+               capture_step_s=capture_s, captures=step.captures,
+               peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+               losses=losses, top_kernels=kernels, **idle)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_ssd_loop(net, x, y):
+    """SSD-512 in MXNet's Gluon loop, the model hybridized: record, the
+    forward (a captured graph from the second call), MultiBoxTarget and
+    the loss eagerly, backward, Trainer.step; SSD_LOOP_STEPS warm-up and
+    timed steps on one batch, then PROFILED_STEPS under the profiler and
+    3 issued with the card idle. The losses must be finite and fall over
+    the timed steps. Also MultiBoxTarget's own ms a batch (CUDA events).
+    Returns a row."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ops import MultiBoxTarget
+    loss_fn = _ssd_loss()
+    trainer = _ssd_sgd(net)
+    net.hybridize()
+    x, y = mxt.nd.NDArray(x), mxt.nd.NDArray(y)     # MXNet's loop: NDArrays
+
+    def round_():
+        with mxt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        return loss
+    warm, timed = SSD_LOOP_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [round_() for _ in range(warm)]
+    got, ms, host_ms = _timed_steps(round_, timed)
+    losses = [float(v.asnumpy().mean()) for v in losses + got]
+    idle = device_idle_share(round_)
+    issue = issue_ms(round_)
+    with torch.no_grad():
+        anchors, cls_preds, _ = net(x._data)
+    cls32 = mxt.nd.cast(cls_preds, "float32")
+    target_ms = timed_ms(lambda: MultiBoxTarget(
+        anchors, y._data, cls32, negative_mining_ratio=SSD_NEG_RATIO), 10)
+    check(all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[warm],
+          "SSD Gluon loop: losses %s (finite, falling over the timed steps)"
+          % losses)
+    row = dict(step_ms=ms, step_host_ms=host_ms, issue_ms=issue,
+               img_per_s=x.shape[0] / ms * 1e3, captures=net._captures,
+               multibox_target_ms=target_ms,
+               peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, **idle)
+    net.hybridize(False)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def detect_ssd(net, x):
+    """SSD-512 detection as a server runs it: EvalStep's forward, softmax
+    over the classes in fp32, MultiBoxDetection(nms_topk SSD_NMS_TOPK, nms
+    threshold 0.45). Rows (B, A, 6), sorted by score: class ids in [-1,
+    classes), at most nms_topk detections an image, every row past them
+    -1, scores and boxes finite. Forward and detection ms by CUDA events
+    (3 runs each after a warm-up) and img/s. Returns a row."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.ops import MultiBoxDetection
+    ev = jit.EvalStep(net)
+    anchors, cls_preds, loc_preds = ev(x)
+
+    def decode():
+        prob = mxt.nd.softmax(mxt.nd.cast(cls_preds, "float32"), axis=1)
+        return MultiBoxDetection(prob, mxt.nd.cast(loc_preds, "float32"),
+                                 anchors, nms_threshold=0.45,
+                                 nms_topk=SSD_NMS_TOPK)
+    fwd_ms = timed_ms(lambda: ev(x), 3)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    det_ms = timed_ms(decode, 3)
+    det_host_ms = (time.perf_counter() - h0) * 1e3 / 4
+    out = decode()._data
+    n, a = x.shape[0], anchors.shape[1]
+    ids = out[..., 0]
+    kept = (ids >= 0).sum(1)
+    check(tuple(out.shape) == (n, a, 6) and bool(torch.isfinite(
+        out[..., 1:]).all()) and int(ids.min()) >= -1
+        and int(ids.max()) < SSD["num_classes"]
+        and int(kept.max()) <= SSD_NMS_TOPK
+        and bool((ids[:, SSD_NMS_TOPK:] == -1).all()),
+        "SSD detection: shape %s, ids in [%d, %d], kept at most %d"
+        % (tuple(out.shape), int(ids.min()), int(ids.max()),
+           int(kept.max())))
+    return dict(forward_ms=fwd_ms, detection_ms=det_ms,
+                detection_host_ms=det_host_ms,
+                img_per_s=n / (fwd_ms + det_ms) * 1e3,
+                detections_per_image=float(kept.float().mean()))
+
+
+def ssd_phase(card):
+    """BASELINE config 4 on the card: the detection operators and a small
+    SSD card = CPU, then SSD-512 (SSD's defaults: 20 classes, base 64, 512²
+    inputs, 87,040 anchors) at batch SSD_BATCH in bf16 with fp32 masters
+    on the synthetic recipe's boxes: captured = eager bit for bit, the
+    captured TrainStep, the hybridized Gluon loop and detection. Returns
+    (kernel launches over the main path, summary)."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    summary = dict(card=card, ops_card_vs_cpu=check_detection_small(),
+                   small_card_vs_cpu=check_ssd_small(),
+                   config=dict(SSD, size=SSD_SIZE, batch=SSD_BATCH,
+                               dtype="bfloat16", optimizer="sgd", lr=SSD_LR,
+                               momentum=0.9, wd=5e-4,
+                               negative_mining_ratio=SSD_NEG_RATIO))
+    img, label = _ssd_synthetic(SSD_BATCH, SSD_SIZE, 64)
+    ctx = mxt.gpu(0)
+    dev = mxt.context.as_device(ctx)
+    x = torch.from_numpy(img).to(dev, torch.bfloat16)
+    y = torch.from_numpy(label).to(dev)
+    net = _ssd_model(ctx, 65, "bfloat16", **SSD)
+    flops = ssd_conv_flops(net, SSD_SIZE)
+    check(abs(flops - SSD_FLOPS) <= 0.01 * SSD_FLOPS,
+          "SSD-512 forward %.4g FLOP an image, expected about %.4g"
+          % (flops, SSD_FLOPS))
+    with torch.no_grad():
+        anchors = net(x[:1])[0]
+    check(anchors.shape[1] == SSD_ANCHORS, "SSD-512: %d anchors, expected "
+          "%d" % (anchors.shape[1], SSD_ANCHORS))
+    summary.update(forward_gflop_per_image=flops / 1e9,
+                   anchors=SSD_ANCHORS)
+    params = list(net.collect_params().values())
+    init = [p._tensor().detach().clone() for p in params]
+    summary["captured_equals_eager_steps"] = check_ssd_captured_equals_eager(
+        net, x, y, init)
+    _kernels.reset_launches()
+    summary["train_step"] = train_ssd_captured(net, x, y, flops)
+    _reset(params, init)
+    summary["gluon_loop"] = train_ssd_loop(net, x, y)
+    summary["detection"] = detect_ssd(net, x)
+    launches = dict(_kernels.LAUNCHES)
+    check(not any(launches.values()), "SSD path launched hand-written "
+          "kernels %s" % launches)
+    ts, loop, det = (summary["train_step"], summary["gluon_loop"],
+                     summary["detection"])
+    log("SSD-512 (B %d bf16, %d anchors, %.1f GFLOP an image forward): "
+        "TrainStep captured %.1f ms (%.0f img/s, %.2f%% of 989 TFLOP/s, "
+        "issue %.2f ms, idle %.1f%%, peak %.1f GB); Gluon loop hybridized "
+        "%.1f ms (issue %.1f ms, MultiBoxTarget %.2f ms); detection forward "
+        "%.1f + NMS %.1f ms (%.0f img/s); losses %.3f -> %.3f"
+        % (SSD_BATCH, SSD_ANCHORS, flops / 1e9, ts["step_ms"],
+           ts["img_per_s"], 100 * ts["share_of_peak"], ts["issue_ms"],
+           100 * ts["idle_share"], ts["peak_allocated_gb"], loop["step_ms"],
+           loop["issue_ms"], loop["multibox_target_ms"], det["forward_ms"],
+           det["detection_ms"], det["img_per_s"], loop["losses"][0],
+           loop["losses"][-1]))
+    del net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, summary
 
 
@@ -4007,7 +4686,7 @@ def main(argv):
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
                                      "end to end on one NVIDIA GPU.")
     parser.add_argument("--rtc-only", action="store_true",
-                        help="time K5's launch path (phase 15) alone")
+                        help="time K5's launch path (phase 16) alone")
     parser.add_argument("--imperative-only", action="store_true",
                         help="time the imperative BERT loop against "
                         "TrainStep (phase 6c) alone")
@@ -4019,6 +4698,9 @@ def main(argv):
                         "alone")
     parser.add_argument("--zoo-only", action="store_true",
                         help="run the model-zoo families (phase 14) alone")
+    parser.add_argument("--ssd-only", action="store_true",
+                        help="run SSD-512, BASELINE config 4 (phase 15), "
+                        "alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -4078,7 +4760,8 @@ def main(argv):
             opts.root))}))
         return 0
     for flag, key, phase in ((opts.rnn_only, "rnn", lstm_lm),
-                             (opts.zoo_only, "model_zoo", model_zoo)):
+                             (opts.zoo_only, "model_zoo", model_zoo),
+                             (opts.ssd_only, "ssd", ssd_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -4111,6 +4794,9 @@ def main(argv):
         torch.cuda.empty_cache()
         rnn_launches, rnn = lstm_lm(card)
         zoo_launches, zoo = model_zoo(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ssd_launches, ssd = ssd_phase(card)
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -4122,6 +4808,7 @@ def main(argv):
     paths = {"serving": serve_launches, "conv3x3_s1": conv_launches,
              "rtc": rtc_launches, "ndarray_bert": ndarray_launches,
              "lstm_lm": rnn_launches, "model_zoo": zoo_launches,
+             "ssd": ssd_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -4241,6 +4928,7 @@ def main(argv):
     log(json.dumps({"gluon_loop": gluon}))
     log(json.dumps({"rnn": rnn}))
     log(json.dumps({"model_zoo": zoo}))
+    log(json.dumps({"ssd": ssd}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

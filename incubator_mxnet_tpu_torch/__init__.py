@@ -41,6 +41,9 @@ from .ndarray import random  # noqa: F401
 from . import contrib, gluon, jit, models, ops  # noqa: F401
 from . import callback, lr_scheduler, metric  # noqa: F401
 from . import optimizer, rtc, serving  # noqa: F401
+from .optimizer import Optimizer  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
+from .name import NameManager  # noqa: F401
 from . import test_utils  # noqa: F401
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
                       gpu, num_gpus, num_tpus, tpu)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["ENV_VARS", "get_env"]
+__all__ = ["ENV_VARS", "get_env", "evict_to_bound", "describe"]
 
 ENV_VARS = {
     # name: (type, default, doc)
@@ -83,4 +83,27 @@ def get_env(name):
     if typ is bool:
         return raw.strip().lower() not in ("0", "", "false", "no", "off")
     return typ(raw)
+
+
+def evict_to_bound(cache, on_evict=None):
+    """Drop the least recently used entries of a cache of captured graphs
+    until it holds MXTPU_AOT_CACHE_SIZE (call after inserting). The cache
+    is a dict in recency order: a caller marking a hit moves the entry to
+    the end (``cache[k] = cache.pop(k)``), so the front entry is the least
+    recently used. ``on_evict(key, value)`` runs for each entry dropped."""
+    bound = max(1, get_env("MXTPU_AOT_CACHE_SIZE"))
+    while len(cache) > bound:
+        key = next(iter(cache))
+        value = cache.pop(key)
+        if on_evict is not None:
+            on_evict(key, value)
+
+
+def describe():
+    """The registry as a table: name, type, default and doc per line."""
+    lines = ["%-24s %-6s %-10s %s" % ("Variable", "Type", "Default", "Doc")]
+    for name, (typ, default, doc) in sorted(ENV_VARS.items()):
+        lines.append("%-24s %-6s %-10s %s"
+                     % (name, typ.__name__, str(default), doc))
+    return "\n".join(lines)
 

@@ -278,8 +278,7 @@ def call(block, *args, **kwargs):
 
 def _store(cache, sig, entry):
     cache[sig] = entry
-    while len(cache) > max(1, config.get_env("MXTPU_AOT_CACHE_SIZE")):
-        cache.popitem(last=False)
+    config.evict_to_bound(cache)
 
 
 def _capture(block, spec, inputs, params, recording):

@@ -10,9 +10,20 @@ attribute is registered as an ``nn.Parameter`` under that name. So
 keyed by the same names.
 
 Blocks take MXNet's ``prefix=`` keyword and offer ``name_scope()``, which
-model code such as the model zoo uses; the structural names above do not
-depend on either, so the prefix is accepted and not used, and
-``name_scope()`` opens an empty scope.
+model code such as the model zoo uses. They name themselves as MXNet does
+(``Block.prefix`` ``dense0_``, ``Block.name`` ``dense0``: a counter per
+class name, process-wide, or per parent inside its ``name_scope()``, the
+prefix then the parent's plus the child's); the structural names above do
+not depend on either, so ``collect_params()`` keys stay structural.
+
+MXNet's central idiom runs as it does there: a ``HybridBlock`` subclass
+that defines ``hybrid_forward(self, F, x, ..., **params)`` and no
+``forward`` is called with ``F`` the ``nd`` namespace, its arguments as
+NDArrays and this block's own parameters as NDArray keywords (by
+attribute name); NDArray operations inside record exactly when the call
+does, so it holds eagerly, hybridized and inside ``jit.TrainStep``. A
+parameter whose shape waits for the first input is inferred by the
+block's ``_infer_param_shapes(*args)``, which such a block overrides.
 
 ``params=`` shares parameters: given another block's ``params`` (its own
 parameters) or ``collect_params()`` (its whole tree), a parameter this
@@ -53,15 +64,16 @@ block on the card into CUDA graphs, one per signature
 from __future__ import annotations
 
 import collections
-import contextlib
 import functools
 import re
+import threading
 
 import torch
 
+from .. import autograd
 from .. import ndarray as nd
 from . import _functional
-from .parameter import Parameter, ParameterDict
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "HookHandle", "SymbolBlock"]
 
@@ -87,6 +99,50 @@ class HookHandle:
         self.detach()
 
 
+class _BlockScope:
+    """MXNet's naming scope of a block (reference ``gluon/block.py``
+    ``_BlockScope``): inside ``with block.name_scope():`` a new block is
+    named ``block.prefix + hint + count``, with a count per class name
+    kept by that block; outside any scope by a process-wide count."""
+
+    _current = threading.local()
+    _counters = {}
+    _lock = threading.Lock()
+
+    def __init__(self, block):
+        self._block = block
+        self._old = None
+
+    @staticmethod
+    def prefix(prefix, hint):
+        """The prefix of a block of class name ``hint`` made now."""
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                with _BlockScope._lock:
+                    count = _BlockScope._counters.get(hint, 0)
+                    _BlockScope._counters[hint] = count + 1
+                prefix = "%s%d_" % (hint, count)
+            return prefix
+        if prefix is None:
+            counts = current._block._child_counts
+            count = counts.get(hint, 0)
+            counts[hint] = count + 1
+            prefix = "%s%d_" % (hint, count)
+        return current._block.prefix + prefix
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, *exc):
+        if not self._block._empty_prefix:
+            _BlockScope._current.value = self._old
+
+
 def _under(shared, name):
     """The entries of ``shared`` below the structural name ``name``."""
     head = name + "."
@@ -108,6 +164,9 @@ class Block(torch.nn.Module):
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
+        self._empty_prefix = prefix == ""
+        self._prefix = _BlockScope.prefix(prefix, type(self).__name__.lower())
+        self._child_counts = {}
         self._reg_params = {}
         self._shared = None if params is None else dict(params.items())
         self._mx_pre_hooks = []
@@ -146,10 +205,21 @@ class Block(torch.nn.Module):
         return HookHandle(self._mx_hooks, hook)
 
     @property
+    def prefix(self):
+        """MXNet's name prefix of this block, such as ``dense0_``."""
+        return self._prefix
+
+    @property
+    def name(self):
+        """The prefix without its trailing underscore, such as ``dense0``."""
+        return self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+
+    @property
     def params(self):
         """This block's own parameters (not its children's), by attribute
         name: what another block's ``params=`` takes to share them."""
-        ret = ParameterDict()
+        ret = ParameterDict(self._prefix)
         ret.update(self._reg_params)
         return ret
 
@@ -169,9 +239,10 @@ class Block(torch.nn.Module):
                 child._share(_under(self._shared, name))
 
     def name_scope(self):
-        """A scope for creating children, as in MXNet; names here are
-        structural, so it changes nothing."""
-        return contextlib.nullcontext(self)
+        """MXNet's scope for creating children: a block made inside it is
+        named after this block (``prefix``); structural names do not
+        change."""
+        return _BlockScope(self)
 
     def __setattr__(self, name, value):
         shared = self.__dict__.get("_shared")
@@ -267,6 +338,16 @@ class Block(torch.nn.Module):
                 p.initialize(ctx=ctx)
             p.set_data(data)
 
+    def summary(self, *inputs):
+        """Print MXNet's summary table of a call on ``inputs``: this
+        block's name and its output's shape (the JAX package's one
+        line)."""
+        out = self(*inputs)
+        print("\n".join(["-" * 64, "%-30s %20s" % ("Layer (type)",
+                                                     "Output Shape"),
+                         "=" * 64, "%-30s %20s" % (
+                             self.name, getattr(out, "shape", "?"))]))
+
     def cast(self, dtype):
         """Cast every child (each by its own ``cast``, so a BatchNorm keeps
         fp32 statistics), then this block's own parameters."""
@@ -298,6 +379,46 @@ class HybridBlock(Block):
         self._active = active
         self._graphs.clear()
 
+    def infer_shape(self, *args):
+        """Finish the deferred shapes of this block's parameters from
+        ``args`` by one forward that records nothing, as MXNet's."""
+        with autograd.pause(train_mode=autograd.is_training()):
+            nd.ndarray._apply(self.forward, *args)
+
+    def forward(self, *args):
+        """MXNet's ``hybrid_forward(F, *args, **params)`` adapter: ``F``
+        is ``nd``, the arguments and this block's own parameters come as
+        NDArrays, and the NDArray operations inside record exactly when
+        torch's grad mode says this call records (``record()``,
+        ``TrainStep``, a captured backward). Returns tensors."""
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise NotImplementedError(
+                "%s must implement forward or hybrid_forward"
+                % type(self).__name__)
+        deferred = [p for p in self._reg_params.values()
+                    if p._data is None and p._deferred_init is not None]
+        if deferred:
+            self._infer_param_shapes(*nd.ndarray._as_ndarrays(args))
+            for p in deferred:
+                p._finish_deferred_init()
+        params = {name: nd.NDArray(p._tensor())
+                  for name, p in self._reg_params.items()}
+        with autograd._Scope(torch.is_grad_enabled(), None):
+            out = self.hybrid_forward(nd, *nd.ndarray._as_ndarrays(args),
+                                      **params)
+        return _tensors_of(out)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+    def _infer_param_shapes(self, *args):
+        """Set the deferred parameter shapes from the first call's
+        arguments (NDArrays): a block with such parameters and a
+        ``hybrid_forward`` overrides this."""
+        raise DeferredInitializationError(
+            "%s has uninitialized parameters and no shape inference; "
+            "initialize with known in_units/in_channels" % type(self).__name__)
+
     def __call__(self, *args, **kwargs):
         if not self._active or _functional.in_plain():
             return super().__call__(*args, **kwargs)
@@ -311,6 +432,15 @@ class HybridBlock(Block):
         raise NotImplementedError("HybridBlock.export comes with the port "
                                   "of serving's exported artifacts "
                                   "(ROADMAP.md §1 item 8)")
+
+
+def _tensors_of(tree):
+    """``tree`` (tuples and lists, nested) with every NDArray its tensor."""
+    if isinstance(tree, nd.NDArray):
+        return tree._data
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensors_of(t) for t in tree)
+    return tree
 
 
 class SymbolBlock(HybridBlock):

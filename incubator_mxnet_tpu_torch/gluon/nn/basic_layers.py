@@ -108,8 +108,12 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
+    """Rows of ``weight`` (input_dim, output_dim) at the ids. MXNet's
+    ``sparse_grad`` (a row_sparse gradient) is accepted; the gradient
+    stays dense, as in the JAX package."""
+
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, **kwargs):
+                 weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim

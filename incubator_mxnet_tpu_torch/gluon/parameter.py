@@ -45,9 +45,12 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
-        self._grad_req = grad_req
+        # MXNet's storage types (stype, grad_stype) are accepted; storage
+        # stays dense, as in the JAX package
+        self._grad_req = grad_req if differentiable else "null"
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         if isinstance(shape, int):
@@ -188,9 +191,41 @@ class Parameter:
         if g is not None:
             g._data.zero_()
 
+    def list_data(self):
+        """[``data()``]: one copy, on one device."""
+        return [self.data()]
+
+    def list_grad(self):
+        """[``grad()``]."""
+        return [self.grad()]
+
     def list_ctx(self):
         """[the Context this parameter lives on]."""
         return [context_of(self._tensor())]
+
+    @torch.no_grad()
+    def reset_ctx(self, ctx):
+        """Move this parameter to ``ctx`` (a Context or a list of one), in
+        place: the registered tensor keeps its identity and its
+        gradient is dropped. A parameter that waits for its shape is
+        initialized on ``ctx`` later."""
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]
+        device = as_device(ctx)
+        if self._data is None:
+            if self._deferred_init is not None:
+                self._deferred_init = self._deferred_init[:2] + (
+                    device,) + self._deferred_init[3:]
+            return
+        self._data.data = self._data.data.to(device)
+        self._data._mx_grad = None
+        self._version += 1
+
+    def var(self):
+        """MXNet's symbol of this parameter: waits for the port of
+        ``symbol/`` (ROADMAP.md §1 item 3)."""
+        raise NotImplementedError("Parameter.var comes with the port of "
+                                  "symbol/ (ROADMAP.md §1 item 3)")
 
     @torch.no_grad()
     def set_data(self, data):
@@ -248,10 +283,19 @@ class Constant(Parameter):
 
 
 class ParameterDict:
-    """Ordered name → Parameter map."""
+    """Ordered name → Parameter map. ``prefix`` is MXNet's name prefix (the
+    port's keys are structural names, so ``get`` does not prepend it);
+    ``shared`` is a dict whose parameters ``get`` returns before it makes
+    new ones."""
 
-    def __init__(self):
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._shared = shared
         self._params = {}
+
+    @property
+    def prefix(self):
+        return self._prefix
 
     def items(self):
         return self._params.items()
@@ -279,7 +323,10 @@ class ParameterDict:
         (MXNet's idiom ``self.weight = self.params.get("weight", ...)``:
         the attribute registers it)."""
         if name not in self._params:
-            self._params[name] = Parameter(name, **kwargs)
+            if self._shared is not None and name in self._shared:
+                self._params[name] = self._shared[name]
+            else:
+                self._params[name] = Parameter(name, **kwargs)
         return self._params[name]
 
     def get_constant(self, name, value=None):
@@ -316,3 +363,51 @@ class ParameterDict:
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set the attribute ``name`` of every parameter, such as
+        ``setattr("grad_req", "null")``."""
+        for p in self.values():
+            setattr(p, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to ``filename`` (MXNet's ``.params``
+        format) under its key with ``strip_prefix`` taken off; a key that
+        does not start with it raises."""
+        arrays = {}
+        for name, p in self.items():
+            if not name.startswith(strip_prefix):
+                raise ValueError("Prefix %s is to be stripped before saving, "
+                                 "but Parameter %s does not start with it"
+                                 % (strip_prefix, name))
+            arrays[name[len(strip_prefix):]] = p.data()
+        from .. import ndarray as nd
+        nd.save(filename, arrays)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Copy the arrays of ``filename`` into the parameters of the same
+        keys (``restore_prefix`` put before each file name), as
+        ``Block.load_parameters`` does."""
+        from .. import ndarray as nd
+        loaded = {restore_prefix + k: v for k, v in nd.load(filename).items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in loaded:
+                    raise AssertionError("Parameter %s missing in file %s"
+                                         % (name, filename))
+        for name, data in loaded.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise AssertionError("Parameter %s in file is not in "
+                                         "this dict" % name)
+                continue
+            p = self._params[name]
+            if p._data is None and p._deferred_init is None:
+                p.shape = data.shape
+                p.initialize(ctx=ctx)
+            p.set_data(data)

@@ -30,7 +30,10 @@ forward's dropout masks and without a second running-statistics update
 (``autograd.remat_contexts``). ``grad_postprocess`` maps the list of
 gradients of the trainer's parameters (zeros where the loss does not
 reach) before the update, as in the JAX step. ``mesh`` and ``zero`` wait
-for the multi-GPU slice.
+for the multi-GPU slice; ``data_axis`` (the mesh axis the batch is split
+over) is accepted and only matters with a mesh. ``model_id`` is accepted
+and stored: the JAX package keys its AOT cache of compiled programs by it,
+which comes with the port of ``aot.py``.
 
 ``EvalStep`` moves its inputs to the net's device and runs the forward
 without recording (under ``torch.inference_mode()`` for the serving path).
@@ -42,6 +45,7 @@ NDArrays, as the JAX package's do.
 from __future__ import annotations
 
 import collections
+import gc
 import os
 import traceback
 
@@ -126,29 +130,41 @@ class _GraphCapture:
         the capture's end fails, the capture is ended and its memory pool
         given back before the error goes on: left as ``torch.cuda.graph``
         leaves them, the allocator would route to the dead capture and
-        never free a cached block again."""
+        never free a cached block again. Python's cyclic garbage collector
+        runs before the capture and not during it: blocks hold their
+        captured graphs in reference cycles (through their parameters),
+        and a graph freed while another is being captured resets itself
+        inside that capture and breaks it (as ``torch.cuda.graph``
+        collects before capturing)."""
         graph = torch.cuda.CUDAGraph()
         if hasattr(graph, "register_generator_state"):
             # nd.random's generator, for draws inside the step (dropout
             # draws from torch's default one, which every capture takes)
             graph.register_generator_state(_random._generator(self.device))
+        gc.collect()
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         if pool is None:
             pool = torch.cuda.graph_pool_handle()   # known even if it fails
         self.pool = pool
-        with torch.cuda.stream(self.side):
-            graph.capture_begin(pool=pool)
-            try:
-                out = fn()
-            except BaseException:
-                self._abandon(graph, pool, ended=False)
-                raise
-            try:
-                graph.capture_end()
-            except BaseException:
-                self._abandon(graph, pool, ended=True)
-                raise
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self.side):
+                graph.capture_begin(pool=pool)
+                try:
+                    out = fn()
+                except BaseException:
+                    self._abandon(graph, pool, ended=False)
+                    raise
+                try:
+                    graph.capture_end()
+                except BaseException:
+                    self._abandon(graph, pool, ended=True)
+                    raise
+        finally:
+            if collecting:
+                gc.enable()
         return graph, out
 
     def _abandon(self, graph, pool, ended):
@@ -213,7 +229,8 @@ class TrainStep:
     graphs captured."""
 
     def __init__(self, net, loss_fn, trainer, batch_axis=0,
-                 grad_postprocess=None, mesh=None, remat=None, zero=False):
+                 grad_postprocess=None, mesh=None, data_axis="dp",
+                 remat=None, zero=False, model_id=None):
         if mesh is not None or zero:
             raise NotImplementedError(
                 "TrainStep mesh/zero (data-parallel and ZeRO-1 sharding) "
@@ -222,6 +239,8 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.trainer = trainer
         self.batch_axis = batch_axis
+        self.data_axis = data_axis
+        self._model_id = model_id
         self.remat = config.get_env("MXTPU_REMAT") if remat is None \
             else remat
         self._grad_postprocess = grad_postprocess
@@ -343,9 +362,7 @@ class TrainStep:
             _kernels.add_launches(entry.launches)
             loss = entry.loss.clone()
         self._graphs[sig] = entry
-        while len(self._graphs) > max(1, config.get_env(
-                "MXTPU_AOT_CACHE_SIZE")):
-            self._graphs.popitem(last=False)
+        config.evict_to_bound(self._graphs)
         return loss
 
     def _on_leaves(self, fn):
@@ -398,10 +415,12 @@ class TrainStep:
 
 class EvalStep:
     """``step(*inputs)`` = ``net(*inputs)`` in inference mode on the net's
-    device, as NDArrays. Inputs may be NDArrays, tensors or numpy arrays."""
+    device, as NDArrays. Inputs may be NDArrays, tensors or numpy arrays.
+    ``model_id`` is stored, as ``TrainStep``'s."""
 
-    def __init__(self, net):
+    def __init__(self, net, model_id=None):
         self.net = net
+        self._model_id = model_id
 
     def __call__(self, *inputs):
         from .gluon._functional import plain

@@ -251,11 +251,15 @@ def _wd_terms(weights, wds):
 @register
 class SGD(Optimizer):
     """SGD with momentum: ``mom = momentum * mom - lr * (g + wd * w)``,
-    ``w += mom`` (``w -= lr * (g + wd * w)`` without momentum)."""
+    ``w += mom`` (``w -= lr * (g + wd * w)`` without momentum).
+    ``lazy_update`` (MXNet's: update only the rows a row_sparse gradient
+    carries) is accepted; gradients are dense here, so every row updates,
+    as in the JAX package with a dense gradient."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:

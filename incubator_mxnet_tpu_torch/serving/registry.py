@@ -43,9 +43,10 @@ class BlockServable:
     types come back unchanged.
     """
 
-    def __init__(self, net):
+    def __init__(self, net, model_id=None):
         self._net = net
-        self._steps = {net_device(net): EvalStep(net)}
+        self._model_id = model_id
+        self._steps = {net_device(net): EvalStep(net, model_id=model_id)}
         self._lock = threading.Lock()
 
     def _step(self, replica):
@@ -56,7 +57,8 @@ class BlockServable:
             step = self._steps.get(device)
             if step is None:
                 import copy
-                step = EvalStep(copy.deepcopy(self._net).to(device))
+                step = EvalStep(copy.deepcopy(self._net).to(device),
+                                model_id=self._model_id)
                 self._steps[device] = step
         return step
 

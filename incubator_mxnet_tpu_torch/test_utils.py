@@ -27,7 +27,8 @@ __all__ = ["default_context", "set_default_context", "assert_almost_equal",
            "almost_equal", "rand_ndarray", "rand_shape_2d", "rand_shape_3d",
            "rand_shape_nd", "check_numeric_gradient", "numeric_grad", "same",
            "random_seed", "op_consistency_sweep", "grad_consistency_sweep",
-           "SWEEP_TOLS", "SWEEP_TOLS_TRANS", "sweep_inputs"]
+           "SWEEP_TOLS", "SWEEP_TOLS_TRANS", "sweep_inputs",
+           "check_consistency", "simple_forward"]
 
 _default_ctx = [None]
 
@@ -136,6 +137,34 @@ def check_numeric_gradient(fn, inputs, rtol=1e-2, atol=1e-3, eps=1e-3,
                             rtol=rtol, atol=atol)
 
 
+def simple_forward(sym_or_fn, ctx=None, is_train=False, **inputs):
+    """``sym_or_fn(**inputs)`` on NDArrays made from the numpy ``inputs``
+    (on ``ctx``, default the current context), as numpy: one array, or a
+    list for several outputs."""
+    outs = sym_or_fn(**{k: nd.array(v, ctx=ctx) for k, v in inputs.items()})
+    if isinstance(outs, (list, tuple)):
+        return [o.asnumpy() for o in outs]
+    return outs.asnumpy()
+
+
+def check_consistency(fn, inputs, ctx_list=None, dtypes=("float32",),
+                      rtol=1e-3, atol=1e-4):
+    """``fn`` on the numpy ``inputs`` in every context of ``ctx_list``
+    (default: the CPU and ``default_context()``) and every dtype: each
+    result, as float32, within ``rtol``/``atol`` of the first."""
+    if ctx_list is None:
+        ctx_list = [cpu(0), default_context()]
+    results = []
+    for ctx in ctx_list:
+        for dt in dtypes:
+            with ctx:
+                arrs = [nd.array(onp.asarray(x, dtype=dt), ctx=ctx)
+                        for x in inputs]
+                results.append(_as_np(fn(*arrs)).astype("float32"))
+    for r in results[1:]:
+        assert_almost_equal(r, results[0], rtol=rtol, atol=atol)
+
+
 # ================================================================== sweep
 
 def _sweep_table():
@@ -145,7 +174,7 @@ def _sweep_table():
     ``nd`` namespace the operator is drawn from. Spec kinds: 'f' float in
     (-2, 2), 'pos' |f|+0.5, 'unit' (-0.9, 0.9), 'gt1' |f|+1.5, 'perm'
     distinct floats, 'b' 0/1 floats, ('i', hi) int32 in [0, hi), 'lenN'
-    float lengths in [1, N]. opts:
+    float lengths in [1, N], ((array,), 'const') that array. opts:
     'op' (the operator's name when the entry's differs), 'nondiff' (no
     gradient walk)."""
 
@@ -359,6 +388,20 @@ def _sweep_table():
                 call=lambda M, i, w: M.Embedding(i, w, input_dim=16,
                                                  output_dim=8)))
 
+    # the spatial operators of ops/detection.py
+    t.append(kw("ROIPooling", dict(pooled_size=(2, 2), spatial_scale=1.0),
+                f(1, 3, 8, 8),
+                ((onp.array([[0, 0, 0, 4, 4], [0, 1, 1, 6, 6]],
+                            dtype="float32"),), "const")))
+    t.append(mk("BilinearSampler", f(1, 2, 6, 6), ((1, 2, 4, 4), "unit")))
+    t.append(kw("GridGenerator", dict(transform_type="affine",
+                                      target_shape=(4, 4)),
+                ((2, 6), "unit")))
+    t.append(kw("SpatialTransformer",
+                dict(target_shape=(4, 4), transform_type="affine",
+                     sampler_type="bilinear"),
+                f(1, 2, 8, 8), ((1, 6), "unit")))
+
     _rnn_n = rnn_param_size("rnn_tanh", 4, 8, 1)
     t.append(mk("RNN", f(3, 2, 4), f(_rnn_n), f(1, 2, 8), tag="trans",
                 call=lambda M, x, p, s: M.RNN(x, p, s, state_size=8,
@@ -394,6 +437,8 @@ _FLOAT_KINDS = ("f", "pos", "unit", "gt1", "perm", "pmf")
 
 
 def _gen_input(rng, shape, kind):
+    if kind == "const":
+        return shape[0].copy()          # the spec carries the array
     if isinstance(kind, tuple):
         if kind[0] == "i":
             return rng.randint(0, kind[1], size=shape).astype("int32")

@@ -116,11 +116,26 @@ def test_entry_matches_the_jax_package(entry):
                                     err_msg="gradient %d of %s" % (i, entry))
 
 
+def _same_specs(a, b):
+    """Equal specs; a "const" spec's payload array compared by value."""
+    if len(a) != len(b):
+        return False
+    for (shape, kind), (ref_shape, ref_kind) in zip(a, b):
+        if kind != ref_kind:
+            return False
+        if kind == "const":
+            if not onp.array_equal(shape[0], ref_shape[0]):
+                return False
+        elif shape != ref_shape:
+            return False
+    return True
+
+
 def test_port_table_entries_are_the_references():
     for name, (_, _, specs, opts) in PORT.items():
         assert name in REF, name
         _, _, ref_specs, ref_opts = REF[name]
-        assert specs == ref_specs and opts == ref_opts, name
+        assert _same_specs(specs, ref_specs) and opts == ref_opts, name
 
 
 def test_port_table_holds_every_reference_entry_the_port_can_run():

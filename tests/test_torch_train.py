@@ -220,15 +220,22 @@ def test_train_step_gives_trainer_params_outside_the_net_fresh_grads():
 
 def test_train_step_and_sgd_refuse_options_the_port_has_not():
     """Options whose machinery the port does not have yet raise instead of
-    being ignored."""
+    being ignored: a mesh and ZeRO sharding. The reference's keywords that
+    change nothing without them are accepted and kept: ``model_id`` and
+    ``data_axis`` (the AOT cache key and the mesh axis), and SGD's
+    ``lazy_update`` (gradients are dense)."""
     net = mxt.gluon.nn.Dense(3, in_units=5)
     trainer = mxt.gluon.Trainer(net.collect_params(), "sgd")
     loss = mxt.gluon.loss.L2Loss()
-    for kw in (dict(model_id="m"), dict(data_axis="dp")):
-        with pytest.raises(TypeError):
-            mxt.jit.TrainStep(net, loss, trainer, **kw)
-    with pytest.raises(TypeError, match="lazy_update"):
-        mxt.optimizer.create("sgd", lazy_update=True)
+    for kw in (dict(mesh=object()), dict(zero=True)):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            mxt.jit.TrainStep(net, loss, trainer, data_axis="dp", **kw)
+    step = mxt.jit.TrainStep(net, loss, trainer, model_id="m",
+                             data_axis="dp")
+    assert (step._model_id, step.data_axis) == ("m", "dp")
+    assert mxt.optimizer.create("sgd", lazy_update=True).lazy_update
+    with pytest.raises(TypeError, match="unexpected"):
+        mxt.optimizer.create("sgd", no_such_option=True)
 
 
 def _random_arrays(kind):
