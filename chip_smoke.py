@@ -90,7 +90,19 @@ Phases, each of which must pass, in order:
    fresh model on the card: a served batch's forward equal bit for bit.
    (e) ``nd.random``: ``seed`` repeats the draws on the card, and the
    moments of 16 M normal and uniform draws lie within 5 standard errors.
-   Prints an {"ndarray": ...} line with these numbers and the card.
+   (f) The rest of mx.nd (``check_ndarray_breadth``): every nd.linalg
+   operator card vs CPU in float32 and float64 (TF32 off; the
+   factorisations gelqf, svd and syevd through their sign-free
+   invariants) with the gradients of the differentiable ones, within
+   BREADTH_TOL; nd.sparse cast_storage round trips (exact) and
+   sparse.dot card vs CPU; deformable_conv2d (DCNv2 mask, two groups)
+   card vs CPU with its four gradients; an LSTM cell unrolled by
+   contrib.foreach and a contrib.while_loop(max_iterations=6) inside the
+   captured TrainStep equal to its eager body bit for bit over 3 steps.
+   The sweep of (a) holds the new entries too (the loss layers, the
+   nn-style, index and update operators, linalg.gemm2, the _v1 aliases,
+   cast_storage). Prints an {"ndarray": ...} line with these numbers and
+   the card.
 7. The training path, after the NDArray phase's model is freed:
    full-width BERT (B 64 x S 512, SoftmaxCrossEntropyLoss on the full
    logits) and GPT (B 1 x S 8192, FeaturesView + ChunkedLMLoss) in
@@ -164,6 +176,12 @@ Phases, each of which must pass, in order:
    backward, Trainer.step) on the card each within 1e-6 of the largest
    weight of the same loop on the CPU (SGLD with its noise off); SGLD
    captured with a zero gradient draws fresh N(0, lr) noise each replay.
+   Each *_update operator whose formula is an optimizer's against that
+   optimizer's update_all on the card, 3 steps (fp16 weights with fp32
+   masters for mp_*): bit for bit; multi_mp_sgd_mom_update,
+   preloaded_multi_mp_sgd_mom_update (device learning rates) and a LARS
+   chain (multi_sum_sq, multi_lars, multi_all_finite, multi_sgd_update)
+   captured in a CUDA graph, 3 replays equal to 3 eager calls bit for bit.
    (b) A hybridized small fp32 BERT, GPT and ResNet-18 (cuDNN
    deterministic) in the Gluon loop against the same loop without
    hybridize: losses and parameters equal bit for bit over 6 steps (a
@@ -254,7 +272,27 @@ Phases, each of which must pass, in order:
    400 and threshold 0.45): at most 400 detections an image, forward and
    detection ms, img/s. No hand-written kernel launches on this path.
    Prints an {"ssd": ...} line.
-16. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
+16. The CTC acoustic model of example/speech_recognition/train_ctc.py
+   (``ctc_phase``) at DeepSpeech-2 width (CTC: 161 bins, Dense(1760,
+   relu) → 5 bidirectional LSTM layers of 1760 → Dense(29), blank last,
+   CTCLoss, Adam 3e-3, fp32; B 32 × T 800, data lengths 400-800, label
+   lengths 40-120 padded with -1; synthetic utterances from a seed, as
+   train_ctc.py makes them). (a) At 2 layers, hidden 32, T 40 (TF32 off):
+   the card against the CPU from the same weights, a Gluon-loop step's
+   loss and gradients and the weights after two SGD steps within
+   CTC_SMALL_TOL. (b) The loss alone at the model's logits shape (T 800 ×
+   N 32 × C 29): ops.ctc against torch.nn.functional.ctc_loss (a
+   yardstick, not on the path) on the same log-probabilities and card vs
+   CPU, within CTC_LOSS_TOL; forward + backward timed eagerly and
+   replayed from a CUDA graph, F.ctc_loss timed beside. (c) Full width:
+   the captured TrainStep against its eager body, 3 steps, bit for bit;
+   then the captured TrainStep (a capture, a replay, CTC_TIMED timed), its
+   eager body and the hybridized Gluon loop, each with step ms, frames/s,
+   share of 989 TFLOP/s (3 × the forward FLOP of the LSTM and Dense
+   shapes), issue ms, idle share, peak allocated and reserved memory and
+   top_kernels; losses finite and falling in each; no hand-written kernel
+   launched. Prints a {"ctc": ...} line.
+17. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
@@ -272,14 +310,14 @@ Phases, each of which must pass, in order:
 Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
-{"model_zoo": ...}, an {"ssd": ...} and a {"kernels": [...]} line and, as
-the last line, {"ok": true, "device": {...}}. Exits non-zero, printing no
-result, when CUDA is absent, the port is not beside this script, or any
-phase fails.
+{"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...} and a {"kernels":
+[...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
+non-zero, printing no result, when CUDA is absent, the port is not beside
+this script, or any phase fails.
 
     python3 chip_smoke.py --rtc-only [--root DIR]
 
-runs phase 16 alone, on the port found in DIR (by default beside this
+runs phase 17 alone, on the port found in DIR (by default beside this
 script), and prints the card's name and power limit and {"rtc": {...}}:
 the way to time another tree's K5 launch path with the same code, for
 example an unpacked parent commit's.
@@ -290,7 +328,8 @@ likewise runs phase 6c alone, AB_STEPS steps each of the imperative BERT
 loop and of TrainStep, and prints {"imperative": {...}}; ``--gluon-only``
 runs phase 12 alone and prints {"gluon_loop": {...}}, ``--rnn-only``
 phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
-({"model_zoo": {...}}) and ``--ssd-only`` phase 15 ({"ssd": {...}}).
+({"model_zoo": {...}}), ``--ssd-only`` phase 15 ({"ssd": {...}}) and
+``--ctc-only`` phase 16 ({"ctc": {...}}).
 """
 import gc
 import itertools
@@ -360,6 +399,26 @@ SSD_EXACT_STEPS = 3    # captured against eager, bit for bit
 SSD_SMALL, SSD_SMALL_SIZE = dict(num_classes=20, base_channels=8), 64
 SSD_SMALL_TOL = 1e-4   # card (cuDNN, TF32 off) vs CPU, fp32
 DET_SMALL_TOL = 1e-5   # detection operators card vs CPU, fp32
+# The CTC acoustic model of example/speech_recognition/train_ctc.py (Dense →
+# bidirectional LSTM → Dense, blank last, CTCLoss, Adam 3e-3) at
+# DeepSpeech-2 width (Amodei et al. 2016; MXNet's deepspeech.cfg): 161
+# spectrogram bins, 5 LSTM layers of 1760 a direction, 28 classes + blank,
+# batch 32 (train_ctc.py's), T 800 frames (8 s at 10 ms), data lengths
+# 400-800, label lengths 40-120 padded with -1, fp32
+CTC = dict(mels=161, hidden=1760, layers=5, classes=28, batch=32,
+           frames=800)
+CTC_DATA_LENGTHS, CTC_LABEL_LENGTHS, CTC_LR = (400, 800), (40, 120), 3e-3
+CTC_SMALL = dict(mels=161, hidden=32, layers=2, classes=28, batch=4,
+                 frames=40)
+CTC_SMALL_LENGTHS = ((20, 40), (4, 12))      # data, label lengths
+CTC_SMALL_TOL = 1e-4   # card (cuDNN RNN, TF32 off) vs CPU, fp32
+CTC_TIMED = 4          # captured TrainStep: timed replays
+CTC_EAGER_TIMED = 2    # eager body: timed steps
+CTC_LOOP_STEPS = (2, 3)    # Gluon loop: (warm-up, timed)
+CTC_EXACT_STEPS = 3    # captured against eager, bit for bit
+CTC_LOSS_TOL = 1e-4    # ops.ctc against F.ctc_loss, relative, finite losses
+CTC_LOSS_ITERS = 5     # timed forward + backward of the loss alone
+BREADTH_TOL = {"float32": 1e-4, "float64": 1e-10}  # nd.linalg card vs CPU
 # ResNet-50's bottleneck 3x3/stride-1 convs at batch 256 (N, H, W, C, K),
 # benchmark/conv_bwd_pilot.py:29-35
 CONV_STAGES = ((256, 56, 56, 64, 64), (256, 28, 28, 128, 128),
@@ -1488,7 +1547,8 @@ def check_ndarray(card):
     try:
         summary = dict(card=card, sweep=check_ndarray_sweep(),
                        autograd=check_ndarray_autograd(),
-                       indexing=check_indexing_out_of_range())
+                       indexing=check_indexing_out_of_range(),
+                       breadth=check_ndarray_breadth())
         model, launches, summary["bert"] = train_bert_imperative(tmp)
         summary["params"] = check_params_round_trip(model, tmp)
         del model
@@ -2546,7 +2606,8 @@ def check_optimizer_sweep():
         "the CPU: worst %.3g of the largest weight; SGLD captured noise "
         "moments %s" % (len(rows), SWEEP_STEPS, max(
             max(r.values()) for r in rows.values()), moments))
-    return dict(rel_to_cpu=rows, sgld_noise_moments=moments)
+    return dict(rel_to_cpu=rows, sgld_noise_moments=moments,
+                update_ops_held=check_update_ops())
 
 
 def _loop_round(net, loss_fn, x, y):
@@ -4129,11 +4190,12 @@ def ssd_conv_flops(net, size):
     return total[0]
 
 
-def check_ssd_captured_equals_eager(net, x, y, init):
-    """From ``init``, SSD_EXACT_STEPS steps of the captured TrainStep and
-    of its eager body, cuDNN deterministic: losses and every parameter
-    (running statistics and the fp32 masters' casts included) equal bit
-    for bit. Returns the number of steps held."""
+def check_captured_equals_eager(net, loss_fn, make_trainer, inputs, init,
+                                n, what):
+    """From ``init``, ``n`` steps of the captured TrainStep and of its
+    eager body, cuDNN deterministic: losses and every parameter (running
+    statistics and the fp32 masters' casts included) equal bit for bit.
+    Leaves ``init`` in the net; returns ``n``."""
     import torch
     from incubator_mxnet_tpu_torch import jit
     params = list(net.collect_params().values())
@@ -4143,15 +4205,14 @@ def check_ssd_captured_equals_eager(net, x, y, init):
     try:
         for mode in ("captured", "eager"):
             _reset(params, init)
-            step = jit.TrainStep(net, _ssd_loss(), _ssd_sgd(net))
+            step = jit.TrainStep(net, loss_fn, make_trainer())
             if mode == "captured":
-                losses = [step(x, y)._data.clone()
-                          for _ in range(SSD_EXACT_STEPS)]
-                check(step.captures == 1, "SSD: %d captures for one "
-                      "signature" % step.captures)
+                losses = [step(*inputs)._data.clone() for _ in range(n)]
+                check(step.captures == 1, "%s: %d captures for one "
+                      "signature" % (what, step.captures))
             else:
-                losses = [_eager_step(step, x, y)._data.clone()
-                          for _ in range(SSD_EXACT_STEPS)]
+                losses = [_eager_step(step, *inputs)._data.clone()
+                          for _ in range(n)]
             runs.append((losses, [p._tensor().detach().clone()
                                   for p in params]))
             del step
@@ -4161,13 +4222,14 @@ def check_ssd_captured_equals_eager(net, x, y, init):
         torch.backends.cudnn.deterministic = det
     (lc, pc), (le, pe) = runs
     check(all(torch.equal(a, b) for a, b in zip(lc, le)),
-          "SSD: captured losses %s != eager %s" % (
-              [float(v.mean()) for v in lc], [float(v.mean()) for v in le]))
+          "%s: captured losses %s != eager %s" % (
+              what, [float(v.mean()) for v in lc],
+              [float(v.mean()) for v in le]))
     bad = [p.name for p, a, b in zip(params, pc, pe) if not torch.equal(a, b)]
-    check(not bad, "SSD: captured != eager after %d steps in %s"
-          % (SSD_EXACT_STEPS, bad[:5]))
+    check(not bad, "%s: captured != eager after %d steps in %s"
+          % (what, n, bad[:5]))
     _reset(params, init)
-    return SSD_EXACT_STEPS
+    return n
 
 
 def top_kernels(fn, n=10):
@@ -4356,8 +4418,9 @@ def ssd_phase(card):
                    anchors=SSD_ANCHORS)
     params = list(net.collect_params().values())
     init = [p._tensor().detach().clone() for p in params]
-    summary["captured_equals_eager_steps"] = check_ssd_captured_equals_eager(
-        net, x, y, init)
+    summary["captured_equals_eager_steps"] = check_captured_equals_eager(
+        net, _ssd_loss(), lambda: _ssd_sgd(net), [x, y], init,
+        SSD_EXACT_STEPS, "SSD")
     _kernels.reset_launches()
     summary["train_step"] = train_ssd_captured(net, x, y, flops)
     _reset(params, init)
@@ -4380,6 +4443,739 @@ def ssd_phase(card):
            det["detection_ms"], det["img_per_s"], loop["losses"][0],
            loop["losses"][-1]))
     del net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+# -------------------------------------------------------------- op breadth
+
+def _breadth_linalg_cases(rng):
+    """(name, call(linalg, *arrays), arrays) for every nd.linalg operator;
+    the factorisations through their sign-free invariants."""
+    import numpy as onp
+
+    def spd(n):
+        a = rng.randn(3, n, n)
+        return a @ a.transpose(0, 2, 1) + n * onp.eye(n)
+    sq = rng.randn(3, 6, 6) + 6 * onp.eye(6)
+    low, m = onp.tril(sq), rng.randn(3, 5, 7)
+
+    def lq(la, a):
+        ll, q = la.gelqf(a)
+        return [la.gemm2(ll, q), q.abs()]
+
+    def svd(la, a):
+        u, s_, vh = la.svd(a)
+        return [s_, la.gemm2(u * s_.expand_dims(1), vh)]
+
+    def eig(la, a):
+        u, w = la.syevd(a)
+        return [w, la.gemm2(u, u * w.expand_dims(2), transpose_a=True)]
+    return [
+        ("gemm", lambda la, a, b, c: la.gemm(a, b, c, alpha=0.5, beta=2.0),
+         [m, rng.randn(3, 7, 4), rng.randn(3, 5, 4)]),
+        ("gemm2", lambda la, a, b: la.gemm2(a, b, transpose_b=True),
+         [m, rng.randn(3, 4, 7)]),
+        ("potrf", lambda la, a: la.potrf(a), [spd(6)]),
+        ("potri", lambda la, a: la.potri(a),
+         [onp.linalg.cholesky(spd(6))]),
+        ("trsm", lambda la, a, b: la.trsm(a, b, rightside=True,
+                                          transpose=True, alpha=2.0),
+         [low, rng.randn(3, 4, 6)]),
+        ("trmm", lambda la, a, b: la.trmm(a, b, lower=False),
+         [sq, rng.randn(3, 6, 4)]),
+        ("syrk", lambda la, a: la.syrk(a, transpose=True), [m]),
+        ("gelqf", lq, [m]),
+        ("sumlogdiag", lambda la, a: la.sumlogdiag(a), [spd(6)]),
+        ("extractdiag", lambda la, a: la.extractdiag(a, offset=-1), [sq]),
+        ("makediag", lambda la, a: la.makediag(a, offset=1),
+         [rng.randn(3, 5)]),
+        ("extracttrian", lambda la, a: la.extracttrian(a, offset=1), [sq]),
+        ("maketrian", lambda la, a: la.maketrian(a, lower=False),
+         [rng.randn(3, 21)]),
+        ("inverse", lambda la, a: la.inverse(a), [sq]),
+        ("det", lambda la, a: la.det(a), [sq]),
+        ("slogdet", lambda la, a: list(la.slogdet(a)), [sq]),
+        ("svd", svd, [m]),
+        ("syevd", eig, [spd(6)]),
+    ]
+
+
+def _breadth_close(got, want, tol):
+    """max |got - want| over the largest |want|, checked against ``tol``;
+    returns it."""
+    import numpy as onp
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = onp.asarray(g, "float64"), onp.asarray(w, "float64")
+        err = max(err, float(onp.abs(g - w).max())
+                  / max(float(onp.abs(w).max()), 1e-30))
+    check(err <= tol, "card vs CPU %.3g of the largest value (tolerance %g)"
+          % (err, tol))
+    return err
+
+
+def _two_legs(fn, arrays, dtype, grads=()):
+    """``fn(*arrays)`` on the CPU and on the card (TF32 off): the outputs
+    and the gradients of their sum with respect to the arrays at
+    ``grads``, as numpy."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import autograd, nd
+    from incubator_mxnet_tpu_torch.test_utils import _full_precision
+    legs = []
+    with _full_precision(True):
+        for ctx in (mxt.cpu(), mxt.gpu(0)):
+            xs = [nd.array(a, ctx=ctx, dtype=dtype) for a in arrays]
+            for i in grads:
+                xs[i].attach_grad()
+            with autograd.record():
+                out = fn(*xs)
+                outs = out if isinstance(out, (list, tuple)) else [out]
+                total = sum(o.astype("float64").sum() for o in outs)
+            if grads:
+                total.backward()
+            legs.append([o.asnumpy() for o in outs]
+                        + [xs[i].grad.asnumpy() for i in grads])
+    torch.cuda.synchronize()
+    return legs
+
+
+def check_ndarray_breadth():
+    """The rest of mx.nd on the card: every nd.linalg operator card vs CPU
+    in float32 and float64 (the factorisations through their invariants)
+    with the gradients of the differentiable ones; nd.sparse cast_storage
+    round trips and sparse.dot card vs CPU; deformable_conv2d (DCNv2 mask,
+    two groups) card vs CPU with its four gradients; an LSTM cell unrolled
+    by contrib.foreach and a contrib.while_loop(max_iterations=6) inside
+    the captured TrainStep equal to its eager body bit for bit. Returns a
+    summary."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch.ndarray import contrib
+    from incubator_mxnet_tpu_torch.ops.deformable import deformable_conv2d
+    rng = onp.random.RandomState(23)
+    linalg = {}
+    for name, fn, arrays in _breadth_linalg_cases(rng):
+        diff = () if name in ("slogdet", "gelqf", "svd", "syevd") \
+            else tuple(range(len(arrays)))
+        for dtype in ("float32", "float64"):
+            cpu, card = _two_legs(lambda *xs: fn(nd.linalg, *xs), arrays,
+                                  dtype, diff)
+            linalg["%s_%s" % (name, dtype)] = _breadth_close(
+                card, cpu, BREADTH_TOL[dtype] * (10 if name in (
+                    "inverse", "potri", "trsm", "det", "svd", "syevd",
+                    "gelqf") else 1))
+    dense = rng.randn(40, 24).astype("float32")
+    dense[rng.rand(40) < 0.5] = 0
+    dense[rng.rand(40, 24) < 0.3] = 0
+    rhs = rng.randn(24, 16).astype("float32")
+    sparse = {}
+    for ctx in (mxt.cpu(), mxt.gpu(0)):
+        a = nd.array(dense, ctx=ctx)
+        for stype in ("row_sparse", "csr"):
+            back = nd.cast_storage(nd.cast_storage(a, stype), "default")
+            check(onp.array_equal(back.asnumpy(), dense),
+                  "cast_storage %s round trip on %s" % (stype, ctx))
+        sparse[str(ctx)] = nd.sparse.dot(
+            a.tostype("csr"), nd.array(rhs, ctx=ctx)).asnumpy()
+    sparse_err = _breadth_close([sparse["gpu(0)"]], [sparse["cpu(0)"]],
+                                1e-5)
+    n, c, h, w, co, ndg = 2, 8, 12, 10, 6, 2
+    arrays = [rng.randn(n, c, h, w), rng.randn(n, ndg * 18, h, w) * 2,
+              rng.randn(co, c, 3, 3), rng.randn(co),
+              rng.rand(n, ndg * 9, h, w)]
+    cpu, card = _two_legs(
+        lambda *xs: nd._apply(lambda x, off, wt, b, m: deformable_conv2d(
+            x, off, wt, b, kernel=(3, 3), pad=(1, 1),
+            num_deformable_group=ndg, mask=m), *xs),
+        arrays, "float32", (0, 1, 2, 3, 4))
+    deform_err = _breadth_close(card, cpu, 1e-4)
+
+    def unrolled():
+        g = mxt.gluon
+
+        class Unrolled(g.HybridBlock):
+            def __init__(self):
+                super().__init__()
+                self.cell = g.rnn.LSTMCell(64, input_size=32)
+                self.out = g.nn.Dense(10, in_units=64)
+
+            def forward(self, x):
+                begin = [torch.zeros(x.shape[1], 64, device=x.device)] * 2
+                outs, _ = contrib.foreach(
+                    lambda xt, st: self.cell(xt, st), x, begin)
+                return self.out(outs[-1])
+        net = Unrolled()
+        net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0),
+                       generator=torch.Generator("cuda").manual_seed(4))
+        return net
+
+    def looped():
+        g = mxt.gluon
+
+        class Looped(g.HybridBlock):
+            def __init__(self):
+                super().__init__()
+                self.step = g.nn.Dense(32, in_units=32)
+                self.out = g.nn.Dense(10, in_units=32)
+
+            def forward(self, x):
+                i = torch.zeros(1, device=x.device)
+                outs, (_, h) = contrib.while_loop(
+                    lambda i, h: i < 3.5,
+                    lambda i, h: ((torch.tanh(self.step(h)),),
+                                  (i + 1, torch.tanh(self.step(h)))),
+                    [i, x], max_iterations=6)
+                return self.out(h + outs[0].sum(0))
+        net = Looped()
+        net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0),
+                       generator=torch.Generator("cuda").manual_seed(5))
+        return net
+
+    dev = torch.device("cuda", 0)
+    y = torch.arange(8, device=dev).float() % 10
+    steps = {}
+    for what, make, x in (("foreach", unrolled, (12, 8, 32)),
+                          ("while_loop", looped, (8, 32))):
+        net = make()
+        init = [p._tensor().detach().clone()
+                for p in net.collect_params().values()]
+        steps[what] = check_captured_equals_eager(
+            net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
+            lambda: mxt.gluon.Trainer(net.collect_params(), "sgd",
+                                      {"learning_rate": 0.1}),
+            [torch.randn(*x, device=dev), y], init, 3, what)
+    foreach_steps, while_steps = steps["foreach"], steps["while_loop"]
+    summary = dict(linalg_rel_err=linalg, sparse_dot_rel_err=sparse_err,
+                   deformable_rel_err=deform_err,
+                   foreach_captured_equals_eager_steps=foreach_steps,
+                   while_loop_captured_equals_eager_steps=while_steps)
+    log("nd breadth on the card: nd.linalg card vs CPU worst fp32 %.3g, "
+        "fp64 %.3g (%d operators); sparse round trips exact, sparse.dot "
+        "%.3g; deformable_conv2d with gradients %.3g; foreach and "
+        "while_loop captured = eager bit for bit over %d steps"
+        % (max(v for k, v in linalg.items() if k.endswith("32")),
+           max(v for k, v in linalg.items() if k.endswith("64")),
+           len(linalg) // 2, sparse_err, deform_err, foreach_steps))
+    return summary
+
+
+#: op -> (optimizer, its arguments, the op's arguments, number of states,
+#: the optimizer's state from the op's states, fp32 masters)
+UPDATE_OPS = {
+    "sgd_update": ("sgd", {}, {}, 0, lambda s: None, False),
+    "sgd_mom_update": ("sgd", dict(momentum=0.9), dict(momentum=0.9), 1,
+                       lambda s: s[0], False),
+    "mp_sgd_update": ("sgd", {}, {}, 0, lambda s: None, True),
+    "mp_sgd_mom_update": ("sgd", dict(momentum=0.9), dict(momentum=0.9), 1,
+                          lambda s: s[0], True),
+    "nag_mom_update": ("nag", dict(momentum=0.9), dict(momentum=0.9), 1,
+                       lambda s: s[0], False),
+    "mp_nag_mom_update": ("nag", dict(momentum=0.9), dict(momentum=0.9), 1,
+                          lambda s: s[0], True),
+    "adam_update": ("adam", {}, {}, 2, tuple, False),
+    "rmsprop_update": ("rmsprop", dict(gamma1=0.9), dict(gamma1=0.9), 1,
+                       tuple, False),
+    "rmspropalex_update": ("rmsprop", dict(gamma1=0.9, gamma2=0.8,
+                                           centered=True),
+                           dict(gamma1=0.9, gamma2=0.8), 3, tuple, False),
+    "ftrl_update": ("ftrl", dict(lamda1=0.01), dict(lamda1=0.01), 2, tuple,
+                    False),
+    "ftml_update": ("ftml", {}, dict(t=3), 3, tuple, False),
+    "signum_update": ("signum", dict(momentum=0.9, wd_lh=0.01),
+                      dict(momentum=0.9, wd_lh=0.01), 1, lambda s: s[0],
+                      False),
+}
+
+
+def check_update_ops():
+    """Each *_update operator whose formula is an optimizer's against that
+    optimizer's Optimizer.update_all on the card, three steps from the
+    same weight and states (fp16 weights with fp32 masters for mp_*):
+    weights and states bit for bit. Then multi_mp_sgd_mom_update (host
+    learning rates) and preloaded_multi_mp_sgd_mom_update (device arrays),
+    and a LARS chain (multi_sum_sq, multi_lars, multi_all_finite), each
+    captured in a CUDA graph and replayed three times against three eager
+    calls: bit for bit. Returns the number of operators held."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import nd
+    from incubator_mxnet_tpu_torch import optimizer as topt
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def rand(*shape, scale=1.0, positive=False):
+        t = torch.randn(*shape, device=dev, generator=gen) * scale
+        return t.abs() + 0.1 if positive else t
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+    lr, wd, rescale, t = 0.05, 0.01, 0.5, 3
+    held = []
+    for name, (opt_name, okw, kw, n_states, state_of, mp) in \
+            UPDATE_OPS.items():
+        opt = topt.create(opt_name, learning_rate=lr, wd=wd,
+                          multi_precision=mp, **okw)
+        dt = torch.float16 if mp else torch.float32
+        w0 = rand(513, 257).to(dt)
+        st0 = [rand(513, 257, scale=0.1, positive=True)
+               for _ in range(n_states)]
+        if n_states == 3 and opt_name == "rmsprop":
+            st0[1] = st0[1] * 0.1
+        grads = [rand(513, 257).to(dt) for _ in range(3)]
+        w_opt, st_opt = w0.clone(), [s.clone() for s in st0]
+        master_opt = w0.float()
+        w_op = nd.NDArray(w0.clone())
+        st_op = [nd.NDArray(s.clone()) for s in st0]
+        master_op = nd.NDArray(w0.float())
+        step_lr = lr
+        if name == "adam_update":
+            step_lr = f32([lr]) * torch.sqrt(1 - opt.beta2 ** f32(t)) \
+                / (1 - opt.beta1 ** f32(t))
+        for g in grads:
+            state = state_of(st_opt)
+            opt.update_all([w_opt], [g], [(master_opt, state) if mp
+                                          else state],
+                           f32([lr]), f32([wd]),
+                           t if name == "ftml_update" else f32(t),
+                           f32(rescale), use_master=[mp])
+            args = st_op + ([master_op] if mp else [])
+            getattr(nd, name)(w_op, nd.NDArray(g), *args, lr=step_lr, wd=wd,
+                              rescale_grad=rescale, **kw)
+        check(torch.equal(w_op._data, w_opt)
+              and all(torch.equal(a._data, b)
+                      for a, b in zip(st_op, st_opt))
+              and (not mp or torch.equal(master_op._data, master_opt)),
+              "%s on the card != %s's update_all" % (name, opt_name))
+        held.append(name)
+
+    def graph_equals_eager(what, make):
+        """``make()`` -> (fn, tensors): fn's three replays from a capture
+        against three eager calls on a copy of the tensors."""
+        fn, tensors = make()
+        copies = [x.clone() for x in tensors]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        scratch = [x.clone() for x in tensors]
+        with torch.cuda.stream(side):
+            fn(scratch)                        # warm-up on scratch copies
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(tensors)
+        for _ in range(3):
+            graph.replay()
+        for _ in range(3):
+            fn(copies)
+        torch.cuda.synchronize(dev)
+        check(all(torch.equal(a, b) for a, b in zip(tensors, copies)),
+              "%s: captured != eager over 3 steps" % what)
+        held.append(what)
+
+    shapes = [(300, 70), (1025,), (16, 8, 9)]
+
+    def multi(preloaded):
+        def make():
+            ws = [rand(*sh).half() for sh in shapes]
+            tensors = ws + [rand(*sh).half() for sh in shapes] + \
+                [rand(*sh, scale=0.1) for sh in shapes] + \
+                [w.float() for w in ws] + [f32([0.1, 0.05, 0.2]),
+                                           f32([0.0, 0.01, 0.02])]
+
+            def fn(ts):
+                k = len(shapes)
+                w, g, m, w32 = (ts[i * k:(i + 1) * k] for i in range(4))
+                w, g, m, w32 = ([nd.NDArray(x) for x in part]
+                                for part in (w, g, m, w32))
+                if preloaded:
+                    nd.preloaded_multi_mp_sgd_mom_update(
+                        w, g, m, w32, nd.NDArray(ts[-2]),
+                        nd.NDArray(ts[-1]), momentum=0.9,
+                        rescale_grad=0.5)
+                else:
+                    nd.multi_mp_sgd_mom_update(
+                        w, g, m, w32, [0.1, 0.05, 0.2], [0.0, 0.01, 0.02],
+                        momentum=0.9, rescale_grad=0.5)
+            return fn, tensors
+        return make
+
+    def lars():
+        ws = [rand(*sh) for sh in shapes]
+        gs = [rand(*sh) for sh in shapes]
+        tensors = ws + gs + [f32([0.1, 0.2, 0.3]), f32([0.01] * 3),
+                             torch.zeros(1, device=dev)]
+
+        def fn(ts):
+            k = len(shapes)
+            w = [nd.NDArray(x) for x in ts[:k]]
+            g = [nd.NDArray(x) for x in ts[k:2 * k]]
+            wss = nd.multi_sum_sq(*w, num_arrays=k)
+            gss = nd.multi_sum_sq(*g, num_arrays=k)
+            nd.multi_lars(nd.NDArray(ts[-3]), wss, gss, nd.NDArray(ts[-2]),
+                          eta=0.01, out=nd.NDArray(ts[-3]))
+            nd.multi_all_finite(*g, num_arrays=k, out=nd.NDArray(ts[-1]))
+            nd.multi_sgd_update(w, g, nd.NDArray(ts[-3]),
+                                nd.NDArray(ts[-2]))
+        return fn, tensors
+
+    graph_equals_eager("multi_mp_sgd_mom_update", multi(False))
+    graph_equals_eager("preloaded_multi_mp_sgd_mom_update", multi(True))
+    graph_equals_eager("multi_sum_sq + multi_lars + multi_sgd_update", lars)
+    log("update operators on the card: %d held bit for bit (against "
+        "update_all, or captured against eager)" % len(held))
+    return held
+
+
+# -------------------------------------------------------------------- CTC
+
+def ctc_synthetic(cfg, lengths, seed):
+    """Utterances as train_ctc.py's synth_utterances makes them, at
+    ``cfg``'s width: one fixed spectral pattern a class (shared by every
+    utterance), each label's pattern plus noise held for its share of the
+    utterance's frames, zeros past its length. Returns (features (B, T,
+    mels), labels (B, L max) padded with -1, data lengths (B,)), numpy
+    float32."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    patterns = onp.random.RandomState(1234).randn(
+        cfg["classes"], cfg["mels"]).astype("float32")
+    (d_lo, d_hi), (l_lo, l_hi) = lengths
+    b, t = cfg["batch"], cfg["frames"]
+    feats = onp.zeros((b, t, cfg["mels"]), "float32")
+    labels = -onp.ones((b, l_hi), "float32")
+    dls = rng.randint(d_lo, d_hi + 1, b)
+    for i in range(b):
+        n = rng.randint(l_lo, l_hi + 1)
+        seq = rng.randint(0, cfg["classes"], n)
+        cuts = onp.sort(rng.choice(onp.arange(1, dls[i]), n - 1,
+                                   replace=False))
+        owner = onp.searchsorted(cuts, onp.arange(dls[i]), side="right")
+        feats[i, :dls[i]] = patterns[seq[owner]] + 0.3 * rng.randn(
+            dls[i], cfg["mels"]).astype("float32")
+        labels[i, :n] = seq
+    return feats, labels, dls.astype("float32")
+
+
+def ctc_model(cfg, ctx, seed):
+    """train_ctc.py's network at ``cfg``'s width, Xavier from ``seed``."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.context import as_device
+    g = mxt.gluon
+    h = cfg["hidden"]
+    net = g.nn.HybridSequential()
+    net.add(g.nn.Dense(h, activation="relu", in_units=cfg["mels"],
+                       flatten=False),
+            g.rnn.LSTM(h, num_layers=cfg["layers"], layout="NTC",
+                       bidirectional=True, input_size=h),
+            g.nn.Dense(cfg["classes"] + 1, flatten=False, in_units=2 * h))
+    net.initialize(mxt.init.Xavier(), ctx=ctx, generator=torch.Generator(
+        as_device(ctx)).manual_seed(seed))
+    return net
+
+
+def ctc_flops(cfg):
+    """Forward FLOP of a batch (2 per multiply-add): the two Dense layers
+    and, a layer and direction, the LSTM's four gates over input and
+    state; the CTC recursion is not counted."""
+    b, t, h = cfg["batch"], cfg["frames"], cfg["hidden"]
+    flops = 2 * b * t * cfg["mels"] * h + 2 * b * t * 2 * h * (
+        cfg["classes"] + 1)
+    for layer in range(cfg["layers"]):
+        inp = h if layer == 0 else 2 * h
+        flops += 2 * 2 * b * t * 4 * h * (inp + h)
+    return flops
+
+
+def _ctc_adam(net):
+    import incubator_mxnet_tpu_torch as mxt
+    return mxt.gluon.Trainer(net.collect_params(), "adam",
+                             {"learning_rate": CTC_LR})
+
+
+def check_ctc_small():
+    """The CTC model at a small width (2 layers, hidden 32, T 40) on the
+    card (cuDNN's RNN, TF32 off) against the CPU from the same weights:
+    the loss and every gradient of a Gluon-loop step, then the loss and
+    every weight after two SGD steps (Adam's g / sqrt(v) turns the last
+    bits of a near-zero gradient into a whole step), each within
+    CTC_SMALL_TOL of its largest value. Returns the worst relative
+    difference of each."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.test_utils import _full_precision
+    x, y, dl = ctc_synthetic(CTC_SMALL, CTC_SMALL_LENGTHS, 51)
+    ref = ctc_model(CTC_SMALL, mxt.cpu(), 52)
+    weights = mxt.to_numpy_params(ref)
+    runs = []
+    with _full_precision(True):
+        for ctx in (mxt.cpu(), mxt.gpu(0)):
+            net = ctc_model(CTC_SMALL, ctx, 52)
+            mxt.from_jax_params(net, weights)
+            loss_fn = mxt.gluon.loss.CTCLoss()
+            trainer = mxt.gluon.Trainer(net.collect_params(), "sgd",
+                                        {"learning_rate": 0.1})
+            args = [mxt.nd.array(a, ctx=ctx) for a in (x, y, dl)]
+            got = {}
+            for k in range(3):
+                with mxt.autograd.record():
+                    loss = loss_fn(net(args[0]), args[1], args[2])
+                loss.backward()
+                got["loss_%d" % k] = [loss.asnumpy()]
+                if k == 0:
+                    got["gradients"] = [p.grad().asnumpy() for p in
+                                        net.collect_params().values()]
+                if k < 2:
+                    trainer.step(x.shape[0])
+            got["weights"] = [p.data().asnumpy()
+                              for p in net.collect_params().values()]
+            runs.append(got)
+    errs = {k: max(float(onp.abs(a - b).max())
+                   / max(float(onp.abs(b).max()), 1e-30)
+                   for a, b in zip(runs[1][k], runs[0][k]))
+            for k in runs[0]}
+    check(max(errs.values()) <= CTC_SMALL_TOL
+          and all(onp.isfinite(a).all() for v in runs[1].values()
+                  for a in v),
+          "CTC model small: card vs CPU %s of the largest value" % errs)
+    return errs
+
+
+def _ctc_row(ms, host_ms, issue, idle, kernels, flops, losses, extra):
+    import torch
+    b, t = CTC["batch"], CTC["frames"]
+    return dict(step_ms=ms, step_host_ms=host_ms, issue_ms=issue,
+                frames_per_s=b * t / ms * 1e3,
+                share_of_peak=3 * flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
+                peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                losses=losses, top_kernels=kernels, **idle, **extra)
+
+
+def train_ctc(net, inputs, init, flops):
+    """The full-width CTC model three ways from the same weights: the
+    captured TrainStep (a first step that captures, a replay, CTC_TIMED
+    timed replays), its eager body (a step phase by phase, then
+    CTC_EAGER_TIMED timed), and the hybridized Gluon loop (record,
+    forward, CTCLoss, backward, Trainer.step; CTC_LOOP_STEPS). Each then
+    PROFILED_STEPS under the profiler, 3 issued with the card idle and one
+    split by kernel. Every loss finite, and each run's last loss below its
+    first. Returns rows."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    params = list(net.collect_params().values())
+    loss_fn = mxt.gluon.loss.CTCLoss()
+    rows = {}
+
+    def falling(what, losses):
+        check(all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0],
+              "CTC %s: losses %s (finite, falling)" % (what, losses))
+
+    _reset(params, init)
+    step = mxt.jit.TrainStep(net, loss_fn, _ctc_adam(net))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(*inputs)]
+    capture_s = time.perf_counter() - t0
+    losses.append(step(*inputs))
+    got, ms, host_ms = _timed_steps(lambda: step(*inputs), CTC_TIMED)
+    losses = [float(v._data.mean()) for v in losses + got]
+    idle = device_idle_share(lambda: step(*inputs))
+    issue = issue_ms(lambda: step(*inputs))
+    kernels = top_kernels(lambda: step(*inputs))
+    check(step.captures == 1, "CTC TrainStep: %d captures" % step.captures)
+    falling("captured TrainStep", losses)
+    rows["captured"] = _ctc_row(ms, host_ms, issue, idle, kernels, flops,
+                                losses, dict(capture_step_s=capture_s))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _reset(params, init)
+    step = mxt.jit.TrainStep(net, loss_fn, _ctc_adam(net))
+    torch.cuda.reset_peak_memory_stats()
+    losses = [_eager_step(step, *inputs)]
+    phases = step_phases(step, *inputs)
+    losses.append(phases.pop("loss"))
+    got, ms, host_ms = _timed_steps(lambda: _eager_step(step, *inputs),
+                                    CTC_EAGER_TIMED)
+    losses = [float(v._data.mean()) for v in losses + got]
+    idle = device_idle_share(lambda: _eager_step(step, *inputs), steps=1)
+    issue = issue_ms(lambda: _eager_step(step, *inputs), n=1)
+    kernels = top_kernels(lambda: _eager_step(step, *inputs))
+    falling("eager body", losses)
+    rows["eager"] = _ctc_row(ms, host_ms, issue, idle, kernels, flops,
+                             losses, dict(step_phases_ms=phases))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _reset(params, init)
+    trainer = _ctc_adam(net)
+    net.hybridize()
+    x, y, dl = (mxt.nd.NDArray(a) for a in inputs)
+
+    def round_():
+        with mxt.autograd.record():
+            loss = loss_fn(net(x), y, dl)
+        loss.backward()
+        trainer.step(x.shape[0])
+        return loss
+    warm, timed = CTC_LOOP_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    losses = [round_() for _ in range(warm)]
+    got, ms, host_ms = _timed_steps(round_, timed)
+    losses = [float(v.asnumpy().mean()) for v in losses + got]
+    idle = device_idle_share(round_, steps=1)
+    issue = issue_ms(round_, n=1)
+    kernels = top_kernels(round_)
+    falling("Gluon loop", losses)
+    rows["gluon_loop"] = _ctc_row(ms, host_ms, issue, idle, kernels, flops,
+                                  losses, dict(captures=net._captures))
+    net.hybridize(False)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ctc_loss_alone():
+    """ops.ctc's forward + backward on the model's logits shape (T 800 x N
+    32 x C 29, labels up to 120, blank last) against
+    torch.nn.functional.ctc_loss on the same log-probabilities (a
+    yardstick, not on the port's path): the finite losses within
+    CTC_LOSS_TOL relative, the card's against the CPU's within it too;
+    each timed eagerly (CUDA events, CTC_LOSS_ITERS calls), the port's
+    also replayed from a CUDA graph (its device time without the host's
+    launches). Returns a row."""
+    import numpy as onp
+    import torch
+    import torch.nn.functional as F
+    from incubator_mxnet_tpu_torch.ops.ctc import ctc_loss
+    t, n, c = CTC["frames"], CTC["batch"], CTC["classes"] + 1
+    _, labels, dls = ctc_synthetic(dict(CTC, mels=1), (CTC_DATA_LENGTHS,
+                                                       CTC_LABEL_LENGTHS), 61)
+    dev = torch.device("cuda", 0)
+    x = torch.randn(t, n, c, device=dev, generator=torch.Generator(
+        dev).manual_seed(62), requires_grad=True)
+    lab = torch.from_numpy(labels).to(dev)
+    dl = torch.from_numpy(dls).to(dev)
+    ll = (lab >= 0).sum(1)
+
+    def port():
+        x.grad = None
+        loss = ctc_loss(x, lab, dl, None, "last")
+        loss.sum().backward()
+        return loss
+
+    def library():
+        x.grad = None
+        logp = torch.log_softmax(x, -1)
+        loss = F.ctc_loss(logp, lab.clamp_min(0).long(), dl.long(), ll,
+                          blank=c - 1, reduction="none", zero_infinity=False)
+        loss.sum().backward()
+        return loss
+    mine, theirs = port().detach(), library().detach()
+    finite = torch.isfinite(theirs)
+    rel = float(((mine - theirs).abs() / theirs.abs())[finite].max())
+    check(bool(finite.all()) and rel <= CTC_LOSS_TOL,
+          "CTC loss: ops.ctc against F.ctc_loss %.3g relative (%d finite)"
+          % (rel, int(finite.sum())))
+    with torch.no_grad():
+        cpu = ctc_loss(x.detach().cpu(), lab.cpu(), dl.cpu(), None, "last")
+    card_vs_cpu = float(((mine.cpu() - cpu).abs() / cpu.abs()).max())
+    check(card_vs_cpu <= CTC_LOSS_TOL, "CTC loss card vs CPU %.3g relative"
+          % card_vs_cpu)
+    port_ms = timed_ms(port, CTC_LOSS_ITERS)
+    lib_ms = timed_ms(library, CTC_LOSS_ITERS)
+    launches = kernels_in(port)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        port()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    x.grad = None
+    with torch.cuda.graph(graph):
+        # a leaf of the capture's stream: autograd joins a gradient to its
+        # leaf's stream, which must not be the default one here
+        leaf = x.detach().requires_grad_()
+        loss = ctc_loss(leaf, lab, dl, None, "last")
+        grad, = torch.autograd.grad(loss.sum(), leaf)
+    graph_ms = timed_ms(graph.replay, CTC_LOSS_ITERS)
+    row = dict(shape=[t, n, c], max_label=int(lab.shape[1]),
+               port_ms=port_ms, port_graph_ms=graph_ms, library_ms=lib_ms,
+               port_device_activities=launches, rel_vs_library=rel,
+               card_vs_cpu_rel=card_vs_cpu,
+               mean_loss=float(mine.mean()))
+    log("CTC loss alone (T %d x N %d x C %d, L <= %d, forward + backward): "
+        "ops.ctc eager %.2f ms (%d device activities), replayed from a "
+        "graph %.2f ms; F.ctc_loss %.2f ms; losses within %.3g relative, "
+        "card vs CPU %.3g" % (t, n, c, lab.shape[1], port_ms, launches,
+                              graph_ms, lib_ms, rel, card_vs_cpu))
+    del graph, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def ctc_phase(card):
+    """The CTC acoustic model of example/speech_recognition at DeepSpeech-2
+    width (CTC): the small card = CPU check, the loss alone against
+    F.ctc_loss, captured = eager bit for bit, then the captured TrainStep,
+    its eager body and the hybridized Gluon loop. Returns (kernel launches
+    over the main path, summary)."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    summary = dict(card=card, small_card_vs_cpu=check_ctc_small(),
+                   loss_alone=ctc_loss_alone(),
+                   config=dict(CTC, data_lengths=CTC_DATA_LENGTHS,
+                               label_lengths=CTC_LABEL_LENGTHS,
+                               optimizer="adam", lr=CTC_LR, dtype="float32",
+                               blank="last"))
+    feats, labels, dls = ctc_synthetic(CTC, (CTC_DATA_LENGTHS,
+                                             CTC_LABEL_LENGTHS), 63)
+    dev = torch.device("cuda", 0)
+    inputs = [torch.from_numpy(a).to(dev) for a in (feats, labels, dls)]
+    net = ctc_model(CTC, mxt.gpu(0), 64)
+    params = list(net.collect_params().values())
+    n_params = sum(p._tensor().numel() for p in params)
+    flops = ctc_flops(CTC)
+    init = [p._tensor().detach().clone() for p in params]
+    summary.update(parameters=n_params, forward_tflop_per_step=flops / 1e12)
+    summary["captured_equals_eager_steps"] = check_captured_equals_eager(
+        net, mxt.gluon.loss.CTCLoss(), lambda: _ctc_adam(net), inputs, init,
+        CTC_EXACT_STEPS, "CTC")
+    _kernels.reset_launches()
+    summary.update(train_ctc(net, inputs, init, flops))
+    launches = dict(_kernels.LAUNCHES)
+    check(not any(launches.values()), "CTC path launched hand-written "
+          "kernels %s" % launches)
+    cap, eag, loop = (summary["captured"], summary["eager"],
+                      summary["gluon_loop"])
+    log("CTC model (DeepSpeech-2 width: %d bins, %d x %d bidirectional LSTM, "
+        "%d classes + blank, B %d x T %d fp32, %.1f M parameters, %.2f "
+        "TFLOP a step forward): TrainStep captured %.1f ms (%.0f frames/s, "
+        "%.2f%% of 989 TFLOP/s, issue %.2f ms, idle %.1f%%, peak %.1f GB "
+        "allocated, %.1f reserved); eager body %.1f ms (issue %.1f ms, idle "
+        "%.1f%%); Gluon loop hybridized %.1f ms (issue %.1f ms, idle "
+        "%.1f%%); losses %.2f -> %.2f"
+        % (CTC["mels"], CTC["layers"], CTC["hidden"], CTC["classes"],
+           CTC["batch"], CTC["frames"], n_params / 1e6, flops / 1e12,
+           cap["step_ms"], cap["frames_per_s"], 100 * cap["share_of_peak"],
+           cap["issue_ms"], 100 * cap["idle_share"],
+           cap["peak_allocated_gb"], cap["peak_reserved_gb"],
+           eag["step_ms"], eag["issue_ms"], 100 * eag["idle_share"],
+           loop["step_ms"], loop["issue_ms"], 100 * loop["idle_share"],
+           cap["losses"][0], cap["losses"][-1]))
+    del net, params, init, inputs
     gc.collect()
     torch.cuda.empty_cache()
     return launches, summary
@@ -4686,7 +5482,7 @@ def main(argv):
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
                                      "end to end on one NVIDIA GPU.")
     parser.add_argument("--rtc-only", action="store_true",
-                        help="time K5's launch path (phase 16) alone")
+                        help="time K5's launch path (phase 17) alone")
     parser.add_argument("--imperative-only", action="store_true",
                         help="time the imperative BERT loop against "
                         "TrainStep (phase 6c) alone")
@@ -4701,6 +5497,9 @@ def main(argv):
     parser.add_argument("--ssd-only", action="store_true",
                         help="run SSD-512, BASELINE config 4 (phase 15), "
                         "alone")
+    parser.add_argument("--ctc-only", action="store_true",
+                        help="run the CTC acoustic model at DeepSpeech-2 "
+                        "width (phase 16) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -4761,7 +5560,8 @@ def main(argv):
         return 0
     for flag, key, phase in ((opts.rnn_only, "rnn", lstm_lm),
                              (opts.zoo_only, "model_zoo", model_zoo),
-                             (opts.ssd_only, "ssd", ssd_phase)):
+                             (opts.ssd_only, "ssd", ssd_phase),
+                             (opts.ctc_only, "ctc", ctc_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -4797,6 +5597,9 @@ def main(argv):
         gc.collect()
         torch.cuda.empty_cache()
         ssd_launches, ssd = ssd_phase(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctc_launches, ctc = ctc_phase(card)
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -4808,7 +5611,7 @@ def main(argv):
     paths = {"serving": serve_launches, "conv3x3_s1": conv_launches,
              "rtc": rtc_launches, "ndarray_bert": ndarray_launches,
              "lstm_lm": rnn_launches, "model_zoo": zoo_launches,
-             "ssd": ssd_launches,
+             "ssd": ssd_launches, "ctc": ctc_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -4929,6 +5732,7 @@ def main(argv):
     log(json.dumps({"rnn": rnn}))
     log(json.dumps({"model_zoo": zoo}))
     log(json.dumps({"ssd": ssd}))
+    log(json.dumps({"ctc": ctc}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

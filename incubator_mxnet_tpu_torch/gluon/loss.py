@@ -8,7 +8,8 @@ sum), and the trainer's ``rescale_grad / batch_size`` turns the sum into
 the batch mean. ``TripletLoss`` and ``CosineEmbeddingLoss`` give their
 per-sample values as they are, ``PoissonNLLLoss`` one mean over
 everything and ``SDMLLoss`` the batch's KL divergence, as in the JAX
-package. ``CTCLoss`` waits for the port of ``ops/ctc.py``.
+package. ``CTCLoss`` is ``ops/ctc.py``'s recursion, one negative
+log-likelihood per sample.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import ndarray as nd
+from ..ops.ctc import ctc_loss
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -161,13 +163,26 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification: waits for the port of
-    ``ops/ctc.py``."""
+    """Connectionist temporal classification (``ops/ctc.py``), the blank
+    the last class: pred (N, T, C) ("NTC") or (T, N, C) ("TNC"), label
+    (N, L) ("NT") or (L, N) ("TN"), padded with -1 unless
+    ``label_lengths`` is given; one loss per sample."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise NotImplementedError("CTCLoss comes with the port of "
-                                  "ops/ctc.py")
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._label_layout == "TN":
+            label = label.transpose(0, 1)
+        loss = ctc_loss(pred, label, pred_lengths, label_lengths,
+                        blank_label="last")
+        return _apply_weighting(loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

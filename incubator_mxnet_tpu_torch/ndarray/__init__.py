@@ -17,3 +17,29 @@ from ..ops.detection import (  # noqa: F401,E402
     grid_generator as GridGenerator,
     spatial_transformer as SpatialTransformer,
 )
+from . import linalg, optimizer_ops, sparse  # noqa: F401,E402
+from .optimizer_ops import *  # noqa: F401,F403,E402
+# MXNet registers each la_op under nd.linalg.<name> and nd.linalg_<name>
+for _n in linalg.__all__:
+    globals()["linalg_" + _n] = getattr(linalg, _n)
+del _n
+# the legacy operators (batch_norm_v1.cc, convolution_v1.cc, pooling_v1.cc,
+# cudnn_batch_norm.cc) are the modern ones here, as in the JAX package
+from .ndarray import BatchNorm as BatchNorm_v1  # noqa: F401,E402
+from .ndarray import BatchNorm as CuDNNBatchNorm  # noqa: F401,E402
+from .ndarray import Convolution as Convolution_v1  # noqa: F401,E402
+from .ndarray import Pooling as Pooling_v1  # noqa: F401,E402
+
+
+def Custom(*inputs, op_type, **kwargs):
+    """A registered custom operator: waits for the port of
+    ``operator.py``."""
+    raise NotImplementedError("nd.Custom comes with the port of operator.py "
+                              "(ROADMAP.md §1 item 6)")
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None, **kw):
+    """Decode an image: waits for the port of ``image.py``."""
+    raise NotImplementedError("nd.imdecode comes with the port of image.py "
+                              "(ROADMAP.md §1 item 3)")

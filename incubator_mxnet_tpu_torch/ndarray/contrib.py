@@ -7,17 +7,29 @@ Each operator takes NDArrays or tensors, as every ``nd`` operator does
 ``ops.multibox``'s; the interleaved attention products are plain
 ``torch.matmul``, as the JAX package computes them outside its kernels.
 
+The control flow (``foreach``, ``while_loop``, ``cond``) runs the
+reference's eager semantics outside a capture: Python loops and branches
+whose predicates are read on the host, so autograd records through the
+bodies. Inside ``plain()`` (a ``jit.TrainStep``'s body, eager or captured,
+and a hybridized block's forward) it follows the reference's traced
+contract without reading anything on the host: ``foreach`` unrolls over
+the data's first axis; ``while_loop`` needs ``max_iterations`` and runs
+exactly that many steps under a device mask (the loop variables stop
+changing once the predicate fails, and the rows of the outputs past the
+stop are zeros); ``cond`` evaluates both branches and selects. The
+operators on CSR storage (``getnnz``, ``edge_id``, the ``dgl_*`` graph
+samplers) are eager host operators, as in the JAX package; ``hawkesll``
+is a loop over the sequence axis.
+
 Still to port, and raising with the ROADMAP item that brings them: the
-control flow (``foreach``, ``while_loop``, ``cond``), the operators on
-sparse storage (``getnnz``, ``edge_id``, the ``dgl_*`` graph samplers) and
-``hawkesll`` (ROADMAP.md §1 item 2), and the quantized family
-(``quantize*``, ``dequantize``, ``requantize``, ``calibrate_entropy``,
-``quantized_*``; §1 item 6).
+quantized family (``quantize*``, ``dequantize``, ``requantize``,
+``calibrate_entropy``, ``quantized_*``; §1 item 6).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as onp
 import torch
 import torch.nn.functional as F
 
@@ -344,13 +356,6 @@ def _waits(name, item, what):
     return op
 
 
-for _name in ("foreach", "while_loop", "cond"):
-    globals()[_name] = _waits(_name, 2, "nd.contrib's control flow")
-for _name in ("getnnz", "edge_id", "dgl_csr_neighbor_uniform_sample",
-              "dgl_csr_neighbor_non_uniform_sample", "dgl_subgraph",
-              "dgl_graph_compact", "dgl_adjacency"):
-    globals()[_name] = _waits(_name, 2, "sparse storage (ndarray/sparse.py)")
-globals()["hawkesll"] = _waits("hawkesll", 2, "nd.contrib's hawkesll")
 for _name in ("quantize", "quantize_v2", "dequantize", "requantize",
               "calibrate_entropy", "quantized_fully_connected",
               "quantized_conv", "quantized_pooling", "quantized_act",
@@ -359,3 +364,354 @@ for _name in ("quantize", "quantize_v2", "dequantize", "requantize",
               "quantized_embedding", "quantized_batch_norm"):
     globals()[_name] = _waits(_name, 6, "contrib/quantization.py")
 del _name
+
+
+# ============================================================ control flow
+
+def _traced():
+    """Whether the reference's traced contract applies: inside ``plain()``
+    (a TrainStep's body, a hybridized block's forward) or a capture."""
+    from ..gluon import _functional
+    return _functional.in_plain() or (
+        torch.cuda.is_available() and torch.cuda.is_current_stream_capturing())
+
+
+def _flatten(tree):
+    """(leaves, rebuild) of nested lists/tuples of arrays or tensors, by
+    hybridize's flattening."""
+    from ..gluon import _functional
+    leaves = []
+    spec = _functional._flatten(tree, leaves)
+    return leaves, lambda xs: _functional._unflatten(spec, iter(xs))
+
+
+def _stack(cols):
+    return _apply(lambda *xs: torch.stack(xs, 0), *cols)
+
+
+def _stack_trees(trees):
+    leaves0, rebuild = _flatten(trees[0])
+    cols = [[_flatten(t)[0][i] for t in trees] for i in range(len(leaves0))]
+    return rebuild([_stack(c) for c in cols])
+
+
+def _host_bool(x):
+    return bool((x._data if isinstance(x, NDArray) else x).reshape(-1)[0])
+
+
+def _device_bool(x):
+    return (x._data if isinstance(x, NDArray) else torch.as_tensor(x)) \
+        .reshape(()).bool()
+
+
+def _select(pred, a, b):
+    """``a`` where the device scalar ``pred`` holds, else ``b``."""
+    return _apply(lambda x, y: torch.where(pred.to(x.device), x, y), a, b)
+
+
+def foreach(body, data, init_states):
+    """``body(data[i], states) -> (out, states)`` over the first axis of
+    ``data``; returns (the outputs stacked on a new first axis, the final
+    states). Unrolled: eager and traced run the same steps."""
+    data_leaves, data_rebuild = _flatten(data)
+    if not data_leaves:
+        raise ValueError("foreach needs at least one input array")
+    n = data_leaves[0].shape[0]
+    if n == 0:
+        raise ValueError("foreach over zero-length data: its outputs are "
+                         "undefined")
+    states, outs = init_states, []
+    for i in range(n):
+        out, states = body(data_rebuild([d[i] for d in data_leaves]), states)
+        outs.append(out)
+    return _stack_trees(outs), states
+
+
+def while_loop(cond, func, loop_vars, max_iterations=None):
+    """``func(*loop_vars) -> (step_output, new_loop_vars)`` while
+    ``cond(*loop_vars)``; returns (the step outputs stacked, the final loop
+    variables). Eager: the steps that run, at most ``max_iterations``.
+    Traced: exactly ``max_iterations`` steps under a device mask, the
+    output rows past the stop zeros, no host read."""
+    loop_vars = list(loop_vars)
+    if not _traced():
+        outs, steps = [], 0
+        while (max_iterations is None or steps < max_iterations) and \
+                _host_bool(cond(*loop_vars)):
+            out, loop_vars = func(*loop_vars)
+            loop_vars = list(loop_vars)
+            outs.append(out)
+            steps += 1
+        if not outs:
+            raise ValueError("while_loop ran zero steps: its outputs are "
+                             "undefined")
+        return _stack_trees(outs), loop_vars
+    if max_iterations is None:
+        raise ValueError("while_loop needs max_iterations inside a capture "
+                         "or a hybridized block (static shapes)")
+    var_leaves, var_rebuild = _flatten(loop_vars)
+    active, outs = None, []
+    for _ in range(max_iterations):
+        pred = _device_bool(cond(*loop_vars))
+        active = pred if active is None else active & pred
+        out, new_vars = func(*loop_vars)
+        out_leaves, out_rebuild = _flatten(out)
+        outs.append(out_rebuild([
+            _select(active, o, _apply(torch.zeros_like, o))
+            for o in out_leaves]))
+        new_leaves, _ = _flatten(list(new_vars))
+        var_leaves = [_select(active, nv, v)
+                      for nv, v in zip(new_leaves, var_leaves)]
+        loop_vars = var_rebuild(var_leaves)
+    return _stack_trees(outs), loop_vars
+
+
+def cond(pred, then_func, else_func):
+    """``then_func()`` if ``pred`` else ``else_func()``. Traced: both run
+    and the outputs (of one structure) are selected on the device."""
+    if not _traced():
+        return then_func() if _host_bool(pred) else else_func()
+    p = _device_bool(pred)
+    then_leaves, rebuild = _flatten(then_func())
+    else_leaves, _ = _flatten(else_func())
+    if len(then_leaves) != len(else_leaves):
+        raise ValueError("cond branches returned different structures")
+    return rebuild([_select(p, a, b)
+                    for a, b in zip(then_leaves, else_leaves)])
+
+
+# ================================================================= hawkesll
+
+def hawkesll(lda, alpha, beta, state, lags, marks, valid_length, max_time):
+    """The log-likelihood of a marked Hawkes process (``hawkes_ll.cc``):
+    intensity ``mu_k + alpha_k beta_k sum exp(-beta_k (t - t_i))`` over
+    the earlier events of mark k. lda (N, K), alpha and beta (K,), state
+    (N, K), lags and marks (N, T) with valid_length (N,), max_time (N,).
+    Returns (loglik (N,), the decayed state at max_time (N, K))."""
+    def fn(mu, a, b, st, lg, mk, vl, mt):
+        n, t_len = lg.shape
+        k = mu.shape[1]
+        mk = mk.long().clamp(0, k - 1)
+        last = torch.zeros_like(st)
+        t = torch.zeros(n, dtype=mu.dtype, device=mu.device)
+        ll = torch.zeros(n, dtype=mu.dtype, device=mu.device)
+        classes = torch.arange(k, device=mu.device)
+        for j in range(t_len):
+            mark = mk[:, j]
+            t2 = t + lg[:, j]
+            pick = mark[:, None]
+            d = t2 - last.gather(1, pick)[:, 0]
+            a_c, b_c = a[mark], b[mark]
+            st_c, mu_c = st.gather(1, pick)[:, 0], mu.gather(1, pick)[:, 0]
+            ed = torch.exp(-b_c * d)
+            lam = mu_c + a_c * b_c * st_c * ed
+            comp = mu_c * d + a_c * st_c * (1 - ed)
+            valid = j < vl
+            ll = ll + torch.where(valid, torch.log(lam) - comp,
+                                  torch.zeros_like(ll))
+            upd = valid[:, None] & (classes[None] == mark[:, None])
+            st = torch.where(upd, (1 + st_c * ed)[:, None], st)
+            last = torch.where(upd, t2[:, None], last)
+            t = torch.where(valid, t2, t)
+        d = mt[:, None] - last
+        ed = torch.exp(-b[None] * d)
+        ll = ll - (mu * d + a[None] * st * (1 - ed)).sum(1)
+        return ll, st * ed
+    return _apply(fn, lda, alpha, beta, state, lags, marks, valid_length,
+                  max_time)
+
+
+# ===================================================== on CSR storage (host)
+
+def _csr_parts(g):
+    return (g.data.asnumpy(), g.indices.asnumpy().astype(onp.int64),
+            g.indptr.asnumpy().astype(onp.int64), g.shape)
+
+
+def _host_array(a, like):
+    """Host values as an NDArray on ``like``'s context, by the JAX
+    package's dtype rules (int64 → int32, float64 → float32)."""
+    from .ndarray import array
+    return array(onp.asarray(a), ctx=like.context)
+
+
+def _make_csr(vals, idx, ptr, shape, like):
+    from .sparse import CSRNDArray
+    vals = onp.asarray(vals)
+    if vals.size == 0:
+        vals = vals.astype(onp.float32)
+    return CSRNDArray(_host_array(vals, like),
+                      _host_array(onp.asarray(idx, onp.int64), like),
+                      _host_array(onp.asarray(ptr, onp.int64), like), shape)
+
+
+def getnnz(data, axis=None):
+    """The number of stored values of a CSR array, or of each row
+    (``axis=0``), int64."""
+    from .sparse import CSRNDArray
+    if not isinstance(data, CSRNDArray):
+        raise TypeError("getnnz expects CSR storage")
+    if axis is None:
+        return _host_array([data.data.shape[0]], data.data)
+    if axis != 0:
+        raise ValueError("getnnz supports axis=None or 0")
+    ptr = data.indptr.asnumpy()
+    return _host_array(ptr[1:] - ptr[:-1], data.data)
+
+
+def edge_id(data, u, v):
+    """``out[i]``: the value stored at (u[i], v[i]) of a CSR array, -1
+    where none is."""
+    _, idx, ptr, _ = _csr_parts(data)
+    val = data.data.asnumpy()
+    uu = u.asnumpy().astype(onp.int64)
+    vv = v.asnumpy().astype(onp.int64)
+    out = onp.full(uu.shape, -1.0, onp.float32)
+    for i, (r, c) in enumerate(zip(uu, vv)):
+        lo, hi = ptr[r], ptr[r + 1]
+        pos = lo + onp.searchsorted(idx[lo:hi], c)
+        if pos < hi and idx[pos] == c:
+            out[i] = val[pos]
+    return _host_array(out, data.data)
+
+
+def _neighbor_sample(csr, seeds, num_hops, num_neighbor, max_num_vertices,
+                     probability, seed):
+    vals, idx, ptr, shape = _csr_parts(csr)
+    rng = onp.random.RandomState(seed)
+    seeds = seeds.asnumpy().astype(onp.int64)
+    seeds = seeds[seeds >= 0]
+    layer = {int(v): 0 for v in seeds}
+    frontier = list(seeds)
+    edges = {}
+    for hop in range(1, num_hops + 1):
+        nxt = []
+        for u in frontier:
+            lo, hi = ptr[u], ptr[u + 1]
+            nbrs, evals = idx[lo:hi], vals[lo:hi]
+            if len(nbrs) == 0:
+                continue
+            k = min(num_neighbor, len(nbrs))
+            p = None
+            if probability is not None:
+                p = probability.asnumpy()[nbrs]
+                p = p / p.sum() if p.sum() > 0 else None
+            for s in rng.choice(len(nbrs), size=k, replace=False, p=p):
+                w = int(nbrs[s])
+                edges[(int(u), w)] = evals[s]
+                if w not in layer:
+                    layer[w] = hop
+                    nxt.append(w)
+        frontier = nxt
+    verts = sorted(layer)[:max_num_vertices]
+    vset = set(verts)
+    out_v = onp.full(max_num_vertices + 1, -1, onp.int64)
+    out_v[:len(verts)] = verts
+    out_v[-1] = len(verts)
+    out_layer = onp.full(max_num_vertices, -1, onp.int64)
+    out_layer[:len(verts)] = [layer[v] for v in verts]
+    rows = [[] for _ in range(shape[0])]
+    for (u, w), e in sorted(edges.items()):
+        if u in vset and w in vset:
+            rows[u].append((w, e))
+    new_ptr, new_idx, new_vals = [0], [], []
+    for r in rows:
+        for w, e in sorted(r):
+            new_idx.append(w)
+            new_vals.append(e)
+        new_ptr.append(len(new_idx))
+    like = csr.data
+    return (_host_array(out_v, like),
+            _make_csr(new_vals, new_idx, new_ptr, shape, like),
+            _host_array(out_layer, like))
+
+
+def dgl_csr_neighbor_uniform_sample(csr_matrix, *seed_arrays, num_args=None,
+                                    num_hops=1, num_neighbor=2,
+                                    max_num_vertices=100, seed=0):
+    """Uniform neighbour sampling (DGL's): per seed array, (the vertices,
+    padded to ``max_num_vertices + 1`` with their count last, the sampled
+    CSR in the original ids, each vertex's hop)."""
+    outs = []
+    for s in seed_arrays:
+        outs.extend(_neighbor_sample(csr_matrix, s, num_hops, num_neighbor,
+                                     max_num_vertices, None, seed))
+    return outs
+
+
+def dgl_csr_neighbor_non_uniform_sample(csr_matrix, probability,
+                                        *seed_arrays, num_args=None,
+                                        num_hops=1, num_neighbor=2,
+                                        max_num_vertices=100, seed=0):
+    """Neighbour sampling weighted by a per-vertex ``probability``."""
+    outs = []
+    for s in seed_arrays:
+        outs.extend(_neighbor_sample(csr_matrix, s, num_hops, num_neighbor,
+                                     max_num_vertices, probability, seed))
+    return outs
+
+
+def dgl_subgraph(graph, *vids_arrays, return_mapping=False, num_args=None):
+    """The subgraph induced by each vertex array, relabelled in its order;
+    with ``return_mapping`` also CSRs whose values are the original edge
+    positions."""
+    vals, idx, ptr, _ = _csr_parts(graph)
+    outs, maps = [], []
+    for va in vids_arrays:
+        vids = va.asnumpy().astype(onp.int64)
+        vids = vids[vids >= 0]
+        relabel = {int(v): i for i, v in enumerate(vids)}
+        new_ptr, new_idx, new_vals, new_eid = [0], [], [], []
+        for v in vids:
+            lo, hi = ptr[v], ptr[v + 1]
+            ents = sorted((relabel[int(c)], vals[e], e)
+                          for e, c in zip(range(lo, hi), idx[lo:hi])
+                          if int(c) in relabel)
+            for cc, ee, eid in ents:
+                new_idx.append(cc)
+                new_vals.append(ee)
+                new_eid.append(eid)
+            new_ptr.append(len(new_idx))
+        n = len(vids)
+        outs.append(_make_csr(new_vals, new_idx, new_ptr, (n, n),
+                              graph.data))
+        maps.append(_make_csr(new_eid, new_idx, new_ptr, (n, n),
+                              graph.data))
+    return outs + maps if return_mapping else outs
+
+
+def dgl_graph_compact(*graphs, graph_sizes=None, return_mapping=False,
+                      num_args=None):
+    """Each sampled graph cut to its first ``graph_sizes[i]`` vertices."""
+    sizes = [int(x) for x in onp.asarray(
+        graph_sizes.asnumpy() if hasattr(graph_sizes, "asnumpy")
+        else graph_sizes)]
+    outs = []
+    for g, n in zip(graphs, sizes):
+        vals, idx, ptr, _ = _csr_parts(g)
+        new_ptr, new_idx, new_vals = [0], [], []
+        for r in range(n):
+            for e, c in zip(range(ptr[r], ptr[r + 1]),
+                            idx[ptr[r]:ptr[r + 1]]):
+                if c < n:
+                    new_idx.append(int(c))
+                    new_vals.append(vals[e])
+            new_ptr.append(len(new_idx))
+        outs.append(_make_csr(new_vals, new_idx, new_ptr, (n, n), g.data))
+    return outs if len(outs) > 1 else outs[0]
+
+
+def dgl_adjacency(graph):
+    """The graph's CSR with every stored value 1."""
+    _, idx, ptr, shape = _csr_parts(graph)
+    from .sparse import CSRNDArray
+    return CSRNDArray(_host_array(onp.ones(len(idx), onp.float32),
+                                  graph.data),
+                      _host_array(idx, graph.data),
+                      _host_array(ptr, graph.data), shape)
+
+
+__all__ += ["foreach", "while_loop", "cond", "hawkesll", "getnnz", "edge_id",
+            "dgl_csr_neighbor_uniform_sample",
+            "dgl_csr_neighbor_non_uniform_sample", "dgl_subgraph",
+            "dgl_graph_compact", "dgl_adjacency"]

@@ -200,10 +200,16 @@ class NDArray:
         return "default"
 
     def tostype(self, stype):
-        if stype != "default":
-            raise NotImplementedError("sparse storage types come with the "
-                                      "ndarray/sparse.py slice of the port")
-        return self
+        """This array in storage ``stype``: itself for "default", else a
+        ``sparse.RowSparseNDArray`` or ``sparse.CSRNDArray``."""
+        if stype == "default":
+            return self
+        from . import sparse
+        if stype == "row_sparse":
+            return sparse.row_sparse_array(self)
+        if stype == "csr":
+            return sparse.csr_matrix(self)
+        raise ValueError("unknown stype %r" % stype)
 
     def as_nd_ndarray(self):
         return self
@@ -269,9 +275,10 @@ class NDArray:
     # -------------------------------------------------------------- autograd
     def attach_grad(self, grad_req="write", stype=None):
         """Make this array a variable of ``autograd.backward`` with a zero
-        gradient buffer; ``grad_req`` is "write", "add" or "null"."""
-        if stype not in (None, "default"):
-            raise NotImplementedError("sparse gradients are not ported")
+        gradient buffer; ``grad_req`` is "write", "add" or "null". The
+        gradient is dense whatever ``stype`` asks, as in the JAX package."""
+        if stype not in (None, "default", "row_sparse", "csr"):
+            raise ValueError("unknown stype %r" % stype)
         autograd.mark_variables(
             [self], [NDArray(torch.zeros_like(self._data.detach()))],
             grad_req)
@@ -2088,3 +2095,474 @@ def load(fname):
     if names:
         return {k: NDArray(t) for k, t in zip(names, tensors)}
     return [NDArray(t) for t in tensors]
+
+
+# ================================================================ loss layers
+
+def _label_hot(label, n_class, axis, like):
+    """One-hot rows of ``label`` along ``axis`` by comparison (no gather, so
+    an id outside [0, n_class) gives a row of zeros, as ``jax.nn.one_hot``,
+    and never a device-side assert)."""
+    classes = torch.arange(n_class, device=like.device).reshape(
+        [-1 if i == axis else 1 for i in range(like.dim())])
+    return (label.long().unsqueeze(axis) == classes).to(like.dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """softmax forward; MXNet's loss-layer backward (``softmax_output.cc``):
+    ``(p - y) * grad_scale / valid_count``, independent of the head
+    gradient unless ``out_grad``."""
+
+    @staticmethod
+    def forward(ctx, x, label, cfg):
+        probs = torch.softmax(x, dim=cfg["axis"])
+        ctx.save_for_backward(probs, label)
+        ctx.cfg = cfg
+        return probs
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, label = ctx.saved_tensors
+        cfg = ctx.cfg
+        axis = cfg["axis"]
+        n_class = probs.shape[axis]
+        hot = _label_hot(label, n_class, axis, probs)
+        alpha = cfg["smooth_alpha"]
+        if alpha:
+            hot = hot * (1 - alpha) + (1 - hot) * (alpha / (n_class - 1))
+        grad = probs - hot
+        keep = label != cfg["ignore_label"]
+        if cfg["use_ignore"]:
+            grad = grad * keep.unsqueeze(axis).to(grad.dtype)
+        scale = cfg["grad_scale"]
+        if cfg["normalization"] == "batch":
+            grad = grad * (scale / label.shape[0])
+        elif cfg["normalization"] == "valid":
+            count = keep.sum().clamp_min(1).to(grad.dtype)
+            grad = grad * scale / count
+        else:
+            grad = grad * scale
+        if cfg["out_grad"]:
+            grad = grad * g
+        return grad, None, None
+
+
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1,
+                  use_ignore=False, multi_output=False, preserve_shape=False,
+                  normalization="null", out_grad=False, smooth_alpha=0.0):
+    """softmax with MXNet's loss-layer backward. The softmax runs over axis
+    1 with ``multi_output`` (label (N, d1, ...)), over the last axis with
+    ``preserve_shape``, else over all axes but the first (label (N,)); for
+    2-D data the three agree. The JAX package always takes the last axis
+    and ignores ``multi_output``, ``preserve_shape``, ``smooth_alpha`` and
+    ``out_grad``, and its "valid" normalisation needs ``use_ignore``: the
+    port takes MXNet's meaning of each."""
+    if normalization not in ("null", "batch", "valid"):
+        raise ValueError("unknown normalization %r" % normalization)
+    cfg = dict(grad_scale=float(grad_scale), ignore_label=ignore_label,
+               use_ignore=bool(use_ignore), normalization=normalization,
+               out_grad=bool(out_grad), smooth_alpha=float(smooth_alpha))
+
+    def fn(x, lbl):
+        if multi_output:
+            return _SoftmaxOutputFn.apply(x, lbl, dict(cfg, axis=1))
+        if preserve_shape or x.dim() <= 2:
+            return _SoftmaxOutputFn.apply(x, lbl, dict(cfg, axis=x.dim() - 1))
+        flat = _SoftmaxOutputFn.apply(x.reshape(x.shape[0], -1),
+                                      lbl.reshape(-1), dict(cfg, axis=1))
+        return flat.reshape(x.shape)
+    return _apply(fn, data, label)
+
+
+class _RegressionOutputFn(torch.autograd.Function):
+    """MXNet's regression loss layers (``regression_output.cc``): forward
+    the identity or the sigmoid; backward ``grad_scale / num_output *
+    (out - label)`` (its sign for "mae"), ``num_output`` the label's size
+    per sample."""
+
+    @staticmethod
+    def forward(ctx, x, label, kind, grad_scale):
+        out = torch.sigmoid(x) if kind == "logistic" else x.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape).to(out.dtype)
+        if ctx.kind == "mae":
+            diff = torch.sign(diff)
+        num_output = label.numel() // label.shape[0] if label.dim() else 1
+        return diff * (ctx.grad_scale / num_output), None, None, None
+
+
+def _regression(kind):
+    def op(data, label, grad_scale=1.0):
+        return _apply(lambda x, lbl: _RegressionOutputFn.apply(
+            x, lbl, kind, float(grad_scale)), data, label)
+    return op
+
+
+LinearRegressionOutput = _regression("linear")
+LogisticRegressionOutput = _regression("logistic")
+MAERegressionOutput = _regression("mae")
+for _f, _n in ((LinearRegressionOutput, "LinearRegressionOutput"),
+               (LogisticRegressionOutput, "LogisticRegressionOutput"),
+               (MAERegressionOutput, "MAERegressionOutput")):
+    _f.__name__ = _n
+    _f.__doc__ = ("%s: MXNet's regression loss layer (the JAX package's "
+                  "backward omits the 1 / num_output)." % _n)
+del _f, _n
+
+
+@_op
+def softmax_cross_entropy(data, label):
+    """The cross entropy of softmax(data) against integer labels, summed
+    over the batch (a scalar)."""
+    logp = torch.log_softmax(data, dim=-1)
+    ids = label.long().clamp(0, data.shape[-1] - 1)
+    return -logp.gather(-1, ids[:, None]).sum()
+
+
+@_op
+def softmin(data, axis=-1, temperature=None):
+    x = data / temperature if temperature else data
+    return torch.softmax(-x, dim=axis)
+
+
+def SoftmaxActivation(data, mode="instance"):
+    """softmax over the last axis ("instance") or axis 1 ("channel")."""
+    return softmax(data, axis=-1 if mode == "instance" else 1)
+
+
+# ================================================================= nn-style
+
+@_op
+def L2Normalization(data, eps=1e-10, mode="instance"):
+    """``x / sqrt(sum(x²) + eps)`` over all axes but the first
+    ("instance"), axis 1 ("channel") or the spatial axes ("spatial")."""
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.dim()))
+    else:
+        raise ValueError("unknown mode %r" % mode)
+    return data / torch.sqrt(data.square().sum(dim=axes, keepdim=True) + eps)
+
+
+@_op
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalisation across channels:
+    ``x / (knorm + alpha / nsize * sum of x² over nsize channels)^beta``."""
+    half = nsize // 2
+    sq = F.pad(data.square(), (0, 0) * (data.dim() - 2) + (half, half))
+    acc = functools.reduce(operator.add, (sq.narrow(1, i, data.shape[1])
+                                          for i in range(nsize)))
+    return data / torch.pow(knorm + alpha * acc / nsize, beta)
+
+
+def UpSampling(*data, scale=2, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest: each input repeated to ``scale`` times the first input's
+    size, joined along the channels ("concat") or summed ("sum").
+    Bilinear: ``data = (x, weight)``, a transposed convolution per channel
+    with MXNet's kernel ``2 scale - scale % 2``, stride ``scale`` and pad
+    ``ceil((scale - 1) / 2)``. (The JAX package repeats the first input
+    only and ignores ``sample_type``.)"""
+    if sample_type == "bilinear":
+        k = 2 * scale - scale % 2
+        p = -(-(scale - 1) // 2)
+
+        def bil(x, w):
+            y = F.conv_transpose2d(x, w, stride=scale, padding=p,
+                                   groups=x.shape[1])
+            return y[..., :x.shape[2] * scale, :x.shape[3] * scale]
+        if data[1].shape[-1] != k:
+            raise ValueError("bilinear UpSampling wants a %d x %d kernel"
+                             % (k, k))
+        return _apply(bil, data[0], data[1])
+    if sample_type != "nearest":
+        raise ValueError("unknown sample_type %r" % sample_type)
+
+    def near(*xs):
+        h = xs[0].shape[2] * scale
+        outs = [x.repeat_interleave(h // x.shape[2], 2)
+                 .repeat_interleave(h // x.shape[2], 3) for x in xs]
+        if len(outs) == 1:
+            return outs[0]
+        if multi_input_mode == "sum":
+            return functools.reduce(operator.add, outs)
+        return torch.cat(outs, 1)
+    return _apply(near, *data)
+
+
+@_op
+def BilinearResize2D(data, height=None, width=None, scale_height=None,
+                     scale_width=None):
+    """Linear resize to (height, width), or by the scales, on half-pixel
+    centres (``jax.image.resize``'s "linear"); a downscale filters with the
+    stretched triangle kernel, as JAX's antialiased resize does."""
+    h = height or int(data.shape[2] * scale_height)
+    w = width or int(data.shape[3] * scale_width)
+    down = h < data.shape[2] or w < data.shape[3]
+    return F.interpolate(data, size=(h, w), mode="bilinear",
+                         align_corners=False, antialias=down)
+
+
+@_op
+def Correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                stride2=1, pad_size=0, is_multiply=True):
+    """FlowNet's cost volume (``correlation.cc``): (N, D², top_h, top_w),
+    D = 2 (max_displacement // stride2) + 1; channel ``dy * D + dx`` holds
+    the sum over the kernel window and the channels of ``x1 · x2`` moved by
+    the displacement (``|x1 - x2|`` without ``is_multiply``), over
+    ``kernel_size² C``."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    gr = max_displacement // stride2
+    border = max_displacement + (kernel_size - 1) // 2
+    md, p = max_displacement, pad_size
+    n, c, h, w = data1.shape
+    top_h = -((2 * border - (h + 2 * p)) // stride1)
+    top_w = -((2 * border - (w + 2 * p)) // stride1)
+    if top_h < 1 or top_w < 1:
+        raise ValueError("Correlation: input too small for "
+                         "max_displacement/kernel_size")
+    x1p = F.pad(data1, (p, p, p, p))
+    x2p = F.pad(data2, (p, p, p, p))
+
+    def tap(src, y0, x0):
+        return src[:, :, y0:y0 + (top_h - 1) * stride1 + 1:stride1,
+                   x0:x0 + (top_w - 1) * stride1 + 1:stride1]
+
+    outs = []
+    for dy in range(-gr, gr + 1):
+        for dx in range(-gr, gr + 1):
+            acc = None
+            for i in range(kernel_size):
+                for j in range(kernel_size):
+                    a = tap(x1p, md + i, md + j)
+                    b = tap(x2p, md + dy * stride2 + i, md + dx * stride2 + j)
+                    t = (a * b if is_multiply else (a - b).abs()).sum(1)
+                    acc = t if acc is None else acc + t
+            outs.append(acc / (kernel_size * kernel_size * c))
+    return torch.stack(outs, 1)
+
+
+def Crop(*data, offset=(0, 0), h_w=(0, 0), center_crop=False, num_args=None):
+    """Crop ``data[0]`` to ``h_w``, or to ``data[1]``'s spatial size, at
+    ``offset`` or centred."""
+    x = data[0]
+    th, tw = (data[1].shape[2], data[1].shape[3]) if len(data) == 2 else h_w
+    if center_crop:
+        oy, ox = (x.shape[2] - th) // 2, (x.shape[3] - tw) // 2
+    else:
+        oy, ox = offset
+    return _apply(lambda a: a[:, :, oy:oy + th, ox:ox + tw], x)
+
+
+def _patch_geometry(x_shape, kernel, stride, dilate, pad):
+    d = len(kernel)
+    stride = tuple(stride) if stride else (1,) * d
+    dilate = tuple(dilate) if dilate else (1,) * d
+    pad = tuple(pad) if pad else (0,) * d
+    out = tuple((x_shape[2 + i] + 2 * pad[i] - dilate[i] * (kernel[i] - 1)
+                 - 1) // stride[i] + 1 for i in range(d))
+    return stride, dilate, pad, out
+
+
+def _tap_slices(k_idx, stride, dilate, out):
+    return tuple(builtins.slice(k * dl, k * dl + (o - 1) * s + 1, s)
+                 for k, s, dl, o in zip(k_idx, stride, dilate, out))
+
+
+@_op
+def im2col(data, kernel, stride=None, dilate=None, pad=None):
+    """Sliding patches: (N, C, *spatial) → (N, C·∏kernel, L), channel-major
+    then the kernel taps in row-major order (``lax``'s patch order)."""
+    kernel = tuple(kernel)
+    stride, dilate, pad, out = _patch_geometry(data.shape, kernel, stride,
+                                               dilate, pad)
+    xp = F.pad(data, tuple(q for p in reversed(pad) for q in (p, p)))
+    taps = [xp[(Ellipsis,) + _tap_slices(k, stride, dilate, out)]
+            for k in onp.ndindex(*kernel)]
+    cols = torch.stack(taps, 2)                       # (N, C, K, *out)
+    return cols.reshape(data.shape[0], -1, math.prod(out))
+
+
+@_op
+def col2im(data, output_size, kernel, stride=None, dilate=None, pad=None):
+    """The transpose of ``im2col``: each patch added back into its place of
+    an (N, C, *output_size) image."""
+    kernel = tuple(kernel)
+    output_size = tuple(output_size)
+    k_prod = math.prod(kernel)
+    n, c = data.shape[0], data.shape[1] // k_prod
+    stride, dilate, pad, out = _patch_geometry(
+        (n, c) + output_size, kernel, stride, dilate, pad)
+    cols = data.reshape((n, c, k_prod) + out)
+    img = data.new_zeros((n, c) + tuple(s + 2 * p for s, p in
+                                        zip(output_size, pad)))
+    for i, k in enumerate(onp.ndindex(*kernel)):
+        idx = (Ellipsis,) + _tap_slices(k, stride, dilate, out)
+        img[idx] = img[idx] + cols[:, :, i]
+    crop = tuple(builtins.slice(p, p + s) for p, s in zip(pad, output_size))
+    return img[(Ellipsis,) + crop]
+
+
+# ========================================================== index and shape
+
+@_op
+def argmax_channel(data):
+    """argmax over axis 1, in the input's type."""
+    return torch.argmax(data, dim=1).to(data.dtype)
+
+
+def meshgrid(*arrays, indexing="xy"):
+    return list(_apply(lambda *xs: torch.meshgrid(*xs, indexing=indexing),
+                       *arrays))
+
+
+def histogram(a, bins=10, range=None):
+    """(counts, bin edges): ``bins`` equal bins over ``range`` (default the
+    data's min and max), the last bin closed; or the given edges."""
+    x = a._data
+    if isinstance(bins, NDArray):
+        edges = bins._data.to(x.dtype)
+    else:
+        if range is None:
+            lo = float(x.min())
+            range = (lo, builtins.max(float(x.max()), lo + 1e-6))
+        edges = torch.linspace(range[0], range[1], bins + 1,
+                               dtype=torch.float32, device=x.device) \
+            .to(x.dtype)
+    nb = edges.shape[0] - 1
+    idx = torch.bucketize(x.reshape(-1), edges, right=True) - 1
+    flat = x.reshape(-1)
+    idx = torch.where(flat == edges[-1], torch.full_like(idx, nb - 1), idx)
+    inside = (flat >= edges[0]) & (flat <= edges[-1])
+    counts = torch.zeros(nb, dtype=torch.int32, device=x.device)
+    counts.index_add_(0, idx.clamp(0, nb - 1),
+                      inside.to(torch.int32))
+    return NDArray(counts), NDArray(edges.clone())
+
+
+@_op
+def unravel_index(data, shape=None):
+    """Flat ids → (ndim, N) coordinates in ``shape``."""
+    x = data.long()
+    coords = []
+    for dim in reversed(shape):
+        coords.append(torch.remainder(x, dim))
+        x = torch.div(x, dim, rounding_mode="floor")
+    return torch.stack(coords[::-1], 0).to(torch.int32)
+
+
+@_op
+def ravel_multi_index(data, shape=None):
+    """(ndim, N) coordinates, each clipped into its axis, → flat ids."""
+    flat = torch.zeros(data.shape[1:], dtype=torch.int32, device=data.device)
+    for i, dim in enumerate(shape):
+        flat = flat * dim + data[i].to(torch.int32).clamp(0, dim - 1)
+    return flat
+
+
+def onehot_encode(indices, out):
+    """Write the one-hot rows of ``indices`` into ``out`` (in place)."""
+    hot = _label_hot(indices._data, out.shape[1], 1, out._data)
+    with torch.no_grad():
+        out._data.copy_(hot)
+    return out
+
+
+def shuffle(data):
+    """The rows of ``data`` in a random order (``nd.random.shuffle``)."""
+    from . import random as _random
+    return _random.shuffle(data)
+
+
+def multinomial(data, shape=1, get_prob=False, dtype="int32"):
+    """Samples of the categorical distributions in the rows of ``data``
+    (probabilities over the last axis): ``data.shape[:-1] + shape``
+    (an int ``shape`` n gives n samples a row); with ``get_prob`` also the
+    log-probability of each sample."""
+    from . import random as _random
+    return _random._categorical(data, (shape,) if isinstance(shape, int)
+                                else tuple(shape), get_prob, dtype, False)
+
+
+# ================================================================ interop
+
+def cast_storage(data, stype):
+    """``data`` in storage ``stype`` ("default", "row_sparse", "csr")."""
+    return data.tostype(stype)
+
+
+def from_numpy(ndarray_np, zero_copy=True):
+    """An NDArray on the CPU over a numpy array (sharing its memory when
+    ``zero_copy`` and its type is kept; float64 and int64 become float32
+    and int32, the JAX package's rules)."""
+    a = _narrow(onp.asarray(ndarray_np))
+    if not zero_copy or not a.flags.writeable:
+        a = a.copy()
+    return NDArray(torch.from_numpy(onp.ascontiguousarray(a)))
+
+
+def to_dlpack_for_read(data):
+    """A DLPack capsule over the array (``torch.utils.dlpack``)."""
+    data.wait_to_read()
+    return torch.utils.dlpack.to_dlpack(data._data.detach())
+
+
+def to_dlpack_for_write(data):
+    """A DLPack capsule over the array, which the consumer may write."""
+    data.wait_to_write()
+    return torch.utils.dlpack.to_dlpack(data._data.detach())
+
+
+def from_dlpack(dlpack):
+    """An NDArray over a DLPack capsule or an object with ``__dlpack__``
+    (sharing its memory)."""
+    return NDArray(torch.utils.dlpack.from_dlpack(dlpack))
+
+
+def load_frombuffer(buf):
+    """``load`` from the bytes of a file in the MXNet binary list format."""
+    from . import serialization
+    tensors, names = serialization.load_tensor_buffer(bytes(buf))
+    if names:
+        return {k: NDArray(t) for k, t in zip(names, tensors)}
+    return [NDArray(t) for t in tensors]
+
+
+# ====================================================================== CTC
+
+def CTCLoss(data, label, data_lengths=None, label_lengths=None,
+            use_data_lengths=False, use_label_lengths=False,
+            blank_label="first"):
+    """The CTC negative log-likelihood of each sample (``ops.ctc``): data
+    (T, N, C) activations, label (N, L)."""
+    from ..ops.ctc import ctc_loss as _ctc
+    dl = data_lengths if use_data_lengths else None
+    ll = label_lengths if use_label_lengths else None
+
+    def fn(x, lbl, d, l_):
+        return _ctc(x, lbl, d, l_, blank_label)
+    return _apply(fn, data, label, dl, ll)
+
+
+ctc_loss = CTCLoss
+
+
+__all__ += ["SoftmaxOutput", "LinearRegressionOutput",
+            "LogisticRegressionOutput", "MAERegressionOutput",
+            "softmax_cross_entropy", "softmin", "SoftmaxActivation",
+            "L2Normalization", "LRN", "UpSampling", "BilinearResize2D",
+            "Correlation", "Crop", "im2col", "col2im", "argmax_channel",
+            "meshgrid", "histogram", "unravel_index", "ravel_multi_index",
+            "onehot_encode", "shuffle", "multinomial", "cast_storage",
+            "from_numpy", "to_dlpack_for_read", "to_dlpack_for_write",
+            "from_dlpack", "load_frombuffer", "CTCLoss", "ctc_loss"]

@@ -16,7 +16,9 @@ from ..context import as_device
 from .ndarray import NDArray, _apply, torch_dtype
 
 __all__ = ["seed", "uniform", "normal", "randn", "randint", "exponential",
-           "gamma", "poisson", "bernoulli", "shuffle"]
+           "gamma", "poisson", "negative_binomial",
+           "generalized_negative_binomial", "bernoulli", "multinomial",
+           "shuffle"]
 
 
 class _RngState(threading.local):
@@ -158,6 +160,58 @@ def poisson(lam=1.0, shape=None, dtype="float32", ctx=None, out=None, **kw):
         rates = torch.full(s, float(lam), dtype=torch.float32, device=dev)
         return torch.poisson(rates, generator=g).to(dt)
     return _draw(fn, _shape_of(shape, lam), dtype, ctx, out)
+
+
+def negative_binomial(k=1, p=1.0, shape=None, dtype="float32", ctx=None,
+                      out=None, **kw):
+    """Failures before the ``k``-th success at success rate ``p``: a
+    Poisson draw whose rate is Gamma(k) · (1 - p) / p."""
+    def fn(s, dt, dev, g):
+        conc = torch.full(s, float(k), dtype=torch.float32, device=dev)
+        rate = torch._standard_gamma(conc, generator=g) * ((1 - p) / p)
+        return torch.poisson(rate, generator=g).to(dt)
+    return _draw(fn, _shape_of(shape), dtype, ctx, out)
+
+
+def generalized_negative_binomial(mu=1.0, alpha=1.0, shape=None,
+                                  dtype="float32", ctx=None, out=None, **kw):
+    """The negative binomial of mean ``mu`` and dispersion ``alpha``:
+    ``k = 1 / alpha``, ``p = k / (k + mu)``."""
+    k = 1.0 / alpha
+    return negative_binomial(k, k / (k + mu), shape, dtype, ctx, out)
+
+
+def _categorical(data, shape, get_prob, dtype, scalar_for_one):
+    """Draws from the rows of probabilities ``data`` (last axis):
+    ``data.shape[:-1] + shape`` of them (a 1-D ``data`` with ``shape``
+    (1,) gives one 0-dim draw when ``scalar_for_one``), and with
+    ``get_prob`` the log-probability of each."""
+    n = 1
+    for d in shape:
+        n *= d
+
+    def fn(p):
+        rows = p.reshape(-1, p.shape[-1]).float()
+        idx = torch.multinomial(rows, n, replacement=True,
+                                generator=_generator(p.device))
+        out_shape = tuple(p.shape[:-1]) + tuple(shape)
+        if scalar_for_one and p.dim() == 1 and tuple(shape) == (1,):
+            out_shape = ()
+        draws = idx.reshape(out_shape)
+        if not get_prob:
+            return draws.to(torch_dtype(dtype))
+        logp = torch.log(torch.gather(p.reshape(-1, p.shape[-1]), 1, idx))
+        return draws.to(torch_dtype(dtype)), logp.reshape(out_shape)
+    return _apply(fn, data)
+
+
+def multinomial(data, shape=(1,), get_prob=False, dtype="int32", **kw):
+    """Samples of the categorical distributions in the rows of ``data``
+    (probabilities over the last axis): ``data.shape[:-1] + shape`` (a
+    1-D ``data`` with the default shape gives one 0-dim sample); with
+    ``get_prob`` also the log-probability of each sample."""
+    return _categorical(data, (shape,) if isinstance(shape, int)
+                        else tuple(shape), get_prob, dtype, True)
 
 
 def bernoulli(prob=None, logit=None, shape=None, dtype="float32", ctx=None,

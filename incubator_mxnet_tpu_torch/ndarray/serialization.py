@@ -168,11 +168,15 @@ def _load_one(r):
 def load_tensor_list(fname):
     """(CPU tensors, names) from a file in the list format."""
     with open(fname, "rb") as f:
-        buf = f.read()
+        return load_tensor_buffer(f.read(), fname)
+
+
+def load_tensor_buffer(buf, what="the buffer"):
+    """(CPU tensors, names) from the bytes of a file in the list format."""
     r = _Reader(buf)
     if len(buf) < 16 or r.read("Q") != kMXAPINDArrayListMagic:
         raise ValueError("%s is not a binary NDArray list file (magic "
-                         "0x112)" % fname)
+                         "0x112)" % what)
     r.read("Q")
     tensors = [_load_one(r) for _ in range(r.read("Q"))]
     names = [r.read_bytes(r.read("Q")).decode("utf-8")

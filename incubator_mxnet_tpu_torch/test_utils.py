@@ -43,8 +43,8 @@ def set_default_context(ctx):
 
 
 def _as_np(x):
-    if isinstance(x, NDArray):
-        return x.asnumpy()
+    if isinstance(x, NDArray) or hasattr(x, "stype"):
+        return x.asnumpy()             # sparse storage: its dense values
     if isinstance(x, torch.Tensor):
         return NDArray(x).asnumpy()
     return onp.asarray(x)
@@ -86,12 +86,22 @@ def rand_shape_nd(num_dim, dim=10):
 
 def rand_ndarray(shape, stype="default", density=None, dtype="float32",
                  ctx=None, scale=1.0):
-    """Uniform in (-scale, scale); dense storage only (sparse storage types
-    come with ``ndarray/sparse.py``)."""
-    if stype != "default":
-        raise NotImplementedError("sparse storage types are not ported")
+    """Uniform in (-scale, scale); for "row_sparse" each row, for "csr"
+    each entry kept with probability ``density`` (default 0.5)."""
     dense = onp.random.uniform(-scale, scale, size=shape).astype(dtype)
-    return nd.array(dense, ctx=ctx if ctx is not None else default_context())
+    ctx = ctx if ctx is not None else default_context()
+    if stype == "default":
+        return nd.array(dense, ctx=ctx)
+    if density is None:
+        density = 0.5
+    if stype == "row_sparse":
+        rows = onp.random.rand(shape[0]) < density
+        dense = dense * rows.reshape((-1,) + (1,) * (len(shape) - 1))
+    elif stype == "csr":
+        dense = dense * (onp.random.rand(*shape) < density)
+    else:
+        raise ValueError("unknown stype %r" % stype)
+    return nd.array(dense, ctx=ctx).tostype(stype)
 
 
 def numeric_grad(f, xs, eps=1e-4):
@@ -422,6 +432,127 @@ def _sweep_table():
     t.append(mk("arange", call=lambda M: M.arange(0, 8), nondiff=True))
     t.append(mk("linspace", call=lambda M: M.linspace(0.0, 1.0, 5),
                 nondiff=True))
+    # the loss layers, nn-style operators, index operators, linear algebra
+    # and legacy aliases
+    t.append(mk("all_finite", f(4, 16), nondiff=True))
+    t.append(mk("multi_all_finite", f(4, 16), f(4, 16), nondiff=True,
+                call=lambda M, a, b: M.multi_all_finite(a, b, num_arrays=2)))
+    t.append(mk("multi_sum_sq", f(4, 16), f(4, 16),
+                call=lambda M, a, b: M.multi_sum_sq(a, b, num_arrays=2)))
+    t.append(mk("multi_lars", pos(4), pos(4), pos(4), pos(4),
+                call=lambda M, lr, w, g, wd: M.multi_lars(
+                    lr, w, g, wd, eta=0.001), nondiff=True))
+    t.append(kw("Crop", dict(offset=(1, 1), h_w=(4, 4), num_args=1),
+                f(1, 2, 8, 8)))
+    t.append(mk("meshgrid", f(4), f(5)))
+    t.append(mk("argmax_channel", ((4, 16), "perm"), nondiff=True))
+    t.append(kw("unravel_index", dict(shape=(4, 6)), idx(6, hi=24),
+                nondiff=True))
+    t.append(kw("ravel_multi_index", dict(shape=(4, 6)), idx(2, 6, hi=4),
+                nondiff=True))
+    t.append(mk("onehot_encode", idx(6, hi=8), f(6, 8), nondiff=True))
+    t.append(kw("histogram", dict(bins=5, range=(-2.0, 2.0)), f(64),
+                nondiff=True))
+    t.append(mk("linalg.gemm2", f(8, 32), f(32, 8), tag="mm",
+                call=lambda M, a, b: M.linalg.gemm2(a, b),
+                op="linalg.gemm2"))
+    t.append(mk("Convolution_v1", f(2, 4, 8, 8), f(8, 4, 3, 3), tag="mm",
+                call=lambda M, x, w: M.Convolution_v1(
+                    x, w, None, kernel=(3, 3), num_filter=8, pad=(1, 1),
+                    no_bias=True)))
+    t.append(mk("Pooling_v1", f(2, 4, 8, 8),
+                call=lambda M, x: M.Pooling_v1(x, kernel=(2, 2),
+                                               pool_type="max",
+                                               stride=(2, 2))))
+    for bn_name in ["BatchNorm_v1", "CuDNNBatchNorm"]:
+        t.append(mk(bn_name, f(2, 4, 8, 8), f(4), pos(4), f(4), pos(4),
+                    call=lambda M, x, g, b, mm, mv, _n=bn_name: getattr(M, _n)(
+                        x, g, b, mm, mv, fix_gamma=False,
+                        use_global_stats=True)))
+    t.append(kw("SoftmaxActivation", dict(mode="instance"), f(4, 16),
+                tag="trans"))
+    t.append(kw("softmin", dict(axis=-1), f(4, 16), tag="trans"))
+    t.append(mk("softmax_cross_entropy", f(4, 16), idx(4, hi=16),
+                tag="trans"))
+    t.append(mk("SoftmaxOutput", f(4, 8), idx(4, hi=8), tag="trans"))
+    t.append(mk("LinearRegressionOutput", f(4, 8), f(4, 8)))
+    t.append(mk("LogisticRegressionOutput", f(4, 8), ((4, 8), "b"),
+                tag="trans"))
+    t.append(mk("MAERegressionOutput", f(4, 8), f(4, 8)))
+    t.append(mk("CTCLoss", f(6, 2, 5), ((2, 3), ("i1", 5)), tag="trans"))
+    t.append(mk("ctc_loss", f(6, 2, 5), ((2, 3), ("i1", 5)), tag="trans"))
+    t.append(kw("L2Normalization", dict(mode="instance"), f(4, 16)))
+    t.append(kw("LRN", dict(nsize=3), f(2, 4, 6, 6)))
+    t.append(kw("UpSampling", dict(scale=2, sample_type="nearest"),
+                f(1, 2, 4, 4)))
+    t.append(kw("BilinearResize2D", dict(height=6, width=6), f(1, 2, 4, 4)))
+    t.append(kw("Correlation", dict(kernel_size=1, max_displacement=2),
+                f(2, 3, 8, 8), f(2, 3, 8, 8)))
+    t.append(kw("im2col", dict(kernel=(3, 3), pad=(1, 1)), f(2, 3, 8, 8)))
+    t.append(kw("col2im", dict(output_size=(8, 8), kernel=(3, 3),
+                               pad=(1, 1)), f(2, 27, 64)))
+
+    # the optimizer update operators (nondiff: the update rule itself);
+    # accumulator states positive
+    OPT2 = {"sgd_update": "fg", "signsgd_update": "fg",
+            "mp_sgd_update": "fgf", "sgd_mom_update": "fgf",
+            "signum_update": "fgf", "nag_mom_update": "fgf",
+            "mp_sgd_mom_update": "fgff", "mp_nag_mom_update": "fgff",
+            "rmsprop_update": "fgp", "adam_update": "fgfp",
+            "ftrl_update": "fgfp", "ftml_update": "fgfpf"}
+    for n, kinds in OPT2.items():
+        specs = [f(4, 8) if k in "fg" else pos(4, 8) for k in kinds]
+        t.append(mk(n, *specs, nondiff=True,
+                    call=lambda M, *a, _n=n: getattr(M, _n)(*a, lr=0.1)))
+    # centred RMSProp: n - g² > 0 under the sqrt
+    t.append(mk("rmspropalex_update", f(4, 8), f(4, 8), ((4, 8), "gt1"),
+                ((4, 8), "unit"), f(4, 8), nondiff=True,
+                call=lambda M, w, g, n_, gs, d: M.rmspropalex_update(
+                    w, g, n_, gs, d, lr=0.1)))
+    for n in ["lamb_update_phase1", "mp_lamb_update_phase1"]:
+        t.append(mk(n, f(4, 8), f(4, 8), f(4, 8), pos(4, 8), nondiff=True,
+                    call=lambda M, w, g, m, v, _n=n: getattr(M, _n)(
+                        w, g, m, v, t=1)))
+    for n in ["lamb_update_phase2", "mp_lamb_update_phase2"]:
+        t.append(mk(n, f(4, 8), f(4, 8), pos(1), pos(1), nondiff=True,
+                    call=lambda M, w, g, r1, r2, _n=n: getattr(M, _n)(
+                        w, g, r1, r2, lr=0.1)))
+    t.append(mk("multi_sgd_update", f(4, 8), f(4, 8), nondiff=True,
+                call=lambda M, w, g: M.multi_sgd_update(
+                    [w], [g], lrs=[0.1], wds=[0.0])))
+    t.append(mk("multi_sgd_mom_update", f(4, 8), f(4, 8), f(4, 8),
+                nondiff=True,
+                call=lambda M, w, g, m: M.multi_sgd_mom_update(
+                    [w], [g], [m], lrs=[0.1], wds=[0.0])))
+    t.append(mk("multi_mp_sgd_update", f(4, 8), f(4, 8), f(4, 8),
+                nondiff=True,
+                call=lambda M, w, g, w32: M.multi_mp_sgd_update(
+                    [w], [g], [w32], lrs=[0.1], wds=[0.0])))
+    t.append(mk("multi_mp_sgd_mom_update", f(4, 8), f(4, 8), f(4, 8),
+                f(4, 8), nondiff=True,
+                call=lambda M, w, g, m, w32: M.multi_mp_sgd_mom_update(
+                    [w], [g], [m], [w32], lrs=[0.1], wds=[0.0])))
+    t.append(mk("preloaded_multi_sgd_update", f(4, 8), f(4, 8), pos(1),
+                pos(1), nondiff=True,
+                call=lambda M, w, g, lr, wd: M.preloaded_multi_sgd_update(
+                    [w], [g], lr, wd)))
+    t.append(mk("preloaded_multi_sgd_mom_update", f(4, 8), f(4, 8),
+                f(4, 8), pos(1), pos(1), nondiff=True,
+                call=lambda M, w, g, m, lr, wd:
+                M.preloaded_multi_sgd_mom_update([w], [g], [m], lr, wd)))
+    t.append(mk("preloaded_multi_mp_sgd_update", f(4, 8), f(4, 8), f(4, 8),
+                pos(1), pos(1), nondiff=True,
+                call=lambda M, w, g, w32, lr, wd:
+                M.preloaded_multi_mp_sgd_update([w], [g], [w32], lr, wd)))
+    t.append(mk("preloaded_multi_mp_sgd_mom_update", f(4, 8), f(4, 8),
+                f(4, 8), f(4, 8), pos(1), pos(1), nondiff=True,
+                call=lambda M, w, g, m, w32, lr, wd:
+                M.preloaded_multi_mp_sgd_mom_update([w], [g], [m], [w32],
+                                                    lr, wd)))
+    # sparse storage, compared dense
+    t.append(mk("cast_storage", f(4, 16), nondiff=True, sym=False,
+                symreason="sparse storage is eager-only (README Sparse)",
+                call=lambda M, a: M.cast_storage(a, "row_sparse")))
     return t
 
 

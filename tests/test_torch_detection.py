@@ -649,9 +649,10 @@ def test_contrib_rroi_align():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("foreach", 2), ("while_loop", 2), ("cond", 2), ("getnnz", 2),
-    ("edge_id", 2), ("hawkesll", 2), ("dgl_subgraph", 2),
-    ("dgl_adjacency", 2), ("quantize", 6), ("quantize_v2", 6),
+    ("quantized_pooling", 6), ("quantized_act", 6), ("quantized_flatten", 6),
+    ("quantized_concat", 6), ("quantized_elemwise_add", 6),
+    ("quantized_elemwise_mul", 6), ("quantized_embedding", 6),
+    ("quantized_batch_norm", 6), ("quantize", 6), ("quantize_v2", 6),
     ("dequantize", 6), ("requantize", 6), ("calibrate_entropy", 6),
     ("quantized_conv", 6), ("quantized_fully_connected", 6)])
 def test_contrib_entries_still_to_port_raise_naming_their_item(name, item):

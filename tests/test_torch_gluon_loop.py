@@ -222,8 +222,17 @@ def test_cosine_embedding_loss_follows_mxnet():
 
 
 def test_ctc_loss_waits_for_its_op():
-    with pytest.raises(NotImplementedError, match="ctc"):
-        mxt.gluon.loss.CTCLoss()
+    """``ops/ctc.py`` is ported: the loss block equals the JAX package's
+    (blank last, -1 padding), within 1e-5 relative."""
+    rng = onp.random.RandomState(4)
+    pred = rng.randn(2, 7, 5).astype("float32")
+    label = onp.array([[1, 2, -1], [3, 3, 1]], "float32")
+    want = jgluon.loss.CTCLoss()(mx.nd.array(pred),
+                                 mx.nd.array(label)).asnumpy()
+    got = mxt.gluon.loss.CTCLoss()(
+        mxt.nd.array(pred, ctx=mxt.cpu()),
+        mxt.nd.array(label, ctx=mxt.cpu())).asnumpy()
+    _rel(got, want, "ctc loss", 1e-5)
 
 
 # -------------------------------------------------------------- metrics

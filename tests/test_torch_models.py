@@ -150,6 +150,8 @@ def test_ring_and_ulysses_wait_for_the_multi_gpu_slice():
 
 #: modules every walk of the port must reach (those of the array layer)
 PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
+                "ndarray.linalg", "ndarray.optimizer_ops", "ndarray.sparse",
+                "ndarray.contrib", "ops.ctc", "ops.deformable",
                 "autograd", "base", "error", "name", "attribute", "registry",
                 "context", "test_utils", "convert", "gluon.parameter",
                 "gluon.block", "gluon.trainer", "gluon.loss", "jit")

@@ -36,8 +36,19 @@ from incubator_mxnet_tpu_torch import test_utils as ttu
 REF = {jtu._norm_entry(e)[0]: jtu._norm_entry(e) for e in jtu._sweep_table()}
 PORT = {e[0]: e for e in ttu._sweep_table()}
 #: reference entries whose operator the port defines but the entry needs
-#: what the port leaves out (ROADMAP.md §1 item 5 lists them)
-PORT_LEAVES_OUT = {}
+#: what the port leaves out: the same random stream in both legs (torch's
+#: generators, on the CPU and the card, are not JAX's threefry keys; the
+#: samplers are held by their distributions in test_torch_nd_ops.py)
+PORT_LEAVES_OUT = {
+    "shuffle": "needs the JAX package's random stream",
+    "multinomial": "needs the JAX package's random stream",
+}
+#: entries whose gradient departs from the JAX package's on purpose, so only
+#: their forward is compared here: MXNet's 1 / num_output of the regression
+#: loss layers (held in test_torch_nd_ops.py), and meshgrid, whose JAX
+#: version builds its outputs outside the tape (a zero gradient)
+GRADIENT_DEPARTS = {"LinearRegressionOutput", "MAERegressionOutput",
+                    "meshgrid"}
 FLOAT_KINDS = ("f", "pos", "unit", "gt1", "perm", "pmf")
 
 
@@ -99,7 +110,8 @@ def test_entry_matches_the_jax_package(entry):
             onp.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
                                         err_msg="%s %s" % (entry, dt))
     if opts.get("nondiff") or not specs or not all(
-            kind in FLOAT_KINDS for _, kind in specs):
+            kind in FLOAT_KINDS for _, kind in specs) \
+            or base in GRADIENT_DEPARTS:
         return
     rtol, atol = (2e-3, 1e-4) if tag == "trans" else (1e-4, 1e-5)
     with _precision(tag):
