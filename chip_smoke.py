@@ -292,7 +292,37 @@ Phases, each of which must pass, in order:
    shapes), issue ms, idle share, peak allocated and reserved memory and
    top_kernels; losses finite and falling in each; no hand-written kernel
    launched. Prints a {"ctc": ...} line.
-17. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
+17. The symbolic API and Module.fit (``module_phase``), BASELINE config 2
+   as MXNet's train_imagenet.py runs it. (a) A small symbolic ResNet v1 (2
+   stages of one bottleneck unit, 16 and 32 wide, 32² inputs) through 3
+   Module SGD steps on the card and on the CPU from the same Xavier draw,
+   TF32 off: outputs, parameters and moving statistics within
+   MODULE_SMALL_TOL. (b) A BucketingModule (Embedding → FullyConnected →
+   SoftmaxOutput, bucket keys 12 and 20): 3 steps, one shared parameter
+   set (the same tensors, gradients and optimizer states in every bucket),
+   finite losses, card = CPU within MODULE_SMALL_TOL. (c) ImageRecordIter
+   decodes with PIL: where PIL imports, one timed pass over 512 JPEGs it
+   writes (batch 128, 224² random crops, mirror, mean/std, 8 threads);
+   where it does not, a line says the pass did not run. (d) MXNet's
+   ResNet-50 v1 symbol (symbols/resnet-v1.py: units 3/4/6/3, filters
+   64/256/512/1024/2048, bottleneck) built with mx.sym, B 256 × 3 × 224²,
+   1000 classes, fp32 with TF32 on, trained by Module.fit on the card
+   (the default context) with fit.py's settings (SGD momentum 0.9, wd 1e-4,
+   lr 0.1, Xavier gaussian/in/2, the local kvstore) over 3 seeded host
+   batches (noise, labels uniform over the 1000 classes) for 2 epochs, with Speedometer and do_checkpoint: losses finite and falling
+   over the repeated batches, a checkpoint each epoch; then timed Module
+   steps on one batch: step ms, img/s, share of 989 TFLOP/s at 24.6
+   GFLOP an image, forward/backward/update device ms (CUDA events), host
+   ms, issue ms, idle share, bind s, peak allocated and reserved memory;
+   no hand-written kernel launches. (e) The last checkpoint loaded by
+   Module.load on the CPU and on the card (4 images, TF32 off): the same
+   probabilities, and the same logits through a Module over the loaded
+   graph's fc1 node, within MODULE_CKPT_TOL; SymbolBlock.imports of it equal
+   to the card Module's predict within 1e-5. (f) The yardstick: the same
+   network as the Gluon model zoo's resnet50_v1 through an eager fp32
+   Trainer loop, step ms, issue ms and idle share. Prints a {"module":
+   ...} line.
+18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
    1e-6 relative for axpy, fp32 summation order for the reduction), and
@@ -310,14 +340,14 @@ Phases, each of which must pass, in order:
 Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
-{"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...} and a {"kernels":
-[...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
+{"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...}
+and a {"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
 this script, or any phase fails.
 
     python3 chip_smoke.py --rtc-only [--root DIR]
 
-runs phase 17 alone, on the port found in DIR (by default beside this
+runs phase 18 alone, on the port found in DIR (by default beside this
 script), and prints the card's name and power limit and {"rtc": {...}}:
 the way to time another tree's K5 launch path with the same code, for
 example an unpacked parent commit's.
@@ -329,7 +359,8 @@ loop and of TrainStep, and prints {"imperative": {...}}; ``--gluon-only``
 runs phase 12 alone and prints {"gluon_loop": {...}}, ``--rnn-only``
 phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"model_zoo": {...}}), ``--ssd-only`` phase 15 ({"ssd": {...}}) and
-``--ctc-only`` phase 16 ({"ctc": {...}}).
+``--ctc-only`` phase 16 ({"ctc": {...}}) and ``--module-only`` phase 17
+({"module": {...}}).
 """
 import gc
 import itertools
@@ -5181,6 +5212,565 @@ def ctc_phase(card):
     return launches, summary
 
 
+# ------------------------------------------------------- the symbolic API
+
+MODULE_BATCHES = 3         # seeded host batches an epoch, repeated
+MODULE_EPOCHS = 2
+MODULE_TIMED = 3           # timed Module steps after fit (and split, issued)
+MODULE_GLUON_STEPS = (2, 3)    # the Gluon yardstick: (warm-up, timed)
+MODULE_SMALL_STEPS = 3
+MODULE_SMALL_TOL = 1e-4    # card (TF32 off) vs CPU, fp32
+MODULE_CKPT_IMAGES = 4     # images of the checkpoint's card = CPU check
+MODULE_CKPT_TOL = 1e-4     # of the largest probability, TF32 off
+MODULE_REC_IMAGES = 512    # JPEGs of the ImageRecordIter pass
+MODULE_REC_BATCH = 128
+
+
+def resnet_v1_symbol(sym, units, filters, num_classes, image_side,
+                     bn_mom=0.9):
+    """MXNet's example/image-classification/symbols/resnet-v1.py with
+    bottleneck units, built with the port's mx.sym: the stride on each
+    stage's first 1x1 convolution, a projection shortcut where the shape
+    changes, BatchNorm (fix_gamma False, eps 2e-5) after every convolution,
+    global average pooling, one FullyConnected and SoftmaxOutput. A
+    224-pixel input takes the 7x7/2 stem and a 3x3/2 max pool, a side of 32
+    or less the 3x3/1 stem."""
+    def bn(x, name):
+        return sym.BatchNorm(x, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                             name=name)
+
+    def unit(x, nf, stride, dim_match, name):
+        mid = nf // 4
+        y = sym.Convolution(x, num_filter=mid, kernel=(1, 1), stride=stride,
+                            pad=(0, 0), no_bias=True, name=name + "_conv1")
+        y = sym.Activation(bn(y, name + "_bn1"), act_type="relu",
+                           name=name + "_relu1")
+        y = sym.Convolution(y, num_filter=mid, kernel=(3, 3), stride=(1, 1),
+                            pad=(1, 1), no_bias=True, name=name + "_conv2")
+        y = sym.Activation(bn(y, name + "_bn2"), act_type="relu",
+                           name=name + "_relu2")
+        y = sym.Convolution(y, num_filter=nf, kernel=(1, 1), stride=(1, 1),
+                            pad=(0, 0), no_bias=True, name=name + "_conv3")
+        y = bn(y, name + "_bn3")
+        if dim_match:
+            short = x
+        else:
+            short = bn(sym.Convolution(x, num_filter=nf, kernel=(1, 1),
+                                       stride=stride, no_bias=True,
+                                       name=name + "_conv1sc"), name + "_sc")
+        return sym.Activation(y + short, act_type="relu", name=name + "_relu3")
+
+    body = sym.var("data")
+    if image_side <= 32:
+        body = sym.Convolution(body, num_filter=filters[0], kernel=(3, 3),
+                               stride=(1, 1), pad=(1, 1), no_bias=True,
+                               name="conv0")
+        body = sym.Activation(bn(body, "bn0"), act_type="relu", name="relu0")
+    else:
+        body = sym.Convolution(body, num_filter=filters[0], kernel=(7, 7),
+                               stride=(2, 2), pad=(3, 3), no_bias=True,
+                               name="conv0")
+        body = sym.Activation(bn(body, "bn0"), act_type="relu", name="relu0")
+        body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           pool_type="max", name="pool0")
+    for i, n in enumerate(units):
+        stride = (1, 1) if i == 0 else (2, 2)
+        body = unit(body, filters[i + 1], stride, False,
+                    "stage%d_unit1" % (i + 1))
+        for j in range(n - 1):
+            body = unit(body, filters[i + 1], (1, 1), True,
+                        "stage%d_unit%d" % (i + 1, j + 2))
+    body = sym.Pooling(body, global_pool=True, kernel=(7, 7), pool_type="avg",
+                       name="pool1")
+    body = sym.FullyConnected(sym.Flatten(body), num_hidden=num_classes,
+                              name="fc1")
+    return sym.SoftmaxOutput(body, name="softmax")
+
+
+def _module_data(n, side, classes, seed):
+    """n images (float32 NCHW, standard normal noise) and labels uniform
+    over ``classes``, from ``seed``: ImageNet's first steps as far as the
+    gradients go (no two samples alike)."""
+    import numpy as onp
+    rng = onp.random.default_rng(seed)
+    x = rng.standard_normal((n, 3, side, side), dtype=onp.float32)
+    return x, rng.integers(0, classes, n).astype("float32")
+
+
+def _xavier():
+    import incubator_mxnet_tpu_torch as mxt
+    # example/image-classification/common/fit.py's initializer
+    return mxt.init.Xavier(rnd_type="gaussian", factor_type="in", magnitude=2)
+
+
+def _sgd_params(lr=0.1):
+    # fit.py: SGD, momentum 0.9, wd 1e-4 (rescale_grad 1/batch by Module)
+    return {"learning_rate": lr, "momentum": 0.9, "wd": 1e-4}
+
+
+class _TF32:
+    """TF32 for cuDNN's convolutions and cuBLAS's products on or off
+    inside the block, restored after."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        import torch
+        self.prev = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = self.on
+        torch.backends.cudnn.allow_tf32 = self.on
+
+    def __exit__(self, *exc):
+        import torch
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.prev
+
+
+def _module_steps(mod, it, n):
+    """``n`` training steps of ``mod`` over ``it``: the outputs of each."""
+    outs = []
+    it.reset()
+    for _, batch in zip(range(n), it):
+        mod.forward_backward(batch)
+        mod.update()
+        outs.append(mod.get_outputs()[0].asnumpy())
+    return outs
+
+
+def check_module_small():
+    """A small symbolic ResNet v1 (2 stages of one bottleneck unit, 16 and
+    32 wide, 32x32 inputs, 10 classes) through 3 Module steps on the card
+    and on the CPU, TF32 off, from the same Xavier draw (the Module draws
+    on the host from nd.random's CPU generator): every step's outputs and
+    the parameters and moving statistics after within MODULE_SMALL_TOL of
+    the largest value."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    x, y = _module_data(24, 32, 10, 71)
+    got = []
+    for ctx in (mxt.gpu(0), mxt.cpu()):
+        mxt.random.seed(72)
+        sym = resnet_v1_symbol(mxt.sym, (1, 1), (16, 16, 32), 10, 32)
+        mod = mxt.mod.Module(sym, context=ctx)
+        it = mxt.io.NDArrayIter(x, y, batch_size=8)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(_xavier())
+        mod.init_optimizer(optimizer="sgd", optimizer_params=_sgd_params())
+        with _TF32(False):
+            outs = _module_steps(mod, it, MODULE_SMALL_STEPS)
+        arg, aux = mod.get_params()
+        got.append((outs, {k: v.asnumpy() for k, v in
+                           list(arg.items()) + list(aux.items())}))
+    worst = 0.0
+    for (a, b) in zip(got[0][0], got[1][0]):
+        worst = max(worst, _max_rel(a, b))
+    for k, v in got[1][1].items():
+        worst = max(worst, _max_rel(got[0][1][k], v))
+    check(worst <= MODULE_SMALL_TOL, "small Module card vs CPU: %.3g of the "
+          "largest value (tolerance %g)" % (worst, MODULE_SMALL_TOL))
+    check(all(onp.isfinite(o).all() for o in got[0][0]),
+          "small Module: an output is not finite")
+    return dict(steps=MODULE_SMALL_STEPS, max_rel_err=worst,
+                tol=MODULE_SMALL_TOL, params=len(got[1][1]))
+
+
+def check_bucketing_small():
+    """A BucketingModule over two bucket keys: Embedding → reshape →
+    FullyConnected → SoftmaxOutput (sym_gen of the sequence length, labels
+    one per token), 3 SGD steps on the keys 12, 20, 12. Every bucket must
+    hold the default bucket's parameter tensors, gradients and optimizer
+    states (one parameter set), every loss be finite, and the steps equal
+    the same module on the CPU within MODULE_SMALL_TOL."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    vocab, dim, classes, batch = 50, 16, 8, 4
+
+    def sym_gen(seq_len):
+        S = mxt.sym
+        e = S.Embedding(S.var("data"), input_dim=vocab, output_dim=dim,
+                        name="embed")
+        fc = S.FullyConnected(S.reshape(e, shape=(-1, dim)),
+                              num_hidden=classes, name="fc")
+        label = S.reshape(S.var("softmax_label"), shape=(-1,))
+        return S.SoftmaxOutput(fc, label, name="softmax"), ("data",), \
+            ("softmax_label",)
+
+    rng = onp.random.RandomState(73)
+    keys = (12, 20, 12)
+    batches = [(rng.randint(0, vocab, (batch, k)).astype("float32"),
+                rng.randint(0, classes, (batch, k)).astype("float32"))
+               for k in keys]
+    runs = []
+    for ctx in (mxt.gpu(0), mxt.cpu()):
+        mxt.random.seed(74)
+        bm = mxt.mod.BucketingModule(sym_gen, default_bucket_key=12,
+                                     context=ctx)
+        desc = mxt.io.DataDesc
+        bm.bind([desc("data", (batch, 12))],
+                [desc("softmax_label", (batch, 12))])
+        bm.init_params(mxt.init.Xavier())
+        bm.init_optimizer(optimizer="sgd", optimizer_params=_sgd_params(0.5))
+        losses = []
+        with _TF32(False):
+            for k, (d, l) in zip(keys, batches):
+                b = mxt.io.DataBatch(
+                    [mxt.nd.array(d, ctx=mxt.cpu())],
+                    [mxt.nd.array(l, ctx=mxt.cpu())], bucket_key=k,
+                    provide_data=[desc("data", (batch, k))],
+                    provide_label=[desc("softmax_label", (batch, k))])
+                bm.forward(b, is_train=True)
+                bm.backward()
+                bm.update()
+                p = bm.get_outputs()[0].asnumpy()
+                losses.append(float(-onp.log(
+                    p[onp.arange(p.shape[0]), l.ravel().astype(int)]).mean()))
+        runs.append((bm, losses))
+    bm, losses = runs[0]
+    a, b = bm._buckets[12], bm._buckets[20]
+    shared = all(a._exec.arg_dict[n] is b._exec.arg_dict[n]
+                 and a._exec.grad_dict[n] is b._exec.grad_dict[n]
+                 for n in ("embed_weight", "fc_weight", "fc_bias")) \
+        and a._updater_states is b._updater_states
+    check(shared, "BucketingModule: the buckets do not share one parameter "
+          "set")
+    check(all(math.isfinite(v) for v in losses), "BucketingModule: a loss "
+          "is not finite: %s" % losses)
+    err = max(_max_rel(onp.array(losses), onp.array(runs[1][1])),
+              max(_max_rel(v.asnumpy(), runs[1][0].get_params()[0][k]
+                           .asnumpy())
+                  for k, v in bm.get_params()[0].items()))
+    check(err <= MODULE_SMALL_TOL, "BucketingModule card vs CPU: %.3g" % err)
+    return dict(keys=list(keys), losses=losses, shared_parameter_set=shared,
+                max_rel_err_vs_cpu=err)
+
+
+def check_image_record_iter(tmp):
+    """ImageRecordIter decodes with PIL, as the JAX package's Python path
+    does. Where PIL imports, write MODULE_REC_IMAGES 256x256 JPEGs (and the
+    .idx) and time one pass at batch MODULE_REC_BATCH (rand_crop to 224,
+    rand_mirror, mean/std, 8 decode threads); else say it did not run."""
+    try:
+        import PIL
+    except ImportError:
+        log("module phase: ImageRecordIter pass NOT RUN: PIL does not "
+            "import on this machine")
+        return dict(pil=False, ran=False)
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    rec = os.path.join(tmp, "images.rec")
+    rng = onp.random.RandomState(75)
+    t0 = time.perf_counter()
+    w = mxt.recordio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "w")
+    for i in range(MODULE_REC_IMAGES):
+        img = rng.randint(0, 256, (256, 256, 3)).astype("uint8")
+        w.write_idx(i, mxt.recordio.pack_img(
+            mxt.recordio.IRHeader(0, float(i % 1000), i, 0), img,
+            quality=90))
+    w.close()
+    write_s = time.perf_counter() - t0
+    it = mxt.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, 224, 224),
+        batch_size=MODULE_REC_BATCH, shuffle=True, rand_crop=True,
+        rand_mirror=True, mean_r=123.68, mean_g=116.28, mean_b=103.53,
+        std_r=58.395, std_g=57.12, std_b=57.375, preprocess_threads=8)
+    t0 = time.perf_counter()
+    n = 0
+    for b in it:
+        n += b.data[0].shape[0] - b.pad
+        check(b.data[0].shape == (MODULE_REC_BATCH, 3, 224, 224)
+              and b.data[0].context == mxt.cpu()
+              and bool(onp.isfinite(b.data[0].asnumpy()).all()),
+              "ImageRecordIter: batch %s on %s" % (b.data[0].shape,
+                                                   b.data[0].context))
+    pass_s = time.perf_counter() - t0
+    check(n == MODULE_REC_IMAGES, "ImageRecordIter: %d images" % n)
+    return dict(pil=PIL.__version__, ran=True, images=n,
+                batch=MODULE_REC_BATCH, write_s=write_s, pass_s=pass_s,
+                images_per_s=n / pass_s, decode_threads=8)
+
+
+def _module_loss(mod, labels):
+    """Mean cross-entropy of the last forward's softmax at ``labels``, each
+    probability floored at 1e-12 as MXNet's CrossEntropy metric does (on
+    the card; one host read)."""
+    import torch
+    p = mod.get_outputs()[0]._data.detach()
+    lbl = torch.as_tensor(labels, device=p.device).long()
+    picked = p[torch.arange(p.shape[0], device=p.device), lbl]
+    return float(-torch.log(picked.clamp_min(1e-12)).mean())
+
+
+def _module_split(mod, batch, n):
+    """Device ms of forward, backward and update (CUDA events around each,
+    the medians of ``n`` steps)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    parts = {"forward": [], "backward": [], "update": []}
+    for _ in range(n):
+        ev[0].record()
+        mod.forward(batch, is_train=True)
+        ev[1].record()
+        mod.backward()
+        ev[2].record()
+        mod.update()
+        ev[3].record()
+        ev[3].synchronize()
+        for j, k in enumerate(parts):
+            parts[k].append(ev[j].elapsed_time(ev[j + 1]))
+    return {k + "_ms": sorted(v)[n // 2] for k, v in parts.items()}
+
+
+def train_module_resnet(tmp):
+    """BASELINE config 2 through the symbolic API: MXNet's ResNet-50 v1
+    symbol, B 256 x 3 x 224², 1000 classes, fp32 with TF32 on, trained by
+    Module.fit (SGD momentum 0.9, wd 1e-4, lr 0.1, Xavier gaussian/in/2,
+    the local kvstore) over MODULE_BATCHES seeded host batches for
+    MODULE_EPOCHS epochs with Speedometer and do_checkpoint; then timed
+    Module steps on the same batches. Returns (summary, the checkpoint
+    prefix, the host batches)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+
+    B, nb = RESNET_B, MODULE_BATCHES
+    t0 = time.perf_counter()
+    x, y = _module_data(B * nb, 224, 1000, 76)
+    data_s = time.perf_counter() - t0
+    sym = resnet_v1_symbol(mxt.sym, (3, 4, 6, 3), (64, 256, 512, 1024, 2048),
+                           1000, 224)
+    prefix = os.path.join(tmp, "resnet50_v1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    it = mxt.io.NDArrayIter(x, y, batch_size=B)
+    mod = mxt.mod.Module(sym)               # context None: gpu(0)
+    check(mod._context == mxt.gpu(0), "Module's default context is %s"
+          % mod._context)
+    t0 = time.perf_counter()
+    mod.bind(it.provide_data, it.provide_label)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    n_params = sum(a.size for n, a in mod._exec.arg_dict.items()
+                   if n in mod.param_names)
+    mxt.random.seed(77)
+    t0 = time.perf_counter()
+    mod.init_params(_xavier())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, batch_ms = [], []
+    speed = mxt.callback.Speedometer(B, frequent=1)
+    clock = [None]
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if clock[0] is not None:
+            batch_ms.append((now - clock[0]) * 1e3)
+        clock[0] = now
+        losses.append(_module_loss(mod, y[param.nbatch * B:
+                                          (param.nbatch + 1) * B]))
+
+    with _TF32(True):
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=MODULE_EPOCHS, optimizer="sgd",
+                optimizer_params=_sgd_params(), initializer=_xavier(),
+                batch_end_callback=[speed, on_batch],
+                epoch_end_callback=mxt.callback.do_checkpoint(prefix))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        check(all(math.isfinite(v) for v in losses), "Module.fit resnet50: "
+              "a loss is not finite: %s" % losses)
+        first, second = losses[:nb], losses[nb:]
+        check(sum(second) < sum(first) and losses[-1] < losses[0],
+              "Module.fit resnet50: the losses did not fall over the "
+              "repeated batches: %s" % losses)
+        for e in range(1, MODULE_EPOCHS + 1):
+            check(os.path.exists("%s-%04d.params" % (prefix, e)),
+                  "do_checkpoint wrote no epoch %d file" % e)
+        it.reset()
+        batch = next(iter(it))
+        _, step_ms, host_ms = _timed_steps(
+            lambda: (mod.forward_backward(batch), mod.update()),
+            MODULE_TIMED)
+        split = _module_split(mod, batch, MODULE_TIMED)
+        idle = device_idle_share(
+            lambda: (mod.forward_backward(batch), mod.update()))
+        issue = issue_ms(lambda: (mod.forward_backward(batch), mod.update()))
+        torch.cuda.synchronize()
+    img_s = B / (step_ms / 1e3)
+    for n in mod.param_names:
+        check(bool(torch.isfinite(mod._exec.arg_dict[n]._data).all()),
+              "Module.fit resnet50: %s is not finite" % n)
+    summary = dict(
+        symbol="example/image-classification/symbols/resnet-v1.py, "
+               "num_layers 50 (units 3/4/6/3, filters 64/256/512/1024/2048, "
+               "bottleneck)",
+        batch=[B, 3, 224, 224], classes=1000, dtype="float32", tf32=True,
+        batches=nb, epochs=MODULE_EPOCHS, params=n_params,
+        optimizer="sgd", lr=0.1, momentum=0.9, wd=1e-4,
+        initializer="Xavier(gaussian, in, 2)", kvstore="local",
+        data_setup_s=data_s, bind_s=bind_s, init_params_s=init_s, fit_s=fit_s,
+        fit_batch_ms=batch_ms, losses=losses,
+        speedometer_images_per_s=speed.last_speed,
+        step_ms=step_ms, step_host_ms=host_ms, images_per_s=img_s,
+        share_of_989_tflops=img_s * RESNET_FLOPS_PER_IMAGE / PEAK_BF16_FLOPS,
+        issue_ms=issue, peak_allocated_gb=torch.cuda.max_memory_allocated()
+        / 1e9, peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        **split, **idle)
+    log("Module.fit resnet50_v1 (symbolic, B %d x 3 x 224 x 224 fp32, TF32 "
+        "on, %.1f M params): bind %.2f s; step %.1f ms (forward %.1f, "
+        "backward %.1f, update %.1f device ms; host %.1f ms, issue %.1f ms, "
+        "idle %.1f%%); %.0f img/s; %.2f%% of 989 TFLOP/s at 24.6 GFLOP/img; "
+        "peak %.1f GB allocated, %.1f reserved; fit %.1f s for %d steps; "
+        "losses %s" % (
+            B, n_params / 1e6, bind_s, step_ms, split["forward_ms"],
+            split["backward_ms"], split["update_ms"], host_ms, issue,
+            100 * idle["idle_share"], img_s,
+            100 * summary["share_of_989_tflops"],
+            summary["peak_allocated_gb"], summary["peak_reserved_gb"],
+            fit_s, len(losses), ["%.3f" % v for v in losses]))
+    del mod, it, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, prefix, (x, y)
+
+
+def check_module_checkpoint(prefix, x):
+    """The card's last checkpoint: Module.load on the CPU and on the card
+    (inference binds of MODULE_CKPT_IMAGES images, TF32 off) give the same
+    probabilities, and a Module over the loaded graph's fc1 node the same
+    logits (the probabilities of a briefly trained net can saturate),
+    within MODULE_CKPT_TOL of the largest; SymbolBlock.imports of it on the
+    card equals the card Module's predict within 1e-5."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    n = MODULE_CKPT_IMAGES
+    xs, ys = x[:n], onp.zeros(n, "float32")
+    probs, logits = {}, {}
+    with _TF32(False):
+        for name, ctx in (("card", mxt.gpu(0)), ("cpu", mxt.cpu())):
+            mod = mxt.mod.Module.load(prefix, MODULE_EPOCHS, context=ctx)
+            it = mxt.io.NDArrayIter(xs, ys, batch_size=n)
+            mod.bind(it.provide_data, it.provide_label, for_training=False)
+            probs[name] = mod.predict(it).asnumpy()
+            sym, arg, aux = mxt.load_checkpoint(prefix, MODULE_EPOCHS)
+            fc1 = [s for s in sym.get_internals() if s.name == "fc1"][0]
+            head = mxt.mod.Module(fc1, label_names=None, context=ctx)
+            it = mxt.io.NDArrayIter(xs, batch_size=n)
+            head.bind(it.provide_data, for_training=False)
+            head.init_params(arg_params=arg, aux_params=aux)
+            logits[name] = head.predict(it).asnumpy()
+        blk = mxt.gluon.SymbolBlock.imports(
+            prefix + "-symbol.json", ["data", "softmax_label"],
+            "%s-%04d.params" % (prefix, MODULE_EPOCHS), ctx=mxt.gpu(0))
+        with mxt.autograd.predict_mode():
+            got = blk(mxt.nd.array(xs, ctx=mxt.gpu(0)),
+                      mxt.nd.array(ys, ctx=mxt.gpu(0))).asnumpy()
+    prob_err = _max_rel(probs["card"], probs["cpu"])
+    logit_err = _max_rel(logits["card"], logits["cpu"])
+    imports_err = _max_rel(got, probs["card"])
+    check(max(prob_err, logit_err) <= MODULE_CKPT_TOL, "checkpoint loaded "
+          "on the CPU: probabilities %.3g, logits %.3g of the card's largest"
+          % (prob_err, logit_err))
+    check(imports_err <= 1e-5, "SymbolBlock.imports against Module.predict: "
+          "%.3g" % imports_err)
+    return dict(images=n, cpu_vs_card_probabilities_max_rel=prob_err,
+                cpu_vs_card_logits_max_rel=logit_err,
+                largest_probability=float(probs["card"].max()),
+                largest_logit=float(onp.abs(logits["card"]).max()),
+                symbol_block_vs_predict_max_rel=imports_err)
+
+
+def train_gluon_resnet_yardstick(x, y):
+    """The same network as the port's Gluon model_zoo resnet50_v1 (Xavier
+    gaussian/in/2, fp32, TF32 on) through the eager Trainer loop (record,
+    forward, SoftmaxCrossEntropyLoss, backward, Trainer.step with SGD
+    momentum 0.9, wd 1e-4, lr 0.1), each batch copied from the same host
+    arrays to the card: step ms, host ms, issue ms, idle share, peak
+    memory."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    B = RESNET_B
+    warm, timed = MODULE_GLUON_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(78)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(_xavier(), ctx=mxt.gpu(0), generator=gen)
+    xb = mxt.nd.array(x[:B], ctx=mxt.cpu())
+    yb = mxt.nd.array(y[:B], ctx=mxt.cpu())
+    with mxt.autograd.pause(train_mode=False):
+        net(xb[:2].as_in_context(mxt.gpu(0)))
+    trainer = mxt.gluon.Trainer(net.collect_params(), "sgd", _sgd_params())
+    loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+
+    def step():
+        xd, yd = xb.as_in_context(mxt.gpu(0)), yb.as_in_context(mxt.gpu(0))
+        with mxt.autograd.record():
+            loss = loss_fn(net(xd), yd)
+        loss.backward()
+        trainer.step(B)
+        losses.append(loss)
+
+    with _TF32(True):
+        for _ in range(warm):
+            step()
+        _, step_ms, host_ms = _timed_steps(step, timed)
+        idle = device_idle_share(step)
+        issue = issue_ms(step)
+    means = [float(l._data.detach().mean()) for l in losses]
+    check(all(math.isfinite(v) for v in means), "Gluon resnet50 yardstick: "
+          "a loss is not finite: %s" % means)
+    img_s = B / (step_ms / 1e3)
+    row = dict(step_ms=step_ms, step_host_ms=host_ms, issue_ms=issue,
+               images_per_s=img_s,
+               share_of_989_tflops=img_s * RESNET_FLOPS_PER_IMAGE
+               / PEAK_BF16_FLOPS, losses=means,
+               peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+               **idle)
+    log("Gluon resnet50_v1 yardstick (eager Trainer loop, B %d fp32, TF32 "
+        "on): step %.1f ms (host %.1f, issue %.1f, idle %.1f%%); %.0f img/s; "
+        "peak %.1f GB allocated" % (B, step_ms, host_ms, issue,
+                                    100 * idle["idle_share"], img_s,
+                                    row["peak_allocated_gb"]))
+    del net, trainer, losses, xb, yb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def module_phase(card):
+    """The symbolic API and Module.fit (``module_phase``): the small card
+    = CPU Module check, the BucketingModule, ImageRecordIter, ResNet-50 v1
+    through Module.fit at BASELINE config 2's shape, its checkpoint on the
+    CPU and through SymbolBlock.imports, and the Gluon yardstick. Returns
+    (kernel launches over the main path, summary)."""
+    import shutil
+    import torch
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    tmp = _build_tmp()
+    try:
+        summary = dict(card=card, small_card_vs_cpu=check_module_small(),
+                       bucketing=check_bucketing_small(),
+                       image_record_iter=check_image_record_iter(tmp))
+        _kernels.reset_launches()
+        summary["resnet50"], prefix, (x, y) = train_module_resnet(tmp)
+        launches = dict(_kernels.LAUNCHES)
+        check(not any(launches.values()), "the Module path launched "
+              "hand-written kernels %s" % launches)
+        summary["checkpoint"] = check_module_checkpoint(prefix, x)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["gluon_yardstick"] = train_gluon_resnet_yardstick(x, y)
+    del x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -5482,7 +6072,7 @@ def main(argv):
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
                                      "end to end on one NVIDIA GPU.")
     parser.add_argument("--rtc-only", action="store_true",
-                        help="time K5's launch path (phase 17) alone")
+                        help="time K5's launch path (phase 18) alone")
     parser.add_argument("--imperative-only", action="store_true",
                         help="time the imperative BERT loop against "
                         "TrainStep (phase 6c) alone")
@@ -5500,6 +6090,9 @@ def main(argv):
     parser.add_argument("--ctc-only", action="store_true",
                         help="run the CTC acoustic model at DeepSpeech-2 "
                         "width (phase 16) alone")
+    parser.add_argument("--module-only", action="store_true",
+                        help="run the symbolic API and Module.fit's "
+                        "ResNet-50 v1 (phase 17) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -5561,7 +6154,8 @@ def main(argv):
     for flag, key, phase in ((opts.rnn_only, "rnn", lstm_lm),
                              (opts.zoo_only, "model_zoo", model_zoo),
                              (opts.ssd_only, "ssd", ssd_phase),
-                             (opts.ctc_only, "ctc", ctc_phase)):
+                             (opts.ctc_only, "ctc", ctc_phase),
+                             (opts.module_only, "module", module_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -5600,6 +6194,9 @@ def main(argv):
         gc.collect()
         torch.cuda.empty_cache()
         ctc_launches, ctc = ctc_phase(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        module_launches, module = module_phase(card)
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -5612,6 +6209,7 @@ def main(argv):
              "rtc": rtc_launches, "ndarray_bert": ndarray_launches,
              "lstm_lm": rnn_launches, "model_zoo": zoo_launches,
              "ssd": ssd_launches, "ctc": ctc_launches,
+             "module": module_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -5733,6 +6331,7 @@ def main(argv):
     log(json.dumps({"model_zoo": zoo}))
     log(json.dumps({"ssd": ssd}))
     log(json.dumps({"ctc": ctc}))
+    log(json.dumps({"module": module}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -32,6 +32,12 @@ JAX package's registry, ``Trainer.save_states``/``load_states``,
 ``metric`` (reduced on the card), ``callback``, ``gluon.utils`` and
 ``HybridBlock.hybridize`` (one forward and backward CUDA graph per call
 signature on the card).
+
+Beside Gluon it carries MXNet's symbolic API: ``mx.sym`` (a graph over the
+``nd`` operators, with MXNet's graph JSON), ``Executor``, ``mx.mod``
+(``Module.fit``, ``BucketingModule``, ``SequentialModule``), ``model``
+(checkpoints, ``FeedForward``), the local ``kvstore``, ``io`` (data
+iterators), ``recordio``, ``image`` and ``monitor``.
 """
 from . import base, error, name, attribute, registry  # noqa: F401
 from .base import MXNetError  # noqa: F401
@@ -45,6 +51,16 @@ from .optimizer import Optimizer  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .name import NameManager  # noqa: F401
 from . import test_utils  # noqa: F401
+from . import kvstore, recordio, io, image, model  # noqa: F401,E402
+from . import kvstore as kv  # noqa: F401,E402
+from .model import save_checkpoint, load_checkpoint, FeedForward  # noqa
+from . import symbol  # noqa: F401,E402
+from . import symbol as sym  # noqa: F401,E402
+from .executor import Executor  # noqa: F401,E402
+from . import module  # noqa: F401,E402
+from . import module as mod  # noqa: F401,E402
+from . import monitor  # noqa: F401,E402
+from .monitor import Monitor  # noqa: F401,E402
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
                       gpu, num_gpus, num_tpus, tpu)
 from .convert import from_jax_params, to_numpy_params  # noqa: F401

@@ -4,7 +4,7 @@ from __future__ import annotations
 import numpy as onp
 
 __all__ = ["MXNetError", "string_types", "numeric_types", "Registry",
-           "registry"]
+           "registry", "public_op_names"]
 
 
 class MXNetError(RuntimeError):
@@ -50,3 +50,22 @@ def registry(name):
     if name not in _registries:
         _registries[name] = Registry(name)
     return _registries[name]
+
+
+def public_op_names(namespace, exclude=()):
+    """Public operator-like callables of a namespace: everything that is
+    not underscored, a module, a class, or in ``exclude``. The one rule the
+    ``nd`` → ``sym`` registration (``symbol/__init__.py``) and the tests
+    share about what counts as an op."""
+    import inspect
+    import types
+    out = []
+    for n in sorted(dir(namespace)):
+        if n.startswith("_") or n in exclude:
+            continue
+        o = getattr(namespace, n)
+        if isinstance(o, types.ModuleType) or inspect.isclass(o) or \
+                not callable(o):
+            continue
+        out.append(n)
+    return out

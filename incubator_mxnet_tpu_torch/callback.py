@@ -4,9 +4,9 @@ A callback takes the loop's ``param`` (``epoch``, ``nbatch``,
 ``eval_metric``) and logs: ``Speedometer`` (samples a second, by
 ``time.perf_counter``), ``ProgressBar``, ``log_train_metric`` and
 ``LogValidationMetricsCallback``. Reading a metric is its one host read.
-``module_checkpoint`` and ``do_checkpoint`` save through the Module API
-and ``model.py``, which the port has not yet (the symbolic and legacy API,
-a later slice): they raise.
+``module_checkpoint`` and ``do_checkpoint`` are epoch-end callbacks that
+save a checkpoint through ``Module.save_checkpoint`` and
+``model.save_checkpoint``.
 """
 from __future__ import annotations
 
@@ -18,15 +18,26 @@ __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    raise NotImplementedError("module_checkpoint saves through the Module "
-                              "API, which comes with the port of the "
-                              "symbolic and legacy API (module/, model.py)")
+    """Epoch-end callback: ``mod.save_checkpoint`` every ``period``
+    epochs."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
 
 
 def do_checkpoint(prefix, period=1):
-    raise NotImplementedError("do_checkpoint saves through model.py, which "
-                              "comes with the port of the symbolic and "
-                              "legacy API (module/, model.py)")
+    """Epoch-end callback: ``model.save_checkpoint`` of the symbol and the
+    parameters every ``period`` epochs."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

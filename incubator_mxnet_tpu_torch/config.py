@@ -68,6 +68,11 @@ ENV_VARS = {
         "caller does not pass remat= explicitly: the forward and loss run "
         "under torch.utils.checkpoint and are recomputed in the backward "
         "(MXNET_BACKWARD_DO_MIRROR analog)."),
+    "MXTPU_CPU_WORKER_NTHREADS": (
+        int, 4,
+        "Default decode/augment thread count of io.ImageRecordIter when "
+        "preprocess_threads is not given (MXNET_CPU_WORKER_NTHREADS "
+        "analog)."),
 }
 
 

@@ -431,7 +431,7 @@ class HybridBlock(Block):
     def export(self, path, epoch=0, example_inputs=None):
         raise NotImplementedError("HybridBlock.export comes with the port "
                                   "of serving's exported artifacts "
-                                  "(ROADMAP.md §1 item 8)")
+                                  "(ROADMAP.md §1 item 4)")
 
 
 def _tensors_of(tree):
@@ -444,14 +444,84 @@ def _tensors_of(tree):
 
 
 class SymbolBlock(HybridBlock):
-    """A block over a Symbol graph: waits for the port of ``symbol/``
-    (ROADMAP.md §1 item 7), so building one or ``imports`` raises."""
+    """A block over a Symbol graph: ``outputs`` (a Symbol, or a list of
+    them) computed from ``inputs`` (variables). Every other variable of the
+    graph is a parameter of the block under its own name (the structural
+    name too); the auxiliary states (BatchNorm's moving statistics) have
+    grad_req "null". Shapes not known wait for the first call, which infers
+    them from the inputs' (``symbol._infer``)."""
 
     def __init__(self, outputs, inputs, params=None):
-        raise NotImplementedError("SymbolBlock comes with the port of "
-                                  "symbol/ (ROADMAP.md §1 item 7)")
+        super().__init__(prefix="", params=params)
+        from ..symbol import Group
+        if isinstance(outputs, (list, tuple)):
+            outputs = outputs[0] if len(outputs) == 1 else Group(outputs)
+        self._sym = outputs
+        self._inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        input_names = {i.name for i in self._inputs}
+        aux = set(outputs.list_auxiliary_states())
+        for name in outputs.list_inputs():
+            if name not in input_names:
+                setattr(self, name, Parameter(
+                    name, grad_req="null" if name in aux else "write",
+                    allow_deferred_init=True))
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None):
-        raise NotImplementedError("SymbolBlock.imports comes with the port "
-                                  "of symbol/ (ROADMAP.md §1 item 7)")
+        """A SymbolBlock over a ``-symbol.json`` file, its parameters loaded
+        from ``param_file`` (a checkpoint's ``.params``: ``arg:``/``aux:``
+        keys) on ``ctx`` (default: the current context). The manifest of
+        ``HybridBlock.export`` comes with the port of serving's exported
+        artifacts (ROADMAP.md §1 item 4)."""
+        import json
+        from .. import symbol as mxsym
+        with open(symbol_file) as f:
+            text = f.read()
+        meta = json.loads(text)
+        if isinstance(meta, dict) and \
+                meta.get("format") == "incubator_mxnet_tpu.hybrid":
+            raise NotImplementedError(
+                "SymbolBlock.imports of a HybridBlock.export manifest comes "
+                "with the port of serving's exported artifacts (ROADMAP.md "
+                "§1 item 4)")
+        sym = mxsym.load_json(text)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        name_to_var = {v.name: v for v in sym.get_internals() if v.is_var}
+        block = SymbolBlock(sym, [name_to_var[n] for n in input_names])
+        if param_file is not None:
+            loaded = {k.split(":", 1)[-1]: v
+                      for k, v in nd.load(param_file).items()}
+            own = set(block._reg_params)
+            extra, missing = set(loaded) - own, own - set(loaded)
+            if extra or missing:
+                raise AssertionError(
+                    "params file does not match the graph: missing %s, "
+                    "extra %s" % (sorted(missing), sorted(extra)))
+            for name, v in loaded.items():
+                p = block._reg_params[name]
+                p.shape = tuple(v.shape)
+                p.initialize(init="zeros", ctx=ctx, force_reinit=True)
+                p.set_data(v)
+        return block
+
+    def _infer_param_shapes(self, *args):
+        from ..symbol.symbol import _infer
+        shapes = {i.name: tuple(a.shape) for i, a in zip(self._inputs, args)}
+        for name, p in self._reg_params.items():
+            if p._data is not None:
+                shapes[name] = tuple(p.shape)
+        got = _infer(self._sym, shapes)
+        if got is None:
+            raise DeferredInitializationError(
+                "SymbolBlock cannot infer its parameters' shapes from "
+                "inputs of shapes %s" % [tuple(a.shape) for a in args])
+        for name, p in self._reg_params.items():
+            if p._data is None:
+                p.shape = got[0][name]
+
+    def hybrid_forward(self, F, *args, **params):
+        bindings = {i.name: a for i, a in zip(self._inputs, args)}
+        bindings.update(params)
+        return self._sym.eval_imperative(bindings)

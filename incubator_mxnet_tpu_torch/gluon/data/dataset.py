@@ -123,9 +123,15 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """A dataset over a RecordIO file: waits for the port of
-    ``recordio.py`` (the symbolic and legacy API's slice)."""
+    """The records of a RecordIO file (and its ``.idx``), as bytes."""
 
     def __init__(self, filename):
-        raise NotImplementedError("RecordFileDataset comes with the port of "
-                                  "recordio.py")
+        from ... import recordio
+        self._record = recordio.MXIndexedRecordIO(
+            filename[: filename.rfind(".")] + ".idx", filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

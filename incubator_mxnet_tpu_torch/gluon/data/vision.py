@@ -14,8 +14,9 @@ through numpy, NDArrays through ``nd`` on their (host) device. ``Resize``
 and ``RandomResizedCrop`` resample with ``jax.image.resize``'s "linear"
 arithmetic (a triangle kernel, widened by the scale when shrinking,
 weights normalised per output pixel), computed here with numpy and torch.
-``ImageRecordDataset`` and ``ImageFolderDataset`` wait for the port of
-``recordio.py`` and ``image.py``.
+``ImageRecordDataset`` decodes the images of a RecordIO file and
+``ImageFolderDataset`` those of a folder per class, with PIL, as HWC uint8
+NDArrays on the host.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from ...context import cpu
 from ...ndarray import NDArray
 from .dataset import Dataset
 
-__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100", "transforms"]
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
+           "ImageRecordDataset", "ImageFolderDataset", "transforms"]
 
 
 class _DownloadedDataset(Dataset):
@@ -162,6 +164,64 @@ class CIFAR100(CIFAR10):
 
 
 # ---------------------------------------------------------------- resizing
+class ImageRecordDataset(Dataset):
+    """(image, label) of each record of an image RecordIO file; the image
+    decoded with ``flag`` (1 colour, 0 grey) and put through
+    ``transform(img, label)`` when given."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        from ... import recordio
+        self._record = recordio.MXIndexedRecordIO(
+            filename[: filename.rfind(".")] + ".idx", filename, "r")
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ... import image, recordio
+        record = self._record.read_idx(self._record.keys[idx])
+        header, img = recordio.unpack(record)
+        img = image.imdecode(img, self._flag)
+        label = header.label
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self._record.keys)
+
+
+class ImageFolderDataset(Dataset):
+    """(image, label) of the images in ``root/<class>/``, the labels from
+    the sorted class folder names (``synsets``)."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(self._root)):
+            path = os.path.join(self._root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for fname in sorted(os.listdir(path)):
+                if fname.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")):
+                    self.items.append((os.path.join(path, fname), label))
+
+    def __getitem__(self, idx):
+        from ... import image
+        img = image.imread(self.items[idx][0], self._flag)
+        label = self.items[idx][1]
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)
+
+
 def _resize_weights(in_size, out_size):
     """``jax.image.resize``'s "linear" weights (``compute_weight_mat``) as
     an (in_size, out_size) float32 matrix: a triangle kernel at the

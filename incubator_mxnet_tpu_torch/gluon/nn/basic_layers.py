@@ -208,13 +208,13 @@ class SyncBatchNorm(BatchNorm):
     """Batch normalisation whose statistics MXNet synchronises across
     devices. On one device it is ``BatchNorm``, as in the JAX package;
     across devices (``num_devices`` > 1) it waits for the multi-GPU slice
-    (ROADMAP.md §1 item 6)."""
+    (ROADMAP.md §1 item 5)."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):
         if num_devices is not None and num_devices > 1:
             raise NotImplementedError("SyncBatchNorm across devices comes "
                                       "with the multi-GPU slice (ROADMAP.md "
-                                      "§1 item 6)")
+                                      "§1 item 5)")
         super().__init__(in_channels=in_channels, **kwargs)
 
 

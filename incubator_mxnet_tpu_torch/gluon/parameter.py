@@ -222,10 +222,10 @@ class Parameter:
         self._version += 1
 
     def var(self):
-        """MXNet's symbol of this parameter: waits for the port of
-        ``symbol/`` (ROADMAP.md §1 item 3)."""
-        raise NotImplementedError("Parameter.var comes with the port of "
-                                  "symbol/ (ROADMAP.md §1 item 3)")
+        """This parameter as a symbol variable of its name, shape and
+        dtype."""
+        from ..symbol import var
+        return var(self.name, shape=self._shape, dtype=self.dtype)
 
     @torch.no_grad()
     def set_data(self, data):

@@ -24,8 +24,10 @@ register = _REG.register
 
 
 class Initializer:
-    """Base initializer: dispatches on the parameter name's suffix (bias and
-    beta → 0, gamma → 1), everything else to ``_init_weight``."""
+    """Base initializer: dispatches on the parameter name (bias and beta →
+    0, gamma → 1, a running or moving mean → 0 and variance → 1, as the
+    JAX package's ``init_weight_by_name``), everything else to
+    ``_init_weight``."""
 
     @torch.no_grad()
     def __call__(self, name, arr, generator=None):
@@ -33,6 +35,10 @@ class Initializer:
         if name.endswith("bias") or name.endswith("beta"):
             arr.zero_()
         elif name.endswith("gamma"):
+            arr.fill_(1.0)
+        elif "running_mean" in name or "moving_mean" in name:
+            arr.zero_()
+        elif "running_var" in name or "moving_var" in name:
             arr.fill_(1.0)
         else:
             self._init_weight(name, arr, generator)

@@ -40,6 +40,7 @@ def Custom(*inputs, op_type, **kwargs):
 
 def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
              mean=None, **kw):
-    """Decode an image: waits for the port of ``image.py``."""
-    raise NotImplementedError("nd.imdecode comes with the port of image.py "
-                              "(ROADMAP.md §1 item 3)")
+    """Decode JPEG/PNG bytes into an HWC uint8 NDArray on the host
+    (``image.imdecode``; ``channels`` 1 gives one grey channel)."""
+    from ..image import imdecode as _imd
+    return _imd(str_img, flag=1 if channels == 3 else 0)

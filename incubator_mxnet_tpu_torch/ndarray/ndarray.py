@@ -578,7 +578,7 @@ def _apply(fn, *inputs, **kwargs):
     come back as they are.
 
     The JAX package's per-op profiler hook (``profile_imperative``) belongs
-    here too; it waits for the port of ``profiler.py`` (ROADMAP §1 item 7).
+    here too; it waits for the port of ``profiler.py`` (ROADMAP §1 item 3).
     """
     wrapped = False
     args = []

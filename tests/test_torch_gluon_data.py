@@ -115,7 +115,7 @@ def test_loader_options_and_batch_sampler():
         assert all(b.context == mxt.cpu() for b in pinned)
 
 
-def test_dataset_methods_equal_the_jax_package():
+def test_dataset_methods_equal_the_jax_package(tmp_path):
     """filter, shard, take, transform (lazy and not), transform_first."""
     x, y = _arrays(n=11)
     for ds_t, ds_j in ((tdata.ArrayDataset(x, y), jdata.ArrayDataset(x, y)),
@@ -134,8 +134,14 @@ def test_dataset_methods_equal_the_jax_package():
                 b = b if isinstance(b, tuple) else (b,)
                 for u, v in zip(a, b):
                     assert onp.array_equal(onp.asarray(u), onp.asarray(v))
-    with pytest.raises(NotImplementedError, match="recordio"):
-        tdata.RecordFileDataset("x.rec")
+    rec = str(tmp_path / "x.rec")
+    w = mxt.recordio.MXIndexedRecordIO(str(tmp_path / "x.idx"), rec, "w")
+    for i in range(3):
+        w.write_idx(i, b"record-%d" % i)
+    w.close()
+    got, ref = tdata.RecordFileDataset(rec), jdata.RecordFileDataset(rec)
+    assert len(got) == len(ref) == 3
+    assert [got[i] for i in range(3)] == [ref[i] for i in range(3)]
 
 
 @pytest.mark.parametrize("name", ["MNIST", "FashionMNIST", "CIFAR10"])

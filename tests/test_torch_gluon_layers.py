@@ -606,12 +606,19 @@ def test_constant_parameter_keeps_its_value_and_round_trips(tmp_path):
         jgluon.Constant("c", [1, 2]).dtype
 
 
-def test_symbol_block_and_export_wait_for_their_slices():
-    with pytest.raises(NotImplementedError, match="symbol/"):
-        mxt.gluon.SymbolBlock(None, None)
-    with pytest.raises(NotImplementedError, match="symbol/"):
-        mxt.gluon.SymbolBlock.imports("net-symbol.json", ["data"])
-    with pytest.raises(NotImplementedError, match="serving"):
+def test_symbol_block_and_export_wait_for_their_slices(tmp_path):
+    """SymbolBlock came with the symbolic API (its parity tests are in
+    test_torch_module.py); HybridBlock.export and the imports of its
+    manifest wait for serving's exported artifacts (ROADMAP item 4)."""
+    d = mxt.sym.var("data")
+    blk = mxt.gluon.SymbolBlock(mxt.sym.FullyConnected(d, num_hidden=2,
+                                                       name="fc"), d)
+    assert sorted(blk.collect_params()) == ["fc_bias", "fc_weight"]
+    manifest = tmp_path / "net-symbol.json"
+    manifest.write_text('{"format": "incubator_mxnet_tpu.hybrid"}')
+    with pytest.raises(NotImplementedError, match="item 4"):
+        mxt.gluon.SymbolBlock.imports(str(manifest), ["data"])
+    with pytest.raises(NotImplementedError, match="item 4"):
         mxt.gluon.nn.Dense(2, in_units=2).export("net")
 
 

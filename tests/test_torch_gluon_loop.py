@@ -401,7 +401,7 @@ def test_callbacks_log_as_the_jax_package(caplog, monkeypatch):
             pkg.callback.LogValidationMetricsCallback()(_Param(3, 0, m))
         lines.append([r.getMessage() for r in caplog.records])
     assert lines[0] == lines[1] and len(lines[1]) == 5
-    with pytest.raises(NotImplementedError, match="model.py"):
-        mxt.callback.do_checkpoint("x")
-    with pytest.raises(NotImplementedError, match="Module"):
-        mxt.callback.module_checkpoint(None, "x")
+    # the checkpoint callbacks came with the Module API; their files are
+    # held against the JAX package's in test_torch_module.py
+    assert callable(mxt.callback.do_checkpoint("x"))
+    assert callable(mxt.callback.module_checkpoint(None, "x"))

@@ -154,7 +154,12 @@ PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "ndarray.contrib", "ops.ctc", "ops.deformable",
                 "autograd", "base", "error", "name", "attribute", "registry",
                 "context", "test_utils", "convert", "gluon.parameter",
-                "gluon.block", "gluon.trainer", "gluon.loss", "jit")
+                "gluon.block", "gluon.trainer", "gluon.loss", "jit",
+                "symbol", "symbol.symbol", "symbol.contrib", "executor",
+                "kvstore", "kvstore.kvstore", "kvstore.kvstore_server",
+                "model", "module", "module.base_module", "module.module",
+                "module.bucketing_module", "module.sequential_module",
+                "io", "io.io", "recordio", "image", "monitor")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
