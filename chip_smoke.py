@@ -61,7 +61,14 @@ Phases, each of which must pass, in order:
    (vocab_size, -vocab_size - 1) between two submissions of one batch of
    8: its reply must be NaN throughout, as the reference's, the batch's
    replies after it must equal those before it bit for bit, and the card
-   must still synchronise.
+   must still synchronise. The 16 BERT requests and the GPT request run
+   under the profiler (``profiler.set_state('run')``): each dispatched
+   batch must leave exactly one ``serve:<model>:batch<bucket>`` event
+   whose ``batch_size`` arguments add up to the requests served. The
+   stage breakdown times BlockServable's host copy (bf16 into pinned host
+   memory, widened on the host) against the old conversion (widened on
+   the card, a pageable copy) on the same logits, and holds them equal
+   bit for bit.
 6. The NDArray layer (``check_ndarray``), after the serving models are
    freed. (a) The port's op sweep (``test_utils.op_consistency_sweep`` and
    ``grad_consistency_sweep``, 195 entries of the JAX package's sweep
@@ -322,6 +329,32 @@ Phases, each of which must pass, in order:
    network as the Gluon model zoo's resnet50_v1 through an eager fp32
    Trainer loop, step ms, issue ms and idle share. Prints a {"module":
    ...} line.
+19. (Run after phase 17, before 18.) The rest of the legacy API
+   (``bucketing_phase``), MXNet's example/rnn/bucketing/lstm_bucketing.py
+   (v1.6) at its published defaults (BUCKETING). (a) mx.rnn cells through
+   a BucketingModule on the card and on the CPU from the same Xavier
+   draw, TF32 off: a 2-layer LSTMCell stack, a 2-layer FusedRNNCell
+   (dropout 0) and a GRUCell, 3 SGD steps over the keys 9, 6, 9: losses
+   and parameters within BUCKETING_SMALL_TOL, one shared parameter set.
+   (b) Full width: 2 x LSTMCell(200), embed 200, vocabulary 10,000, batch
+   32, buckets 10-60, fp32 with TF32 on, through BucketingModule.fit (the
+   default context, gpu(0)) for one epoch over BUCKETING_SENTENCES
+   seeded Zipf sentences from BucketSentenceIter (every bucket binds),
+   with Speedometer (auto_reset False, as the script) and
+   do_rnn_checkpoint: each window's perplexity finite, the last below the
+   first, one shared parameter set, no hand-written kernel launched; bind
+   s per bucket; the checkpoint through load_rnn_checkpoint into a CPU
+   Module gives the card's probabilities for one batch (TF32 off) within
+   BUCKETING_CKPT_TOL. Then each bucket's step timed (device ms by CUDA
+   events, host ms, tokens/s), and at bucket 60 the issue ms, the idle
+   share, the device activities a step (``kernels_in``) and the step with
+   the profiler off and on (profile_imperative: every operator synced)
+   in the same call, its op events a step, the aggregate table's top rows
+   and a ``dump()`` that json reads; peak allocated and reserved memory.
+   (c) A captured TrainStep over a hybridized ``hybrid_forward`` block
+   while the profiler runs: one capture, no operator event from the
+   capture or its replays, captured = eager bit for bit. Prints a
+   {"bucketing": ...} line.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -340,8 +373,8 @@ Phases, each of which must pass, in order:
 Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
-{"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...}
-and a {"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
+{"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...},
+a {"bucketing": ...} and a {"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
 this script, or any phase fails.
 
@@ -359,8 +392,9 @@ loop and of TrainStep, and prints {"imperative": {...}}; ``--gluon-only``
 runs phase 12 alone and prints {"gluon_loop": {...}}, ``--rnn-only``
 phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"model_zoo": {...}}), ``--ssd-only`` phase 15 ({"ssd": {...}}) and
-``--ctc-only`` phase 16 ({"ctc": {...}}) and ``--module-only`` phase 17
-({"module": {...}}).
+``--ctc-only`` phase 16 ({"ctc": {...}}), ``--module-only`` phase 17
+({"module": {...}}) and ``--bucketing-only`` phase 19
+({"bucketing": {...}}).
 """
 import gc
 import itertools
@@ -1034,7 +1068,7 @@ def serve_full_width():
     import numpy as onp
     import torch
     import incubator_mxnet_tpu_torch as mxt
-    from incubator_mxnet_tpu_torch import models, serving
+    from incubator_mxnet_tpu_torch import models, profiler, serving
     from incubator_mxnet_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -1084,13 +1118,23 @@ def serve_full_width():
         threads.append(threading.Thread(target=gpt_client))
         torch.cuda.synchronize()
         _kernels.reset_launches()
+        profiler.dumps(reset=True)
+        with profiler._LOCK:
+            profiler._EVENTS.clear()
+        profiler.set_state("run")
         t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+        finally:
+            profiler.set_state("stop")
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(_kernels.LAUNCHES)
+        served_events = {n: [e for e in profiler._EVENTS
+                             if e["name"].startswith("serve:%s:" % n)]
+                         for n in ("bert", "gpt")}
         check(not any(t.is_alive() for t in threads), "a client hung")
         check(not errors, "requests failed: %r" % errors[:3])
         batches = {n: reg.metrics(n).batch_count - base[n]
@@ -1118,6 +1162,16 @@ def serve_full_width():
     g = replies["gpt"]
     check(g.shape == (GPT_S, 32768) and bool(onp.isfinite(g).all()),
           "gpt reply has shape %s or is not finite" % (g.shape,))
+    for n, want in (("bert", BERT_REQUESTS), ("gpt", 1)):
+        evs = served_events[n]
+        check(len(evs) == batches[n] and sum(
+            e["args"]["batch_size"] for e in evs) == want and all(
+            e["name"] == "serve:%s:batch%d" % (n, e["args"]["bucket"])
+            for e in evs), "profiler: %d serve:%s events for %d batches "
+            "of %d requests: %s" % (len(evs), n, batches[n], want,
+                                    [(e["name"], e["args"]) for e in evs]))
+    profiled = {n: [(e["name"], e["args"]["batch_size"], e["dur"] / 1e3)
+                    for e in evs] for n, evs in served_events.items()}
 
     # served rows against a direct forward of the same row (bf16 GEMMs at
     # another batch size may round differently: allow 2% of the logit range)
@@ -1137,7 +1191,8 @@ def serve_full_width():
         bert_batches=batches["bert"], bert_batch_sizes=hist,
         gpt_batches=batches["gpt"], wall_ms=wall_ms,
         bert_latency_ms=sorted(lat["bert"]), gpt_latency_ms=lat["gpt"],
-        served_vs_direct_max_abs=worst, bad_ids=bad_ids)
+        served_vs_direct_max_abs=worst, bad_ids=bad_ids,
+        profiled_batches=profiled)
     log("serving: %d BERT requests in %d batches %s, 1 GPT request; "
         "wall %.1f ms" % (BERT_REQUESTS, batches["bert"], hist, wall_ms))
     log("serving: BERT latency ms p50 %.1f max %.1f; GPT latency ms %.1f; "
@@ -5771,6 +5826,468 @@ def module_phase(card):
     return launches, summary
 
 
+# MXNet's example/rnn/bucketing/lstm_bucketing.py (apache/incubator-mxnet
+# v1.6) at its published defaults: 2 x mx.rnn.LSTMCell(200), embed 200,
+# buckets 10-60, batch 32, SGD lr 0.01 momentum 0 wd 1e-5, Xavier(in, 2.34),
+# Perplexity(invalid_label 0); PTB's vocabulary of 10,000 (PTB is not in
+# the repository: a seeded Zipf corpus stands in)
+BUCKETING = dict(num_hidden=200, num_embed=200, num_layers=2, vocab=10000,
+                 batch=32, buckets=(10, 20, 30, 40, 50, 60),
+                 invalid_label=0, lr=0.01, momentum=0.0, wd=1e-5)
+BUCKETING_SENTENCES = 1600     # lengths 1-60: 8 batches a bucket, one epoch
+BUCKETING_DISP = 8             # Speedometer's window (the script's 50 > epoch)
+BUCKETING_TIMED = 3            # timed steps a bucket after fit
+BUCKETING_PROFILED = 2         # steps at bucket 60 under the profiler
+BUCKETING_SMALL_STEPS = 3
+BUCKETING_SMALL_TOL = 1e-4     # card (TF32 off) vs CPU, fp32
+BUCKETING_CKPT_TOL = 1e-4      # checkpoint on the CPU vs the card, TF32 off
+
+
+def zipf_sentences(n, vocab, max_len, seed):
+    """``n`` sentences of lengths uniform over 1..``max_len``, their ids
+    drawn from a Zipf law (rank r with weight 1/r) over 1..vocab-1, id 0
+    being the invalid label."""
+    import numpy as onp
+    rng = onp.random.RandomState(seed)
+    lengths = rng.randint(1, max_len + 1, n)
+    p = 1.0 / onp.arange(1, vocab)
+    ids = rng.choice(vocab - 1, int(lengths.sum()), p=p / p.sum()) + 1
+    cuts = onp.cumsum(lengths)[:-1]
+    return [s.tolist() for s in onp.split(ids, cuts)]
+
+
+def lstm_bucketing_sym_gen(R, S, stack, vocab, num_embed, num_hidden):
+    """lstm_bucketing.py's sym_gen over ``stack`` (mx.rnn cells) with the
+    port's mx.rnn ``R`` and mx.sym ``S``."""
+    def sym_gen(seq_len):
+        data = S.var("data")
+        label = S.var("softmax_label")
+        embed = S.Embedding(data=data, input_dim=vocab, output_dim=num_embed,
+                            name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = S.reshape(outputs, shape=(-1, num_hidden))
+        pred = S.FullyConnected(data=pred, num_hidden=vocab, name="pred")
+        label = S.reshape(label, shape=(-1,))
+        pred = S.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def _bucketing_sgd(lr):
+    return {"learning_rate": lr, "momentum": BUCKETING["momentum"],
+            "wd": BUCKETING["wd"]}
+
+
+def _shares_one_set(bm, names):
+    """Whether every bound bucket holds the default bucket's parameter
+    tensors, gradients and optimizer states."""
+    base = bm._buckets[bm._default_bucket_key]
+    return all(m._exec.arg_dict[n] is base._exec.arg_dict[n]
+               and m._exec.grad_dict[n] is base._exec.grad_dict[n]
+               for m in bm._buckets.values() if m.binded for n in names) \
+        and all(m._updater_states is base._updater_states
+                for m in bm._buckets.values() if m.binded)
+
+
+def check_bucketing_cells_small():
+    """The legacy cells through BucketingModule, on the card and on the
+    CPU from the same Xavier draw, TF32 off: a 2-layer LSTMCell stack, a
+    2-layer FusedRNNCell (dropout 0) and a GRUCell, each BUCKETING_SMALL_
+    STEPS SGD steps over the keys 9, 6, 9. Losses and parameters within
+    BUCKETING_SMALL_TOL of the largest value; the buckets share one
+    parameter set."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    vocab, embed, hidden, batch, keys = 40, 12, 16, 4, (9, 6, 9)
+
+    def lstm_stack(R):
+        s = R.SequentialRNNCell()
+        for i in range(2):
+            s.add(R.LSTMCell(hidden, prefix="lstm_l%d_" % i))
+        return s
+
+    cells = {"lstm_stack": lstm_stack,
+             "fused_lstm": lambda R: R.FusedRNNCell(
+                 hidden, num_layers=2, mode="lstm", dropout=0.0,
+                 prefix="fused_"),
+             "gru": lambda R: R.GRUCell(hidden, prefix="gru_")}
+    rng = onp.random.RandomState(82)
+    batches = [(rng.randint(1, vocab, (batch, k)).astype("float32"),
+                rng.randint(0, vocab, (batch, k)).astype("float32"))
+               for k in keys]
+    desc = mxt.io.DataDesc
+    out = {}
+    for name, make in cells.items():
+        runs = []
+        for ctx in (mxt.gpu(0), mxt.cpu()):
+            mxt.random.seed(83)
+            bm = mxt.mod.BucketingModule(
+                lstm_bucketing_sym_gen(mxt.rnn, mxt.sym, make(mxt.rnn),
+                                       vocab, embed, hidden),
+                default_bucket_key=9, context=ctx)
+            bm.bind([desc("data", (batch, 9))],
+                    [desc("softmax_label", (batch, 9))])
+            bm.init_params(mxt.init.Xavier(factor_type="in",
+                                           magnitude=2.34))
+            bm.init_optimizer(optimizer="sgd",
+                              optimizer_params=_bucketing_sgd(0.5))
+            losses = []
+            with _TF32(False):
+                for k, (d, l) in zip(keys, batches):
+                    b = mxt.io.DataBatch(
+                        [mxt.nd.array(d, ctx=mxt.cpu())],
+                        [mxt.nd.array(l, ctx=mxt.cpu())], bucket_key=k,
+                        provide_data=[desc("data", (batch, k))],
+                        provide_label=[desc("softmax_label", (batch, k))])
+                    bm.forward(b, is_train=True)
+                    bm.backward()
+                    bm.update()
+                    p = bm.get_outputs()[0].asnumpy()
+                    losses.append(float(-onp.log(p[onp.arange(
+                        p.shape[0]), l.ravel().astype(int)]).mean()))
+            params = {k: v.asnumpy() for k, v in bm.get_params()[0].items()}
+            runs.append((bm, losses, params))
+        (bm, losses, params), (_, cpu_losses, cpu_params) = runs
+        shared = _shares_one_set(bm, list(params))
+        check(shared, "small %s: the buckets do not share one parameter "
+              "set" % name)
+        check(all(math.isfinite(v) for v in losses), "small %s: a loss is "
+              "not finite: %s" % (name, losses))
+        err = max([_max_rel(onp.array(losses), onp.array(cpu_losses))]
+                  + [_max_rel(params[k], cpu_params[k]) for k in params])
+        check(err <= BUCKETING_SMALL_TOL, "small %s card vs CPU: %.3g of the "
+              "largest value (tolerance %g)" % (name, err,
+                                                BUCKETING_SMALL_TOL))
+        out[name] = dict(losses=losses, max_rel_err_vs_cpu=err,
+                         params=sorted(params), shared_parameter_set=shared)
+    log("bucketing, small cells card vs CPU (%d steps, keys %s, TF32 off): "
+        "%s" % (BUCKETING_SMALL_STEPS, list(keys),
+                {k: "%.2g" % v["max_rel_err_vs_cpu"] for k, v in out.items()}))
+    return dict(steps=BUCKETING_SMALL_STEPS, keys=list(keys),
+                tol=BUCKETING_SMALL_TOL, cells=out)
+
+
+def _bucket_batch(it, key):
+    """The first batch of bucket ``key`` in ``it``'s order."""
+    it.reset()
+    return next(b for b in it if b.bucket_key == key)
+
+
+def check_bucketing_checkpoint(bm, stack_gen, prefix, it):
+    """The epoch's checkpoint (do_rnn_checkpoint: the current bucket's
+    symbol and the parameters) through load_rnn_checkpoint into a Module on
+    the CPU: its probabilities for one batch of that bucket equal the
+    card's (TF32 off) within BUCKETING_CKPT_TOL of the largest."""
+    import incubator_mxnet_tpu_torch as mxt
+    key = bm._curr_bucket_key
+    sym, arg, aux = mxt.rnn.load_rnn_checkpoint(stack_gen(), prefix, 1)
+    batch = _bucket_batch(it, key)
+    with _TF32(False):
+        bm.forward(batch, is_train=False)
+        card = bm.get_outputs()[0].asnumpy()
+    mod = mxt.mod.Module(sym, context=mxt.cpu())
+    mod.bind(batch.provide_data, batch.provide_label, for_training=False)
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.forward(batch, is_train=False)
+    cpu = mod.get_outputs()[0].asnumpy()
+    err = _max_rel(card, cpu)
+    check(err <= BUCKETING_CKPT_TOL, "bucketing checkpoint on the CPU vs the "
+          "card: %.3g of the largest probability" % err)
+    return dict(bucket=key, params=len(arg), max_rel_err=err,
+                largest_probability=float(card.max()))
+
+
+def _hf_net(mxt):
+    """A small MLP in MXNet's ``hybrid_forward`` idiom (F is nd)."""
+    class HFNet(mxt.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.fc1 = mxt.gluon.nn.Dense(64, in_units=32)
+                self.fc2 = mxt.gluon.nn.Dense(10, in_units=64)
+
+        def hybrid_forward(self, F, x):
+            h = F.relu(self.fc1(x))
+            return self.fc2(F.tanh(h) * 0.5 + h)
+    return HFNet()
+
+
+def check_profiled_capture():
+    """A captured TrainStep over a hybridized hybrid_forward block while
+    the profiler runs with profile_imperative: the capture succeeds, no
+    operator event comes from it or from its replays (the events after
+    the steps are those of the one eager first step), and its losses and
+    weights equal the eager body's bit for bit (that run profiled too)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import profiler
+    rng = onp.random.RandomState(84)
+    x = torch.from_numpy(rng.randn(16, 32).astype("float32")).cuda()
+    y = torch.from_numpy(rng.randint(0, 10, 16).astype("float32")).cuda()
+    runs = {}
+    for mode in ("eager", "captured"):
+        net = _hf_net(mxt)
+        net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0),
+                       generator=torch.Generator(device="cuda:0")
+                       .manual_seed(85))
+        net.hybridize()
+        step = mxt.jit.TrainStep(
+            net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
+            mxt.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.1}))
+        profiler.dumps(reset=True)
+        with profiler._LOCK:
+            profiler._EVENTS.clear()
+        profiler.set_state("run")
+        losses, events = [], []
+        try:
+            for _ in range(SMALL_CAPTURED_STEPS):
+                losses.append((step(x, y)._data if mode == "captured"
+                               else _eager_step(step, x, y)._data).clone())
+                torch.cuda.synchronize()
+                events.append(sum(1 for e in profiler._EVENTS
+                                  if e["name"].startswith("op:")))
+        finally:
+            profiler.set_state("stop")
+        runs[mode] = (losses, events, mxt.to_numpy_params(net),
+                      step.captures)
+    (el, ee, ep, _), (cl, ce, cp, captures) = runs["eager"], \
+        runs["captured"]
+    per_step = ee[0]
+    check(captures == 1, "profiled capture: %d captures, expected 1"
+          % captures)
+    check(per_step > 0 and ee == [per_step * (i + 1)
+                                  for i in range(len(ee))],
+          "profiled eager body: op events %s" % ee)
+    check(ce == [per_step] * len(ce), "profiled capture: op events %s, "
+          "expected the eager first step's %d only" % (ce, per_step))
+    check(all(torch.equal(a, b) for a, b in zip(cl, el)),
+          "profiled capture: captured losses differ from eager")
+    bad = [k for k in ep if not onp.array_equal(ep[k], cp[k])]
+    check(not bad, "profiled capture: weights differ from eager: %s" % bad)
+    return dict(captures=captures, op_events_per_eager_step=per_step,
+                op_events_captured_run=ce, bitwise_equal=True,
+                steps=len(cl))
+
+
+def train_bucketing_lm(tmp):
+    """MXNet's bucketing LSTM LM (BUCKETING) through BucketingModule.fit
+    for one epoch over a seeded Zipf corpus (BUCKETING_SENTENCES
+    sentences, so every bucket binds), fp32 with TF32 on, Speedometer
+    (auto_reset False, as the script) and do_rnn_checkpoint; then each
+    bucket's step timed, the bucket-60 step's issue ms and idle share, and
+    the profiler's cost there. Returns (summary, the sym_gen's stack
+    maker, prefix, iterator, module)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import profiler
+    cfg = BUCKETING
+    B, V, H = cfg["batch"], cfg["vocab"], cfg["num_hidden"]
+    t0 = time.perf_counter()
+    sents = zipf_sentences(BUCKETING_SENTENCES, V, max(cfg["buckets"]), 86)
+    it = mxt.rnn.BucketSentenceIter(
+        sents, B, buckets=list(cfg["buckets"]),
+        invalid_label=cfg["invalid_label"],
+        generator=onp.random.RandomState(87))
+    data_s = time.perf_counter() - t0
+
+    def stack_gen():
+        stack = mxt.rnn.SequentialRNNCell()
+        for i in range(cfg["num_layers"]):
+            stack.add(mxt.rnn.LSTMCell(num_hidden=H, prefix="lstm_l%d_" % i))
+        return stack
+
+    stack = stack_gen()
+    bm = mxt.mod.BucketingModule(
+        lstm_bucketing_sym_gen(mxt.rnn, mxt.sym, stack, V, cfg["num_embed"],
+                               H),
+        default_bucket_key=it.default_bucket_key)     # context None: gpu(0)
+    bind_s = {}
+    bind, switch = bm.bind, bm.switch_bucket
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            new = key(*args) not in bm._buckets or \
+                not bm._buckets[key(*args)].binded
+            t = time.perf_counter()
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if new:
+                bind_s[key(*args)] = time.perf_counter() - t
+        return call
+    bm.bind = timed(bind, lambda *a: bm._default_bucket_key)
+    bm.switch_bucket = timed(switch, lambda k, *a: k)
+
+    metric = mxt.metric.Perplexity(cfg["invalid_label"])
+    windows, marks = [], [(0.0, 0)]
+
+    def window(param):
+        if param.nbatch and param.nbatch % BUCKETING_DISP == 0:
+            s, n = float(metric.sum_metric), int(float(metric.num_inst))
+            windows.append(math.exp((s - marks[-1][0]) / (n - marks[-1][1])))
+            marks.append((s, n))
+    speed = mxt.callback.Speedometer(B, BUCKETING_DISP, auto_reset=False)
+    prefix = os.path.join(tmp, "lstm_bucketing")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mxt.random.seed(88)
+    with _TF32(True):
+        t0 = time.perf_counter()
+        bm.fit(it, eval_metric=metric, kvstore="local", optimizer="sgd",
+               optimizer_params=_bucketing_sgd(cfg["lr"]),
+               initializer=mxt.init.Xavier(factor_type="in",
+                                           magnitude=2.34),
+               num_epoch=1, batch_end_callback=[window, speed],
+               epoch_end_callback=mxt.rnn.do_rnn_checkpoint(stack, prefix))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    s, n = float(metric.sum_metric), int(float(metric.num_inst))
+    if n > marks[-1][1]:
+        windows.append(math.exp((s - marks[-1][0]) / (n - marks[-1][1])))
+    steps = len(it.idx)
+    slots = sum(B * it.buckets[i] for i, _ in it.idx)
+    # the share of the token slots a step computes that hold a real token
+    fill = sum(int(onp.count_nonzero(d)) for d in it.data) / \
+        sum(d.size for d in it.data)
+    check(all(math.isfinite(v) for v in windows), "bucketing LM: a "
+          "window's perplexity is not finite: %s" % windows)
+    check(windows[-1] < windows[0], "bucketing LM: perplexity did not fall "
+          "over the epoch: %s" % windows)
+    check(sorted(bind_s) == sorted(cfg["buckets"]), "bucketing LM: bound "
+          "buckets %s" % sorted(bind_s))
+    names = list(bm.get_params()[0])
+    shared = _shares_one_set(bm, names)
+    check(shared, "bucketing LM: the buckets do not share one parameter set")
+    check(os.path.exists("%s-0001.params" % prefix), "do_rnn_checkpoint "
+          "wrote no epoch 1 file")
+    base = bm._buckets[bm._default_bucket_key]
+    for n_ in names:
+        check(bool(torch.isfinite(base._exec.arg_dict[n_]._data).all()),
+              "bucketing LM: %s is not finite" % n_)
+    n_params = sum(base._exec.arg_dict[n_].size for n_ in names)
+    ckpt = check_bucketing_checkpoint(bm, stack_gen, prefix, it)
+
+    per_bucket = {}
+    with _TF32(True):
+        for key in cfg["buckets"]:
+            batch = _bucket_batch(it, key)
+
+            def step(batch=batch):
+                bm.forward_backward(batch)
+                bm.update()
+            step()
+            _, ms, host = _timed_steps(step, BUCKETING_TIMED)
+            per_bucket[key] = dict(step_ms=ms, host_ms=host,
+                                   tokens_per_s=B * key / (ms / 1e3),
+                                   bind_s=bind_s[key])
+        top = max(cfg["buckets"])
+        batch = _bucket_batch(it, top)
+
+        def step60():
+            bm.forward_backward(batch)
+            bm.update()
+        issue = issue_ms(step60)
+        idle = device_idle_share(step60)
+        activities = kernels_in(step60)
+        _, off_ms, off_host = _timed_steps(step60, BUCKETING_PROFILED)
+        profiler.set_config(profile_imperative=True, profile_memory=True,
+                            filename=os.path.join(tmp, "profile.json"))
+        profiler.dumps(reset=True)
+        with profiler._LOCK:
+            profiler._EVENTS.clear()
+        profiler.set_state("run")
+        try:
+            _, on_ms, on_host = _timed_steps(step60, BUCKETING_PROFILED)
+        finally:
+            profiler.set_state("stop")
+        op_events = sum(1 for e in profiler._EVENTS
+                        if e["name"].startswith("op:"))
+        table = profiler.dumps(reset=True).splitlines()
+        # the synchronise alone: the same with no memory sample an op
+        profiler.set_config(profile_memory=False)
+        profiler.set_state("run")
+        try:
+            _, sync_ms, _ = _timed_steps(step60, BUCKETING_PROFILED)
+        finally:
+            profiler.set_state("stop")
+            profiler.set_config(profile_memory=True)
+        profiler.dump()
+        with open(os.path.join(tmp, "profile.json")) as f:
+            trace = json.load(f)
+        check(trace["traceEvents"] and "deviceMemory" in trace,
+              "profiler.dump wrote no events")
+        torch.cuda.synchronize()
+    check(op_events > 0, "the profiler recorded no operator at bucket 60")
+    summary = dict(
+        config="example/rnn/bucketing/lstm_bucketing.py (MXNet v1.6) "
+               "defaults: 2 x LSTMCell(200), embed 200, vocab 10000, batch "
+               "32, buckets 10-60, SGD lr 0.01 mom 0 wd 1e-5, Xavier(in, "
+               "2.34), Perplexity(0)",
+        corpus="Zipf over ids 1-9999, %d sentences of 1-60 tokens "
+               "(seeded; no PTB)" % BUCKETING_SENTENCES,
+        dtype="float32", tf32=True, params=n_params, steps=steps,
+        data_setup_s=data_s, fit_s=fit_s,
+        fit_tokens_per_s=slots / fit_s, corpus_fill=fill,
+        speedometer_samples_per_s=speed.last_speed,
+        perplexity_windows=windows, window_batches=BUCKETING_DISP,
+        shared_parameter_set=shared, bind_s=bind_s, per_bucket=per_bucket,
+        bucket60=dict(issue_ms=issue, device_activities=activities,
+                      step_ms_profiler_off=off_ms,
+                      step_host_ms_profiler_off=off_host,
+                      step_ms_profiler_on=on_ms,
+                      step_host_ms_profiler_on=on_host,
+                      step_ms_profiler_on_memory_off=sync_ms,
+                      op_events_per_step=op_events / BUCKETING_PROFILED,
+                      profiler_table_top=table[:8], **idle),
+        peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        checkpoint=ckpt)
+    log("bucketing LM (lstm_bucketing.py, %.2f M params, fp32 TF32 on): "
+        "fit %.1f s for %d steps (%.0f token slots/s); bind s %s; "
+        "perplexity windows %s; step ms by bucket %s; bucket 60: issue "
+        "%.1f ms, idle %.1f%%, %d device activities, %.0f op events a step, "
+        "step %.1f ms profiler off / %.1f on (%.1f without memory "
+        "samples); peak %.2f GB allocated, %.2f reserved" % (
+            n_params / 1e6, fit_s, steps, slots / fit_s,
+            {k: round(v, 3) for k, v in bind_s.items()},
+            ["%.1f" % v for v in windows],
+            {k: round(v["step_ms"], 1) for k, v in per_bucket.items()},
+            issue, 100 * idle["idle_share"], activities,
+            op_events / BUCKETING_PROFILED, off_ms, on_ms, sync_ms,
+            summary["peak_allocated_gb"], summary["peak_reserved_gb"]))
+    log("profiler, top rows at bucket 60:\n" + "\n".join(table[:8]))
+    return summary
+
+
+def bucketing_phase(card):
+    """The legacy API on the card (``--bucketing-only``): the small cells
+    card = CPU through BucketingModule, MXNet's bucketing LSTM LM through
+    BucketingModule.fit under Speedometer and do_rnn_checkpoint, its
+    checkpoint on the CPU, the profiler's cost at bucket 60, and a capture
+    under a running profiler. Returns (kernel launches over the main path,
+    summary)."""
+    import shutil
+    import torch
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    tmp = _build_tmp()
+    try:
+        summary = dict(card=card, small_cells=check_bucketing_cells_small())
+        _kernels.reset_launches()
+        summary["lstm_bucketing"] = train_bucketing_lm(tmp)
+        launches = dict(_kernels.LAUNCHES)
+        check(not any(launches.values()), "the bucketing path launched "
+              "hand-written kernels %s" % launches)
+        summary["profiled_capture"] = check_profiled_capture()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -6043,27 +6560,44 @@ def stage_breakdown(net, batch, reps=3):
     """Where one dispatched batch's time goes (warm, three repeats): the
     forward on the card (CUDA events), the same forward on the host clock
     (launch overhead included), and BlockServable's output conversion to
-    float32 numpy on the host."""
+    float32 numpy on the host (``to_host_ms``: bf16 into pinned memory,
+    widened on the host) against the old one (``to_host_ms_old``: widened
+    on the card, then a pageable copy), alternating which goes first; the
+    two must agree bit for bit."""
     import torch
     from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.serving.registry import _to_host
+
+    def old(t):
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
     step = jit.EvalStep(net)
-    out = {"forward_device_ms": [], "forward_host_ms": [], "to_host_ms": []}
-    for _ in range(reps):
+    out = {"forward_device_ms": [], "forward_host_ms": [], "to_host_ms": [],
+           "to_host_ms_old": []}
+    for r in range(reps):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        logits = step(batch)
+        logits = step(batch)._data
         end.record()
         end.synchronize()
         t1 = time.perf_counter()
-        logits.asnumpy()
-        t2 = time.perf_counter()
         out["forward_device_ms"].append(start.elapsed_time(end))
         out["forward_host_ms"].append((t1 - t0) * 1e3)
-        out["to_host_ms"].append((t2 - t1) * 1e3)
-        del logits
+        got = {}
+        for key, fn in ((("to_host_ms", _to_host), ("to_host_ms_old", old))
+                        if r % 2 == 0 else
+                        (("to_host_ms_old", old), ("to_host_ms", _to_host))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got[key] = fn(logits)
+            out[key].append((time.perf_counter() - t) * 1e3)
+        check(got["to_host_ms"].dtype == got["to_host_ms_old"].dtype and
+              got["to_host_ms"].tobytes() == got["to_host_ms_old"].tobytes(),
+              "BlockServable's host copy differs from the old conversion")
+        del logits, got
     return out
 
 
@@ -6093,6 +6627,9 @@ def main(argv):
     parser.add_argument("--module-only", action="store_true",
                         help="run the symbolic API and Module.fit's "
                         "ResNet-50 v1 (phase 17) alone")
+    parser.add_argument("--bucketing-only", action="store_true",
+                        help="run the legacy API's bucketing LSTM LM "
+                        "through BucketingModule.fit (phase 19) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -6155,7 +6692,9 @@ def main(argv):
                              (opts.zoo_only, "model_zoo", model_zoo),
                              (opts.ssd_only, "ssd", ssd_phase),
                              (opts.ctc_only, "ctc", ctc_phase),
-                             (opts.module_only, "module", module_phase)):
+                             (opts.module_only, "module", module_phase),
+                             (opts.bucketing_only, "bucketing",
+                              bucketing_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -6197,6 +6736,7 @@ def main(argv):
         gc.collect()
         torch.cuda.empty_cache()
         module_launches, module = module_phase(card)
+        bucketing_launches, bucketing = bucketing_phase(card)
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -6209,7 +6749,7 @@ def main(argv):
              "rtc": rtc_launches, "ndarray_bert": ndarray_launches,
              "lstm_lm": rnn_launches, "model_zoo": zoo_launches,
              "ssd": ssd_launches, "ctc": ctc_launches,
-             "module": module_launches,
+             "module": module_launches, "bucketing": bucketing_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -6332,6 +6872,7 @@ def main(argv):
     log(json.dumps({"ssd": ssd}))
     log(json.dumps({"ctc": ctc}))
     log(json.dumps({"module": module}))
+    log(json.dumps({"bucketing": bucketing}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -37,7 +37,12 @@ Beside Gluon it carries MXNet's symbolic API: ``mx.sym`` (a graph over the
 ``nd`` operators, with MXNet's graph JSON), ``Executor``, ``mx.mod``
 (``Module.fit``, ``BucketingModule``, ``SequentialModule``), ``model``
 (checkpoints, ``FeedForward``), the local ``kvstore``, ``io`` (data
-iterators), ``recordio``, ``image`` and ``monitor``.
+iterators), ``recordio``, ``image`` and ``monitor``, and the rest of
+MXNet's legacy API: ``mx.rnn`` (the symbolic cells, ``BucketSentenceIter``,
+RNN checkpoints), ``profiler`` (per-operator timing of the eager ``nd``
+operators, chrome traces, ``torch.profiler`` device traces),
+``visualization`` (``mx.viz``), ``engine`` and ``util`` (the NumPy-semantics
+flags, ``inspect_tensor``).
 """
 from . import base, error, name, attribute, registry  # noqa: F401
 from .base import MXNetError  # noqa: F401
@@ -61,6 +66,10 @@ from . import module  # noqa: F401,E402
 from . import module as mod  # noqa: F401,E402
 from . import monitor  # noqa: F401,E402
 from .monitor import Monitor  # noqa: F401,E402
+from . import rnn, profiler, engine, util  # noqa: F401,E402
+from .util import is_np_array, set_np, reset_np, np_shape, np_array  # noqa
+from . import visualization  # noqa: F401,E402
+from . import visualization as viz  # noqa: F401,E402
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
                       gpu, num_gpus, num_tpus, tpu)
 from .convert import from_jax_params, to_numpy_params  # noqa: F401

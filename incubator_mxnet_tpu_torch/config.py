@@ -5,7 +5,8 @@ typed and documented here, and ``get_env(name)`` is the one accessor.
 Only the knobs the port reads are declared: the serving knobs, the gate
 of the conv-backward kernel and the training step's (``jit.TrainStep``:
 remat, donation, the bound on its captured graphs, which also bounds a
-hybridized block's). The flash-attention
+hybridized block's), the image iterator's threads and the engine's bulk
+size. The flash-attention
 block/force/interpret knobs of the JAX package are TPU tiling and Pallas
 interpret switches and have no counterpart here.
 """
@@ -73,6 +74,12 @@ ENV_VARS = {
         "Default decode/augment thread count of io.ImageRecordIter when "
         "preprocess_threads is not given (MXNET_CPU_WORKER_NTHREADS "
         "analog)."),
+    "MXTPU_ENGINE_BULK_SIZE": (
+        int, 15,
+        "Initial engine bulk size (MXNET_ENGINE_BULK_SIZE analog), read "
+        "by engine.set_bulk_size. It groups nothing: eager operators "
+        "launch one by one and the captured paths are one CUDA graph "
+        "already."),
 }
 
 

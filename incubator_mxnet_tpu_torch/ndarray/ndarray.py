@@ -39,12 +39,14 @@ import builtins
 import functools
 import math
 import operator
+import sys
 
 import numpy as onp
 import torch
 import torch.nn.functional as F
 
 from .. import autograd
+from .. import profiler as _profiler
 from ..context import Context, as_device, context_of
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
@@ -577,8 +579,10 @@ def _apply(fn, *inputs, **kwargs):
     their own (``_wrap``). Otherwise ``fn`` runs as called and its tensors
     come back as they are.
 
-    The JAX package's per-op profiler hook (``profile_imperative``) belongs
-    here too; it waits for the port of ``profiler.py`` (ROADMAP §1 item 3).
+    While the profiler runs with ``profile_imperative``, each call on
+    NDArrays is timed (``profiler.record_op``, synchronised) under the name
+    of the public operator it belongs to (``_profiled_name``), as the JAX
+    package's ``_apply`` times each of its calls.
     """
     wrapped = False
     args = []
@@ -595,8 +599,49 @@ def _apply(fn, *inputs, **kwargs):
     tensors = [t for x in (*args, *kwargs.values())
                for t in (x if isinstance(x, (list, tuple)) else (x,))
                if isinstance(t, torch.Tensor)]
+    profiling = _profiler.imperative_active()
+    if profiling:
+        t0 = _profiler.now_us()
     with torch.set_grad_enabled(autograd.is_recording()):
-        return _wrap(fn(*args, **kwargs), tensors)
+        out = _wrap(fn(*args, **kwargs), tensors)
+    if profiling:
+        _profiler.record_op(_profiled_name(fn), t0,
+                            out if isinstance(out, (list, tuple)) else [out])
+    return out
+
+
+def _profiled_name(fn):
+    """The public operator a profiled ``_apply`` call belongs to: the
+    innermost caller in the port that is a public function or method
+    (``FullyConnected``, ``dot``, ``reshape``, ``__mul__``), or a wrapper
+    that makes one (``_op``, ``_make_unary``, ``_make_binary``: the
+    operator's own name); a block's call is named by the block's class.
+    The JAX package names its events by its inner functions' qualified
+    names (``FullyConnected.<locals>.fn_b``), which are its internals."""
+    frame = sys._getframe(2)
+    for _ in range(_NAME_DEPTH):
+        if frame is None or not frame.f_globals.get(
+                "__name__", "").startswith(_PACKAGE):
+            break
+        code = frame.f_code
+        named = _WRAPPER_NAMES.get(code)
+        if named is not None:
+            return named(frame.f_locals)
+        qual = code.co_qualname
+        if "<" not in qual:
+            last = qual.rsplit(".", 1)[-1]
+            if last == "__call__" and "self" in frame.f_locals:
+                return type(frame.f_locals["self"]).__name__
+            if not last.startswith("_") or (last.startswith("__")
+                                            and last.endswith("__")):
+                return last
+        frame = frame.f_back
+    name = getattr(fn, "__name__", "")
+    return name if name.isidentifier() and not name.startswith("_") else "op"
+
+
+_PACKAGE = __name__.split(".")[0]
+_NAME_DEPTH = 4
 
 
 def _op(fn):
@@ -872,6 +917,13 @@ def _make_binary(fn, name):
     op.__name__ = op.__qualname__ = name
     return op
 
+
+# the wrappers that make public operators, and how each names its own
+_WRAPPER_NAMES = {
+    _op(len).__code__: lambda local: local["fn"].__name__,
+    _make_unary(len, "").__code__: lambda local: local["name"],
+    _make_binary(len, "").__code__: lambda local: local["name"],
+}
 
 _g = globals()
 for _name, _fn in _UNARY.items():

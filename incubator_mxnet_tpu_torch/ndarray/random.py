@@ -117,6 +117,11 @@ def normal(loc=0.0, scale=1.0, shape=None, dtype="float32", ctx=None,
     """N(loc, scale²)."""
     ctx = _ctx_of(ctx, loc, scale)
     shp = _shape_of(shape, loc, scale)
+    if isinstance(loc, (int, float)) and isinstance(scale, (int, float)):
+        # scalar moments: one draw, no operator (none of the JAX
+        # package's is profiled either)
+        return _draw(lambda s, dt, dev, g: loc + scale * torch.randn(
+            s, dtype=dt, device=dev, generator=g), shp, dtype, ctx, out)
     draw = _draw(lambda s, dt, dev, g: torch.randn(s, dtype=dt, device=dev,
                                                     generator=g),
                  shp, dtype, ctx, None)

@@ -335,6 +335,7 @@ class DynamicBatcher:
                 onp.stack([r.inputs[i] for r in live]
                           + [live[-1].inputs[i]] * (bucket - n))
                 for i in range(len(live[0].inputs)))
+            t0 = time.monotonic()
             if self._replica_aware:
                 outs = self._dispatch_fn(*stacked, replica=replica)
             else:
@@ -353,5 +354,20 @@ class DynamicBatcher:
             self.metrics.observe_latency_ms((done - req.enqueued_at) * 1e3)
         self.metrics.inc("ok_count", n)
         self.metrics.observe_batch(n, bucket)
+        # the port's requests carry no trace id yet
+        self._profile_batch(n, bucket, done - t0, request_ids=None)
         for req, res in zip(live, results):
             req.succeed(res)
+
+    def _profile_batch(self, n, bucket, dur, request_ids=None):
+        """One profiler event for the dispatched batch (nothing unless the
+        profiler runs): ``serve:<model>:batch<bucket>`` over the dispatch
+        and its copy to the host, with the real item count. A failure here
+        is the profiler's and never fails the batch."""
+        try:
+            from .. import profiler
+            profiler.record_batch(self.name, n, bucket,
+                                  start_us=profiler.now_us() - dur * 1e6,
+                                  dur_us=dur * 1e6, request_ids=request_ids)
+        except Exception:  # noqa: BLE001 — profiling never takes serving down
+            pass

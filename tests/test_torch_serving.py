@@ -192,3 +192,39 @@ def test_replicas_share_the_load_and_each_gets_its_index():
         batcher.close()
     assert seen == {0, 1}
     assert outs[0] == 0.0 and outs[-1] == 1.0
+
+
+def _old_to_host(t):
+    """BlockServable's conversion before the pinned copy: widen on the
+    device, then a pageable copy."""
+    import torch
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _outputs(device):
+    import torch
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 33, 257, generator=g) * 1e3
+    x[0, 0, :3] = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    return [x.to(torch.bfloat16).to(device), x.to(device),
+            torch.arange(12, dtype=torch.int32).to(device)]
+
+
+def test_host_copy_is_the_old_conversion_bit_for_bit():
+    from incubator_mxnet_tpu_torch.serving.registry import _to_host
+    for t in _outputs("cpu"):
+        got, want = _to_host(t), _old_to_host(t)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
+def test_host_copy_from_the_card_is_the_old_conversion_bit_for_bit():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from incubator_mxnet_tpu_torch.serving.registry import _to_host
+    for t in _outputs("cuda"):
+        got, want = _to_host(t), _old_to_host(t)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()

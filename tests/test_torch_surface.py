@@ -273,6 +273,12 @@ def test_top_level_names():
     for name in ("Optimizer", "AttrScope", "NameManager"):
         assert getattr(mx, name).__name__ == getattr(mxt, name).__name__
     assert isinstance(mxt.optimizer.create("sgd"), mxt.Optimizer)
+    for name in ("rnn", "profiler", "viz", "visualization", "engine", "util",
+                 "is_np_array", "set_np", "reset_np", "np_shape",
+                 "np_array"):
+        assert hasattr(mx, name) and hasattr(mxt, name), name
+    assert mxt.viz is mxt.visualization
+    assert mxt.set_np is mxt.util.set_np
 
 
 def test_models_get_model_is_the_model_zoos():
@@ -524,7 +530,9 @@ def test_config_describe_and_evict_to_bound(monkeypatch):
 # ======================================================= the symbolic API
 
 SYMBOLIC_NAMESPACES = ["sym", "sym.contrib", "mod", "io", "recordio", "image",
-                       "kvstore", "model", "monitor", "executor"]
+                       "kvstore", "model", "monitor", "executor",
+                       "rnn", "rnn.rnn_cell", "rnn.io", "rnn.rnn",
+                       "profiler", "viz", "visualization", "engine", "util"]
 
 
 def _namespace(pkg, path):
