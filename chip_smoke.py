@@ -56,8 +56,10 @@ Phases, each of which must pass, in order:
    requests of 512 tokens from 4 client threads (bucket 8) and one GPT
    request of 8192 tokens. Every reply must have the right shape and be
    finite, served BERT rows must match a direct EvalStep forward, K1's
-   launch count over this phase must equal layers x batches, and K2/K3
-   must not launch. Then one BERT request with out-of-range token ids
+   launch count over this phase must equal layers x batches (a bucket's
+   first dispatch captures its EvalStep graph, answered by the eager run,
+   and later ones replay it: 12 launches a batch either way),
+   and K2/K3 must not launch. Then one BERT request with out-of-range token ids
    (vocab_size, -vocab_size - 1) between two submissions of one batch of
    8: its reply must be NaN throughout, as the reference's, the batch's
    replies after it must equal those before it bit for bit, and the card
@@ -355,6 +357,41 @@ Phases, each of which must pass, in order:
    while the profiler runs: one capture, no operator event from the
    capture or its replays, captured = eager bit for bit. Prints a
    {"bucketing": ...} line.
+20. (Run after phase 19, before 18.) The serving front end and
+   generation (``serving_http_phase``, ``--serving-http-only``). (a) The
+   captured ``jit.EvalStep`` on full-width BERT (BERT, bf16, flash) at
+   buckets 1, 2, 4, 8 and S 512: one capture a bucket (its ms), captured
+   = eager bit for bit, flash_fwd launched 12 times a replay, no capture
+   in steady state; a replay's device and host ms against the eager
+   forward's at bucket 8. Then phase 5's 16 requests through the registry,
+   captured and eager (``jit._uses_graphs`` forced off) in turns: p50s.
+   (b) Version 2 of BERT (other weights) loaded with a warm_spec while 4
+   clients keep submitting: no request fails, the registry's health stays
+   healthy, every capture runs on the warm thread (flight-recorder
+   ``compile_begin`` rows), v1 drains out; the warm's seconds. (c)
+   ``ServingServer`` on 127.0.0.1 at an ephemeral port: 8 POSTs of one S
+   64 item each (a reply is 64 x 32768 floats of JSON) from 4 threads,
+   each within 2 % of the logit range of the registry's direct reply, the
+   request id echoed; /metrics parses and carries mxtpu_requests_total,
+   /debug/requests holds the 8 with their device legs, /debug/aot lists
+   the S 64 graphs, an unknown model gives 404 and a malformed body 400;
+   client p50 and max, the server's device ms and after-dispatch ms from
+   the access log, one reply's json.dumps ms. (d) ``GenerativeEngine``
+   over TinyLM (the JAX package's only generator, at its widths and its
+   defaults GEN) at POST /generate: a greedy and a sampled (T 0.8, top-k
+   20) round of 8 concurrent streams, one client hanging up mid-stream
+   in the first: every other stream equals ``generate_sequential``'s
+   tokens, the greedy ones equal a CPU engine's with the same weights,
+   the hang-up frees its blocks, and nothing captures after ``warm()``;
+   tokens/s, TTFT p50, inter-token p50/p99 (client clock), each decode
+   bucket's graph replay ms and bucket 1's at its natural row count. (e)
+   A 2-replica BERT under a ``Supervisor``: faultlab (armed over POST
+   /debug/faults) kills one replica worker at batcher.dispatch; its
+   request is retried once and answers 200, /healthz reads degraded,
+   then healthy after the respawn. Prints a {"serving_http": ...} line;
+   the kernels line's ``launches_by_path`` carries (c)'s K1 launches.
+   Between phases the script drops the captured EvalStep graphs
+   (``release_graphs``), so none sits in a later phase's memory peak.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -374,7 +411,8 @@ Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
 {"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...},
-a {"bucketing": ...} and a {"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
+a {"bucketing": ...}, a {"serving_http": ...} and a {"kernels": [...]}
+line and, as the last line, {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
 this script, or any phase fails.
 
@@ -393,8 +431,9 @@ runs phase 12 alone and prints {"gluon_loop": {...}}, ``--rnn-only``
 phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"model_zoo": {...}}), ``--ssd-only`` phase 15 ({"ssd": {...}}) and
 ``--ctc-only`` phase 16 ({"ctc": {...}}), ``--module-only`` phase 17
-({"module": {...}}) and ``--bucketing-only`` phase 19
-({"bucketing": {...}}).
+({"module": {...}}), ``--bucketing-only`` phase 19
+({"bucketing": {...}}) and ``--serving-http-only`` phase 20
+({"serving_http": {...}}).
 """
 import gc
 import itertools
@@ -749,7 +788,20 @@ def check_flash_fwd():
             ("bf16 B1 H2 S7 D128 causal", (1, 2, 7, 128), True,
              torch.bfloat16, False),
             ("bf16 B1 H2 S128 D64 causal masked row", (1, 2, 128, 64), True,
-             torch.bfloat16, True)):
+             torch.bfloat16, True),
+            # the serving_http phase's shapes: BERT over HTTP at S 64 (one
+            # partial tile) at its smallest and largest batch, and the
+            # captured EvalStep's smaller buckets at S 512
+            ("bf16 B1 H8 S64 D128 (HTTP)", (1, 8, SERVE_HTTP_S, 128), False,
+             torch.bfloat16, False),
+            ("bf16 B8 H8 S64 D128 (HTTP)", (8, 8, SERVE_HTTP_S, 128), False,
+             torch.bfloat16, False),
+            ("bf16 B1 H8 S512 D128 (EvalStep)", (1, 8, BERT_S, 128), False,
+             torch.bfloat16, False),
+            ("bf16 B2 H8 S512 D128 (EvalStep)", (2, 8, BERT_S, 128), False,
+             torch.bfloat16, False),
+            ("bf16 B4 H8 S512 D128 (EvalStep)", (4, 8, BERT_S, 128), False,
+             torch.bfloat16, False)):
         compare(tag, *shape, causal, dtype, masked)
 
     served = []
@@ -6288,6 +6340,660 @@ def bucketing_phase(card):
     return launches, summary
 
 
+SERVE_HTTP_S = 64          # the HTTP phase's item length (JSON replies)
+SERVE_HTTP_REQUESTS = 8
+EVAL_BUCKETS = (1, 2, 4, 8)
+EVAL_REPLAYS = 3           # replays a bucket, counted against K1
+EVAL_TIMED = 5             # replays and eager forwards timed at bucket 8
+RELOAD_CLIENTS = 4
+RELOAD_HEALTH_POLL_S = 0.02
+#: the JAX package's generation defaults (config MXTPU_GEN_*)
+GEN = dict(block_size=16, num_blocks=256, max_batch=8, prefill_len=64,
+           max_tokens=128)
+GEN_STREAMS = 8
+GEN_DISCONNECT = (3, 5)    # (client, tokens read before it hangs up)
+GEN_STEP_TIMED = 20        # decode graph replays timed a bucket
+
+
+def release_graphs():
+    """Drop every captured EvalStep/generation graph held by the port's
+    process-wide AOT cache (with the parameters and memory pools they
+    hold), then collect and give cached memory back: between phases, so
+    a phase's graphs do not sit in a later phase's memory peak."""
+    import torch
+    from incubator_mxnet_tpu_torch import aot
+    aot.CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serving_bert(seed):
+    """Full-width BERT (BERT), bf16, flash attention, on the card."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    net = models.BERTModel(**BERT)
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                   .Generator(device="cuda:0").manual_seed(seed))
+    net.cast("bfloat16")
+    return net
+
+
+def _pct(values, q):
+    from incubator_mxnet_tpu_torch.serving import percentile
+    return percentile(sorted(values), q)
+
+
+def check_captured_evalstep(bert):
+    """Phase 20(a): jit.EvalStep on full-width BERT, buckets EVAL_BUCKETS
+    at S 512: one capture a bucket (its ms), captured = eager bit for
+    bit, flash_fwd launched 12 times a replay, no capture in steady
+    state; a replay's device and host ms against the eager forward's at
+    bucket 8. Returns (launches, summary)."""
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    rng = onp.random.RandomState(20)
+    xs = {b: torch.as_tensor(rng.randint(0, BERT["vocab_size"], (
+        b, BERT_S)).astype("int32")).cuda() for b in EVAL_BUCKETS}
+    step = jit.EvalStep(bert)
+    c0 = jit._COMPILES.value(kind="eval")
+    capture_ms, pool_mib = {}, {}
+    for b in EVAL_BUCKETS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        step._run(xs[b])
+        torch.cuda.synchronize()
+        capture_ms[b] = (time.perf_counter() - t0) * 1e3
+        # what the cache entry keeps reserved: its graph's private pool
+        torch.cuda.empty_cache()
+        pool_mib[b] = (torch.cuda.memory_reserved() - held) / 2 ** 20
+    check(step.captures == len(EVAL_BUCKETS) and jit._COMPILES.value(
+        kind="eval") == c0 + len(EVAL_BUCKETS),
+        "EvalStep: %d captures for %d buckets" % (step.captures,
+                                                  len(EVAL_BUCKETS)))
+    for b in EVAL_BUCKETS:
+        eager = step._forward([xs[b]], inference=True)
+        captured = step._run(xs[b])
+        check(captured.dtype == eager.dtype and torch.equal(captured, eager),
+              "EvalStep bucket %d: captured differs from eager (max abs "
+              "%.3g)" % (b, float((captured.float() - eager.float()).abs()
+                                  .max())))
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for b in EVAL_BUCKETS:
+        for _ in range(EVAL_REPLAYS):
+            step._run(xs[b])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    replays = EVAL_REPLAYS * len(EVAL_BUCKETS)
+    check(launches.get("flash_fwd", 0) == BERT["num_layers"] * replays,
+          "EvalStep: flash_fwd launched %d times in %d replays, expected "
+          "%d" % (launches.get("flash_fwd", 0), replays,
+                  BERT["num_layers"] * replays))
+    check(step.captures == len(EVAL_BUCKETS) and jit._COMPILES.value(
+        kind="eval") == c0 + len(EVAL_BUCKETS),
+        "EvalStep captured in steady state")
+    x8 = xs[EVAL_BUCKETS[-1]]
+    rows = {}
+    for name, fn in (("captured", lambda: step._run(x8)),
+                     ("eager", lambda: step._forward([x8], inference=True)),
+                     ("eager_2", lambda: step._forward([x8],
+                                                       inference=True)),
+                     ("captured_2", lambda: step._run(x8))):
+        rows[name] = dict(device_ms=timed_ms(fn, EVAL_TIMED),
+                          host_ms=issue_ms(fn, EVAL_TIMED))
+    summary = dict(capture_ms=capture_ms, graph_pool_mib=pool_mib,
+                   replays=replays,
+                   flash_fwd_launches=launches.get("flash_fwd", 0),
+                   bucket8=rows)
+    log("serving_http: EvalStep captured = eager bit for bit at buckets %s;"
+        " capture ms %s; graph pool MiB %s; bucket 8 replay %.3f ms device"
+        " / %.3f ms host, eager %.3f / %.3f" % (
+            list(EVAL_BUCKETS), {b: round(v, 1) for b, v in
+                                 capture_ms.items()},
+            {b: round(v, 1) for b, v in pool_mib.items()},
+            rows["captured"]["device_ms"], rows["captured"]["host_ms"],
+            rows["eager"]["device_ms"], rows["eager"]["host_ms"]))
+    return launches, summary
+
+
+def _registry_round(reg, name, rows):
+    """Phase 5's serving round: CLIENTS threads each submit their share of
+    ``rows`` at once and wait; -> sorted client latencies in ms."""
+    lat, errors = [], []
+
+    def client(c):
+        try:
+            t = time.perf_counter()
+            reqs = [reg.submit(name, rows[i])
+                    for i in range(c, len(rows), CLIENTS)]
+            for r in reqs:
+                r.result(600)
+                lat.append((time.perf_counter() - t) * 1e3)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          "serving round on %r failed: %r" % (name, errors[:3]))
+    return sorted(lat)
+
+
+def _captured_against_eager(reg, rows):
+    """The registry's BERT round captured and eager (jit._uses_graphs
+    forced off), in turns C E E C; -> p50s and the lists."""
+    from incubator_mxnet_tpu_torch import jit
+    out = {}
+    uses_graphs = jit._uses_graphs
+    for i, mode in enumerate(("captured", "eager", "eager", "captured")):
+        if mode == "eager":
+            jit._uses_graphs = lambda device: False
+        try:
+            lat = _registry_round(reg, "bert", rows)
+        finally:
+            jit._uses_graphs = uses_graphs
+        out["%s_%d" % (mode, i)] = dict(p50_ms=_pct(lat, 50),
+                                        latency_ms=lat)
+    log("serving_http: registry p50 ms %s" % {
+        k: round(v["p50_ms"], 1) for k, v in out.items()})
+    return out
+
+
+def prewarmed_reload(reg, rows):
+    """Phase 20(b): version 2 of BERT loaded with a warm_spec while
+    RELOAD_CLIENTS clients keep submitting: no request fails, /healthz
+    (the registry's health) stays healthy throughout, every capture of
+    the reload runs on the warm thread (none on a batcher worker), and v1
+    drains out. Returns (v2's net, summary)."""
+    import numpy as onp
+    from incubator_mxnet_tpu_torch.telemetry import flightrec
+    v2_net = _serving_bert(seed=1)
+    stop, errors, oks, health = threading.Event(), [], [0], []
+    rng = onp.random.RandomState(21)
+
+    def client(c):
+        r = onp.random.RandomState(100 + c)
+        while not stop.is_set():
+            try:
+                reg.predict("bert", rows[r.randint(len(rows))], timeout=600)
+                oks[0] += 1
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+                return
+
+    def poll():
+        while not stop.is_set():
+            health.append(reg.health()["status"])
+            time.sleep(RELOAD_HEALTH_POLL_S)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(RELOAD_CLIENTS)]
+    threads.append(threading.Thread(target=poll))
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.5)
+        mark = max([ev["seq"] for ev in flightrec.snapshot()] or [0])
+        t0 = time.perf_counter()
+        v2 = reg.load("bert", v2_net,
+                      warm_spec=[((BERT_S,), "int32")])
+        warm_s = time.perf_counter() - t0
+        served_before = oks[0]
+        time.sleep(0.5)
+        reg.unload("bert", version=v2 - 1, drain=True, timeout=600)
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(600)
+    check(not any(t.is_alive() for t in threads), "a reload client hung")
+    check(not errors, "requests failed across the reload: %r" % errors[:3])
+    check(set(health) == {"healthy"}, "health during the reload: %s"
+          % sorted(set(health)))
+    builds = [ev for ev in flightrec.snapshot() if ev["seq"] > mark
+              and ev["event"] == "compile_begin"]
+    threads_built = sorted({ev["thread"] for ev in builds})
+    check(len(builds) == len(EVAL_BUCKETS)
+          and threads_built == ["mxtpu-aot-warm-bert"],
+          "the reload's captures ran on %s (%d captures), expected the warm "
+          "thread only" % (threads_built, len(builds)))
+    check(reg._entry("bert").describe()["versions"] == [v2],
+          "bert versions after the reload: %s"
+          % reg._entry("bert").describe()["versions"])
+    got = reg.predict("bert", rows[0])[0]
+    direct = _direct(v2_net, rows[0])
+    check(float(onp.abs(got - direct).max()) <= 0.02 * float(
+        onp.abs(direct).max()) + 1e-3, "bert v2 reply differs from v2's "
+        "forward")
+    summary = dict(warm_s=warm_s, requests=oks[0],
+                   requests_before_load_returned=served_before,
+                   health_samples=len(health), captures=len(builds))
+    log("serving_http: hot reload warmed %d buckets in %.2f s on the warm "
+        "thread under traffic; %d requests, none failed; health healthy in "
+        "%d samples" % (len(builds), warm_s, oks[0], len(health)))
+    return v2_net, summary
+
+
+def _direct(net, row):
+    """``net``'s own forward of one row, as a float32 numpy array."""
+    from incubator_mxnet_tpu_torch import jit
+    return jit.EvalStep(net)(row[None])[0].asnumpy()
+
+
+def _http(srv, method, path, payload=None, headers=None, timeout=600):
+    """-> (status, lower-cased headers, body bytes)."""
+    import http.client
+    c = http.client.HTTPConnection(srv.host, srv.port, timeout=timeout)
+    try:
+        body = None if payload is None else (
+            payload if isinstance(payload, bytes)
+            else json.dumps(payload).encode("utf-8"))
+        c.request(method, path, body, {"Content-Type": "application/json",
+                                       **(headers or {})})
+        r = c.getresponse()
+        return (r.status, {k.lower(): v for k, v in r.getheaders()},
+                r.read())
+    finally:
+        c.close()
+
+
+def http_front_end(reg, srv, net):
+    """Phase 20(c): SERVE_HTTP_REQUESTS POSTs of one S SERVE_HTTP_S item
+    each to /v1/models/bert64:predict from CLIENTS threads: each reply
+    within 2% of the logit range of the registry's direct reply, the
+    request id echoed; /metrics parses and carries mxtpu_requests_total;
+    /debug/requests holds the requests with their device legs; /debug/aot
+    lists the captured S 64 graphs; unknown model 404, malformed body 400.
+    Returns (launches, summary)."""
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    from incubator_mxnet_tpu_torch.serving import accesslog
+    reg.load("bert64", net, max_batch_size=BERT_BUCKET, batch_timeout_ms=20,
+             warm_spec=[((SERVE_HTTP_S,), "int32")])
+    rng = onp.random.RandomState(22)
+    rows = rng.randint(0, BERT["vocab_size"], (
+        SERVE_HTTP_REQUESTS, SERVE_HTTP_S)).astype("int32")
+    accesslog.reset()
+    base = reg.metrics("bert64").batch_count
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    replies, lat, errors = {}, {}, []
+
+    def client(c):
+        try:
+            for i in range(c, SERVE_HTTP_REQUESTS, CLIENTS):
+                t = time.perf_counter()
+                st, hdrs, body = _http(
+                    srv, "POST", "/v1/models/bert64:predict",
+                    {"inputs": [rows[i].tolist()], "dtype": "int32"},
+                    {"X-Request-Id": "http-%d" % i})
+                lat[i] = (time.perf_counter() - t) * 1e3
+                check(st == 200, "HTTP predict %d: %d %s" % (i, st,
+                                                            body[:200]))
+                check(hdrs.get("x-request-id") == "http-%d" % i,
+                      "X-Request-Id not echoed: %s" % hdrs)
+                replies[i] = onp.asarray(json.loads(body)["outputs"][0],
+                                         "float32")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check(not any(t.is_alive() for t in threads) and not errors,
+          "HTTP clients failed: %r" % errors[:3])
+    batches = reg.metrics("bert64").batch_count - base
+    # the HTTP path's launches alone, before the reference replies below
+    launches = dict(_kernels.LAUNCHES)
+    check(launches.get("flash_fwd", 0) == BERT["num_layers"] * batches,
+          "HTTP path: flash_fwd launched %d times for %d batches"
+          % (launches.get("flash_fwd", 0), batches))
+    worst = 0.0
+    for i in range(SERVE_HTTP_REQUESTS):
+        direct = reg.predict("bert64", rows[i])[0]
+        diff = float(onp.abs(replies[i] - direct).max())
+        worst = max(worst, diff)
+        check(replies[i].shape == (SERVE_HTTP_S, BERT["vocab_size"])
+              and diff <= 0.02 * float(onp.abs(direct).max()) + 1e-3,
+              "HTTP reply %d differs from the registry's by %.3g" % (i,
+                                                                     diff))
+    st, _h, text = _http(srv, "GET", "/metrics")
+    samples = {}
+    for line in text.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            samples[key] = float(value)
+    check(st == 200 and any(k.startswith(
+        'mxtpu_requests_total{model="bert64"') for k in samples),
+        "/metrics carries no mxtpu_requests_total for bert64")
+    st, _h, text = _http(srv, "GET", "/debug/requests?n=%d"
+                         % (2 * SERVE_HTTP_REQUESTS))
+    recs = [json.loads(ln) for ln in text.decode().splitlines()]
+    mine = [r for r in recs if str(r["request_id"]).startswith("http-")]
+    check(len(mine) == SERVE_HTTP_REQUESTS and all(
+        r["code"] == 200 and r["device_ms"] is not None for r in mine),
+        "/debug/requests: %d records of the HTTP requests" % len(mine))
+    st, _h, body = _http(srv, "GET", "/debug/aot")
+    entries = json.loads(body)["entries"]
+    sigs = sorted({e["input_sig"][0][0][0] for e in entries
+                   if e["kind"] == "eval"
+                   and e["input_sig"][0][0][1] == SERVE_HTTP_S})
+    check(sigs == list(EVAL_BUCKETS), "/debug/aot lists S %d graphs at "
+          "buckets %s" % (SERVE_HTTP_S, sigs))
+    st404 = _http(srv, "POST", "/v1/models/nope:predict",
+                  {"inputs": [[1]]})[0]
+    st400 = _http(srv, "POST", "/v1/models/bert64:predict", b"{oops")[0]
+    check((st404, st400) == (404, 400), "unknown model %d, malformed "
+          "body %d" % (st404, st400))
+    encode = [r["latency_ms"] - r["queue_ms"] - r["batch_ms"] for r in mine]
+    device = [r["device_ms"] for r in mine]
+    t = time.perf_counter()
+    json.dumps({"outputs": [replies[0].tolist()]})
+    json_ms = (time.perf_counter() - t) * 1e3
+    summary = dict(requests=SERVE_HTTP_REQUESTS, batches=batches,
+                   wall_ms=wall_ms,
+                   client_p50_ms=_pct(list(lat.values()), 50),
+                   client_max_ms=max(lat.values()),
+                   encode_ms=encode, device_ms=device,
+                   one_reply_json_ms=json_ms,
+                   served_vs_direct_max_abs=worst)
+    log("serving_http: %d HTTP requests in %d batches, client p50 %.1f ms "
+        "max %.1f; server legs p50 device %.1f ms, after-dispatch (JSON "
+        "lists) %.1f ms; one reply's json.dumps %.1f ms"
+        % (SERVE_HTTP_REQUESTS, batches, summary["client_p50_ms"],
+           summary["client_max_ms"], _pct(device, 50), _pct(encode, 50),
+           json_ms))
+    return launches, summary
+
+
+def _gen_requests(rng, sampled):
+    reqs = []
+    for i in range(GEN_STREAMS):
+        n = int(rng.randint(4, GEN["prefill_len"]))
+        reqs.append({"model": "tinylm", "prompt": rng.randint(
+            1, 256, n).tolist(), "max_new_tokens": int(rng.randint(
+                GEN["max_tokens"] // 2, GEN["max_tokens"] + 1)),
+            "seed": int(rng.randint(1 << 30)),
+            "temperature": 0.8 if sampled else 0.0,
+            "top_k": 20 if sampled else 0})
+    return reqs
+
+
+def _gen_client(srv, body, hang_up_after=None):
+    """One streaming POST /generate: (status, tokens, finish reason,
+    seconds to each token line)."""
+    import http.client
+    c = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        c.request("POST", "/generate", json.dumps(body).encode("utf-8"),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        if r.status != 200:
+            return r.status, [], r.read().decode()[:200], []
+        toks, stamps, reason = [], [], None
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            if not line.strip():
+                continue
+            rec = json.loads(line)
+            if rec.get("done"):
+                reason = rec["reason"]
+                r.read()              # the last chunk: a clean close
+                break
+            toks.append(rec["token"])
+            stamps.append(time.perf_counter() - t0)
+            if hang_up_after is not None and len(toks) >= hang_up_after:
+                c.sock.close()
+                return r.status, toks, "hung_up", stamps
+        return r.status, toks, reason, stamps
+    finally:
+        c.close()
+
+
+def generation(reg, srv):
+    """Phase 20(d): GenerativeEngine over TinyLM at the JAX package's
+    widths and defaults (GEN), served at POST /generate. A greedy round
+    and a sampled round (T 0.8, top-k 20) of GEN_STREAMS concurrent
+    streams, one client hanging up mid-stream in the greedy one: every
+    other stream's tokens equal generate_sequential's for its seed, the
+    greedy ones equal a CPU engine's for the same weights, the hang-up
+    frees its blocks, and nothing captures (compile counter, gen:compile
+    spans) after warm(). Then the decode graph's replay ms (every step
+    runs it at max_batch rows), and the same step captured at one row
+    (the price of that padding). Returns a summary."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.ops import kvcache
+    from incubator_mxnet_tpu_torch.serving import generate
+    from incubator_mxnet_tpu_torch.telemetry import spans
+    kinds = ("serve", "decode")
+    t0 = time.perf_counter()
+    eng = reg.load_generator("tinylm", seed=0, **GEN)
+    warm_s = time.perf_counter() - t0
+    cpu = generate.GenerativeEngine(name="tinylm-cpu", seed=0,
+                                    ctx=mxt.cpu(), **GEN)
+    c0 = sum(jit._COMPILES.value(kind=k) for k in kinds)
+    spans.reset()
+    rng = onp.random.RandomState(23)
+    rounds = {}
+    try:
+        for label, sampled in (("greedy", False), ("sampled", True)):
+            reqs = _gen_requests(rng, sampled)
+            refs = [eng.generate_sequential(
+                r["prompt"], r["max_new_tokens"],
+                temperature=r["temperature"], top_k=r["top_k"],
+                seed=r["seed"]) for r in reqs]
+            if not sampled:
+                for r, ref in zip(reqs, refs):
+                    want = cpu.generate_sequential(r["prompt"],
+                                                   r["max_new_tokens"],
+                                                   seed=r["seed"])
+                    check(ref == want, "greedy tokens on the card differ "
+                          "from the CPU's: %s vs %s" % (ref[0][:8],
+                                                        want[0][:8]))
+            got = [None] * GEN_STREAMS
+
+            def client(i, reqs=reqs, sampled=sampled):
+                hang = GEN_DISCONNECT[1] if (
+                    not sampled and i == GEN_DISCONNECT[0]) else None
+                got[i] = _gen_client(srv, reqs[i], hang)
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(GEN_STREAMS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t
+            check(not any(th.is_alive() for th in threads),
+                  "a generate client hung")
+            ttft, gaps, ntok = [], [], 0
+            for i, (st, toks, reason, stamps) in enumerate(got):
+                check(st == 200, "generate stream %d: %s %s" % (i, st,
+                                                                reason))
+                ntok += len(toks)
+                if stamps:
+                    ttft.append(stamps[0] * 1e3)
+                    gaps += [(b - a) * 1e3 for a, b in zip(stamps,
+                                                           stamps[1:])]
+                if reason == "hung_up":
+                    continue
+                check((toks, reason) == refs[i], "%s stream %d: %s (%s) "
+                      "differs from generate_sequential's %s (%s)"
+                      % (label, i, toks[:8], reason, refs[i][0][:8],
+                         refs[i][1]))
+            deadline = time.monotonic() + 30
+            while eng.kv_blocks()[0] and time.monotonic() < deadline:
+                time.sleep(0.01)
+            check(eng.kv_blocks()[0] == 0, "%d KV blocks still held after "
+                  "the %s round" % (eng.kv_blocks()[0], label))
+            rounds[label] = dict(
+                tokens=ntok, wall_s=wall, tokens_per_s=ntok / wall,
+                ttft_p50_ms=_pct(ttft, 50),
+                inter_token_p50_ms=_pct(gaps, 50),
+                inter_token_p99_ms=_pct(gaps, 99))
+        compiles = sum(jit._COMPILES.value(kind=k) for k in kinds) - c0
+        compile_spans = [s for s in spans.snapshot()
+                         if s["name"] == "gen:compile"]
+        check(compiles == 0 and not compile_spans, "generation captured "
+              "after warm(): %d builds, %d gen:compile spans"
+              % (compiles, len(compile_spans)))
+        # the decode graph alone, on an all-inactive batch
+        prog = eng._decode_fn()
+        prog(eng._packed([]))
+        step_ms = timed_ms(prog.captured.graph.replay, GEN_STEP_TIMED)
+        m = eng.model
+        pool = kvcache.make_pool(GEN["num_blocks"], GEN["block_size"],
+                                 m.LAYERS, m.HEADS, m.HEAD_DIM,
+                                 device=eng.device)
+        mb = eng.max_blocks
+        packed = torch.as_tensor(eng._packed([])[:1]).cuda()
+
+        def natural(p):
+            col = p[:, mb:]
+            nt, fin = m.decode_step(pool, p[:, :mb], col[:, 0], col[:, 1],
+                                    col[:, 2], col[:, 3],
+                                    col[:, 4].view(torch.float32),
+                                    col[:, 5], col[:, 6] != 0)
+            return [nt, fin]
+        captured, _ = jit._capture(natural, [packed], "measure",
+                                   tensors=m.tensors())
+        natural_ms = timed_ms(captured.graph.replay, GEN_STEP_TIMED)
+    finally:
+        cpu.close()
+    summary = dict(warm_s=warm_s, rounds=rounds, decode_step_ms=step_ms,
+                   decode_one_row_ms=natural_ms,
+                   pool_bytes=kvcache.pool_bytes(
+                       GEN["num_blocks"], GEN["block_size"], m.LAYERS,
+                       m.HEADS, m.HEAD_DIM))
+    log("serving_http: generation (TinyLM, %s) warm %.2f s; greedy %s; "
+        "sampled %s; decode step %.4f ms at %d rows (%.4f at one row)"
+        % (GEN, warm_s, {k: round(v, 2) if isinstance(
+            v, float) else v for k, v in rounds["greedy"].items()},
+            {k: round(v, 2) if isinstance(v, float) else v
+             for k, v in rounds["sampled"].items()},
+            step_ms, GEN["max_batch"], natural_ms))
+    return summary
+
+
+def resilience(reg, srv, net):
+    """Phase 20(e): a 2-replica BERT (S SERVE_HTTP_S) under a Supervisor;
+    faultlab (armed over POST /debug/faults) kills one replica worker at
+    batcher.dispatch: the request is retried once and answers 200,
+    /healthz reads degraded while the replica is dead and healthy after
+    the Supervisor respawns it. Returns a summary."""
+    import numpy as onp
+    from incubator_mxnet_tpu_torch.serving import Supervisor
+    from incubator_mxnet_tpu_torch.serving import batcher as batcher_mod
+    reg.load("bert-r2", net, max_batch_size=2, batch_timeout_ms=5,
+             replicas=2, warm_spec=[((SERVE_HTTP_S,), "int32")])
+    sup = Supervisor(reg, poll_s=0.02, backoff_base_s=0.5,
+                     backoff_cap_s=1.0).start()
+    row = onp.random.RandomState(24).randint(
+        0, BERT["vocab_size"], SERVE_HTTP_S).astype("int32")
+    statuses, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            st, _h, body = _http(srv, "GET", "/healthz", timeout=60)
+            statuses.append(json.loads(body)["status"])
+            time.sleep(0.01)
+    poller = threading.Thread(target=poll)
+    try:
+        r0 = batcher_mod._RETRIES.value(model="bert-r2")
+        st, _h, body = _http(srv, "POST", "/debug/faults", {
+            "spec": "batcher.dispatch:replica_kill:stride=1:budget=1"})
+        check(st == 200 and json.loads(body)["armed"], "arming faultlab "
+              "over HTTP: %d %s" % (st, body[:200]))
+        poller.start()
+        t0 = time.perf_counter()
+        st, _h, body = _http(srv, "POST", "/v1/models/bert-r2:predict",
+                             {"inputs": [row.tolist()], "dtype": "int32"})
+        retried_ms = (time.perf_counter() - t0) * 1e3
+        check(st == 200, "the killed replica's request: %d %s"
+              % (st, body[:200]))
+        check(batcher_mod._RETRIES.value(model="bert-r2") == r0 + 1,
+              "the request was not retried once")
+        b = reg._entry("bert-r2").batcher
+        deadline = time.monotonic() + 30
+        while (b.dead_replicas() or "degraded" not in statuses) and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        if poller.is_alive():
+            poller.join(60)
+        sup.stop()
+    check(not b.dead_replicas(), "the supervisor did not respawn the "
+          "replica: dead %s" % b.dead_replicas())
+    check("degraded" in statuses and statuses[-1] == "healthy",
+          "/healthz through the kill: %s" % sorted(set(statuses)))
+    first_bad = statuses.index("degraded")
+    healed = len(statuses) - 1 - statuses[::-1].index("degraded")
+    summary = dict(retried_request_ms=retried_ms,
+                   health_samples=len(statuses),
+                   degraded_samples=statuses.count("degraded"),
+                   healed_after_samples=healed - first_bad + 1)
+    log("serving_http: replica killed, its request retried (%.1f ms), "
+        "/healthz degraded for %d of %d samples, then healthy"
+        % (retried_ms, summary["degraded_samples"], len(statuses)))
+    return summary
+
+
+def serving_http_phase(card):
+    """Phase 20: the serving front end and generation on the card
+    (``--serving-http-only``). Returns (launches of the HTTP path,
+    summary)."""
+    import numpy as onp
+    from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.telemetry import faultlab
+    t0 = time.perf_counter()
+    bert = _serving_bert(seed=0)
+    eval_launches, evalstep = check_captured_evalstep(bert)
+    reg = serving.ModelRegistry()
+    srv = None
+    try:
+        reg.load("bert", bert, max_batch_size=BERT_BUCKET,
+                 batch_timeout_ms=50, warm_spec=[((BERT_S,), "int32")])
+        rows = onp.random.RandomState(0).randint(
+            0, BERT["vocab_size"], (BERT_REQUESTS, BERT_S)).astype("int32")
+        latency = _captured_against_eager(reg, rows)
+        v2, reload = prewarmed_reload(reg, rows)
+        del bert
+        srv = serving.ServingServer(reg, port=0).start()
+        http_launches, front = http_front_end(reg, srv, v2)
+        gen = generation(reg, srv)
+        res = resilience(reg, srv, v2)
+    finally:
+        faultlab.disarm()
+        if srv is not None:
+            srv.stop()
+        reg.close()
+    summary = dict(card=card, evalstep=evalstep, registry_latency=latency,
+                   hot_reload=reload, http=front, generation=gen,
+                   resilience=res, eval_replay_launches=eval_launches,
+                   seconds=time.perf_counter() - t0)
+    return http_launches, summary
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -6630,6 +7336,9 @@ def main(argv):
     parser.add_argument("--bucketing-only", action="store_true",
                         help="run the legacy API's bucketing LSTM LM "
                         "through BucketingModule.fit (phase 19) alone")
+    parser.add_argument("--serving-http-only", action="store_true",
+                        help="run the serving front end and generation "
+                        "(phase 20) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -6694,7 +7403,9 @@ def main(argv):
                              (opts.ctc_only, "ctc", ctc_phase),
                              (opts.module_only, "module", module_phase),
                              (opts.bucketing_only, "bucketing",
-                              bucketing_phase)):
+                              bucketing_phase),
+                             (opts.serving_http_only, "serving_http",
+                              serving_http_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -6715,28 +7426,29 @@ def main(argv):
         check_small_vision_against_cpu()
         captured = check_captured_small()
         serve_launches, serving = serve_full_width()
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_graphs()
         ndarray_launches, ndarray_summary = check_ndarray(card)
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_graphs()
         train_launches, training = train_full_width(bwd)
+        release_graphs()
         train_launches["resnet50"], vision = train_resnet_full_width()
+        release_graphs()
         gluon_launches, gluon = gluon_loop(card)
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_graphs()
         rnn_launches, rnn = lstm_lm(card)
+        release_graphs()
         zoo_launches, zoo = model_zoo(card)
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_graphs()
         ssd_launches, ssd = ssd_phase(card)
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_graphs()
         ctc_launches, ctc = ctc_phase(card)
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_graphs()
         module_launches, module = module_phase(card)
+        release_graphs()
         bucketing_launches, bucketing = bucketing_phase(card)
+        release_graphs()
+        serving_http_launches, serving_http = serving_http_phase(card)
+        release_graphs()
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -6750,6 +7462,7 @@ def main(argv):
              "lstm_lm": rnn_launches, "model_zoo": zoo_launches,
              "ssd": ssd_launches, "ctc": ctc_launches,
              "module": module_launches, "bucketing": bucketing_launches,
+             "serving_http": serving_http_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -6873,6 +7586,7 @@ def main(argv):
     log(json.dumps({"ctc": ctc}))
     log(json.dumps({"module": module}))
     log(json.dumps({"bucketing": bucketing}))
+    log(json.dumps({"serving_http": serving_http}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -43,10 +43,24 @@ RNN checkpoints), ``profiler`` (per-operator timing of the eager ``nd``
 operators, chrome traces, ``torch.profiler`` device traces),
 ``visualization`` (``mx.viz``), ``engine`` and ``util`` (the NumPy-semantics
 flags, ``inspect_tensor``).
+
+Its serving front end is the JAX package's: ``serving.ServingServer``
+(HTTP, the access log, ``/metrics`` from ``telemetry``'s registry, the
+``/debug/`` routes), ``ModelRegistry`` with prewarmed hot reloads and
+rollback, the ``DynamicBatcher`` with replica retry and the resilience
+``Supervisor``, ``jit.EvalStep`` as captured CUDA graphs in the
+process-wide ``aot`` cache, and ``serving.generate.GenerativeEngine``:
+continuous batching over a paged KV cache (``ops.kvcache``), one
+captured decode graph at ``max_batch`` rows.
 """
-from . import base, error, name, attribute, registry  # noqa: F401
+# telemetry depends only on config and the standard library: imported
+# first, as in the JAX package, so every module can declare its metrics
+from . import telemetry  # noqa: F401
+telemetry._maybe_autostart()
+from . import base, error, name, attribute, registry  # noqa: F401,E402
 from .base import MXNetError  # noqa: F401
 from . import autograd, config, context, initializer, ndarray  # noqa: F401
+from . import aot  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import random  # noqa: F401
 from . import contrib, gluon, jit, models, ops  # noqa: F401

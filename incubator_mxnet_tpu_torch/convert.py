@@ -20,12 +20,17 @@ the same form. A ``.params`` file is the other route: ``save_parameters``
 in one package and ``load_parameters`` in the other carry the same names,
 bfloat16 bit for bit (but for the fused RNN layers' weights, which the
 JAX package's file leaves out).
+
+``tinylm_from_jax`` builds the port's generative ``TinyLM`` from the JAX
+package's (whose weights are plain arrays, not Gluon parameters), so both
+compute the same thing.
 """
 from __future__ import annotations
 
 import numpy as onp
 
-__all__ = ["from_jax_params", "jax_arrays", "to_numpy_params"]
+__all__ = ["from_jax_params", "jax_arrays", "to_numpy_params",
+           "tinylm_from_jax"]
 
 
 def jax_arrays(jax_net):
@@ -92,3 +97,15 @@ def to_numpy_params(net):
     snapshot: later updates of the parameter do not change it)."""
     return {name: p._tensor().detach().float().cpu().numpy().copy()
             for name, p in net.collect_params().items()}
+
+
+def tinylm_from_jax(jax_tinylm, ctx=None):
+    """The port's ``serving.generate.TinyLM`` with the weights of the JAX
+    package's ``TinyLM`` (its ``emb`` and per-layer ``wq``, ``wk``, ``wv``,
+    ``wo``, ``w1``, ``w2``, carried as numpy arrays) and its seed, on
+    ``ctx`` (default: the current context)."""
+    from .serving.generate import TinyLM
+    weights = {"emb": onp.asarray(jax_tinylm.emb),
+               "layers": [{k: onp.asarray(v) for k, v in layer.items()}
+                          for layer in jax_tinylm.layers]}
+    return TinyLM(jax_tinylm.seed, ctx=ctx, weights=weights)

@@ -322,21 +322,19 @@ def _capture(block, spec, inputs, params, recording):
         return list(got)
 
     cap = jit._GraphCapture(next(x for x in inputs if x is not None).device)
-    before = dict(_kernels.LAUNCHES)
     what = "forward"
     try:
-        inst.fwd, inst.outputs = cap.capture(forward)
+        with _kernels.collecting() as launches_fwd:
+            inst.fwd, inst.outputs = cap.capture(forward)
         inst.kind = holder["kind"]
-        launches_fwd = _kernels.take_launches(before)
         inst.diff_out = [i for i, o in enumerate(inst.outputs)
                          if o.requires_grad]
         if recording and inst.diff_out and (diff_in or diff_params):
             what = "backward"
             inst.grad_outputs = [torch.empty_like(inst.outputs[i])
                                  for i in inst.diff_out]
-            before = dict(_kernels.LAUNCHES)
-            inst.bwd, got = cap.capture(backward, pool=cap.pool)
-            launches_bwd = _kernels.take_launches(before)
+            with _kernels.collecting() as launches_bwd:
+                inst.bwd, got = cap.capture(backward, pool=cap.pool)
             by_id = dict(zip(map(id, diff_in + diff_params), got))
             inst.grads = [None if x is None else by_id.get(id(x))
                           for x in inst.inputs]
@@ -348,7 +346,6 @@ def _capture(block, spec, inputs, params, recording):
             launches_bwd = {}
             inst.diff_out = []
     except Exception as exc:
-        _kernels.take_launches(before)
         first_error, where = jit._where(exc)
         raise RuntimeError(
             "hybridized %s: capturing the %s into a CUDA graph failed at "

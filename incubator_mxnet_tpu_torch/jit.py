@@ -32,34 +32,85 @@ gradients of the trainer's parameters (zeros where the loss does not
 reach) before the update, as in the JAX step. ``mesh`` and ``zero`` wait
 for the multi-GPU slice; ``data_axis`` (the mesh axis the batch is split
 over) is accepted and only matters with a mesh. ``model_id`` is accepted
-and stored: the JAX package keys its AOT cache of compiled programs by it,
-which comes with the port of ``aot.py``.
+and stored: a training graph updates its own parameters in place and is
+never shared, so ``TrainStep`` keeps its own table.
 
 ``EvalStep`` moves its inputs to the net's device and runs the forward
-without recording (under ``torch.inference_mode()`` for the serving path).
-Both steps run a hybridized net's plain forward (``gluon._functional
-.plain``): ``TrainStep`` captures the whole step, and graphs do not nest.
-Inputs may be NDArrays, tensors or numpy arrays; both steps return
-NDArrays, as the JAX package's do.
+without recording. On a CUDA net each input signature is one CUDA graph
+in the process-wide ``aot.CACHE`` (kind ``"eval"``), keyed by the model's
+``model_id`` (``aot.model_id_for`` by default), the signature, the device
+and the addresses of the parameters the graph reads: its first call runs
+the forward eagerly on a side stream (that call's answer), then captures
+it; every later call with that key, from this step or another over the
+same parameter storage, copies its inputs into the graph's static buffers
+and replays it. A capture counts on ``mxtpu_jit_compiles_total{kind}``
+and ``mxtpu_jit_compile_seconds_total{kind}`` inside an ``eval:build``
+span. CPU nets run the forward eagerly.
+
+Captures are serialised process-wide (``_CAPTURE_LOCK``) and run in the
+thread-local capture mode: a registry's prewarm captures on its warm
+thread while batcher workers of this and other models launch, copy and
+synchronise on the same card, which the global mode would let invalidate
+the capture (or fail). Both steps run a hybridized net's plain forward
+(``gluon._functional.plain``): graphs do not nest. Inputs may be NDArrays,
+tensors or numpy arrays; both steps return NDArrays, as the JAX
+package's do.
 """
 from __future__ import annotations
 
 import collections
 import gc
 import os
+import threading
+import time as _time
 import traceback
 
 import numpy as onp
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import aot
 from . import autograd
 from . import config
+from . import telemetry
 from .ndarray import NDArray
 from .ndarray import random as _random
 from .ops import _kernels
+from .telemetry import flightrec, spans
 
 __all__ = ["TrainStep", "EvalStep"]
+
+# Capture observability, as the JAX package's compile counters: each
+# shared-cache miss is one capture (an eager run and the graph's), counted
+# with its wall time by kind.
+_COMPILES = telemetry.counter(
+    "mxtpu_jit_compiles_total",
+    "Shape-keyed program-cache misses (one CUDA graph capture each).",
+    ("kind",))
+_COMPILE_SECONDS = telemetry.counter(
+    "mxtpu_jit_compile_seconds_total",
+    "Wall seconds spent in cache-miss first calls (eager run + capture).",
+    ("kind",))
+
+#: one capture at a time in the process (see the module's docstring)
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _record_compile_span(name, dur_s):
+    """Retroactive span over a just-finished build window, parented onto
+    the ambient span."""
+    try:
+        from . import profiler
+        spans.record_span(name, profiler.now_us() - dur_s * 1e6,
+                          dur_s * 1e6, parent=spans.current_span())
+    except Exception:   # tracing must never fail the step
+        pass
+
+
+def _uses_graphs(device):
+    """Whether steps on ``device`` replay CUDA graphs (the CPU tests route
+    the CPU through a stand-in by patching this and ``_GraphCapture``)."""
+    return device.type == "cuda"
 
 
 def net_device(net):
@@ -135,7 +186,16 @@ class _GraphCapture:
         captured graphs in reference cycles (through their parameters),
         and a graph freed while another is being captured resets itself
         inside that capture and breaks it (as ``torch.cuda.graph``
-        collects before capturing)."""
+        collects before capturing). One capture runs at a time in the
+        process (``_CAPTURE_LOCK``), in the thread-local capture mode:
+        other threads may launch, copy, allocate and synchronise
+        meanwhile (a registry's prewarm captures under traffic). The
+        launches autograd's thread makes onto the captured stream count
+        with the caller's ``_kernels.collecting()`` (``capturing``)."""
+        with _CAPTURE_LOCK, _kernels.capturing():
+            return self._capture(fn, pool)
+
+    def _capture(self, fn, pool):
         graph = torch.cuda.CUDAGraph()
         if hasattr(graph, "register_generator_state"):
             # nd.random's generator, for draws inside the step (dropout
@@ -151,7 +211,8 @@ class _GraphCapture:
         gc.disable()
         try:
             with torch.cuda.stream(self.side):
-                graph.capture_begin(pool=pool)
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
                 try:
                     out = fn()
                 except BaseException:
@@ -193,21 +254,68 @@ class _GraphCapture:
 
 
 class _Captured:
-    """One signature's captured step: the graph, its static inputs and
-    scalar vector (and how to upload them), its loss, the kernel launches
-    one replay makes, and the tensors it was captured on (held, so their
-    addresses stay theirs) with those addresses."""
+    """One signature's captured program: the graph, its static inputs and
+    scalar vector (and how to upload them), its static outputs (the
+    step's loss, a forward's tensors), the kernel launches one replay
+    makes, and the tensors it was captured on (held, so their addresses
+    stay theirs) with those addresses. ``lock`` serialises the threads
+    that replay one graph (its static buffers are shared)."""
 
-    def __init__(self, graph, upload, inputs, scalars, loss, launches,
+    def __init__(self, graph, upload, inputs, scalars, out, launches,
                  tensors, bindings):
         self.graph = graph
         self.upload = upload
         self.inputs = inputs
         self.scalars = scalars
-        self.loss = loss
+        self.out = out
         self.launches = launches
         self.tensors = [t.detach() for t in tensors]
         self.bindings = bindings
+        self.lock = threading.Lock()
+
+    def replay(self, args):
+        """Copy ``args`` into the static inputs, replay, count the
+        launches (the caller holds ``lock`` while it reads the outputs)."""
+        with torch.no_grad():
+            for buf, a in zip(self.inputs, args):
+                buf.copy_(a)
+        self.graph.replay()
+        _kernels.add_launches(self.launches)
+
+
+def _capture(body, args, kind, tensors=()):
+    """One capture of ``body(*inputs) -> list of tensors``: ``body`` runs
+    eagerly on a side stream over copies of ``args`` (the static input
+    buffers from then on), then is captured on those copies in a graph
+    whose launches are collected apart (``_kernels.collecting``) and added
+    back at each replay. ``tensors`` are held by the capture, so the
+    addresses it reads stay theirs. Counts one compile of ``kind`` with
+    its wall time. Returns (the ``_Captured``, the eager run's outputs).
+    A capture that fails raises, naming the line of the operation."""
+    t0 = _time.perf_counter()
+    flightrec.record("compile_begin", kind=kind)
+    cap = _GraphCapture(args[0].device)
+    n = len(args)
+
+    def eager():
+        static = [a.clone() for a in args]
+        return [*body(*static), *static]
+    got = cap.eager(eager)
+    out, static = got[:len(got) - n], got[len(got) - n:]
+    try:
+        with _kernels.collecting() as launches:
+            graph, captured = cap.capture(lambda: body(*static))
+    except Exception as exc:
+        first_error, where = _where(exc)
+        raise RuntimeError(
+            "capturing a %s program into a CUDA graph failed at %s: %s"
+            % (kind, where, first_error)) from exc
+    dur = _time.perf_counter() - t0
+    _COMPILES.inc(kind=kind)
+    _COMPILE_SECONDS.inc(dur, kind=kind)
+    flightrec.record("compile_end", kind=kind, dur_s=round(dur, 6))
+    return _Captured(graph, cap.upload, static, None, captured, launches,
+                     tensors, None), out
 
 
 class TrainStep:
@@ -360,7 +468,7 @@ class TrainStep:
             entry.upload(entry.scalars, scalars)
             entry.graph.replay()
             _kernels.add_launches(entry.launches)
-            loss = entry.loss.clone()
+            loss = entry.out.clone()
         self._graphs[sig] = entry
         config.evict_to_bound(self._graphs)
         return loss
@@ -397,42 +505,128 @@ class TrainStep:
             return [self._on_leaves(lambda: self._body(
                 inputs, n_net_inputs, static)), static, *inputs]
         first, static, *inputs = cap.eager(first_step)
-        before = dict(_kernels.LAUNCHES)
         try:
-            graph, loss = cap.capture(lambda: self._on_leaves(
-                lambda: self._body(inputs, n_net_inputs, static)))
+            with _kernels.collecting() as launches:
+                graph, loss = cap.capture(lambda: self._on_leaves(
+                    lambda: self._body(inputs, n_net_inputs, static)))
         except Exception as exc:
-            _kernels.take_launches(before)
             first_error, where = _where(exc)
             raise RuntimeError(
                 "TrainStep: capturing the step into a CUDA graph failed at "
                 "%s: %s" % (where, first_error)) from exc
-        launches = _kernels.take_launches(before)
         self.captures += 1
         return _Captured(graph, cap.upload, inputs, static, loss, launches,
                          tensors, bindings), first
 
 
 class EvalStep:
-    """``step(*inputs)`` = ``net(*inputs)`` in inference mode on the net's
+    """``step(*inputs)`` = ``net(*inputs)`` without recording on the net's
     device, as NDArrays. Inputs may be NDArrays, tensors or numpy arrays.
-    ``model_id`` is stored, as ``TrainStep``'s."""
+    On a CUDA net each signature replays a captured CUDA graph from
+    ``aot.CACHE`` (see the module's docstring); ``captures`` counts the
+    graphs this step captured. ``model_id`` names the model in the cache
+    key (default ``aot.model_id_for(net, extra=("eval",))``). The step
+    holds every entry it built or used (``_owner``) until ``release``."""
 
     def __init__(self, net, model_id=None):
         self.net = net
         self._model_id = model_id
+        self.captures = 0
+        self._owner = object()      # this step's token as a cache holder
+        self._keys = set()          # cache keys this step built or used
+        self._keys_lock = threading.Lock()
 
     def __call__(self, *inputs):
-        from .gluon._functional import plain
         from .ndarray.ndarray import _wrap
         args = _to_device(inputs, net_device(self.net))
-        with torch.no_grad(), plain():
-            return _wrap(self.net(*args), args)
+        return _wrap(self._dispatch(args, inference=False), args)
 
     def _run(self, *inputs):
-        """The forward's tensors, unwrapped, under ``torch.inference_mode()``
-        (the serving path's call; its tensors cannot be written outside
-        inference mode, so the NDArrays of ``__call__`` are not these)."""
+        """The forward's tensors, unwrapped (the serving path's call);
+        eagerly they run under ``torch.inference_mode()``."""
+        return self._dispatch(_to_device(inputs, net_device(self.net)),
+                              inference=True)
+
+    def _dispatch(self, args, inference):
+        if not _uses_graphs(net_device(self.net)):
+            return self._forward(args, inference)
+        with spans.span("eval:step"):
+            return self._replay(args)
+
+    def _forward(self, args, inference=False):
+        """The eager forward: what a graph captures, and the CPU's step."""
         from .gluon._functional import plain
-        with torch.inference_mode(), plain():
-            return self.net(*_to_device(inputs, net_device(self.net)))
+        with (torch.inference_mode() if inference else torch.no_grad()), \
+                plain():
+            return self.net(*args)
+
+    def _key(self, args):
+        """This call's cache key: the model, the signature, the device and
+        the addresses of the parameters a graph of it reads."""
+        if self._model_id is None:
+            self._model_id = aot.model_id_for(self.net, extra=("eval",))
+        device = net_device(self.net)
+        bindings = (str(device),) + tuple(
+            p._tensor().data_ptr() for p in self.net.collect_params().values())
+        return aot.cache_key(self._model_id, aot.input_signature(args),
+                             kind="eval", extra=bindings)
+
+    def _replay(self, args):
+        """The forward through this signature's graph, captured first
+        when the cache has none (that call answers with its eager run)."""
+        key = self._key(args)
+        with self._keys_lock:
+            self._keys.add(key)
+        first = []
+        entry = aot.CACHE.lookup(key, self._owner)
+        if entry is None:
+            entry = aot.compile_cached(key, self._builder(args, first),
+                                       owner=self._owner)
+        from .gluon._functional import _unflatten
+        if first:
+            out = first[0]
+        else:
+            graph = entry.fn
+            with graph.lock:
+                graph.replay(args)
+                out = [o.clone() for o in graph.out]
+        return _unflatten(entry.extras, iter(out))
+
+    def _builder(self, args, first):
+        """The cache's build hook: one capture of the forward
+        (``_capture``) inside an ``eval:build`` span, over the forward's
+        output tensors flattened (``extras``: its structure); the eager
+        run's outputs go to ``first``, the answer of the call that
+        built."""
+        from .gluon._functional import _flat
+
+        def build():
+            t0 = _time.perf_counter()
+            spec = []
+
+            def body(*static):
+                outs, structure = _flat(self._forward(list(static)),
+                                        "EvalStep's net")
+                spec[:] = [structure]
+                return outs
+            with spans.span("eval:build"):
+                captured, out = _capture(
+                    body, args, "eval", tensors=[
+                        p._tensor() for p in
+                        self.net.collect_params().values()])
+            self.captures += 1
+            _record_compile_span("eval:compile",
+                                 _time.perf_counter() - t0)
+            first.append(out)
+            return captured, spec[0], None
+        return build
+
+    def release(self):
+        """Let go of every cache entry this step built or used: an entry
+        no other step or engine holds leaves the cache with its graph,
+        memory pool and the parameters it holds. A registry calls it when
+        a served version goes."""
+        with self._keys_lock:
+            keys, self._keys = self._keys, set()
+        for key in keys:
+            aot.CACHE.release(key, self._owner)

@@ -13,9 +13,11 @@ entry point returns the launch's ``cudaError_t``, which ``launched`` turns
 into an exception or a count. ``LAUNCHES`` counts each kernel's launches: a
 wrapper calls ``count(name)`` (through ``launched``) right after its kernel
 was launched, and nowhere else. A CUDA graph's capture runs the wrappers
-but launches nothing: ``take_launches`` takes what the capture counted back
-out, and each replay adds it again (``add_launches``), so ``LAUNCHES``
-counts the kernels that ran.
+but launches nothing: ``collecting`` keeps what the capture counts out of
+``LAUNCHES`` (on the capturing thread, and through ``capturing`` on
+autograd's thread when it runs a captured backward; other threads may
+launch meanwhile), and each replay adds it back (``add_launches``), so
+``LAUNCHES`` counts the kernels that ran.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ import subprocess
 import threading
 
 __all__ = ["build", "load", "bind", "launched", "stream", "count",
-           "reset_launches", "take_launches", "add_launches", "LAUNCHES",
-           "BUILD_LOG", "NVCC_FLAGS"]
+           "reset_launches", "add_launches", "collecting", "capturing",
+           "LAUNCHES", "BUILD_LOG", "NVCC_FLAGS"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -40,6 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {}      # kernel name -> launches since the last reset
 BUILD_LOG = {}     # source -> nvcc's output (ptxas registers/spills)
 _count_lock = threading.Lock()
+_collector = threading.local()
+_capture_sink = None   # the counts of the capture in progress (capturing)
 _build_lock = threading.Lock()
 _libs = {}
 _bound = set()
@@ -47,26 +51,66 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def count(name):
-    """One launch of kernel ``name`` (called by its wrapper)."""
+    """One launch of kernel ``name`` (called by its wrapper); inside
+    ``collecting()`` on this thread, or onto the stream a capture is
+    recording (``capturing``), it goes to the capture's counts instead."""
+    sink = getattr(_collector, "sink", None)
+    if sink is None and _capture_sink is not None and _stream_capturing():
+        sink = _capture_sink
     with _count_lock:
-        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+        if sink is None:
+            sink = LAUNCHES
+        sink[name] = sink.get(name, 0) + 1
+
+
+def _stream_capturing():
+    """Whether this thread's current CUDA stream is recording a graph."""
+    import torch
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+class collecting:
+    """``with collecting() as counts:`` — the launches this thread's
+    wrappers count meanwhile go to ``counts`` (kernel name -> launches),
+    not to ``LAUNCHES``: a capture's, which each replay adds back. It sees
+    no other thread's launches, so a capture can run while other threads
+    launch and replay."""
+
+    def __enter__(self):
+        self._prev = getattr(_collector, "sink", None)
+        self.counts = {}
+        _collector.sink = self.counts
+        return self.counts
+
+    def __exit__(self, *exc):
+        _collector.sink = self._prev
+        return False
+
+
+class capturing:
+    """``with capturing():`` around one CUDA graph capture, inside the
+    capturing thread's ``collecting()`` (one capture runs at a time in the
+    process): a launch another thread makes onto a stream being captured
+    meanwhile goes to that thread's counts too. Autograd runs a captured
+    backward on its own thread, onto the captured stream; another thread's
+    launches onto its own streams still count in ``LAUNCHES``."""
+
+    def __enter__(self):
+        global _capture_sink
+        self._prev = _capture_sink
+        _capture_sink = getattr(_collector, "sink", None)
+
+    def __exit__(self, *exc):
+        global _capture_sink
+        _capture_sink = self._prev
+        return False
 
 
 def reset_launches():
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
-
-
-def take_launches(before):
-    """Take the launches counted since ``before`` (a copy of ``LAUNCHES``)
-    back out of ``LAUNCHES`` and return them, by kernel."""
-    with _count_lock:
-        taken = {name: n - before.get(name, 0)
-                 for name, n in LAUNCHES.items() if n != before.get(name, 0)}
-        for name, n in taken.items():
-            LAUNCHES[name] -= n
-    return taken
 
 
 def add_launches(counts):

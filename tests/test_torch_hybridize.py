@@ -118,9 +118,8 @@ class _CpuGraph:
     def replay(self):
         """Run the function again into the captured outputs; its launches
         are counted by the block, per replay."""
-        before = dict(_kernels.LAUNCHES)
-        got = self.fn()
-        _kernels.take_launches(before)
+        with _kernels.collecting():
+            got = self.fn()
         with torch.no_grad():
             for o, g in zip(self.out, got):
                 if o is not None and g is not None:

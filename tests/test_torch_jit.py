@@ -20,6 +20,8 @@ count, the scalar vector, the signature LRU, the rebinding check and the
 launch accounting are exercised on the CPU. ``chip_smoke.py`` holds the
 real graphs against the eager body on the card.
 """
+import threading
+
 import numpy as onp
 import pytest
 import torch
@@ -394,9 +396,8 @@ class _CpuGraph:
     def replay(self):
         """Run the body again; its launches are the capture's, which the
         step adds itself."""
-        before = dict(_kernels.LAUNCHES)
-        out = self.fn()
-        _kernels.take_launches(before)
+        with _kernels.collecting():
+            out = self.fn()
         self.out.copy_(out)
 
 
@@ -545,15 +546,50 @@ def test_a_failed_capture_raises_naming_the_operation(monkeypatch):
 
 
 def test_take_and_add_launches():
+    """A capture's launches are collected on its own thread, apart from
+    ``LAUNCHES`` (another thread's launches meanwhile still count there),
+    and each replay adds them back."""
     _kernels.reset_launches()
     _kernels.count("a")
-    before = dict(_kernels.LAUNCHES)
-    _kernels.count("a")
-    _kernels.count("b")
-    taken = _kernels.take_launches(before)
+    with _kernels.collecting() as taken:
+        _kernels.count("a")
+        _kernels.count("b")
+        other = threading.Thread(target=_kernels.count, args=("a",))
+        other.start()
+        other.join(10)
     assert taken == {"a": 1, "b": 1}
-    assert _kernels.LAUNCHES["a"] == 1 and _kernels.LAUNCHES["b"] == 0
+    assert _kernels.LAUNCHES["a"] == 2 and _kernels.LAUNCHES.get("b", 0) == 0
     _kernels.add_launches(taken)
     _kernels.add_launches(taken)
-    assert (_kernels.LAUNCHES["a"], _kernels.LAUNCHES["b"]) == (3, 2)
+    assert (_kernels.LAUNCHES["a"], _kernels.LAUNCHES["b"]) == (4, 2)
+    _kernels.reset_launches()
+
+
+@pytest.mark.parametrize("on_captured_stream", [True, False])
+def test_capture_collects_launches_of_autograds_thread(monkeypatch,
+                                                       on_captured_stream):
+    """Inside ``capturing()`` (a capture in progress), a launch another
+    thread makes onto the captured stream (autograd's thread running the
+    captured backward) goes to the capture's counts; one onto another
+    stream (a batcher worker's) still counts in ``LAUNCHES``."""
+    _kernels.reset_launches()
+    capturing = threading.local()
+    monkeypatch.setattr(_kernels, "_stream_capturing",
+                        lambda: getattr(capturing, "on", False))
+
+    def backward():
+        capturing.on = on_captured_stream
+        _kernels.count("bwd")
+    with _kernels.collecting() as taken, _kernels.capturing():
+        _kernels.count("fwd")
+        other = threading.Thread(target=backward)
+        other.start()
+        other.join(10)
+    _kernels.count("bwd")                     # after the capture
+    if on_captured_stream:
+        assert taken == {"fwd": 1, "bwd": 1}
+        assert _kernels.LAUNCHES["bwd"] == 1
+    else:
+        assert taken == {"fwd": 1} and _kernels.LAUNCHES["bwd"] == 2
+    assert _kernels.LAUNCHES.get("fwd", 0) == 0
     _kernels.reset_launches()

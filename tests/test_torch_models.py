@@ -148,7 +148,8 @@ def test_ring_and_ulysses_wait_for_the_multi_gpu_slice():
             tmodels.MultiHeadAttention(64, 2, attention=attention)
 
 
-#: modules every walk of the port must reach (those of the array layer)
+#: modules every walk of the port must reach (the array layer, serving,
+#: the AOT cache, the KV cache and telemetry)
 PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "ndarray.linalg", "ndarray.optimizer_ops", "ndarray.sparse",
                 "ndarray.contrib", "ops.ctc", "ops.deformable",
@@ -159,7 +160,12 @@ PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "kvstore", "kvstore.kvstore", "kvstore.kvstore_server",
                 "model", "module", "module.base_module", "module.module",
                 "module.bucketing_module", "module.sequential_module",
-                "io", "io.io", "recordio", "image", "monitor")
+                "io", "io.io", "recordio", "image", "monitor", "aot",
+                "ops.kvcache", "serving.server", "serving.accesslog",
+                "serving.resilience", "serving.generate", "telemetry",
+                "telemetry.registry", "telemetry.spans",
+                "telemetry.flightrec", "telemetry.watchdog",
+                "telemetry.faultlab")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -611,3 +611,56 @@ def test_symbolic_api_pieces_waiting_for_other_items_name_them():
         assert hasattr(mx, top) and hasattr(mxt, top), top
     assert mxt.sym is mxt.symbol and mxt.mod is mxt.module
     assert mxt.kv is mxt.kvstore and mxt.Monitor is mxt.monitor.Monitor
+
+
+# ============================== serving, generation, aot and telemetry
+
+SERVING_NAMESPACES = ["serving", "serving.batcher", "serving.registry",
+                      "serving.server", "serving.accesslog",
+                      "serving.resilience", "serving.generate",
+                      "serving.metrics", "aot", "ops.kvcache", "telemetry",
+                      "telemetry.registry", "telemetry.spans",
+                      "telemetry.flightrec", "telemetry.watchdog",
+                      "telemetry.faultlab", "telemetry.ringbuf",
+                      "telemetry.trace"]
+
+
+@pytest.mark.parametrize("path", SERVING_NAMESPACES)
+def test_serving_surface_is_the_references(path):
+    """Every public name of the JAX package's module is in the port's,
+    every class has its public methods and every function takes its
+    parameters; names the port has not ported raise when used, naming
+    their item (``telemetry``'s five modules of item 7 on access,
+    ``MeshServable``/``serving_mesh`` of item 5 on call: held by
+    tests/test_torch_telemetry.py and test_torch_serving_http.py)."""
+    import importlib
+    import inspect
+    import types
+    ref = importlib.import_module("incubator_mxnet_tpu." + path)
+    port = importlib.import_module("incubator_mxnet_tpu_torch." + path)
+    waiting = getattr(port, "WAITING", ())
+    gaps = []
+    for name in dir(ref):
+        if name.startswith("_") or name in waiting or name == "annotations":
+            continue
+        r = getattr(ref, name)
+        if isinstance(r, types.ModuleType) or (
+                name in ("jax", "jnp") or getattr(r, "__module__", "")
+                .startswith(("jax", "jaxlib"))):
+            continue
+        if not hasattr(port, name):
+            gaps.append(name)
+            continue
+        p = getattr(port, name)
+        if inspect.isclass(r):
+            for m in dir(r):
+                if m.startswith("_") and m != "__init__":
+                    continue
+                if not hasattr(p, m):
+                    gaps.append("%s.%s" % (name, m))
+                elif callable(getattr(r, m)) and \
+                        not _takes(getattr(r, m), getattr(p, m)):
+                    gaps.append("%s.%s()" % (name, m))
+        elif callable(r) and not _takes(r, p):
+            gaps.append(name + "()")
+    assert not gaps, gaps
