@@ -392,6 +392,35 @@ Phases, each of which must pass, in order:
    the kernels line's ``launches_by_path`` carries (c)'s K1 launches.
    Between phases the script drops the captured EvalStep graphs
    (``release_graphs``), so none sits in a later phase's memory peak.
+21. (Run after phase 20.) Programs on disk and device telemetry
+   (``programs_phase``, ``--programs-only``). (a) ``HybridBlock.export``
+   of the serving BERT at B 8 x S 512: seconds, the ``.mxtpu``'s MB. (b)
+   A fresh process loads it through ``SymbolBlock.imports`` and
+   ``contrib.serving.load`` and answers 16 requests from 4 threads
+   through ``ModelRegistry`` (bucket 8): every reply equal to this
+   process's forward (PROGRAMS_TOL), K1 launched 12 times a replay,
+   p50, load and capture s. (c) With ``MXTPU_AOT_CACHE_DIR`` set,
+   ``EvalStep`` buckets 1-8 built here (export, write, capture), then a
+   second fresh process gets an artifact hit a bucket, runs the net's
+   Python forward 0 times and replays bucket 8 bit for bit: load and
+   capture s against build s. (d) ``serving.serve`` of an S 64 artifact
+   over HTTP: 8 requests from 4 threads within 2 % of the logit range of
+   the direct forward, every batch tapped, K1 launched exactly 12 times a
+   batch of this path (the batcher's batch count); only then is a
+   bf16-vs-fp32 shadow registered, so its own K1 launches stay out of the
+   count. (e) ``/debug/profile`` under that HTTP traffic (12 s: a reply's
+   JSON takes seconds; the trace must hold at least 2 batches) and under
+   TinyLM generation traffic (8 streams, 2 s), each asked for once its
+   traffic has made progress: the device's busy and idle share of the
+   seconds the profiler recorded (and of the span of its device
+   activity), its top kernels (K1 among the BERT ones),
+   ``/debug/hotspots``. (f) devstats' MFU of the bucket-8 replay in (b)
+   against the analytic forward FLOPs (a third of ``bench.py:358``'s), the
+   HBM capacity and the peak memory. (g) ``/debug/numerics``: the tap's
+   finite fraction 1.0, the shadow's divergence, a faultlab nan_poison's
+   storm episode; ``/debug/slo`` and ``/debug/history`` with this
+   traffic's series. Prints a {"programs": ...} line; the kernels line's
+   ``launches_by_path`` carries the HTTP path's K1 launches.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -411,8 +440,8 @@ Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
 {"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...},
-a {"bucketing": ...}, a {"serving_http": ...} and a {"kernels": [...]}
-line and, as the last line, {"ok": true, "device": {...}}. Exits
+a {"bucketing": ...}, a {"serving_http": ...}, a {"programs": ...} and a
+{"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
 this script, or any phase fails.
 
@@ -432,8 +461,9 @@ phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"model_zoo": {...}}), ``--ssd-only`` phase 15 ({"ssd": {...}}) and
 ``--ctc-only`` phase 16 ({"ctc": {...}}), ``--module-only`` phase 17
 ({"module": {...}}), ``--bucketing-only`` phase 19
-({"bucketing": {...}}) and ``--serving-http-only`` phase 20
-({"serving_http": {...}}).
+({"bucketing": {...}}), ``--serving-http-only`` phase 20
+({"serving_http": {...}}) and ``--programs-only`` phase 21
+({"programs": {...}}).
 """
 import gc
 import itertools
@@ -6367,12 +6397,13 @@ def release_graphs():
     torch.cuda.empty_cache()
 
 
-def _serving_bert(seed):
-    """Full-width BERT (BERT), bf16, flash attention, on the card."""
+def _serving_bert(seed, config=None):
+    """Full-width BERT (``config``, by default BERT), bf16, flash
+    attention, on the card."""
     import torch
     import incubator_mxnet_tpu_torch as mxt
     from incubator_mxnet_tpu_torch import models
-    net = models.BERTModel(**BERT)
+    net = models.BERTModel(**(config or BERT))
     net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
                    .Generator(device="cuda:0").manual_seed(seed))
     net.cast("bfloat16")
@@ -6994,6 +7025,540 @@ def serving_http_phase(card):
     return http_launches, summary
 
 
+# --------------------------------------------------- phase 21: programs
+PROGRAMS_B = 8              # the exported batch of the S 512 artifact
+PROGRAMS_REQUESTS = 16
+PROGRAMS_TOL = 0.0          # the loaded program runs the live one's ops
+PROGRAMS_HTTP_TOL = 0.02    # of the logit range (phase 20's HTTP contract)
+PROFILE_HTTP_S = 12.0       # an HTTP round is seconds of JSON a reply
+PROFILE_GEN_S = 2.0         # a decode step every ~1.5 ms
+
+_SERVE_CHILD = r'''
+import json, os, sys, threading, time
+root, manifest, artifact, rows_path, ref_path = sys.argv[1:6]
+sys.path.insert(0, root)
+import numpy as onp
+import torch
+import incubator_mxnet_tpu_torch as mxt
+from incubator_mxnet_tpu_torch import aot, gluon, serving
+from incubator_mxnet_tpu_torch.contrib import serving as cs
+from incubator_mxnet_tpu_torch.ops import _kernels
+from incubator_mxnet_tpu_torch.telemetry import devstats
+rows = onp.load(rows_path)
+ref = torch.load(ref_path)                     # (n, S, V) bf16, the CPU
+t0 = time.perf_counter()
+block = gluon.SymbolBlock.imports(manifest, ["data"])
+imports_s = time.perf_counter() - t0
+got = block(mxt.nd.array(rows[:8], ctx=mxt.gpu(0), dtype="int32"))._data
+imports_err = float((got.float() - ref[:8].cuda().float()).abs().max())
+del block, got
+t0 = time.perf_counter()
+served = cs.load(artifact)
+load_s = time.perf_counter() - t0
+replays = [0]
+run = served._run
+def counted(*a, **k):
+    replays[0] += 1
+    return run(*a, **k)
+served._run = counted
+torch.cuda.reset_peak_memory_stats()
+reg = serving.ModelRegistry()
+t0 = time.perf_counter()
+reg.load("bert", served, max_batch_size=8, batch_timeout_ms=50,
+         warm_spec=[((rows.shape[1],), "int32")])
+capture_s = time.perf_counter() - t0
+replays[0] = 0
+_kernels.reset_launches()
+lat, replies = [None] * len(rows), [None] * len(rows)
+def client(idx):
+    for i in idx:
+        t = time.perf_counter()
+        replies[i] = reg.predict("bert", rows[i], timeout=600)[0]
+        lat[i] = (time.perf_counter() - t) * 1e3
+threads = [threading.Thread(target=client, args=(range(c, len(rows), 4),))
+           for c in range(4)]
+for t in threads: t.start()
+for t in threads: t.join(600)
+launches = dict(_kernels.LAUNCHES)
+errs, exact = [], 0
+for i, r in enumerate(replies):
+    want = ref[i].float().numpy()
+    errs.append(float(onp.abs(r - want).max()))
+    exact += int(onp.array_equal(r, want))
+entry = [e for e in aot.CACHE.snapshot() if e["kind"] == "serve"][0]
+mfu = {"%s/%s/%s" % (l["model"], l["kind"], l["replica"]): v
+       for l, v in devstats._MFU.series()}
+reg.close()
+print(json.dumps(dict(
+    imports_s=imports_s, imports_max_abs_err=imports_err, load_s=load_s,
+    capture_s=capture_s, replays=replays[0], launches=launches,
+    p50_ms=sorted(lat)[len(lat) // 2], max_ms=max(lat),
+    max_abs_err=max(errs), bit_for_bit=exact, requests=len(rows),
+    stats=entry["stats"], mfu=mfu, dispatch=devstats.dispatch_totals(),
+    hbm_capacity=devstats.hbm_capacity(),
+    peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)))
+'''
+
+_ARTIFACT_CHILD = r'''
+import hashlib, json, os, sys, time
+root, rows_path, buckets = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+config = json.loads(sys.argv[5])
+sys.path.insert(0, root)
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[4])))
+import numpy as onp
+import torch
+import chip_smoke
+from incubator_mxnet_tpu_torch import aot, jit, models
+from incubator_mxnet_tpu_torch.ops import _kernels
+from incubator_mxnet_tpu_torch.telemetry import spans
+bert = chip_smoke._serving_bert(seed=0, config=config)
+forwards = [0]
+forward = models.BERTModel.forward
+def counted(self, *a, **k):      # on the class: the instance is untouched
+    forwards[0] += 1
+    return forward(self, *a, **k)
+models.BERTModel.forward = counted
+rows = torch.as_tensor(onp.load(rows_path)).cuda()
+step = jit.EvalStep(bert)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for b in buckets:
+    step(rows[:b])
+torch.cuda.synchronize()
+load_capture_s = time.perf_counter() - t0
+_kernels.reset_launches()
+out = step(rows[:max(buckets)])._data
+torch.cuda.synchronize()
+print(json.dumps(dict(
+    hits=aot._ARTIFACT_HITS.value(kind="eval"),
+    compiles=jit._COMPILES.value(kind="eval"), python_forwards=forwards[0],
+    sources=[e["source"] for e in aot.CACHE.snapshot()],
+    load_capture_s=load_capture_s, replay_launches=dict(_kernels.LAUNCHES),
+    load_s=sum(r["dur_us"] for r in spans.snapshot()
+               if r["name"] == "aot:load") / 1e6,
+    out_sha256=hashlib.sha256(out.view(torch.int16).cpu().numpy()
+                              .tobytes()).hexdigest())))
+'''
+
+
+def _child(script, *args, env=None):
+    """Run ``script`` in a fresh interpreter beside this checkout; its last
+    stdout line is JSON. Raises with its output if it fails."""
+    r = subprocess.run([sys.executable, "-c", script, *args],
+                       capture_output=True, text=True, timeout=900,
+                       env=dict(os.environ, **(env or {})))
+    if r.returncode:
+        raise SmokeFailure("a fresh process failed (exit %d):\n%s\n%s"
+                           % (r.returncode, r.stdout[-3000:],
+                              r.stderr[-6000:]))
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _forward_flops(net, b, s):
+    """BERT's analytic forward FLOPs: one third of bench.py:358's training
+    formula, 2·params·B·S + 4·L·B·S²·U."""
+    params = sum(math.prod(p.shape) for p in net.collect_params().values())
+    return 2 * params * b * s + 4 * BERT["num_layers"] * b * s * s \
+        * BERT["units"]
+
+
+def export_and_serve(bert, tmp, root):
+    """Phase 21(a) and (b): HybridBlock.export of full-width BERT at B 8 x
+    S 512 (seconds, MB), then a fresh process loads it through
+    SymbolBlock.imports and contrib.serving.load and serves 16 requests
+    from 4 threads through ModelRegistry (bucket 8); replies held to this
+    process's direct forward, K1 = 12 x replays, and devstats' MFU of the
+    bucket-8 replay against the analytic forward FLOPs (f)."""
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch import jit
+    rng = onp.random.RandomState(21)
+    rows = rng.randint(0, BERT["vocab_size"], (PROGRAMS_REQUESTS, BERT_S)) \
+        .astype("int32")
+    x = torch.as_tensor(rows[:PROGRAMS_B]).cuda()
+    path = os.path.join(tmp, "bert")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bert.export(path, example_inputs=[x])
+    export_s = time.perf_counter() - t0
+    artifact = path + ".mxtpu"
+    mb = os.path.getsize(artifact) / 1e6
+    step = jit.EvalStep(bert)
+    ref = torch.cat([step(torch.as_tensor(rows[i:i + PROGRAMS_B]).cuda())
+                     ._data.cpu() for i in range(0, len(rows), PROGRAMS_B)])
+    step.release()
+    onp.save(os.path.join(tmp, "rows.npy"), rows)
+    torch.save(ref, os.path.join(tmp, "ref.pt"))
+    del ref
+    got = _child(_SERVE_CHILD, root, path + "-symbol.json", artifact,
+                 os.path.join(tmp, "rows.npy"), os.path.join(tmp, "ref.pt"))
+    check(got["max_abs_err"] <= PROGRAMS_TOL and
+          got["imports_max_abs_err"] <= PROGRAMS_TOL,
+          "the loaded BERT's replies leave this process's forward: "
+          "%.3g (registry), %.3g (SymbolBlock.imports)"
+          % (got["max_abs_err"], got["imports_max_abs_err"]))
+    check(got["launches"].get("flash_fwd", 0) == 12 * got["replays"]
+          and got["replays"] > 0,
+          "K1 launched %s times over %d replays of the loaded program, "
+          "not 12 a replay" % (got["launches"].get("flash_fwd"),
+                               got["replays"]))
+    flops = _forward_flops(bert, PROGRAMS_B, BERT_S)
+    counted = got["stats"]["flops"]
+    check(0.5 <= counted / flops <= 1.5,
+          "FlopCounterMode's %.4g FLOPs of the B 8 program are far from "
+          "the analytic %.4g" % (counted, flops))
+    mfu = got["mfu"].get("bert/serve/0")
+    check(mfu is not None and 0 < mfu < 1,
+          "devstats' MFU of the bucket-8 replay: %r" % (mfu,))
+    got.update(export_s=export_s, artifact_mb=mb, analytic_flops=flops,
+               flops_ratio=counted / flops, bucket8_mfu=mfu)
+    return got, rows
+
+
+def artifacts_in_a_fresh_process(bert, tmp, root, rows):
+    """Phase 21(c): with MXTPU_AOT_CACHE_DIR set, EvalStep buckets 1-8
+    built here (export, write, capture), then a fresh process gets an
+    artifact hit a bucket and runs the net's Python forward 0 times; its
+    bucket-8 replay is this process's bit for bit."""
+    import hashlib
+    import torch
+    from incubator_mxnet_tpu_torch import aot, jit
+    cache_dir = os.path.join(tmp, "aot")
+    x = torch.as_tensor(rows).cuda()
+    old = os.environ.get("MXTPU_AOT_CACHE_DIR")
+    os.environ["MXTPU_AOT_CACHE_DIR"] = cache_dir
+    w0 = aot._ARTIFACT_WRITES.value(kind="eval")
+    try:
+        step = jit.EvalStep(bert)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in EVAL_BUCKETS:
+            step(x[:b])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        out = step(x[:max(EVAL_BUCKETS)])._data
+        digest = hashlib.sha256(out.view(torch.int16).cpu().numpy()
+                                .tobytes()).hexdigest()
+        step.release()
+    finally:
+        if old is None:
+            os.environ.pop("MXTPU_AOT_CACHE_DIR", None)
+        else:
+            os.environ["MXTPU_AOT_CACHE_DIR"] = old
+    writes = aot._ARTIFACT_WRITES.value(kind="eval") - w0
+    check(writes == len(EVAL_BUCKETS),
+          "%d artifacts written for %d buckets" % (writes, len(EVAL_BUCKETS)))
+    got = _child(_ARTIFACT_CHILD, root, os.path.join(tmp, "rows.npy"),
+                 json.dumps(list(EVAL_BUCKETS)), os.path.abspath(__file__),
+                 json.dumps(BERT), env={"MXTPU_AOT_CACHE_DIR": cache_dir})
+    check(got["hits"] == len(EVAL_BUCKETS) and got["python_forwards"] == 0,
+          "the fresh process: %d artifact hits for %d buckets, %d Python "
+          "forwards" % (got["hits"], len(EVAL_BUCKETS),
+                        got["python_forwards"]))
+    check(got["replay_launches"].get("flash_fwd") == 12,
+          "a loaded bucket-8 replay launched K1 %s times"
+          % got["replay_launches"].get("flash_fwd"))
+    check(got["out_sha256"] == digest,
+          "the loaded bucket-8 program answers other bits than this "
+          "process's")
+    files = [f for _d, _s, fs in os.walk(cache_dir) for f in fs]
+    got.update(build_s=build_s, writes=writes, files=len(files),
+               artifact_mb=sum(os.path.getsize(os.path.join(d, f))
+                               for d, _s, fs in os.walk(cache_dir)
+                               for f in fs) / 1e6,
+               bit_for_bit=True)
+    return got
+
+
+def _profile(srv, traffic, progress, seconds, batch_kernel=None):
+    """GET /debug/profile?seconds= under ``traffic(stop)``. The traffic
+    starts first, on its own threads, and the capture is asked for only
+    once ``progress()`` (the path's batch or token count) has moved, so
+    work is in flight when the window opens; ``progress`` must move again
+    while the capture runs. With ``batch_kernel`` (a kernel the path
+    launches 12 times a batch) the trace itself must hold at least two
+    batches. Returns the capture's whole summary (GET /debug/hotspots
+    ?capture=) reduced to the device's busy and idle share over the
+    seconds the profiler recorded (the primary reading) and over the span
+    of its device activity, and its top kernels. The call around the
+    recording also starts, stops and exports the trace (``call_s``)."""
+    stop = threading.Event()
+    p0 = progress()
+    threads = traffic(stop)
+    try:
+        deadline = time.monotonic() + 300
+        while progress() == p0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        p1 = progress()
+        check(p1 > p0, "the traffic made no progress in 300 s")
+        st, _h, body = _http(srv, "GET", "/debug/profile?seconds=%g"
+                             % seconds)
+        p2 = progress()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(600)
+    check(st == 200, "/debug/profile answered %d: %s" % (st, body[:300]))
+    check(p2 > p1, "the traffic made no progress during the capture")
+    out = json.loads(body)
+    st, _h, full = _http(srv, "GET", "/debug/hotspots?capture=%s"
+                         % out["capture_id"])
+    check(st == 200, "/debug/hotspots?capture= answered %d" % st)
+    full = json.loads(full)
+    busy = full["device_busy_us"]
+    window = full["window_us"]
+    traced_s = full["devstats"]["traced_s"]
+    check(full["events"] > 0 and window > 0 and traced_s >= seconds,
+          "the profile under traffic holds no device activity")
+    traced = None
+    if batch_kernel is not None:
+        traced = sum(o["count"] for o in full["ops"]
+                     if batch_kernel in o["op"]) / BERT["num_layers"]
+        check(traced >= 2, "the profile under traffic holds %.3g batches "
+              "(%s launches / %d), not at least 2"
+              % (traced, batch_kernel, BERT["num_layers"]))
+    # idle over the seconds the profiler recorded (the primary reading);
+    # the call's wall time adds the session's start, stop and export
+    return dict(idle_share=1.0 - busy / (traced_s * 1e6),
+                busy_share=busy / (traced_s * 1e6), traced_s=traced_s,
+                call_s=full["devstats"]["window_s"],
+                asked_s=seconds, progress_during=p2 - p1,
+                batches_traced=traced,
+                idle_share_of_activity_span=full["device_idle_ratio"],
+                activity_span_ms=window / 1e3, busy_ms=busy / 1e3,
+                device_activities=full["events"],
+                categories={c: round(v["share"], 4)
+                            for c, v in full["categories"].items()},
+                top=[dict(op=o["op"][:80], category=o["category"],
+                          ms=o["self_us"] / 1e3, count=o["count"],
+                          share=round(o["share"], 4))
+                     for o in full["ops"][:8]],
+                flash_fwd=[dict(rank=i + 1, op=o["op"][:40],
+                                ms=o["self_us"] / 1e3, count=o["count"],
+                                share=o["share"])
+                           for i, o in enumerate(full["ops"])
+                           if "flash_fwd" in o["op"]],
+                capture_id=out["capture_id"])
+
+
+def serve_artifact_over_http(bert, tmp):
+    """Phase 21(d), (e), (g): ``serving.serve`` of an S 64 artifact (B 8)
+    over HTTP, 8 requests from 4 threads within PROGRAMS_HTTP_TOL of the
+    logit range of the direct forward, with every batch tapped
+    (MXTPU_NUMWATCH_SAMPLE 1) and K1 = 12 x this path's batches; then a
+    bf16-vs-fp32 shadow registered (after the counted window: its worker
+    runs K1 too);
+    /debug/profile under that traffic and under TinyLM generation traffic
+    (8 streams): device busy and idle share and top kernels (K1 among the
+    BERT ones), /debug/hotspots; /debug/numerics (the tap's finite
+    fraction 1.0, the shadow's divergence, a faultlab NaN injection's
+    storm episode), /debug/slo and /debug/history with this traffic's
+    series. Returns (the parent's launches on this path, summary)."""
+    import copy
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.contrib import serving as cs
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    from incubator_mxnet_tpu_torch.telemetry import faultlab, history
+    rng = onp.random.RandomState(22)
+    rows = rng.randint(0, BERT["vocab_size"], (SERVE_HTTP_REQUESTS,
+                                               SERVE_HTTP_S)).astype("int32")
+    path = os.path.join(tmp, "bert64.mxtpu")
+    cs.export_model(bert, [torch.as_tensor(rows[:PROGRAMS_B]).cuda()], path)
+    direct = [_direct(bert, r) for r in rows]
+    fp32 = copy.deepcopy(bert)
+    fp32.cast("float32")
+    saved = {k: os.environ.get(k) for k in ("MXTPU_NUMWATCH_SAMPLE",)}
+    os.environ["MXTPU_NUMWATCH_SAMPLE"] = "1"
+    history.reset()
+    history.start(interval_s=0.25)
+    srv = serving.serve({"bert": path}, port=0, max_batch_size=PROGRAMS_B,
+                        batch_timeout_ms=20)
+    out = {}
+    try:
+        # the counted window holds this path's own batches only: the
+        # shadow (an fp32 BERT whose worker runs K1 after each reply) is
+        # registered once its launches are read
+        base = srv.registry.metrics("bert").batch_count
+        _kernels.reset_launches()
+        replies, lat = [None] * len(rows), [None] * len(rows)
+
+        def client(idx):
+            for i in idx:
+                t = time.perf_counter()
+                st, _h, body = _http(srv, "POST", "/v1/models/bert:predict",
+                                     {"inputs": [rows[i].tolist()],
+                                      "dtype": "int32"})
+                lat[i] = (time.perf_counter() - t) * 1e3
+                replies[i] = (st, body)
+        threads = [threading.Thread(target=client, args=(
+            range(c, len(rows), CLIENTS),)) for c in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        errs = []
+        for (st, body), want in zip(replies, direct):
+            check(st == 200, "POST predict of the artifact: %d %s"
+                  % (st, body[:200]))
+            got = onp.asarray(json.loads(body)["outputs"][0], "float32")
+            span = float(want.max() - want.min())
+            errs.append(float(onp.abs(got - want).max()) / span)
+        check(max(errs) <= PROGRAMS_HTTP_TOL,
+              "the served artifact's replies leave the direct forward by "
+              "%.3g of the logit range" % max(errs))
+        launches = dict(_kernels.LAUNCHES)
+        batches = srv.registry.metrics("bert").batch_count - base
+        check(batches > 0 and launches.get("flash_fwd", 0)
+              == BERT["num_layers"] * batches,
+              "the served artifact: flash_fwd launched %d times for %d "
+              "batches" % (launches.get("flash_fwd", 0), batches))
+        srv.registry.register_shadow("bert", fp32, stride=1,
+                                     threshold=1e9)
+        # one request so the shadow captures its graph before any profile
+        from incubator_mxnet_tpu_torch.telemetry import numwatch
+        st, _h, _b = _http(srv, "POST", "/v1/models/bert:predict",
+                           {"inputs": [rows[0].tolist()], "dtype": "int32"})
+        check(st == 200 and numwatch.shadow_drain(600),
+              "the shadow's first sample: %d" % st)
+
+        def http_traffic(stop):
+            def loop(c):
+                i = c
+                while not stop.is_set():
+                    _http(srv, "POST", "/v1/models/bert:predict",
+                          {"inputs": [rows[i % len(rows)].tolist()],
+                           "dtype": "int32"})
+                    i += CLIENTS
+            threads = [threading.Thread(target=loop, args=(c,))
+                       for c in range(CLIENTS)]
+            for t in threads:
+                t.start()
+            return threads
+        http_profile = _profile(
+            srv, http_traffic,
+            lambda: srv.registry.metrics("bert").batch_count,
+            PROFILE_HTTP_S, batch_kernel="flash_fwd_tc")
+        check(bool(http_profile["flash_fwd"]),
+              "K1 (flash_fwd) is not among the kernels the profile under "
+              "HTTP traffic recorded")
+        srv.registry.load_generator("tinylm", seed=0, **GEN)
+
+        def gen_traffic(stop):
+            reqs = _gen_requests(rng, sampled=False)
+
+            def loop(body):
+                while not stop.is_set():
+                    _gen_client(srv, body)
+            threads = [threading.Thread(target=loop, args=(b,))
+                       for b in reqs]
+            for t in threads:
+                t.start()
+            return threads
+        from incubator_mxnet_tpu_torch.serving import generate
+
+        def decoded():
+            return sum(v for l, v in generate._TOKENS.series()
+                       if l.get("model") == "tinylm"
+                       and l.get("phase") == "decode")
+        gen_profile = _profile(srv, gen_traffic, decoded, PROFILE_GEN_S)
+        st, _h, hot = _http(srv, "GET", "/debug/hotspots?n=8")
+        check(st == 200, "/debug/hotspots answered %d" % st)
+        hot = json.loads(hot)
+        check(numwatch.shadow_drain(600), "the shadow worker did not drain")
+        st, _h, num = _http(srv, "GET", "/debug/numerics")
+        num = json.loads(num)
+        tap = num["taps"].get("bert/serve:outputs")
+        shadow = num["shadows"].get("bert")
+        check(st == 200 and tap and tap["last"][0] == 1.0
+              and tap["nonfinite"] == 0,
+              "/debug/numerics: the serve:outputs tap %r" % (tap,))
+        check(shadow and shadow["samples"] > 0
+              and shadow["last"]["max_abs_diff"] > 0,
+              "/debug/numerics: the bf16-vs-fp32 shadow %r" % (shadow,))
+        st, _h, _b = _http(srv, "POST", "/debug/faults", {
+            "spec": "batcher.dispatch:nan_poison:stride=1:budget=1"})
+        check(st == 200, "arming nan_poison answered %d" % st)
+        st, _h, _b = _http(srv, "POST", "/v1/models/bert:predict",
+                           {"inputs": [rows[0].tolist()], "dtype": "int32"})
+        faultlab.disarm()
+        num = json.loads(_http(srv, "GET", "/debug/numerics")[2])
+        storm = num["taps"]["bert/serve:outputs"]
+        check(storm["storms"] == 1 and storm["nonfinite"] == 1,
+              "a NaN injection opened no storm episode: %r" % (storm,))
+        st, _h, slo = _http(srv, "GET", "/debug/slo")
+        slo = json.loads(slo)
+        check(st == 200 and any(s.get("model") == "bert"
+                                for s in slo.get("slos", [])),
+              "/debug/slo holds no objective of this traffic: %s"
+              % json.dumps(slo)[:300])
+        st, _h, hist = _http(srv, "GET",
+                             "/debug/history?series=mxtpu_serving_queue_depth")
+        hist = json.loads(hist)
+        check(st == 200 and any("bert" in k for k in hist.get("series", {})),
+              "/debug/history holds no series of this traffic: %s"
+              % json.dumps(hist)[:300])
+        st, _h, inc = _http(srv, "GET", "/debug/incident")
+        check(st == 200, "/debug/incident answered %d" % st)
+        out = dict(
+            http_batches=batches,
+            http_p50_ms=sorted(lat)[len(lat) // 2], http_max_ms=max(lat),
+            max_rel_err=max(errs), http_profile=http_profile,
+            generation_profile=gen_profile,
+            hotspots=dict(captures=hot["captures"],
+                          top=[dict(op=o["op"][:80], category=o["category"],
+                                    share=round(o["share"], 4))
+                               for o in hot["ops"]],
+                          rolling_idle=hot["rolling_idle_ratio"]),
+            numerics=dict(tap_last=tap["last"], taps=tap["sampled"],
+                          shadow=shadow["last"],
+                          shadow_samples=shadow["samples"],
+                          storm=dict(storms=storm["storms"],
+                                     nonfinite=storm["nonfinite"])),
+            slo=[dict(name=s["name"], budget=s["budget_remaining"])
+                 for s in slo["slos"] if s.get("model") == "bert"],
+            history_points=sum(len(v.get("raw", []))
+                               for v in hist["series"].values()),
+            incident_events=len(json.loads(inc).get("timeline", [])))
+    finally:
+        faultlab.disarm()
+        history.stop()
+        srv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches, out
+
+
+def programs_phase(card):
+    """Phase 21: programs on disk and device telemetry
+    (``--programs-only``). Returns (the launches of its HTTP path,
+    summary)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        sys.modules["incubator_mxnet_tpu_torch"].__file__)))
+    build_kernels()
+    tmp = tempfile.mkdtemp(prefix="mxtpu-programs-")
+    try:
+        bert = _serving_bert(seed=0)
+        served, rows = export_and_serve(bert, tmp, root)
+        log("  programs (a)(b)(f): %s" % json.dumps(served))
+        release_graphs()
+        artifacts = artifacts_in_a_fresh_process(bert, tmp, root, rows)
+        log("  programs (c): %s" % json.dumps(artifacts))
+        release_graphs()
+        launches, http = serve_artifact_over_http(bert, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, dict(card=card, served=served, artifacts=artifacts,
+                          http=http, seconds=time.perf_counter() - t0)
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -7339,6 +7904,9 @@ def main(argv):
     parser.add_argument("--serving-http-only", action="store_true",
                         help="run the serving front end and generation "
                         "(phase 20) alone")
+    parser.add_argument("--programs-only", action="store_true",
+                        help="run programs on disk and device telemetry "
+                        "(phase 21) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -7405,7 +7973,9 @@ def main(argv):
                              (opts.bucketing_only, "bucketing",
                               bucketing_phase),
                              (opts.serving_http_only, "serving_http",
-                              serving_http_phase)):
+                              serving_http_phase),
+                             (opts.programs_only, "programs",
+                              programs_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -7449,6 +8019,8 @@ def main(argv):
         release_graphs()
         serving_http_launches, serving_http = serving_http_phase(card)
         release_graphs()
+        programs_launches, programs = programs_phase(card)
+        release_graphs()
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -7463,6 +8035,7 @@ def main(argv):
              "ssd": ssd_launches, "ctc": ctc_launches,
              "module": module_launches, "bucketing": bucketing_launches,
              "serving_http": serving_http_launches,
+             "programs": programs_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -7587,6 +8160,7 @@ def main(argv):
     log(json.dumps({"module": module}))
     log(json.dumps({"bucketing": bucketing}))
     log(json.dumps({"serving_http": serving_http}))
+    log(json.dumps({"programs": programs}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ from __future__ import annotations
 import numpy as onp
 
 __all__ = ["MXNetError", "string_types", "numeric_types", "Registry",
-           "registry", "public_op_names"]
+           "registry", "public_op_names", "distributed_is_initialized",
+           "enable_x64"]
 
 
 class MXNetError(RuntimeError):
@@ -27,6 +28,16 @@ class Registry:
         self._registry[nm] = klass
         return klass
 
+    def alias(self, *aliases):
+        """Class decorator: register the class under its own name and
+        under each of ``aliases``."""
+        def reg(klass):
+            self.register(klass)
+            for a in aliases:
+                self.register(klass, a)
+            return klass
+        return reg
+
     def get(self, name):
         if isinstance(name, str):
             key = name.lower()
@@ -41,6 +52,12 @@ class Registry:
         if not isinstance(name, str):
             return name
         return self.get(name)(*args, **kwargs)
+
+    def __contains__(self, name):
+        return isinstance(name, str) and name.lower() in self._registry
+
+    def keys(self):
+        return self._registry.keys()
 
 
 _registries = {}
@@ -69,3 +86,17 @@ def public_op_names(namespace, exclude=()):
             continue
         out.append(n)
     return out
+
+
+def distributed_is_initialized():
+    """Whether a ``torch.distributed`` process group is up (the JAX
+    package asks ``jax.distributed`` the same)."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def enable_x64(enabled=True):
+    """The JAX package's scoped 64-bit switch. Torch has int64 and float64
+    types always, so this is a context that changes nothing."""
+    import contextlib
+    return contextlib.nullcontext(enabled)

@@ -6,12 +6,11 @@ Only the knobs the port reads are declared: the serving knobs (the
 batcher, the HTTP front end, the access log, resilience and generation),
 the telemetry knobs, the AOT cache's, the gate of the conv-backward
 kernel and the training step's (``jit.TrainStep``: remat, donation), the
-image iterator's threads and the engine's bulk size. The flash-attention
-block/force/interpret knobs of the JAX package are TPU tiling and Pallas
-interpret switches and have no counterpart here. Two knobs are declared
-only to refuse them: ``MXTPU_AOT_CACHE_DIR`` (the artifact layer waits
-for the next slice) and ``MXTPU_GEN_SLO_INTER_TOKEN_MS`` (SLOs wait for
-ROADMAP §1 item 7); setting either makes its reader raise.
+image iterator's threads, the engine's bulk size and the device
+telemetry's (``devstats``, ``profstats``, ``numwatch``, ``slo``,
+``history``). The flash-attention block/force/interpret knobs of the JAX
+package are TPU tiling and Pallas interpret switches and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -21,6 +20,239 @@ __all__ = ["ENV_VARS", "get_env", "evict_to_bound", "describe"]
 
 ENV_VARS = {
     # name: (type, default, doc)
+    "MXTPU_DEVICE_PEAK_FLOPS": (
+        float, None,
+        "Override the per-chip peak FLOP/s the device-truth MFU gauges "
+        "(mxtpu_device_mfu, telemetry/devstats.py) divide by. Unset: "
+        "resolved from torch.cuda.get_device_name via the built-in peak "
+        "table (the H100's dense bf16 rate); unknown devices (the CPU) "
+        "fall back to a report-only nominal peak."),
+    "MXTPU_DEVICE_PEAK_HBM_BPS": (
+        float, None,
+        "Override the per-chip peak HBM bytes/s the "
+        "mxtpu_device_hbm_bw_util gauge divides by. Unset: the device name "
+        "table, else report-only fallback (telemetry/devstats.py)."),
+    "MXTPU_DEVSTATS": (
+        bool, False,
+        "Autostart the device-memory sampler daemon at package import "
+        "(telemetry/devstats.py; devstats.start()/stop() at runtime): "
+        "polls the CUDA caching allocator's statistics into "
+        "mxtpu_device_memory_bytes{device,stat} and files a flightrec "
+        "hbm_pressure event at >90% of bytes_limit. Per-dispatch MFU "
+        "gauges are driven by the hot paths regardless — the knob only "
+        "controls the sampler."),
+    "MXTPU_DEVSTATS_POLL_S": (
+        float, 1.0,
+        "Device-memory sampler poll interval in seconds "
+        "(telemetry/devstats.py)."),
+    "MXTPU_DEVSTATS_EVAL_SYNC": (
+        bool, False,
+        "Time STANDALONE EvalStep replays with CUDA events and wait for "
+        "them, so the eval mxtpu_device_mfu observation has the replay's "
+        "device time. Off by default: a direct eval loop overlaps host "
+        "prep with device execution and the wait would serialize it. "
+        "Serving dispatches (under the batcher's devstats dispatch "
+        "context) always observe: there the next step is a copy to the "
+        "host anyway."),
+    "MXTPU_PROFILE_DIR": (
+        str, None,
+        "Directory for on-demand torch.profiler captures "
+        "(GET /debug/profile?seconds=N, devstats.capture_profile). "
+        "Unset: <tmpdir>/mxtpu_profile. Bounded: only the newest "
+        "MXTPU_PROFILE_KEEP captures are kept."),
+    "MXTPU_PROFILE_KEEP": (
+        int, 4,
+        "How many on-demand profiler captures survive in "
+        "MXTPU_PROFILE_DIR (oldest pruned after each capture)."),
+    "MXTPU_PROFILE_MAX_S": (
+        float, 60.0,
+        "Upper clamp on GET /debug/profile?seconds=N capture length — an "
+        "operator typo must not leave the profiler tracing for an hour."),
+    "MXTPU_PROFILE_PYTHON_TRACER": (
+        bool, False,
+        "Include python frames in profiler captures. OFF by default: the "
+        "python tracer taxes every interpreter call while tracing (~30% "
+        "on a timer-bound serving request), which lands on p99 whenever "
+        "a capture overlaps traffic — the continuous profstats daemon's "
+        "whole operating mode. The CUDA kernel events the attribution "
+        "layer reads survive with it off."),
+    "MXTPU_PROFSTATS": (
+        bool, False,
+        "Autostart the continuous low-duty-cycle profiler daemon at "
+        "package import (telemetry/profstats.py; profstats.start()/"
+        "stop() at runtime): every MXTPU_PROFSTATS_INTERVAL_S it "
+        "captures MXTPU_PROFSTATS_CAPTURE_S of torch.profiler trace and "
+        "folds the per-op summary into "
+        "mxtpu_profile_op_seconds_total{model,category} / "
+        "mxtpu_profile_device_idle_ratio and GET /debug/hotspots "
+        "(docs/OBSERVABILITY.md 'Op-level attribution')."),
+    "MXTPU_PROFSTATS_INTERVAL_S": (
+        float, 300.0,
+        "Seconds between continuous-profiler capture cycles "
+        "(telemetry/profstats.py daemon)."),
+    "MXTPU_PROFSTATS_CAPTURE_S": (
+        float, 2.0,
+        "Trace length per continuous-profiler cycle; clamped to "
+        "MXTPU_PROFSTATS_MAX_DUTY x MXTPU_PROFSTATS_INTERVAL_S so the "
+        "profiler stays a sampling tax, never steady tracing."),
+    "MXTPU_PROFSTATS_MAX_LOAD": (
+        float, 0.5,
+        "Queue-occupancy ceiling above which a continuous-profiler "
+        "cycle is skipped (outcome=skipped_load on "
+        "mxtpu_profile_captures_total): profiling is for finding the "
+        "MFU gap, not for widening it under overload. Load probes: "
+        "each serving ModelRegistry registers its max replica-queue "
+        "occupancy (profstats.add_load_probe)."),
+    "MXTPU_PROFSTATS_MAX_DUTY": (
+        float, 0.02,
+        "Overhead budget: max fraction of each daemon interval spent "
+        "tracing (the capture length clamp)."),
+    "MXTPU_PROFSTATS_SUMMARIES": (
+        int, 32,
+        "How many capture summaries the bounded profstats store keeps "
+        "for GET /debug/hotspots?capture=<id> re-fetch — summaries "
+        "outlive the pruned capture dirs themselves "
+        "(MXTPU_PROFILE_KEEP)."),
+    "MXTPU_HISTORY": (
+        bool, False,
+        "Autostart the metric-history daemon at package import "
+        "(telemetry/history.py; history.start()/stop() at runtime): "
+        "every MXTPU_HISTORY_INTERVAL_S it self-scrapes the telemetry "
+        "registry into bounded per-series rings, evaluates the "
+        "recording rules (rate(), queue-depth slope, window MFU, "
+        "burn-rate trajectory) and the pressure_rising/mfu_droop early "
+        "warnings, and serves GET /debug/history and /debug/incident "
+        "(docs/OBSERVABILITY.md 'Metric history & incident timelines')."),
+    "MXTPU_HISTORY_INTERVAL_S": (
+        float, 10.0,
+        "Seconds between metric-history self-scrape ticks. Retention is "
+        "a direct function of it: MXTPU_HISTORY_RAW ticks of raw points "
+        "plus MXTPU_HISTORY_COARSE x MXTPU_HISTORY_COARSE_EVERY ticks "
+        "of min/max/mean summaries."),
+    "MXTPU_HISTORY_RAW": (
+        int, 512,
+        "Raw ring length per history series: the newest N (t, value) "
+        "points kept at full scrape resolution (telemetry/history.py). "
+        "At the default 10s interval: ~85 minutes of raw history."),
+    "MXTPU_HISTORY_COARSE": (
+        int, 512,
+        "Coarse ring length per history series: N downsampled "
+        "{t, min, max, mean} points, each folding "
+        "MXTPU_HISTORY_COARSE_EVERY raw samples — the long-horizon tier "
+        "raw points age out into."),
+    "MXTPU_HISTORY_COARSE_EVERY": (
+        int, 8,
+        "Raw samples folded into one coarse min/max/mean point. The "
+        "fold keeps extremes honest: a one-tick queue spike survives "
+        "into the coarse tier as that window's max, never averaged "
+        "away."),
+    "MXTPU_HISTORY_MAX_SERIES": (
+        int, 1024,
+        "Bound on distinct series the history store retains (scraped + "
+        "derived recording-rule series). Past it, NEW series are "
+        "dropped and counted on "
+        "mxtpu_history_store_dropped_series_total; established series "
+        "keep recording — history must never OOM the process it "
+        "observes."),
+    "MXTPU_HISTORY_FILE": (
+        str, None,
+        "When set, every history tick also exports the full store to "
+        "this path as canonical JSONL (atomic tmp+rename rotation) — "
+        "the offline artifact tools/tsq.py queries, diffs, and "
+        "sparkline-renders."),
+    "MXTPU_HISTORY_SLOPE_WINDOW_S": (
+        float, 60.0,
+        "Trailing window for the least-squares slope recording rules "
+        "(queue depth, SLO burn rate) — the trend the pressure_rising "
+        "predictor extrapolates."),
+    "MXTPU_HISTORY_PRESSURE_HORIZON_S": (
+        float, 60.0,
+        "pressure_rising fires when a model's queue-depth trend line "
+        "predicts crossing its capacity within this many seconds; the "
+        "open episode only closes when the prediction retreats past "
+        "twice the horizon (hysteresis) or the slope turns "
+        "non-positive."),
+    "MXTPU_HISTORY_PRESSURE_DEPTH": (
+        float, None,
+        "Fallback saturation depth for pressure_rising when a model "
+        "exports no mxtpu_serving_queue_capacity gauge (the serving "
+        "batcher exports queue_size x replicas automatically). None: "
+        "no capacity, no prediction."),
+    "MXTPU_HISTORY_DROOP_FRAC": (
+        float, 0.7,
+        "mfu_droop fires when the window MFU falls below this fraction "
+        "of its trailing MXTPU_HISTORY_DROOP_WINDOW_S median; the "
+        "episode re-arms only after MFU recovers halfway back to the "
+        "median (hysteresis)."),
+    "MXTPU_HISTORY_DROOP_WINDOW_S": (
+        float, 600.0,
+        "Trailing window whose median window-MFU is the mfu_droop "
+        "baseline (the '10-minute median' the early warning compares "
+        "against)."),
+    "MXTPU_SLO_TARGET": (
+        float, 0.99,
+        "Default availability objective for the per-model SLOs the serving "
+        "registry seeds at load (telemetry/slo.py): the fraction of "
+        "eligible requests (2xx good; 429/504/5xx bad; other 4xx not "
+        "counted) that must succeed. The error budget is 1 - target — "
+        "burn rates are bad-fraction / (1 - target) "
+        "(docs/OBSERVABILITY.md 'SLOs and tenants')."),
+    "MXTPU_SLO_LATENCY_MS": (
+        float, None,
+        "When set, every served model also gets a latency SLO: a 2xx "
+        "response slower than this many milliseconds end-to-end (the "
+        "http:predict span window) counts against the latency error "
+        "budget. None = availability SLO only (telemetry/slo.py)."),
+    "MXTPU_SLO_WINDOW_S": (
+        float, 3600.0,
+        "Error-budget accounting window in seconds for "
+        "mxtpu_slo_budget_remaining: the sliding window over which spent "
+        "budget is computed (and refills as bad events age out). The SRE "
+        "30-day convention is impractical for a process-local ledger; one "
+        "hour is the operational default (telemetry/slo.py)."),
+    "MXTPU_SLO_WINDOWS": (
+        str, "300:3600,3600:21600",
+        "Multi-window burn-rate alert pairs as SHORT:LONG second pairs, "
+        "comma-separated, fastest first (default: the SRE-workbook 5m/1h "
+        "fast pair and 1h/6h slow pair). An alert pair breaches only when "
+        "BOTH its windows' burn rates exceed the pair's threshold — the "
+        "short window gives detection speed, the long one suppresses "
+        "blips. CI scales these down to seconds (telemetry/slo.py)."),
+    "MXTPU_SLO_FAST_BURN": (
+        float, 14.4,
+        "Burn-rate threshold for the FIRST (fast) alert-window pair: 14.4 "
+        "means the error budget is being spent 14.4x faster than the "
+        "objective allows (the SRE-workbook page-now threshold — 2% of a "
+        "30-day budget in one hour)."),
+    "MXTPU_SLO_SLOW_BURN": (
+        float, 6.0,
+        "Burn-rate threshold for the second and later (slow) alert-window "
+        "pairs (the SRE-workbook ticket threshold — 5% of a 30-day "
+        "budget in six hours)."),
+    "MXTPU_NUMWATCH_SAMPLE": (
+        float, 0.0,
+        "Numerics-sentinel tap sampling rate (telemetry/numwatch.py): 0 "
+        "disables the on-device stats taps (the default); a rate r in "
+        "(0, 1] taps every round(1/r)-th dispatch at each site "
+        "(deterministic stride, not random — two identical runs tap "
+        "identical dispatches). Tap sites: TrainStep loss/params, "
+        "serving dispatch outputs, decode-loop logits "
+        "(docs/OBSERVABILITY.md 'Numerical health')."),
+    "MXTPU_SHADOW_SAMPLE": (
+        float, 0.0,
+        "Default shadow-execution sampling rate for models with a "
+        "registered reference servable (numwatch.register_shadow): 0 "
+        "disables; rate r re-executes every round(1/r)-th dispatched "
+        "batch through the reference on a background worker and compares "
+        "outputs into mxtpu_shadow_divergence{model,metric}. A per-model "
+        "stride passed to register_shadow overrides this."),
+    "MXTPU_SHADOW_THRESHOLD": (
+        float, 0.25,
+        "Max-abs-diff breach threshold for shadow divergence: a shadow "
+        "sample whose primary-vs-reference max absolute output "
+        "difference exceeds this flips the served model's health to "
+        "degraded (once per breach episode) and fires a shadow_breach "
+        "flightrec event (telemetry/numwatch.py)."),
     "MXTPU_SERVE_MAX_BATCH": (
         int, 8,
         "Dynamic batcher dispatch bound (serving/batcher.py): a batch is "
@@ -156,8 +388,10 @@ ENV_VARS = {
         "Decode-loop sleep granularity when no sequence is in flight."),
     "MXTPU_GEN_SLO_INTER_TOKEN_MS": (
         float, None,
-        "The JAX package's per-tenant inter-token SLO threshold. SLOs come "
-        "with ROADMAP §1 item 7: a GenerativeEngine raises when it is set."),
+        "Per-tenant inter-token SLO threshold in ms: when set, each "
+        "GenerativeEngine feeds one <model>/inter_token/<tenant> "
+        "objective (telemetry/slo.py) a 200-coded outcome per token gap, "
+        "judged against this latency."),
     "MXTPU_GEN_PREWARM": (
         bool, True,
         "Capture every generative program bucket at engine construction "
@@ -192,9 +426,11 @@ ENV_VARS = {
         "graphs."),
     "MXTPU_AOT_CACHE_DIR": (
         str, None,
-        "The JAX package's directory of persisted programs. The port's "
-        "artifact layer (programs written to disk) comes with the next "
-        "slice: setting this raises when the AOT cache reads it."),
+        "Directory of persisted programs (aot.py's artifact layer): eval "
+        "and serve programs are exported once (torch.export) and written "
+        "under torch-<version>/; a fresh process loads and captures them "
+        "instead of running the model's Python forward. Unset: "
+        "in-memory only."),
     "MXTPU_AOT_PREWARM": (
         bool, True,
         "Pre-warm (capture) every configured batcher bucket of an incoming "

@@ -17,6 +17,8 @@ import torch
 __all__ = ["Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context",
            "num_gpus", "num_tpus"]
 
+_DEVTYPE2ID = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
+
 
 class Context:
     """A device context: ``device_type`` in {'cpu', 'gpu'} and an index."""
@@ -49,6 +51,21 @@ class Context:
             raise RuntimeError("context gpu(%d) does not exist: %d CUDA "
                                "device(s) visible" % (self.device_id, n))
         return torch.device("cuda", self.device_id)
+
+    @property
+    def device_typeid(self):
+        """MXNet's device type id: 1 cpu, 2 gpu, 3 cpu_pinned."""
+        return _DEVTYPE2ID[self.device_type]
+
+    def empty_cache(self):
+        """Free what no array holds: a garbage collection, and on a GPU
+        context the CUDA caching allocator's idle blocks of that device
+        (``torch.cuda.empty_cache``)."""
+        import gc
+        gc.collect()
+        if self.device_type == "gpu" and torch.cuda.is_available():
+            with torch.cuda.device(self.torch_device):
+                torch.cuda.empty_cache()
 
     def __enter__(self):
         self._old_ctx = getattr(Context._default_ctx, "value", None)

@@ -82,8 +82,8 @@ class HookHandle:
     """A registered forward hook: ``detach()`` (or ``remove()``) takes it
     off; as a context manager it detaches on exit."""
 
-    def __init__(self, hooks, hook):
-        self._hooks = hooks
+    def __init__(self, hooks_list, hook):
+        self._hooks = hooks_list
         self._hook = hook
 
     def detach(self):
@@ -419,7 +419,11 @@ class HybridBlock(Block):
             "%s has uninitialized parameters and no shape inference; "
             "initialize with known in_units/in_channels" % type(self).__name__)
 
+    _last_input_avals = None    # (shape, dtype) of the last call's inputs
+
     def __call__(self, *args, **kwargs):
+        self._last_input_avals = [(tuple(a.shape), _torch_dtype_of(a))
+                                  for a in args if hasattr(a, "shape")]
         if not self._active or _functional.in_plain():
             return super().__call__(*args, **kwargs)
         call = functools.partial(nd.ndarray._apply,
@@ -429,9 +433,41 @@ class HybridBlock(Block):
         return call(*args, **kwargs)
 
     def export(self, path, epoch=0, example_inputs=None):
-        raise NotImplementedError("HybridBlock.export comes with the port "
-                                  "of serving's exported artifacts "
-                                  "(ROADMAP.md §1 item 4)")
+        """Export for deployment (MXNet's ``HybridBlock.export``): the
+        parameters to ``<path>-NNNN.params`` (``arg:`` keys), a manifest
+        ``<path>-symbol.json`` (format ``incubator_mxnet_tpu.hybrid``, as
+        the JAX package writes it) and, when the input signature is known
+        (``example_inputs``, or the shapes of the block's last call), the
+        serving artifact ``<path>.mxtpu`` (``contrib.serving``: the
+        forward exported by ``torch.export``, parameters baked in).
+        ``SymbolBlock.imports`` of the manifest loads the artifact back as
+        an inference block."""
+        import json
+        import os
+        params = self._collect_params_with_prefix()
+        nd.save("%s-%04d.params" % (path, epoch),
+                {("arg:" + k): v.data() for k, v in params.items()})
+        inputs = example_inputs
+        if inputs is None and self._last_input_avals is not None:
+            from ..jit import net_device
+            device = net_device(self)
+            inputs = [torch.zeros(shape, dtype=dtype, device=device)
+                      for shape, dtype in self._last_input_avals]
+        artifact = None
+        if inputs is not None:
+            from ..contrib import serving
+            artifact = "%s.mxtpu" % path
+            serving.export_model(self, inputs, artifact)
+        with open("%s-symbol.json" % path, "w") as f:
+            json.dump({"format": "incubator_mxnet_tpu.hybrid",
+                       "class": type(self).__name__,
+                       "artifact": artifact and os.path.basename(artifact)},
+                      f)
+
+
+def _torch_dtype_of(a):
+    return (a._data if isinstance(a, nd.NDArray) else
+            a if isinstance(a, torch.Tensor) else torch.as_tensor(a)).dtype
 
 
 def _tensors_of(tree):
@@ -471,20 +507,27 @@ class SymbolBlock(HybridBlock):
     def imports(symbol_file, input_names, param_file=None, ctx=None):
         """A SymbolBlock over a ``-symbol.json`` file, its parameters loaded
         from ``param_file`` (a checkpoint's ``.params``: ``arg:``/``aux:``
-        keys) on ``ctx`` (default: the current context). The manifest of
-        ``HybridBlock.export`` comes with the port of serving's exported
-        artifacts (ROADMAP.md §1 item 4)."""
+        keys) on ``ctx`` (default: the current context). A
+        ``HybridBlock.export`` manifest loads its ``.mxtpu`` artifact as
+        an inference-only block (``_ServedBlock``: the parameters are
+        baked into the program)."""
         import json
+        import os
         from .. import symbol as mxsym
         with open(symbol_file) as f:
             text = f.read()
         meta = json.loads(text)
         if isinstance(meta, dict) and \
                 meta.get("format") == "incubator_mxnet_tpu.hybrid":
-            raise NotImplementedError(
-                "SymbolBlock.imports of a HybridBlock.export manifest comes "
-                "with the port of serving's exported artifacts (ROADMAP.md "
-                "§1 item 4)")
+            artifact = meta.get("artifact")
+            if not artifact:
+                raise ValueError(
+                    "%s is a hybrid-export manifest without a serving "
+                    "artifact; export again after a forward (or with "
+                    "example_inputs) so the .mxtpu program is written"
+                    % symbol_file)
+            return _ServedBlock(os.path.join(
+                os.path.dirname(os.path.abspath(symbol_file)), artifact))
         sym = mxsym.load_json(text)
         if isinstance(input_names, str):
             input_names = [input_names]
@@ -525,3 +568,18 @@ class SymbolBlock(HybridBlock):
         bindings = {i.name: a for i, a in zip(self._inputs, args)}
         bindings.update(params)
         return self._sym.eval_imperative(bindings)
+
+
+class _ServedBlock(Block):
+    """``SymbolBlock.imports`` of a hybrid-export manifest: the ``.mxtpu``
+    serving artifact (``contrib.serving.ServedModel``, parameters baked
+    in) as an inference-only block."""
+
+    def __init__(self, artifact_path):
+        super().__init__(prefix="", params=None)
+        from ..contrib import serving
+        self._served = serving.load(artifact_path)
+        self._artifact_path = artifact_path
+
+    def forward(self, *args):
+        return self._served.predict(*args)

@@ -23,6 +23,8 @@ hybridized block's captured graphs compare.
 """
 from __future__ import annotations
 
+import logging
+
 import numpy as onp
 import torch
 
@@ -344,17 +346,22 @@ class ParameterDict:
                 raise ValueError("Cannot update because keys overlap: %s" % k)
             self._params[k] = v
 
-    def initialize(self, init=None, ctx=None, force_reinit=False,
-                   generator=None):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None):
         """Initialize every parameter; ``init`` is the default initializer
         for parameters without one of their own. One generator feeds them
-        all, in key order, so a seed fixes the whole model."""
+        all, in key order, so a seed fixes the whole model. ``verbose``
+        logs each parameter's name and initializer, as MXNet does."""
         init = init_mod.Uniform() if init is None else init_mod.create(init)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        for p in self.values():
+        for name, p in self.items():
             p.initialize(None, ctx, init, force_reinit=force_reinit,
                          generator=generator)
+            if verbose:
+                used = init if p.init is None else init_mod.create(p.init)
+                logging.getLogger(__name__).info(
+                    "Initialized %s with %s", name, used.dumps())
 
     def cast(self, dtype):
         for p in self.values():

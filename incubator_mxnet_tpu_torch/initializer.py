@@ -27,11 +27,19 @@ class Initializer:
     """Base initializer: dispatches on the parameter name (bias and beta →
     0, gamma → 1, a running or moving mean → 0 and variance → 1, as the
     JAX package's ``init_weight_by_name``), everything else to
-    ``_init_weight``."""
+    ``_init_weight``. ``dumps()`` gives MXNet's JSON description: the
+    lower-cased class name and the constructor's keywords."""
+
+    _kwargs = {}
+
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def __call__(self, name, arr, generator=None):
+        self.init_weight_by_name(str(name), arr, generator)
 
     @torch.no_grad()
-    def __call__(self, name, arr, generator=None):
-        name = str(name)
+    def init_weight_by_name(self, name, arr, generator=None):
         if name.endswith("bias") or name.endswith("beta"):
             arr.zero_()
         elif name.endswith("gamma"):
@@ -45,6 +53,10 @@ class Initializer:
 
     def _init_weight(self, name, arr, generator):
         raise NotImplementedError
+
+    def dumps(self):
+        import json
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
 
 
 @register
@@ -68,6 +80,7 @@ class Constant(Initializer):
     """Every entry ``value``."""
 
     def __init__(self, value=0.0):
+        super().__init__(value=value)
         self.value = value
 
     def _init_weight(self, name, arr, generator):
@@ -77,6 +90,7 @@ class Constant(Initializer):
 @register
 class Uniform(Initializer):
     def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
         self.scale = scale
 
     def _init_weight(self, name, arr, generator):
@@ -86,6 +100,7 @@ class Uniform(Initializer):
 @register
 class Normal(Initializer):
     def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
         self.sigma = sigma
 
     def _init_weight(self, name, arr, generator):
@@ -99,6 +114,7 @@ class Orthogonal(Initializer):
     are orthonormal, so ``QᵀQ = scale²·I`` on the smaller side."""
 
     def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
         self.scale = scale
         self.rand_type = rand_type
 
@@ -120,6 +136,8 @@ class Xavier(Initializer):
     """Xavier/Glorot: gaussian or uniform, fan averaged, in or out."""
 
     def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
         self.rnd_type = rnd_type
         self.factor_type = factor_type
         self.magnitude = float(magnitude)
@@ -147,6 +165,7 @@ class MSRAPrelu(Xavier):
 
     def __init__(self, factor_type="avg", slope=0.25):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
 
 
 @register
@@ -171,6 +190,7 @@ class LSTMBias(Initializer):
     LSTM's (4H,) bias (gates i, f, g, o)."""
 
     def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
         self.forget_bias = forget_bias
 
     def _init_weight(self, name, arr, generator):

@@ -45,7 +45,15 @@ it; every later call with that key, from this step or another over the
 same parameter storage, copies its inputs into the graph's static buffers
 and replays it. A capture counts on ``mxtpu_jit_compiles_total{kind}``
 and ``mxtpu_jit_compile_seconds_total{kind}`` inside an ``eval:build``
-span. CPU nets run the forward eagerly.
+span. CPU nets run the forward eagerly. With ``MXTPU_AOT_CACHE_DIR`` set
+(``aot``'s artifact layer) the forward is exported once per signature by
+``torch.export`` (``export_forward``: the parameters are the program's
+first inputs, as the JAX package's pure function takes them; K1 is one
+``mxtpu::flash_fwd`` node) and persisted; the graph captures that
+program over the live parameters, and a fresh process loads the file and
+captures it without running the net's Python forward. On the CPU the
+program then runs as it is (``_Direct``). The file's name leaves out the
+parameters' addresses; the in-memory key keeps them (``aot.Bound``).
 
 Captures are serialised process-wide (``_CAPTURE_LOCK``) and run in the
 thread-local capture mode: a registry's prewarm captures on its warm
@@ -76,9 +84,9 @@ from . import telemetry
 from .ndarray import NDArray
 from .ndarray import random as _random
 from .ops import _kernels
-from .telemetry import flightrec, spans
+from .telemetry import devstats, flightrec, spans
 
-__all__ = ["TrainStep", "EvalStep"]
+__all__ = ["TrainStep", "EvalStep", "export_forward"]
 
 # Capture observability, as the JAX package's compile counters: each
 # shared-cache miss is one capture (an eager run and the graph's), counted
@@ -272,6 +280,7 @@ class _Captured:
         self.tensors = [t.detach() for t in tensors]
         self.bindings = bindings
         self.lock = threading.Lock()
+        self.stats = None       # devstats' facts of the program (_capture)
 
     def replay(self, args):
         """Copy ``args`` into the static inputs, replay, count the
@@ -294,13 +303,19 @@ def _capture(body, args, kind, tensors=()):
     A capture that fails raises, naming the line of the operation."""
     t0 = _time.perf_counter()
     flightrec.record("compile_begin", kind=kind)
-    cap = _GraphCapture(args[0].device)
+    device = args[0].device
+    cap = _GraphCapture(device)
     n = len(args)
+
+    measured = []
 
     def eager():
         static = [a.clone() for a in args]
-        return [*body(*static), *static]
+        got, stats = devstats.measure(lambda: body(*static))
+        measured.append(stats)
+        return [*got, *static]
     got = cap.eager(eager)
+    stats = measured[0]
     out, static = got[:len(got) - n], got[len(got) - n:]
     try:
         with _kernels.collecting() as launches:
@@ -310,12 +325,120 @@ def _capture(body, args, kind, tensors=()):
         raise RuntimeError(
             "capturing a %s program into a CUDA graph failed at %s: %s"
             % (kind, where, first_error)) from exc
+    stats["peak_bytes"] = devstats.pool_bytes(device,
+                                              getattr(cap, "pool", None))
     dur = _time.perf_counter() - t0
     _COMPILES.inc(kind=kind)
     _COMPILE_SECONDS.inc(dur, kind=kind)
     flightrec.record("compile_end", kind=kind, dur_s=round(dur, 6))
-    return _Captured(graph, cap.upload, static, None, captured, launches,
-                     tensors, None), out
+    result = _Captured(graph, cap.upload, static, None, captured, launches,
+                       tensors, None)
+    result.stats = stats
+    return result, out
+
+
+class _ForwardProgram(torch.nn.Module):
+    """``net``'s forward as a module ``torch.export`` can trace: the
+    parameters' tensors come first among its inputs (as the JAX package's
+    pure function takes them), or, ``baked``, are this module's buffers
+    (a self-contained program, ``contrib.serving``). The net is held
+    outside the module's tree, so none of its own tensors enter the
+    program; during a call each parameter reads the tensor given."""
+
+    def __init__(self, net, params, baked=False):
+        super().__init__()
+        object.__setattr__(self, "_net", net)
+        object.__setattr__(self, "_params", params)
+        self._baked = baked
+        if baked:
+            for i, p in enumerate(params):
+                self.register_buffer("p%d" % i, p._tensor().detach())
+
+    def forward(self, *flat):
+        from .gluon._functional import plain
+        n = len(self._params)
+        if self._baked:
+            tensors = [getattr(self, "p%d" % i) for i in range(n)]
+        else:
+            tensors, flat = flat[:n], flat[n:]
+        saved = [p._data for p in self._params]
+        for p, t in zip(self._params, tensors):
+            p._data = t
+        try:
+            with plain():
+                return self._net(*flat)
+        finally:
+            for p, t in zip(self._params, saved):
+                p._data = t
+
+
+#: one export at a time in the process: an export points the net's
+#: parameters at traced tensors for its duration
+_EXPORT_LOCK = threading.Lock()
+
+
+def export_forward(net, args, baked=False):
+    """The ``torch.export`` program of ``net``'s forward at the shapes of
+    ``args`` (tensors), run as ``EvalStep`` runs it: without grad, inside
+    ``plain()``. Its inputs are the parameters' tensors (in
+    ``collect_params()`` order) then ``args``; ``baked`` puts the
+    parameters in the program instead. K1 is one ``mxtpu::flash_fwd``
+    node per attention. A forward that reads a value on the host
+    (``.item()``, ``bool(t)``) cannot be exported and raises here."""
+    params = list(net.collect_params().values())
+    module = _ForwardProgram(net, params, baked)
+    flat = tuple(args) if baked else \
+        tuple(p._tensor().detach() for p in params) + tuple(args)
+    with _EXPORT_LOCK, torch.no_grad():
+        return torch.export.export(module, flat, strict=False)
+
+
+class _Direct:
+    """A loaded or exported program run as it is, without a graph (the
+    artifact layer's entry for a net on the CPU): the interface of
+    ``_Captured`` (``lock``, ``replay``, ``out``, ``stats``)."""
+
+    def __init__(self, body):
+        self.body = body
+        self.lock = threading.Lock()
+        self.out = None
+        self.stats = None
+
+    def replay(self, args):
+        self.out = self.body(*args)
+
+
+def run_program(program, args, stats, kind, model):
+    """One replay of a cache entry's program (a ``_Captured`` graph or a
+    ``_Direct`` program; the caller holds its ``lock``) and a copy of its
+    outputs. Under a batcher's ``devstats.dispatch_context`` (or
+    ``MXTPU_DEVSTATS_EVAL_SYNC``) with known stats, the replay's device
+    time is read from CUDA events around it once it has ended (the
+    batcher reads the outputs back right after anyway) and feeds
+    ``devstats.observe_dispatch``; nothing reads the card inside a
+    capture."""
+    observe = stats is not None and (
+        devstats.in_dispatch_context()
+        or config.get_env("MXTPU_DEVSTATS_EVAL_SYNC"))
+    if not observe:
+        program.replay(args)
+        return [o.clone() for o in program.out]
+    if isinstance(program, _Captured) and args[0].device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        program.replay(args)
+        end.record()
+        out = [o.clone() for o in program.out]
+        end.synchronize()
+        dur_s = start.elapsed_time(end) / 1e3
+    else:
+        t0 = _time.perf_counter()
+        program.replay(args)
+        out = [o.clone() for o in program.out]
+        dur_s = _time.perf_counter() - t0
+    devstats.observe_dispatch(kind, stats, dur_s, model=model)
+    return out
 
 
 class TrainStep:
@@ -535,6 +658,7 @@ class EvalStep:
         self._owner = object()      # this step's token as a cache holder
         self._keys = set()          # cache keys this step built or used
         self._keys_lock = threading.Lock()
+        self._last_stats = None     # the newest dispatched program's stats
 
     def __call__(self, *inputs):
         from .ndarray.ndarray import _wrap
@@ -548,10 +672,11 @@ class EvalStep:
                               inference=True)
 
     def _dispatch(self, args, inference):
-        if not _uses_graphs(net_device(self.net)):
+        graphs = _uses_graphs(net_device(self.net))
+        if not graphs and not config.get_env("MXTPU_AOT_CACHE_DIR"):
             return self._forward(args, inference)
         with spans.span("eval:step"):
-            return self._replay(args)
+            return self._replay(args, graphs)
 
     def _forward(self, args, inference=False):
         """The eager forward: what a graph captures, and the CPU's step."""
@@ -566,42 +691,65 @@ class EvalStep:
         if self._model_id is None:
             self._model_id = aot.model_id_for(self.net, extra=("eval",))
         device = net_device(self.net)
-        bindings = (str(device),) + tuple(
+        bindings = aot.Bound(
             p._tensor().data_ptr() for p in self.net.collect_params().values())
         return aot.cache_key(self._model_id, aot.input_signature(args),
-                             kind="eval", extra=bindings)
+                             kind="eval", extra=(str(device), bindings))
 
-    def _replay(self, args):
-        """The forward through this signature's graph, captured first
-        when the cache has none (that call answers with its eager run)."""
+    def _replay(self, args, graphs=True):
+        """The forward through this signature's program: a graph (or, on
+        the CPU with the artifact layer on, the exported program run as it
+        is), made first when the cache has none; that call answers with
+        its eager run. With ``MXTPU_AOT_CACHE_DIR`` set the program is
+        exported once and persisted, and a persisted one is loaded instead
+        of running the net's Python forward."""
         key = self._key(args)
         with self._keys_lock:
             self._keys.add(key)
         first = []
         entry = aot.CACHE.lookup(key, self._owner)
         if entry is None:
-            entry = aot.compile_cached(key, self._builder(args, first),
-                                       owner=self._owner)
+            persist = aot.artifact_path(key) is not None
+            entry = aot.compile_cached(
+                key, self._builder(args, first, graphs, persist),
+                exportable=persist, owner=self._owner,
+                from_program=self._from_program(args, first, graphs))
+        self._last_stats = entry.stats
         from .gluon._functional import _unflatten
         if first:
             out = first[0]
         else:
             graph = entry.fn
             with graph.lock:
-                graph.replay(args)
-                out = [o.clone() for o in graph.out]
+                out = run_program(graph, args, entry.stats, "eval",
+                                  self._model_id)
         return _unflatten(entry.extras, iter(out))
 
-    def _builder(self, args, first):
+    def _params(self):
+        return list(self.net.collect_params().values())
+
+    def _builder(self, args, first, graphs, persist):
         """The cache's build hook: one capture of the forward
         (``_capture``) inside an ``eval:build`` span, over the forward's
-        output tensors flattened (``extras``: its structure); the eager
+        output tensors flattened (``extras``: its structure); with the
+        artifact layer on, the forward is exported first and the program
+        is what is captured (and returned for persisting). The eager
         run's outputs go to ``first``, the answer of the call that
         built."""
         from .gluon._functional import _flat
 
         def build():
             t0 = _time.perf_counter()
+            if persist:
+                with spans.span("eval:build"):
+                    program = export_forward(self.net, args)
+                if not graphs:
+                    dur = _time.perf_counter() - t0
+                    _COMPILES.inc(kind="eval")
+                    _COMPILE_SECONDS.inc(dur, kind="eval")
+                    _record_compile_span("eval:compile", dur)
+                fn, extras = self._from_program(args, first, graphs)(program)
+                return fn, extras, program
             spec = []
 
             def body(*static):
@@ -612,14 +760,41 @@ class EvalStep:
             with spans.span("eval:build"):
                 captured, out = _capture(
                     body, args, "eval", tensors=[
-                        p._tensor() for p in
-                        self.net.collect_params().values()])
+                        p._tensor() for p in self._params()])
             self.captures += 1
             _record_compile_span("eval:compile",
                                  _time.perf_counter() - t0)
             first.append(out)
             return captured, spec[0], None
         return build
+
+    def _from_program(self, args, first, graphs):
+        """The cache's hook for an exported or loaded program: captured
+        over this step's live parameters (``graphs``), or run as it is.
+        The net's Python forward does not run."""
+        from .gluon._functional import _flat
+
+        def make(program):
+            module = program.module()
+            tensors = [p._tensor().detach() for p in self._params()]
+            spec = []
+
+            def body(*static):
+                outs, structure = _flat(module(*tensors, *static),
+                                        "EvalStep's program")
+                spec[:] = [structure]
+                return outs
+            if graphs:
+                with spans.span("eval:build"):
+                    captured, out = _capture(body, args, "eval",
+                                             tensors=tensors)
+                self.captures += 1
+            else:
+                captured = _Direct(body)
+                out, captured.stats = devstats.measure(lambda: body(*args))
+            first.append(out)
+            return captured, spec[0]
+        return make
 
     def release(self):
         """Let go of every cache entry this step built or used: an entry

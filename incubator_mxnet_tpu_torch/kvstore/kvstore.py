@@ -11,21 +11,49 @@ with the caller: the JAX package may share one because its arrays are
 immutable, but a torch tensor is written in place, and a shared buffer
 would carry a later write from one side to the other.
 
-The push/pull byte counters and spans of the JAX package wait for the
-port of telemetry (ROADMAP.md §1 item 7); the ``dist*`` stores for the
-multi-GPU slice (item 5).
+Push and pull count their payload bytes
+(``mxtpu_kvstore_{push,pull}_bytes_total{store}``), run in
+``kvstore:push``/``kvstore:pull`` spans and land in the flight recorder,
+as the JAX package's; the ``dist*`` stores wait for the multi-GPU slice
+(item 5).
 """
 from __future__ import annotations
 
 import torch
 
 from .. import optimizer as opt
+from .. import telemetry
 from ..ndarray import NDArray
+from ..telemetry import flightrec, spans
 
 __all__ = ["KVStore", "KVStoreBase", "create", "LocalKVStore", "DistKVStore",
            "DistAsyncKVStore"]
 
 _ITEM5 = "comes with the multi-GPU slice (ROADMAP.md §1 item 5)"
+
+_PUSH_BYTES = telemetry.counter(
+    "mxtpu_kvstore_push_bytes_total",
+    "Payload bytes pushed into the kvstore (per-device values summed).",
+    ("store",))
+_PULL_BYTES = telemetry.counter(
+    "mxtpu_kvstore_pull_bytes_total",
+    "Payload bytes pulled out of the kvstore (per-device outs summed).",
+    ("store",))
+
+
+def _nbytes(v):
+    """Payload bytes of one pushed or pulled value (an NDArray, a tensor,
+    a sparse array, or a per-device list of them)."""
+    if isinstance(v, (list, tuple)):
+        return sum(_nbytes(x) for x in v)
+    t = getattr(v, "_data", v)
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    shape, dtype = getattr(v, "shape", None), getattr(v, "dtype", None)
+    if shape is None or dtype is None:
+        return 0
+    import numpy as onp
+    return int(onp.prod(shape)) * onp.dtype(str(dtype)).itemsize
 
 
 def _key_int(k):
@@ -73,26 +101,38 @@ class KVStore(KVStoreBase):
     def push(self, key, value, priority=0):
         from ..ndarray.sparse import BaseSparseNDArray
         keys, values = self._normalize(key, value)
-        for k, v in zip(keys, values):
-            agg = self._aggregate(v, k)
-            if self._updater is not None:
-                self._updater(_key_int(k), agg, self._data[k])
-            else:
-                # the store holds dense values; a pushed sparse sum is
-                # densified when it is stored
-                if isinstance(agg, BaseSparseNDArray):
-                    agg = agg.tostype("default")
-                self._data[k] = _clone(agg)
+        nbytes = sum(_nbytes(v) for v in values)
+        _PUSH_BYTES.inc(nbytes, store=self.name)
+        flightrec.record("kv_push", store=self.name, keys=len(keys),
+                         nbytes=nbytes)
+        with spans.span("kvstore:push", store=self.name, nbytes=nbytes):
+            for k, v in zip(keys, values):
+                agg = self._aggregate(v, k)
+                if self._updater is not None:
+                    self._updater(_key_int(k), agg, self._data[k])
+                else:
+                    # the store holds dense values; a pushed sparse sum is
+                    # densified when it is stored
+                    if isinstance(agg, BaseSparseNDArray):
+                        agg = agg.tostype("default")
+                    self._data[k] = _clone(agg)
 
     @torch.no_grad()
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy each key's value into its ``out`` (one array, or one per
         device), in place."""
         keys, outs = self._normalize(key, out)
-        for k, o in zip(keys, outs):
-            src = self._data[k]._data
-            for oo in (o if isinstance(o, (list, tuple)) else [o]):
-                oo._data.copy_(src)
+        pulled = 0
+        with spans.span("kvstore:pull", store=self.name):
+            for k, o in zip(keys, outs):
+                src = self._data[k]._data
+                for oo in (o if isinstance(o, (list, tuple)) else [o]):
+                    oo._data.copy_(src)
+                    pulled += _nbytes(oo)
+        # one inc a pull, not one an out tensor
+        _PULL_BYTES.inc(pulled, store=self.name)
+        flightrec.record("kv_pull", store=self.name, keys=len(keys),
+                         nbytes=pulled)
 
     def pushpull(self, key, value, out=None, priority=0):
         self.push(key, value, priority)

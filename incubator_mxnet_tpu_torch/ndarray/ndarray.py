@@ -166,12 +166,17 @@ class NDArray:
     __array_priority__ = 100.0
     __array_ufunc__ = None    # numpy defers a mixed operator to NDArray's
 
-    def __init__(self, data):
+    def __init__(self, data, ctx=None):
+        """Wraps a tensor as it is (no copy); any other array (numpy, a
+        list, a number) is converted by ``nd.array``'s rules onto ``ctx``
+        (default: the current context). A tensor on another device than a
+        given ``ctx`` is moved there."""
         if isinstance(data, NDArray):
             data = data._data
         if not isinstance(data, torch.Tensor):
-            raise TypeError("NDArray wraps a torch.Tensor, got %s; use "
-                            "nd.array() to convert" % type(data).__name__)
+            data = _host_tensor(data, None).to(as_device(ctx))
+        elif ctx is not None and data.device != as_device(ctx):
+            data = data.to(as_device(ctx))
         self._data = data
 
     # ---------------------------------------------------------------- basics

@@ -39,12 +39,13 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _kernels
 
 __all__ = ["flash_attention", "flash_attention_legal",
            "flash_attention_supported", "flash_attention_lse",
-           "attention_with_lse"]
+           "attention_with_lse", "flash_fwd", "fwd_flops"]
 
 KERNEL = "flash_fwd"
 SOURCE = "flash_fwd.cu"
@@ -142,9 +143,15 @@ def _fa_bwd_reference(q, k, v, o, lse, do, causal, scale, g_lse=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_legal(q_shape, k_shape=None, v_shape=None):
+def flash_attention_legal(q_shape, k_shape=None, v_shape=None,
+                          block_q=None, block_k=None):
     """True when the kernels take these shapes: (B, H, S, D) with D a
-    supported head width, and k, v (when given) of q's shape."""
+    supported head width, and k, v (when given) of q's shape. The JAX
+    package's tile knobs ``block_q``/``block_k`` are checked as
+    ``flash_attention`` checks them and do not change the answer (the
+    port's second and third positional parameters are the k and v
+    shapes: pass the tiles by keyword)."""
+    _check_tiles(block_q=block_q, block_k=block_k)
     q_shape = tuple(q_shape)
     if len(q_shape) != 4 or q_shape[3] not in SUPPORTED_D or \
             min(q_shape) < 1:
@@ -256,12 +263,47 @@ def _on(tensors):
                      "on the CPU; got %s" % sorted(devices))
 
 
-def _fa_call(q, k, v, causal, scale):
-    """(out (B, H, S, D) in q's type, lse (B*H, 1, S) fp32): K1 on CUDA
-    tensors, its plain version on CPU tensors."""
+@torch.library.custom_op(
+    "mxtpu::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale) "
+           "-> (Tensor, Tensor)")
+def flash_fwd(q, k, v, causal, scale):
+    """K1 as one PyTorch operator, ``torch.ops.mxtpu.flash_fwd``: (out
+    (B, H, S, D) in q's type, lse (B*H, 1, S) fp32). K1 on CUDA tensors,
+    its plain version on CPU tensors. Being an operator, it is one node of
+    a ``torch.export`` program (its fake kernel gives the shapes) and
+    ``FlopCounterMode`` counts it (``fwd_flops``); it launches, and
+    counts a launch, only on real CUDA tensors."""
     if _on((q, k, v)) == "cuda":
         return _flash_fwd_cuda(q, k, v, causal, scale)
     return _fa_reference(q, k, v, causal, scale)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    B, H, S, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B * H, 1, S), dtype=torch.float32))
+
+
+def fwd_flops(q_shape, causal):
+    """K1's FLOPs: 4·B·H·pairs·D (q kᵀ and p v), pairs S² or S(S+1)/2
+    causal (the kept pairs)."""
+    B, H, S, D = q_shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * H * pairs * D
+
+
+@register_flop_formula(torch.ops.mxtpu.flash_fwd)
+def _flash_fwd_flop_formula(q_shape, k_shape, v_shape, causal, scale, *_,
+                            out_shape=None, **__):
+    return fwd_flops(q_shape, causal)
+
+
+def _fa_call(q, k, v, causal, scale):
+    """(out (B, H, S, D) in q's type, lse (B*H, 1, S) fp32) through the
+    ``mxtpu::flash_fwd`` operator."""
+    return torch.ops.mxtpu.flash_fwd(q, k, v, bool(causal), float(scale))
 
 
 def _fa_bwd_call(q, k, v, o, lse, do, causal, scale, g_lse=None):
@@ -314,19 +356,40 @@ class _FlashAttentionLSE(torch.autograd.Function):
                               ctx.scale, g_lse), None, None)
 
 
-def flash_attention(q, k, v, causal=False, scale=None):
-    """q, k, v: (B, H, S, D) → (B, H, S, D), differentiable."""
+def _check_tiles(**tiles):
+    """The JAX package's Pallas tile knobs (``block_q``, ``block_k``): None
+    or a positive int. Hopper's tiles are the kernels' own (64-row q and kv
+    tiles), so a valid value does not change what runs (ROADMAP §3,
+    departures); anything else raises, as an impossible tile would."""
+    for name, value in tiles.items():
+        if value is not None and (isinstance(value, bool) or
+                                  not isinstance(value, int) or value < 1):
+            raise ValueError("%s must be None or a positive int, got %r"
+                             % (name, value))
+
+
+def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
+                    block_k=None):
+    """q, k, v: (B, H, S, D) → (B, H, S, D), differentiable. Where no
+    gradient is recorded, K1's operator is called directly (one node of an
+    exported program)."""
+    _check_tiles(block_q=block_q, block_k=block_k)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if flash_attention_legal(q.shape, k.shape, v.shape):
+        if not (torch.is_grad_enabled() and
+                any(t.requires_grad for t in (q, k, v))):
+            return _fa_call(q, k, v, causal, scale)[0]
         return _FlashAttention.apply(q, k, v, causal, scale)
     return _blocked_reference(q, k, v, causal, scale)
 
 
-def flash_attention_lse(q, k, v, causal=False, scale=None):
+def flash_attention_lse(q, k, v, causal=False, scale=None, block_q=None,
+                        block_k=None):
     """Like ``flash_attention`` but also returns the per-row log-sum-exp
     (B, H, S) fp32, the statistic ring attention's online combine needs.
     Both outputs are differentiable. Requires a legal shape."""
+    _check_tiles(block_q=block_q, block_k=block_k)
     if not flash_attention_legal(q.shape, k.shape, v.shape):
         raise ValueError("flash_attention_lse: shapes %s, %s, %s are not "
                          "kernel-legal (see flash_attention_legal)"

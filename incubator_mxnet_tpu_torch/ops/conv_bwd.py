@@ -169,9 +169,21 @@ def _conv_bwd_cuda(x, dy, w):
     return dx, dw
 
 
-def conv3x3_bwd(x, dy, w):
+def conv3x3_bwd(x, dy, w, *, block_n=None, interpret=None):
     """Fused backward of ``y = conv3x3_s1(x, w)`` (NHWC / HWIO) →
-    ``(dx, dw)``: K4 on CUDA tensors, its plain version on CPU tensors."""
+    ``(dx, dw)``: K4 on CUDA tensors, its plain version on CPU tensors.
+    The JAX package's Pallas knobs are checked and change nothing:
+    ``interpret`` (None or a bool) picks Pallas's interpret mode, which
+    runs the kernel's own arithmetic without the TPU, so CUDA tensors
+    launch K4 either way; ``block_n`` (None or a positive int) is a TPU
+    tile, and Hopper's tiles are K4's own (ROADMAP §3, departures)."""
+    if block_n is not None and (isinstance(block_n, bool) or
+                                not isinstance(block_n, int) or block_n < 1):
+        raise ValueError("block_n must be None or a positive int, got %r"
+                         % (block_n,))
+    if interpret is not None and not isinstance(interpret, bool):
+        raise ValueError("interpret must be None or a bool, got %r"
+                         % (interpret,))
     devices = {t.device.type for t in (x, dy, w)}
     if devices == {"cpu"}:
         return _conv_bwd_reference(x, dy, w)

@@ -139,6 +139,11 @@ def pool_bytes(num_blocks, block_size, layers, heads, head_dim,
 def _with_private_block(pool):
     """The pool's tensor with its private block (index ``num_blocks``)."""
     n = pool.shape[0]
+    if torch.compiler.is_compiling():
+        # an export traces the pool as a slice of its program input, which
+        # holds the private block (the storage check reads no fake size)
+        return pool.as_strided((n + 1,) + tuple(pool.shape[1:]),
+                               pool.stride(), pool.storage_offset())
     need = (pool.storage_offset() + (n + 1) * pool.stride(0)) \
         * pool.element_size()
     if not pool.is_contiguous() or pool.untyped_storage().nbytes() < need:

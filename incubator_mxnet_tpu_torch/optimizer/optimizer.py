@@ -151,13 +151,49 @@ class Optimizer:
         return self.lr
 
     # -- the update rule (override in subclasses) ----------------------
+    def update_rule(self, weight, grad, state, lr, wd, t):
+        """The JAX package's per-weight hook: ``(fp32 weight, fp32 grad,
+        state, lr, wd, t) -> (new_weight, new_state)``, pure. A user's
+        optimizer may define it alone (``multi_update_rule`` then runs it
+        per weight; ``lr``, ``wd`` and ``t`` arrive as 0-d fp32 device
+        tensors, or ``t`` a host number, so a rule of torch ops captures
+        in a CUDA graph). For the built-in optimizers it is their
+        ``multi_update_rule`` on copies of one weight and its state, the
+        gradient already rescaled and clipped, as the JAX package's
+        ``update_rule`` takes it."""
+        if type(self).multi_update_rule is Optimizer.multi_update_rule:
+            raise NotImplementedError(
+                "%s defines neither update_rule nor multi_update_rule"
+                % type(self).__name__)
+        w = weight.detach().float().clone()
+        device = w.device
+
+        def vec(x):
+            return torch.as_tensor(x, dtype=torch.float32,
+                                   device=device).reshape(1)
+        new_state = _clone_state(state)
+        self._rescale = torch.ones((), dtype=torch.float32, device=device)
+        self.multi_update_rule([w], [grad.detach().float().clone()],
+                               [new_state], vec(lr), vec(wd), t)
+        return w, new_state
+
     def multi_update_rule(self, weights, grads, states, lrs, wds, t):
         """Update the fp32 ``weights`` and their ``states`` in place from
         the fp32 ``grads`` (which it may overwrite). ``lrs`` and ``wds``
         are fp32 device vectors, one entry per weight; ``t``, the
         bias-correction step, is a device scalar or one entry per
-        weight."""
-        raise NotImplementedError
+        weight. The base runs a subclass's ``update_rule`` on each weight
+        and writes its results into the weight and the state tensors."""
+        if type(self).update_rule is Optimizer.update_rule:
+            raise NotImplementedError(
+                "%s defines neither multi_update_rule nor update_rule"
+                % type(self).__name__)
+        per_weight = isinstance(t, torch.Tensor) and t.dim() == 1
+        for i, (w, g, s) in enumerate(zip(weights, grads, states)):
+            new_w, new_s = self.update_rule(w, g, s, lrs[i], wds[i],
+                                            t[i] if per_weight else t)
+            w.copy_(new_w)
+            _write_state(s, new_s, type(self).__name__)
 
     # -- the update ------------------------------------------------------
     def step_scalars(self, indices, t=None):
@@ -241,6 +277,31 @@ class Optimizer:
                         self._index_update_count[index] if t is None else t,
                         rescale, use_master=[use_master])
         return state
+
+
+def _clone_state(state):
+    """A copy of a state (None, a tensor, or tuples and lists of them)."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, (tuple, list)):
+        return type(state)(_clone_state(s) for s in state)
+    return state
+
+
+def _write_state(state, new, name):
+    """Copy ``update_rule``'s new state into the held one, tensor by tensor
+    (a state is None, a tensor, or a tuple or list of them)."""
+    if isinstance(state, torch.Tensor):
+        state.copy_(new)
+    elif isinstance(state, (tuple, list)):
+        if not isinstance(new, (tuple, list)) or len(new) != len(state):
+            raise ValueError("%s.update_rule changed its state's structure"
+                             % name)
+        for old, n in zip(state, new):
+            _write_state(old, n, name)
+    elif state is not None or new is not None:
+        raise ValueError("%s.update_rule returned a state of another kind "
+                         "than create_state's" % name)
 
 
 def _wd_terms(weights, wds):

@@ -74,11 +74,11 @@ def set_config(**kwargs):
 def set_state(state_="stop", profile_process="worker"):
     """Start (``'run'``) or stop (``'stop'``) recording."""
     if state_ == "run" and not _STATE["running"]:
-        _STATE["running"] = True
-        _STATE["peak_bytes"] = 0  # a fresh run, a fresh peak
         trace_dir = _CONFIG.get("trace_dir") or _CONFIG.get("jax_trace_dir")
         if trace_dir:
             _start_trace(trace_dir)
+        _STATE["running"] = True
+        _STATE["peak_bytes"] = 0  # a fresh run, a fresh peak
     elif state_ == "stop" and _STATE["running"]:
         _STATE["running"] = False
         if _STATE["trace"] is not None:
@@ -86,19 +86,35 @@ def set_state(state_="stop", profile_process="worker"):
 
 
 def _start_trace(trace_dir):
+    """A ``torch.profiler`` session until ``_stop_trace``; it holds
+    ``devstats.TORCH_PROFILER_LOCK`` (one session at a time: a
+    ``/debug/profile`` capture in flight raises here)."""
     from torch.profiler import ProfilerActivity, profile
+    from .telemetry import devstats
+    if not devstats.TORCH_PROFILER_LOCK.acquire(blocking=False):
+        raise devstats.ProfileCaptureBusy(
+            "a torch.profiler capture is in flight (GET /debug/profile); "
+            "trace_dir needs the one torch.profiler session")
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
-    prof.start()
+    from . import jit
+    with jit._CAPTURE_LOCK:          # not inside another thread's capture
+        prof.start()
     _STATE["trace"], _STATE["trace_dir"] = prof, trace_dir
 
 
 def _stop_trace():
+    from .telemetry import devstats
     prof, trace_dir = _STATE["trace"], _STATE["trace_dir"]
     _STATE["trace"] = _STATE["trace_dir"] = None
-    prof.stop()
+    from . import jit
+    try:
+        with jit._CAPTURE_LOCK:
+            prof.stop()
+    finally:
+        devstats.TORCH_PROFILER_LOCK.release()
     os.makedirs(trace_dir, exist_ok=True)
     _STATE["traces"] += 1
     prof.export_chrome_trace(os.path.join(

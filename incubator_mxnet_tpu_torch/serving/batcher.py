@@ -41,8 +41,9 @@ Robustness contract:
 Only worker threads touch the servable (and therefore the card), so
 arbitrary many client threads can submit concurrently.
 
-The JAX package's device-truth dispatch context and numerics taps wait
-for ROADMAP §1 item 7; the rest is the JAX package's: spans, the flight
+The telemetry is the JAX package's: the device-statistics dispatch
+context (``devstats.dispatch_context``), the numerics sentinel's
+``serve:outputs`` tap and shadow offer, spans, the flight
 recorder, watchdog heartbeats, the ``batcher.dispatch`` faultlab site,
 the dead-replica drain, ``respawn_replica`` and the single retry of a
 replica-death failure.
@@ -58,7 +59,8 @@ import queue as _queue
 import numpy as onp
 
 from .. import config
-from ..telemetry import faultlab, flightrec, spans, watchdog
+from ..telemetry import (devstats, faultlab, flightrec, numwatch, spans,
+                         watchdog)
 from ..telemetry.registry import counter as _counter
 from .metrics import ServingMetrics
 
@@ -105,6 +107,20 @@ def default_buckets(max_batch_size):
         b *= 2
     buckets.append(max_batch_size)
     return buckets
+
+
+#: set by the "batcher.dispatch" faultlab site's nan_poison for the batch
+#: this thread dispatches next
+_POISON = threading.local()
+
+
+def _poisoned(out):
+    """A copy of a floating output with its first element NaN."""
+    if not onp.issubdtype(out.dtype, onp.floating) or not out.size:
+        return out
+    out = onp.array(out)
+    out.flat[0] = onp.nan
+    return out
 
 
 def replica_device(replica):
@@ -530,6 +546,17 @@ class DynamicBatcher:
             self.metrics.detach_telemetry()
         except Exception:
             pass
+        # the same for the device gauges, the numerics sentinel's series
+        # and shadow, the SLO engine's gauges and the history rings: an
+        # unloaded model must not export frozen series
+        from ..telemetry import history, slo
+        for detach in (devstats.detach_model, numwatch.detach_model,
+                       slo.REGISTRY.detach_model, history.detach_model):
+            try:
+                detach(self.name)
+            except Exception:
+                _LOG.debug("telemetry detach of %r failed", self.name,
+                           exc_info=True)
 
     def _fail_queued(self, err):
         for q in self._queues:
@@ -751,8 +778,11 @@ class DynamicBatcher:
             # worker survives); WorkerKilled and anything else propagate
             # into _run_loop's worker-death path
             try:
-                faultlab.fire("batcher.dispatch", model=self.name,
-                              replica=replica)
+                # nan_poison: this batch's outputs get a NaN (the site's
+                # corruption), which the numerics tap then sees
+                _POISON.value = faultlab.fire(
+                    "batcher.dispatch", model=self.name,
+                    replica=replica) == "nan_poison"
             except faultlab.FaultInjected as e:
                 try:
                     self.metrics.inc("error_count", len(live))
@@ -826,7 +856,8 @@ class DynamicBatcher:
         replica kwarg forwarded when the servable declares it."""
         with spans.span("serve:dispatch", model=self.name, replica=replica,
                         batch=int(stacked[0].shape[0]) if stacked else 0,
-                        request_ids=request_ids):
+                        request_ids=request_ids), \
+                devstats.dispatch_context(self.name, replica):
             if self._replica_aware:
                 return self._dispatch_fn(*stacked, replica=replica)
             return self._dispatch_fn(*stacked)
@@ -861,8 +892,14 @@ class DynamicBatcher:
             # timer brackets the servable call ONLY: host-side pad/stack
             # time belongs to the batch leg, not the device_ms fact
             tc0 = time.monotonic()
+            # the numerics sentinel's stride-sampled tap over the outputs:
+            # a BlockServable reduces them on the card before its copy to
+            # the host (numwatch.device_tap), adding no host synchronise
+            tap = numwatch.tapping(self.name, "serve:outputs")
             try:
-                outs = self._call_servable(stacked, replica, request_ids)
+                with tap:
+                    outs = self._call_servable(stacked, replica,
+                                               request_ids)
             except BaseException as e:
                 if not isinstance(e, Exception):
                     # a worker-killing BaseException escaping the servable
@@ -895,7 +932,12 @@ class DynamicBatcher:
             # copied them): they are sliced per request and handed to
             # client threads and HTTP JSON
             outs = [onp.asarray(o) for o in outs]
+            if getattr(_POISON, "value", False):
+                _POISON.value = False
+                outs = [_poisoned(o) for o in outs]
+                tap.bundle = None       # the tap reads the poisoned outputs
             results = [tuple(o[j] for o in outs) for j in range(n)]
+            tap.finish(outs)
         except Exception as e:  # noqa: BLE001 — forwarded to every waiter
             try:
                 self.metrics.inc("error_count", n)
@@ -923,6 +965,9 @@ class DynamicBatcher:
         self._note_dispatch(live, bucket, replica, t0, call_s)
         for j, req in enumerate(live):
             req.succeed(results[j])
+        # shadow sampling after delivery: a full shadow queue drops the
+        # sample, never delays the response
+        numwatch.shadow_offer(self.name, stacked, outs)
 
     def _profile_batch(self, n, bucket, dur, request_ids=None):
         """Per-batch hook into the framework profiler (no-op unless

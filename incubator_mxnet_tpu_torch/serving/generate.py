@@ -62,11 +62,12 @@ Telemetry, as in the JAX package: ``gen:prefill`` / ``gen:decode_step``
 spans, ``mxtpu_gen_tokens_total{model,tenant,phase}``,
 ``mxtpu_gen_inflight_seqs``, ``mxtpu_gen_kv_blocks_{used,total}``, the
 ``mxtpu_gen_inter_token_ms`` histogram, flight-recorder join/retire
-events, a ``genloop:<name>`` watchdog channel and the ``generate.step``
-faultlab site. The per-tenant inter-token SLOs
-(``MXTPU_GEN_SLO_INTER_TOKEN_MS``, which raises when set) and the
-numerics taps wait for ROADMAP §1 item 7; the in-step ``row_finite``
-retirement is part of the step.
+events, a ``genloop:<name>`` watchdog channel, the ``generate.step``
+faultlab site, the numerics sentinel's ``gen:logits`` note (the step's
+fused per-row finiteness over live rows) and, when
+``MXTPU_GEN_SLO_INTER_TOKEN_MS`` is set, one per-tenant
+``<model>/inter_token/<tenant>`` SLO fed a 200-coded outcome per token
+gap (``telemetry.slo``).
 """
 from __future__ import annotations
 
@@ -83,7 +84,8 @@ from .. import aot, config
 from .. import jit as jit_mod
 from .. import telemetry
 from ..ops import kvcache
-from ..telemetry import faultlab, flightrec, spans, watchdog
+from ..telemetry import faultlab, flightrec, numwatch, spans, watchdog
+from ..telemetry import slo as slo_mod
 from . import accesslog
 from .batcher import DynamicBatcher, QueueFullError, ServingClosedError, \
     default_buckets  # noqa: F401 — a name of the JAX module's namespace
@@ -206,6 +208,17 @@ class TinyLM:
         """Every weight tensor (a captured program reads them by address)."""
         return [self.emb] + [layer[k] for layer in self.layers
                              for k in sorted(layer)]
+
+    def swap_tensors(self, tensors):
+        """Point the weights at ``tensors`` (``tensors()`` order) and return
+        the ones they replace: an export reads traced weights."""
+        old = self.tensors()
+        it = iter(tensors)
+        self.emb = next(it)
+        for layer in self.layers:
+            for k in sorted(layer):
+                layer[k] = next(it)
+        return old
 
     # -------------------------------------------------------- pure pieces
     @staticmethod
@@ -371,7 +384,7 @@ class _Seq:
 
     __slots__ = ("stream", "request_id", "tenant", "seed", "temperature",
                  "top_k", "max_new", "length", "last_token", "n_generated",
-                 "blocks", "table", "k_all", "v_all", "t_last")
+                 "blocks", "table", "k_all", "v_all", "t_last", "slo_name")
 
     def __init__(self, stream, k_all, v_all, length, first_token, seed,
                  temperature, top_k, max_new):
@@ -380,6 +393,7 @@ class _Seq:
         self.tenant = stream.tenant
         self.k_all = k_all          # (PREFILL_LEN, layers, h, hd), numpy
         self.v_all = v_all
+        self.slo_name = None        # the tenant's inter_token SLO, if any
         self.length = int(length)   # K/V entries in cache once joined
         self.last_token = int(first_token)
         self.seed = int(seed)
@@ -429,11 +443,7 @@ class GenerativeEngine:
                  num_blocks=None, max_batch=None, prefill_len=None,
                  max_tokens=None, prewarm=None, eos_token=EOS_TOKEN,
                  batch_timeout_ms=None, ctx=None):
-        if config.get_env("MXTPU_GEN_SLO_INTER_TOKEN_MS") is not None:
-            raise NotImplementedError(
-                "MXTPU_GEN_SLO_INTER_TOKEN_MS (per-tenant inter-token "
-                "SLOs, telemetry.slo) comes with ROADMAP §1 item 7 of the "
-                "port; unset it")
+        self._slo_ms = config.get_env("MXTPU_GEN_SLO_INTER_TOKEN_MS")
         self.name = name
         self.model = model if model is not None else TinyLM(seed, ctx=ctx)
         self.device = self.model.device
@@ -547,7 +557,11 @@ class GenerativeEngine:
     def _program(self, tag, body, example, kind, pool=None):
         """The engine's program ``tag``: built once (captured on the card
         through the aot cache, counted on the compile counter with a
-        ``gen:compile`` span) and kept in the engine's table."""
+        ``gen:compile`` span) and kept in the engine's table. With
+        ``MXTPU_AOT_CACHE_DIR`` set, the prefill and decode programs are
+        exported (weights and, for decode, the KV pool as inputs) and
+        persisted; a persisted one is loaded and captured over this
+        engine's weights and pool instead of tracing the model."""
         slot = (tag, None if pool is None else pool.data_ptr())
         with self._fn_lock:
             prog = self._programs.get(slot)
@@ -558,28 +572,64 @@ class GenerativeEngine:
             prog = _Program(fn, self.device)
         else:
             args = [torch.as_tensor(a).to(self.device) for a in example]
-            bound = tuple(t.data_ptr() for t in self.model.tensors())
+            weights = self.model.tensors()
+            bound = tuple(t.data_ptr() for t in weights)
             key = aot.cache_key(
                 self._model_id, aot.input_signature(args), kind=kind,
-                extra=(tag, str(self.device)) + bound + slot[1:])
+                extra=(tag, str(self.device), aot.Bound(bound + slot[1:])))
+            full = None if pool is None else kvcache._with_private_block(pool)
+            held = weights + ([full] if full is not None else [])
+            lead = held                   # a program's first inputs
 
-            held = self.model.tensors() + [
-                kvcache._with_private_block(pool)] if pool is not None \
-                else self.model.tensors()
-
-            def build():
+            def capture(run):
                 t0 = time.monotonic()
-                captured, _out = jit_mod._capture(fn, args, kind,
+                captured, _out = jit_mod._capture(run, args, kind,
                                                   tensors=held)
                 jit_mod._record_compile_span("gen:compile",
                                              time.monotonic() - t0)
-                return captured, None, None
-            entry = aot.compile_cached(key, build, owner=self._owner)
+                return captured
+
+            def from_program(program):
+                module = program.module()
+                return capture(lambda *a: list(module(*lead, *a))), None
+
+            def build():
+                if not persist:
+                    return capture(fn), None, None
+                with spans.span("gen:export", tag=tag):
+                    program = self._export(tag, body, lead, args, pool)
+                return from_program(program)[0], None, program
+            persist = tag in ("prefill", "decode") and \
+                aot.artifact_path(key) is not None
+            entry = aot.compile_cached(key, build, exportable=persist,
+                                       owner=self._owner,
+                                       from_program=from_program)
             self._keys.append(key)
             prog = _Program(fn, self.device, captured=entry.fn)
         with self._fn_lock:
             self._programs.setdefault(slot, prog)
             return self._programs[slot]
+
+    def _export(self, tag, body, lead, args, pool):
+        """``torch.export`` of program ``tag`` with the model's weights
+        (``model.tensors()`` order) and, for decode, the pool with its
+        private block as its first inputs."""
+        model, n_w = self.model, len(self.model.tensors())
+        n_blocks = None if pool is None else pool.shape[0]
+
+        class _GenProgram(torch.nn.Module):
+            def forward(self, *flat):
+                weights, rest = flat[:n_w], flat[n_w:]
+                saved = model.swap_tensors(weights)
+                try:
+                    if n_blocks is None:
+                        return list(body(*rest))
+                    return list(body(rest[0][:n_blocks], *rest[1:]))
+                finally:
+                    model.swap_tensors(saved)
+        with jit_mod._EXPORT_LOCK, torch.no_grad():
+            return torch.export.export(_GenProgram(), tuple(lead) + tuple(args),
+                                       strict=False)
 
     def _prefill_rows(self, rows):
         """The prefill program's inputs for ``rows`` ((prompt, seed,
@@ -713,6 +763,16 @@ class GenerativeEngine:
         prompt, max_new, temperature, top_k, seed = self._validate(
             prompt, max_new_tokens, temperature, top_k, seed)
         tenant = accesslog.clamp_tenant(tenant)
+        slo_name = None
+        if self._slo_ms is not None:
+            slo_name = "%s/inter_token/%s" % (self.name, tenant)
+            try:
+                slo_mod.REGISTRY.define(slo_name, self.name,
+                                        kind="inter_token",
+                                        latency_ms=self._slo_ms)
+            except Exception:
+                _LOG.debug("inter_token SLO define failed", exc_info=True)
+                slo_name = None
         with self._pend_lock:
             backlog = len(self._pending)
         if backlog >= self._pending_cap:
@@ -741,6 +801,7 @@ class GenerativeEngine:
             pass
         seq = _Seq(stream, k_all, v_all, P, first, seed, temperature,
                    top_k, max_new)
+        seq.slo_name = slo_name
         self._emit_token(seq, first, first_token=True)
         if first == self.eos_token:
             stream._end("eos")
@@ -769,6 +830,12 @@ class GenerativeEngine:
                 _INTER_TOKEN_MS.observe(gap_ms, model=self.name)
         except Exception:
             _LOG.debug("gen token metrics failed", exc_info=True)
+        if seq.slo_name is not None and not first_token:
+            try:
+                slo_mod.REGISTRY.observe_named(seq.slo_name, 200,
+                                               latency_ms=gap_ms)
+            except Exception:
+                _LOG.debug("inter_token SLO observe failed", exc_info=True)
         seq.stream._emit(tok)
 
     # ---------------------------------------------------------- decode loop
@@ -852,6 +919,11 @@ class GenerativeEngine:
             (out,) = fn(packed)
             self._pool_hazard = False
         next_t, finite = out[0], out[1]
+        # the sentinel's finite fraction over the live rows (padding rows
+        # must not dilute it); note() never raises
+        if act:
+            numwatch.note(self.name, "gen:logits",
+                          float(onp.mean(finite[:len(act)] != 0)))
         for i, s in enumerate(act):
             tok = int(next_t[i])
             s.length += 1
@@ -1046,6 +1118,11 @@ class GenerativeEngine:
                 g.remove_function(fn)
             except Exception:
                 pass
+        for detach in (numwatch.detach_model, slo_mod.REGISTRY.detach_model):
+            try:
+                detach(self.name)
+            except Exception:
+                _LOG.debug("telemetry detach failed", exc_info=True)
         # the engine lets go of its graphs: those no other engine holds
         # leave the aot cache with the weights and pool they hold
         for key in self._keys:

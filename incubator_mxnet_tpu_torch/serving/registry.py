@@ -31,8 +31,11 @@ generators (``load_generator``) are served beside the models.
 
 Not here: the JAX package's hlolint and hlodiff load gates read the
 StableHLO of persisted artifacts and have no analog in the port (ROADMAP
-§1 item 8), so ``MXTPU_HLOLINT_GATE`` is not read; numerics shadows
-(``register_shadow``) wait for ``telemetry.numwatch`` (item 7).
+§1 item 8), so ``MXTPU_HLOLINT_GATE`` is not read. Numerics shadows
+(``register_shadow``) are ``telemetry.numwatch``'s, as in the JAX
+package. A ``contrib.serving.ServedModel`` (an exported artifact) is a
+servable like any other: its ``predict_batch`` re-chunks each bucket
+onto its exported batch, and a prewarm captures its one program.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import torch
 from .. import config
 from ..gluon.block import Block
 from ..jit import EvalStep, net_device
-from ..telemetry import faultlab, flightrec, spans
+from ..telemetry import faultlab, flightrec, numwatch, spans
 from .batcher import (DynamicBatcher, ServingClosedError, _accepts_replica,
                       replica_device)
 from .metrics import ServingMetrics
@@ -95,6 +98,7 @@ class BlockServable:
     def predict_batch(self, *stacked_inputs, replica=0):
         out = self._step(replica)._run(*stacked_inputs)
         outs = out if isinstance(out, tuple) else (out,)
+        numwatch.device_tap(outs)
         return tuple(_to_host(o) for o in outs)
 
     def release(self):
@@ -403,6 +407,21 @@ class ModelRegistry:
         self._entries = {}
         self._generators = {}           # name -> GenerativeEngine
         self._closed = False
+        # the continuous profiler's overload signal: it skips a capture
+        # cycle while any of this registry's queues runs hot
+        from ..telemetry import profstats
+        self._probe_name = "serving-registry-%d" % id(self)
+        profstats.add_load_probe(self._probe_name, self._queue_occupancy)
+
+    def _queue_occupancy(self):
+        """Max replica-queue occupancy across loaded models, in [0, 1]."""
+        with self._lock:
+            entries = list(self._entries.values())
+        occ = 0.0
+        for e in entries:
+            cap = max(1, e.batcher.total_queue_size)
+            occ = max(occ, e.batcher.queue_depth() / cap)
+        return occ
 
     # ------------------------------------------------------------ lifecycle
     def load(self, name, servable, version=None, prewarm=None,
@@ -493,6 +512,8 @@ class ModelRegistry:
     def close(self, drain=True):
         """Shut every model's batcher down (queues drained first) and close
         every generator (live sequences retire)."""
+        from ..telemetry import profstats
+        profstats.remove_load_probe(self._probe_name)
         with self._lock:
             self._closed = True
             entries = list(self._entries.values())
@@ -592,16 +613,24 @@ class ModelRegistry:
 
     # ------------------------------------------------------------- numerics
     def register_shadow(self, name, reference, stride=None, threshold=None):
-        """The JAX package's numerics shadow: item 7's."""
-        raise NotImplementedError(
-            "register_shadow (numerics shadows, telemetry.numwatch) comes "
-            "with ROADMAP §1 item 7 of the port")
+        """Attach ``reference`` (servable or Gluon block) as ``name``'s
+        numerics shadow: a deterministic stride of dispatched batches is
+        re-executed through it off the hot path and compared
+        (telemetry/numwatch.py). A max-abs-diff breach beyond
+        ``threshold`` (default MXTPU_SHADOW_THRESHOLD) flips this model to
+        degraded (``set_degraded``, with its last-known-good rollback)."""
+        entry = self._entry(name)
+        reference = _as_servable(reference)
+        from ..telemetry import numwatch
+        numwatch.register_shadow(name, reference, stride=stride,
+                                 threshold=threshold,
+                                 on_breach=entry.set_degraded)
 
     def unregister_shadow(self, name):
-        """The JAX package's numerics shadow: item 7's."""
-        raise NotImplementedError(
-            "unregister_shadow (numerics shadows, telemetry.numwatch) comes "
-            "with ROADMAP §1 item 7 of the port")
+        """Detach ``name``'s numerics shadow (the degraded flag, if already
+        flipped, stays until the next load)."""
+        from ..telemetry import numwatch
+        return numwatch.unregister_shadow(name)
 
     # ------------------------------------------------------------ inspection
     def models(self):

@@ -7,13 +7,10 @@ server scales to many concurrent clients and only workers launch. JSON
 tensor encoding keeps the whole stack exercisable end to end in the CPU
 tests (tests/test_torch_serving_http.py drives it through a real socket).
 
-The routes and the error contract are the JAX package's. The routes whose
-module waits for ROADMAP §1 item 7 (``telemetry.slo``, ``numwatch``,
-``history``, ``devstats`` and ``profstats``) stay listed in ``/debug/``
-and answer 501 with a body naming the item: ``/debug/slo``,
-``/debug/numerics``, ``/debug/history``, ``/debug/incident``,
-``/debug/profile`` and ``/debug/hotspots``. ``/debug/aot`` lists the
-port's cache of captured graphs.
+The routes and the error contract are the JAX package's. ``/debug/aot``
+lists the port's cache of captured graphs; ``/debug/profile`` captures
+``torch.profiler`` (CPU and CUDA activity) and ``/debug/hotspots`` ranks
+its CUDA kernels (``telemetry.devstats``, ``telemetry.profstats``).
 
 Routes (TF-Serving REST-shaped):
 
@@ -72,10 +69,18 @@ Routes (TF-Serving REST-shaped):
 - ``GET /debug/``           — machine-readable index of every debug
   route (path + one-line description, the DEBUG_ROUTES table) — the
   first page a runbook loads mid-incident.
-- ``GET /debug/slo``, ``/debug/numerics``, ``/debug/history``,
-  ``/debug/incident``, ``/debug/profile``, ``/debug/hotspots`` — 501,
-  naming ROADMAP §1 item 7 (SLOs, numerics, metric history, device
-  profiles and hotspots).
+- ``GET /debug/slo`` — per-SLO error-budget remaining, window burn
+  rates and alert states (telemetry/slo.py).
+- ``GET /debug/numerics`` — the numerics sentinel: per-site tap stats,
+  storm episodes, per-model shadow divergence (telemetry/numwatch.py).
+- ``GET /debug/history?series=&since=&step=`` and ``GET /debug/incident
+  ?around=&before_s=&after_s=`` — the metric-history store and the
+  incident timeline (telemetry/history.py).
+- ``GET /debug/profile?seconds=N`` — an on-demand ``torch.profiler``
+  capture with its summary (device busy/idle share, top kernels);
+  single-flight, 409 while one is in flight.
+- ``GET /debug/hotspots?n=&capture=`` — the rolling ranked kernel table,
+  or one remembered capture's summary.
 
 Tracing: every predict request gets a request ID (client-supplied
 ``X-Request-Id`` wins, else one is generated), echoed on the response
@@ -85,8 +90,8 @@ header and propagated through the batcher queue onto the profiler's
 Tenancy: an ``X-MXTPU-Tenant`` header (clamped; ``default`` when
 absent) labels every terminal outcome — per-tenant
 ``mxtpu_requests_total{model,tenant,code}`` counters and latency
-histograms and the access-log record (the JAX package's per-model SLO
-ledger feed waits for ROADMAP §1 item 7).
+histograms, the per-model SLO ledger (telemetry/slo.py) and the
+access-log record.
 
 Error contract (the robustness story made visible):
 
@@ -139,28 +144,18 @@ DEBUG_ROUTES = (
     ("/debug/aot", "process-wide AOT executable cache entries"),
     ("/debug/requests", "structured access log, newest n terminal "
      "outcomes as JSONL (?n=)"),
-    ("/debug/slo", "per-SLO budgets, burn rates, and alert states; 501 "
-     "until ROADMAP item 7"),
+    ("/debug/slo", "per-SLO budgets, burn rates, and alert states"),
     ("/debug/numerics", "numerics sentinel: tap stats, storm episodes, "
-     "shadow divergence; 501 until ROADMAP item 7"),
+     "shadow divergence"),
     ("/debug/faults", "faultlab arming state (GET) / arm-disarm (POST)"),
-    ("/debug/profile", "on-demand device-profiler capture (?seconds=); "
-     "501 until ROADMAP item 7"),
-    ("/debug/hotspots", "ranked per-op hotspot table (?n=, ?capture=); "
-     "501 until ROADMAP item 7"),
+    ("/debug/profile", "on-demand device-profiler capture (?seconds=)"),
+    ("/debug/hotspots", "ranked per-op hotspot table (?n=, ?capture=)"),
     ("/debug/history", "metric-history rings: raw + coarse time series "
-     "and recording rules (?series=&since=&step=); 501 until ROADMAP "
-     "item 7"),
+     "and recording rules (?series=&since=&step=)"),
     ("/debug/incident", "incident timeline: flightrec events, SLO alert "
      "transitions, and metric excursions around a timestamp "
-     "(?around=&before_s=&after_s=); 501 until ROADMAP item 7"),
+     "(?around=&before_s=&after_s=)"),
 )
-
-#: debug routes whose telemetry module waits for ROADMAP §1 item 7
-_WAITING_ROUTES = {"/debug/slo": "slo", "/debug/numerics": "numwatch",
-                   "/debug/history": "history", "/debug/incident": "history",
-                   "/debug/profile": "devstats",
-                   "/debug/hotspots": "profstats"}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -247,12 +242,24 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._send_text(200, accesslog.export_jsonl(n),
                             "application/jsonl; charset=utf-8")
-        elif self.path.split("?", 1)[0] in _WAITING_ROUTES:
-            route = self.path.split("?", 1)[0]
-            self._send(501, {"error": "%s (telemetry.%s) comes with ROADMAP "
-                             "§1 item 7 of the port"
-                             % (route, _WAITING_ROUTES[route]),
-                             "waits_for": "item 7"})
+        elif self.path == "/debug/slo":
+            # budgets, burn rates, and alert states per SLO (evaluating
+            # the alert state machines now)
+            from ..telemetry import slo
+            self._send(200, slo.REGISTRY.describe())
+        elif self.path == "/debug/numerics":
+            # the numerics sentinel: per-site tap stats / storm episodes
+            # and per-model shadow divergence (telemetry/numwatch.py)
+            from ..telemetry import numwatch
+            self._send(200, numwatch.describe())
+        elif self.path.split("?", 1)[0] == "/debug/history":
+            self._do_history()
+        elif self.path.split("?", 1)[0] == "/debug/incident":
+            self._do_incident()
+        elif self.path.split("?", 1)[0] == "/debug/profile":
+            self._do_profile()
+        elif self.path.split("?", 1)[0] == "/debug/hotspots":
+            self._do_hotspots()
         elif self.path == "/debug/faults":
             # the faultlab arming state: armed flag + per-fault
             # stride/p/budget/fired counters (telemetry/faultlab.py)
@@ -278,6 +285,96 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, desc)
         else:
             self._send(404, {"error": "no route %r" % self.path})
+
+    def _do_history(self):
+        """GET /debug/history?series=&since=&step= — the metric-history
+        store (telemetry/history.py): raw + coarse rings per series,
+        optionally filtered (series substring / bare metric name),
+        truncated (since=epoch seconds) and re-bucketed (step=seconds
+        of min/max/mean folding)."""
+        from urllib.parse import parse_qs, urlparse
+        from ..telemetry import history
+        q = parse_qs(urlparse(self.path).query)
+        series = q.get("series", [None])[0]
+        try:
+            since = float(q["since"][0]) if "since" in q else None
+            step = float(q["step"][0]) if "step" in q else None
+        except ValueError:
+            self._send(400, {"error": "since/step must be numbers"})
+            return
+        if step is not None and step <= 0:
+            self._send(400, {"error": "step must be > 0"})
+            return
+        self._send(200, history.query(series=series, since=since,
+                                      step=step))
+
+    def _do_incident(self):
+        """GET /debug/incident?around=&before_s=&after_s= — the incident
+        timeline builder: flightrec events, SLO alert transitions, and
+        metric excursions in the window, merged and causally ordered on
+        the shared perf_counter anchor (telemetry/history.py)."""
+        from urllib.parse import parse_qs, urlparse
+        from ..telemetry import history
+        q = parse_qs(urlparse(self.path).query)
+        try:
+            around = float(q["around"][0]) if "around" in q else None
+            before_s = float(q.get("before_s", ["90"])[0])
+            after_s = float(q.get("after_s", ["30"])[0])
+        except ValueError:
+            self._send(400, {"error": "around/before_s/after_s must be "
+                                      "numbers"})
+            return
+        self._send(200, history.incident(around=around, before_s=before_s,
+                                         after_s=after_s))
+
+    def _do_profile(self):
+        """GET /debug/profile?seconds=N — the on-demand ``torch.profiler``
+        capture (single-flight; 409 while one is in flight). The handler
+        thread blocks for the capture window; the ThreadingHTTPServer
+        keeps answering /metrics and predicts meanwhile. The response
+        carries the parsed ``summary`` (top-K ops + idle ratio) and a
+        ``capture_id`` that stays fetchable via GET /debug/hotspots
+        ?capture=<id> after the dir itself is pruned."""
+        from urllib.parse import parse_qs, urlparse
+        from ..telemetry import devstats
+        from ..telemetry.profstats import brief, capture_and_summarize
+        q = parse_qs(urlparse(self.path).query)
+        try:
+            seconds = float(q.get("seconds", ["2"])[0])
+        except ValueError:
+            self._send(400, {"error": "seconds must be a number"})
+            return
+        try:
+            out, summary = capture_and_summarize(seconds)
+        except devstats.ProfileCaptureBusy as e:
+            self._send(409, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 — capture failure, not crash
+            self._send(500, {"error": "%s: %s" % (type(e).__name__, e)})
+        else:
+            out["summary"] = brief(summary)
+            self._send(200, out)
+
+    def _do_hotspots(self):
+        """GET /debug/hotspots?n=K — the rolling ranked hotspot table;
+        ``?capture=<id>`` returns one remembered capture summary."""
+        from urllib.parse import parse_qs, urlparse
+        from ..telemetry import profstats
+        q = parse_qs(urlparse(self.path).query)
+        try:
+            n = int(q.get("n", ["20"])[0])
+        except ValueError:
+            self._send(400, {"error": "n must be an integer"})
+            return
+        cid = q.get("capture", [None])[0]
+        if cid:
+            summary = profstats.get_summary(cid)
+            if summary is None:
+                self._send(404, {"error": "no remembered capture %r" % cid,
+                                 "known": profstats.summaries()})
+            else:
+                self._send(200, summary)
+            return
+        self._send(200, profstats.hotspots(n))
 
     def do_POST(self):
         if self.path == "/debug/faults":
@@ -577,14 +674,18 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _account(self, name, tenant, req_id, code, t_start,
                  shed_reason=None, dispatch=None):
-        """The shared terminal-outcome accounting (per-tenant counters and
-        the access log; the JAX package's SLO ledger waits for ROADMAP §1
-        item 7) — guarded: telemetry failure never turns a served
-        response into a 500."""
+        """The shared terminal-outcome accounting (per-tenant counters,
+        SLO ledger, access log) — guarded: telemetry failure never turns
+        a served response into a 500."""
         latency_ms = (time.perf_counter() - t_start) * 1e3
         d = dispatch or {}
         try:
             request_accounted(name, tenant, code, latency_ms)
+            from ..telemetry import slo
+            if code != 404:
+                # a 404 names no model: hostile name probes must not seed
+                # unbounded SLO objects
+                slo.REGISTRY.observe(name, code, latency_ms=latency_ms)
             accesslog.record(
                 request_id=req_id, tenant=tenant, model=name, code=code,
                 latency_ms=latency_ms, shed_reason=shed_reason,
@@ -672,16 +773,13 @@ class ServingServer:
 
 
 def serve(models, host="127.0.0.1", port=None, **batcher_kw):
-    """Convenience bring-up: ``models`` maps name -> servable (or a live
-    Gluon block). Returns the STARTED ServingServer (caller owns
-    ``stop()``). The JAX package also takes a path to a ``.mxtpu``
-    artifact here: loading one (``contrib/serving.py``) comes with the
-    port's next slice, programs on disk."""
+    """Convenience bring-up: ``models`` maps name -> servable, a live Gluon
+    block, or a path to a ``.mxtpu`` artifact (``contrib.serving.load``).
+    Returns the STARTED ServingServer (caller owns ``stop()``)."""
     registry = ModelRegistry()
     for name, obj in models.items():
         if isinstance(obj, str):
-            raise NotImplementedError(
-                "serving a .mxtpu artifact (%r) comes with the next slice "
-                "of the port (contrib/serving.py, programs on disk)" % obj)
+            from ..contrib import serving as _artifact
+            obj = _artifact.load(obj)
         registry.load(name, obj, **batcher_kw)
     return ServingServer(registry, host=host, port=port).start()

@@ -6,12 +6,15 @@ serving stack (``serving/metrics.py``), the captured steps (``jit.py``)
 and the AOT cache (``aot.py``); request-scoped trace ids ride from the
 HTTP front end through the batcher into spans and the profiler's events.
 
-The port carries the seven device-agnostic modules the serving path
-calls, as the JAX package has them: ``ringbuf``, ``trace``, ``registry``,
-``spans``, ``flightrec``, ``watchdog`` and ``faultlab``. The five that
-read the device or feed SLOs (``devstats``, ``profstats``, ``numwatch``,
-``slo`` and ``history``) wait for ROADMAP §1 item 7: reaching any of them
-through this package raises ``NotImplementedError`` naming that item.
+The port carries the JAX package's twelve modules: the device-agnostic
+``ringbuf``, ``trace``, ``registry``, ``spans``, ``flightrec``,
+``watchdog`` and ``faultlab`` as they are, and the five that read the
+device or feed SLOs re-derived for the CUDA card: ``devstats`` (program
+FLOPs by ``FlopCounterMode``, allocator memory, per-dispatch MFU from
+CUDA-event device time, ``torch.profiler`` captures), ``profstats``
+(``torch.profiler`` chrome traces: kernel hotspots, device idle share),
+``numwatch`` (a torch reducer over device outputs, shadows), ``slo`` and
+``history``.
 
 Two consumption paths, as in the JAX package: the serving front end's
 ``GET /metrics``, and for headless jobs ``start_periodic_flush()`` (or
@@ -30,8 +33,13 @@ from .registry import (Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
 from .trace import (new_request_id, current_request_id,
                     set_current_request_id, request_scope,
                     REQUEST_ID_HEADER)
+from . import devstats
 from . import faultlab
 from . import flightrec
+from . import history
+from . import numwatch
+from . import profstats
+from . import slo
 from . import spans
 from . import watchdog
 from .spans import (Span, SpanContext, span, record_span, current_span,
@@ -44,22 +52,11 @@ __all__ = [
     "new_request_id", "current_request_id", "set_current_request_id",
     "request_scope", "REQUEST_ID_HEADER",
     "start_periodic_flush", "stop_periodic_flush", "flush_to_file",
-    "faultlab", "flightrec", "spans", "watchdog",
+    "devstats", "faultlab", "flightrec", "history", "numwatch",
+    "profstats", "slo", "spans", "watchdog",
     "Span", "SpanContext", "span", "record_span", "current_span",
     "current_context",
 ]
-
-#: the JAX package's telemetry modules that read the device or feed SLOs
-WAITING = ("devstats", "profstats", "numwatch", "slo", "history")
-
-
-def __getattr__(name):
-    if name in WAITING:
-        raise NotImplementedError(
-            "telemetry.%s (device statistics, profiles, numerics and SLOs) "
-            "comes with ROADMAP §1 item 7 of the port" % name)
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))
-
 
 _flush_lock = threading.Lock()
 _flush_stop = None        # threading.Event of the running flusher, or None
@@ -140,7 +137,9 @@ def _maybe_autostart():
     """Package-import hook, as the JAX package's: MXTPU_TELEMETRY_FLUSH_S >
     0 starts the flusher, the flight recorder chains its crash-dump
     excepthooks (gated per crash by MXTPU_FLIGHTREC_DUMP_ON_CRASH), and
-    MXTPU_WATCHDOG=1 starts the stall watchdog. Each is guarded: telemetry
+    MXTPU_WATCHDOG=1 starts the stall watchdog, and MXTPU_DEVSTATS=1,
+    MXTPU_PROFSTATS=1 and MXTPU_HISTORY=1 start the memory sampler, the
+    profiler daemon and the history store. Each is guarded: telemetry
     never fails the import that carries it."""
     from .. import config
     log = logging.getLogger(__name__)
@@ -158,3 +157,11 @@ def _maybe_autostart():
             watchdog.start()
     except Exception:
         log.debug("watchdog autostart failed", exc_info=True)
+    for knob, module in (("MXTPU_DEVSTATS", devstats),
+                         ("MXTPU_PROFSTATS", profstats),
+                         ("MXTPU_HISTORY", history)):
+        try:
+            if config.get_env(knob):
+                module.start()
+        except Exception:
+            log.debug("%s autostart failed", knob, exc_info=True)

@@ -43,9 +43,10 @@ Every firing lands in the flight recorder (``fault_injected``) and on
 faults are first-class telemetry, auditable next to their effects.
 
 Known sites (the registry is open — any string names a site, these are
-the ones the port wires): ``batcher.dispatch``, ``registry.load`` and
-``generate.step``. The JAX package's ``aot.artifact_read`` waits for the
-port's artifact layer and ``numwatch.shadow`` for its numerics sentinel.
+the ones the port wires): ``batcher.dispatch`` (its ``nan_poison`` puts a
+NaN into the batch's outputs), ``registry.load``, ``generate.step``,
+``aot.artifact_read`` (``artifact_corrupt``: the file reads as
+unreadable) and ``numwatch.shadow``.
 """
 from __future__ import annotations
 

@@ -11,10 +11,12 @@ test_torch_jit.py does for TrainStep; it holds the captured path to the
 eager forward bit for bit, counts captures and launches, binds graphs to
 parameter storage (the port's departure from the JAX package, whose
 programs take the parameters as inputs) and keeps captures off the
-batcher's workers across a prewarmed hot reload. The artifact layer
-raises until the next slice. ``CpuCapture`` and the ``cpu_graphs``
+batcher's workers across a prewarmed hot reload. The artifact layer's
+functions are held to the JAX package's (its programs round trip in
+tests/test_torch_export.py). ``CpuCapture`` and the ``cpu_graphs``
 fixture are shared with tests/test_torch_generate.py.
 """
+import os
 import threading
 import time
 
@@ -201,17 +203,36 @@ def test_single_flight_build():
     assert [e.fn for e in fresh] == ["f2"]
 
 
-def test_artifact_layer_raises_naming_the_next_slice(monkeypatch):
+def test_artifact_layer_raises_naming_the_next_slice(monkeypatch, tmp_path):
+    """The artifact layer's functions, against the JAX package's: off
+    without MXTPU_AOT_CACHE_DIR and for train keys, the same file name
+    (digest) for the same key under the torch version's directory, the
+    same program digest and header bytes, no facts without a file, and a
+    get_or_build with nothing on disk builds (the layer no longer
+    raises)."""
     key = aot.cache_key("m", [((1,), "float32")], kind="eval")
-    for fn, args in ((aot.artifact_path, (key,)),
-                     (aot.facts_for_key, (key,)),
-                     (aot.program_digest, (b"",))):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            fn(*args)
-    monkeypatch.setenv("MXTPU_AOT_CACHE_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="MXTPU_AOT_CACHE_DIR"):
-        aot.AOTCache().get_or_build(key, lambda: ("fn", None, None),
-                                    exportable=True)
+    jkey = jaot.cache_key("m", [((1,), "float32")], kind="eval")
+    monkeypatch.delenv("MXTPU_AOT_CACHE_DIR", raising=False)
+    assert aot.artifact_path(key) is None and jaot.artifact_path(jkey) is None
+    assert aot.facts_for_key(key) is None
+    d = str(tmp_path)
+    assert aot.artifact_path(key._replace(kind="train"), d) is None
+    path = aot.artifact_path(key, d)
+    assert os.path.basename(path) == \
+        os.path.basename(jaot.artifact_path(jkey, d))
+    assert os.path.basename(os.path.dirname(path)) == \
+        "torch-%s" % torch.__version__
+    # the Bound addresses of a captured graph leave the file name alone
+    assert aot.artifact_path(key._replace(extra=(aot.Bound((1, 2)),)), d) \
+        == path
+    assert aot.program_digest(b"abc") == jaot.program_digest(b"abc")
+    assert aot._pack_header({"flops": 2.0}) == \
+        jaot._pack_header({"flops": 2.0})
+    assert aot.facts_for_key(key, d) is None
+    monkeypatch.setenv("MXTPU_AOT_CACHE_DIR", d)
+    entry = aot.AOTCache().get_or_build(key, lambda: ("fn", None, None),
+                                        exportable=True)
+    assert entry.fn == "fn" and entry.source == "build"
     for name in jaot.__all__:
         assert hasattr(aot, name), name
 

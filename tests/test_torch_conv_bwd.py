@@ -199,3 +199,19 @@ def test_conv3x3_s1_backward_launches_the_kernel_once(cuda_device):
     y.square().sum().backward()
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES.get("conv_bwd", 0) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interpret", [None, False, True])
+def test_interpret_still_launches_k4_on_cuda(cuda_device, interpret):
+    """The reference's ``interpret`` picks Pallas's interpret mode, which
+    runs the kernel's own arithmetic; on CUDA tensors the port launches K4
+    whatever it says, and answers the same bits."""
+    x, w, dy = (torch.from_numpy(a).to(cuda_device)
+                for a in _inputs((2, 7, 7, 32, 32), seed=5))
+    want = tconv.conv3x3_bwd(x, dy, w)
+    _kernels.reset_launches()
+    got = tconv.conv3x3_bwd(x, dy, w, interpret=interpret)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES.get("conv_bwd", 0) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

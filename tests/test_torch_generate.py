@@ -281,9 +281,25 @@ def test_submit_validation_errors(serving, monkeypatch):
                {"prompt": [1], "seed": "x"}):
         with pytest.raises(gen.BadGenRequest):
             e.submit(**kw)
+    # MXTPU_GEN_SLO_INTER_TOKEN_MS: a per-tenant inter_token SLO fed one
+    # outcome per token gap (the first token's delay is TTFT, not a gap),
+    # as the JAX package's engine does
+    from incubator_mxnet_tpu_torch.telemetry import slo
     monkeypatch.setenv("MXTPU_GEN_SLO_INTER_TOKEN_MS", "250")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        gen.GenerativeEngine(name="gen-slo", ctx=mxt.cpu(), **GEO)
+    eng = gen.GenerativeEngine(name="gen-slo", ctx=mxt.cpu(), **GEO)
+    try:
+        toks, _reason = eng.submit([1, 2, 3], max_new_tokens=4,
+                                   temperature=0.0,
+                                   tenant="acme").tokens(timeout=60.0)
+        objective = slo.REGISTRY.get("gen-slo/inter_token/acme")
+        assert objective is not None and objective.kind == "inter_token"
+        assert objective.describe()["model"] == "gen-slo"
+        good, bad = objective._ledger.window_counts(
+            objective.window_s, objective.clock())
+        assert good + bad == len(toks) - 1, (good, bad, toks)
+    finally:
+        eng.close()
+    assert slo.REGISTRY.get("gen-slo/inter_token/acme") is None
 
 
 def test_decode_numeric_error_retires_row_and_frees_kv():

@@ -608,18 +608,36 @@ def test_constant_parameter_keeps_its_value_and_round_trips(tmp_path):
 
 def test_symbol_block_and_export_wait_for_their_slices(tmp_path):
     """SymbolBlock came with the symbolic API (its parity tests are in
-    test_torch_module.py); HybridBlock.export and the imports of its
-    manifest wait for serving's exported artifacts (ROADMAP item 4)."""
+    test_torch_module.py). ``HybridBlock.export`` writes what the JAX
+    package's writes: a block never called has no input signature, so
+    its manifest names no artifact, and ``imports`` of such a manifest
+    is refused in both packages (the served round trip is in
+    tests/test_torch_export.py)."""
+    import json
     d = mxt.sym.var("data")
     blk = mxt.gluon.SymbolBlock(mxt.sym.FullyConnected(d, num_hidden=2,
                                                        name="fc"), d)
     assert sorted(blk.collect_params()) == ["fc_bias", "fc_weight"]
     manifest = tmp_path / "net-symbol.json"
     manifest.write_text('{"format": "incubator_mxnet_tpu.hybrid"}')
-    with pytest.raises(NotImplementedError, match="item 4"):
-        mxt.gluon.SymbolBlock.imports(str(manifest), ["data"])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        mxt.gluon.nn.Dense(2, in_units=2).export("net")
+    for pkg in (mxt, mx):
+        with pytest.raises(ValueError, match="without a serving artifact"):
+            pkg.gluon.SymbolBlock.imports(str(manifest), ["data"])
+    port = mxt.gluon.nn.Dense(2, in_units=2)
+    port.initialize(ctx=mxt.cpu())
+    port.export(str(tmp_path / "port"))
+    ref = jgluon.nn.Dense(2, in_units=2)
+    ref.initialize()
+    ref.export(str(tmp_path / "ref"))
+    for name in ("port", "ref"):
+        assert (tmp_path / ("%s-0000.params" % name)).exists()
+        assert not (tmp_path / ("%s.mxtpu" % name)).exists()
+    got = json.loads((tmp_path / "port-symbol.json").read_text())
+    want = json.loads((tmp_path / "ref-symbol.json").read_text())
+    assert got == want == {"format": "incubator_mxnet_tpu.hybrid",
+                           "class": "Dense", "artifact": None}
+    assert sorted(mxt.nd.load(str(tmp_path / "port-0000.params"))) == \
+        sorted(mx.nd.load(str(tmp_path / "ref-0000.params")))
 
 
 def test_clip_passes_the_gradient_at_its_bounds_as_mxnet():

@@ -353,13 +353,21 @@ def test_train_step_runs_a_hybridized_net_plainly(graphs, remat):
         assert onp.array_equal(a, b)
 
 
-def test_hybridize_off_and_export():
+def test_hybridize_off_and_export(tmp_path):
+    """``export`` after a call takes that call's signature (as the JAX
+    package's ``_last_input_avals``): the parameters, the manifest and
+    the ``.mxtpu`` artifact, whose program equals the eager forward."""
     net = _port_net()
     net.hybridize()
     net.hybridize(False)
     assert not net._active
-    with pytest.raises(NotImplementedError, match="serving"):
-        net.export("x")
+    x, _ = _batch(4)
+    ref = net(mxt.nd.array(x, ctx=mxt.cpu())).asnumpy()
+    path = str(tmp_path / "x")
+    net.export(path)
+    served = mxt.gluon.SymbolBlock.imports(path + "-symbol.json", ["data"])
+    assert onp.array_equal(served(mxt.nd.array(x, ctx=mxt.cpu())).asnumpy(),
+                           ref)
 
 
 class _Partial(mxt.gluon.HybridBlock):

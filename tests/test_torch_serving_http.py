@@ -11,8 +11,8 @@ the CPU, against the JAX package's server.
   raising servable; ``X-Request-Id`` echoed (the client's or a fresh
   one), ``X-MXTPU-Tenant`` accounted on ``mxtpu_requests_total``.
 - The surfaces: /healthz, /metrics (parsed), /metrics.json, /v1/models,
-  /debug/ (every listed route answers; the six that wait for ROADMAP §1
-  item 7 answer 501 naming it), /debug/requests (the access log's
+  /debug/ (every listed route answers 200, /debug/profile with a short
+  torch.profiler capture), /debug/requests (the access log's
   legs), /debug/spans, /debug/flightrec, /debug/stacks, /debug/faults.
 
 Servers bind ephemeral ports; every request has a timeout and every
@@ -254,11 +254,9 @@ def test_surfaces_and_debug_routes():
         from incubator_mxnet_tpu.serving import server as jserver
         assert listed == [p for p, _d in jserver.DEBUG_ROUTES]
         for path in listed:
-            st, _h, text = _request(srv, "GET", path)
-            if path in tserver._WAITING_ROUTES:
-                assert st == 501 and "item 7" in text, path
-            else:
-                assert st == 200, (path, text[:200])
+            query = "?seconds=0.1" if path == "/debug/profile" else ""
+            st, _h, text = _request(srv, "GET", path + query)
+            assert st == 200, (path, text[:200])
         reqs = _request(srv, "GET", "/debug/requests?n=3")[2].splitlines()
         recs = [json.loads(ln) for ln in reqs]
         assert [r["request_id"] for r in recs] == \
@@ -284,17 +282,24 @@ def test_surfaces_and_debug_routes():
     assert reg.health()["status"] == "unhealthy"       # shut down
 
 
-def test_serve_refuses_an_artifact_path_naming_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        serving.serve({"m": "model.mxtpu"}, port=0)
+def test_serve_refuses_an_artifact_path_naming_the_next_slice(tmp_path):
+    """``serve`` of a path loads it as a ``.mxtpu`` artifact (served in
+    tests/test_torch_export.py): a missing file or one without the magic
+    is refused, as the JAX package's ``load`` refuses it. The mesh
+    servables still name item 5; a shadow needs a loaded model."""
+    with pytest.raises(FileNotFoundError):
+        serving.serve({"m": str(tmp_path / "model.mxtpu")}, port=0)
+    garbage = tmp_path / "garbage.mxtpu"
+    garbage.write_bytes(b"not an artifact")
+    with pytest.raises(ValueError, match="not an mxtpu serving artifact"):
+        serving.serve({"m": str(garbage)}, port=0)
     for fn in (lambda: serving.MeshServable(None), serving.serving_mesh):
         with pytest.raises(NotImplementedError, match="item 5"):
             fn()
     reg = serving.ModelRegistry()
     try:
-        for fn in (lambda: reg.register_shadow("m", _Echo()),
-                   lambda: reg.unregister_shadow("m")):
-            with pytest.raises(NotImplementedError, match="item 7"):
-                fn()
+        with pytest.raises(serving.ModelNotFoundError):
+            reg.register_shadow("m", _Echo())
+        assert reg.unregister_shadow("m") is False
     finally:
         reg.close()

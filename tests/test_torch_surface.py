@@ -664,3 +664,316 @@ def test_serving_surface_is_the_references(path):
         elif callable(r) and not _takes(r, p):
             gaps.append(name + "()")
     assert not gaps, gaps
+
+
+# ====================== F5: the class walk over the rest of the surface
+
+CLASS_WALK_NAMESPACES = [
+    "ndarray", "gluon", "gluon.nn", "gluon.rnn", "gluon.loss",
+    "gluon.block", "gluon.parameter", "gluon.trainer", "optimizer",
+    "initializer", "context", "base", "models", "models.bert", "models.gpt",
+    "models.lenet", "models.lm_head", "models.lstm_lm", "models.ssd", "ops",
+    "ops.attention", "ops.conv_bwd", "ops.ctc", "ops.deformable",
+    "ops.detection", "ops.kvcache", "ops.lm_ce", "ops.multibox",
+    "contrib.serving", "telemetry.devstats", "telemetry.profstats",
+    "telemetry.numwatch", "telemetry.slo", "telemetry.history"]
+
+#: what the walk leaves out, each with its reason
+WALK_EXCEPTIONS = {
+    "NDArray": "imported by these modules from the array layer, walked in "
+               "'ndarray'",
+    "NDArray.grad_buf": "the JAX package's gradient buffer; the port keeps "
+                        "a variable's gradient in grad() (_mx_grad on its "
+                        "tensor, ROADMAP §3)",
+    "Context": "imported from 'context', walked there",
+    "current_context": "imported from 'context', walked there",
+    "Context.jax_device": "a jax.Device; a port context maps onto "
+                          "torch_device",
+    "Block.forward()": "a port Block is a torch.nn.Module: forward is the "
+                       "subclass's, and nn.Module's own stands in",
+    "conv3x3_bwd_legal()": "the port's gate takes the input dtype (bf16 "
+                           "and fp16 are both 2 bytes, and K4 routes "
+                           "them apart), not the reference's itemsize",
+}
+#: the JAX package's built-in optimizers name update_rule's first two
+#: parameters (w, g); the port's built-ins inherit the base's (weight,
+#: grad), the hook's names in both packages: positional callers match
+_UPDATE_RULE = "update_rule()"
+
+
+def _takes_named(ref_fn, port_fn):
+    """Whether ``port_fn`` takes every named parameter of ``ref_fn``. A
+    reference catch-all (``*args``, ``**kw``) is not asked of the port:
+    the port refuses keywords it does not implement rather than swallow
+    them (ROADMAP §3 watch list). A port ``**kw`` takes any keyword and
+    a port ``*args`` any positional."""
+    import inspect
+    try:
+        want = inspect.signature(ref_fn).parameters.values()
+        got = inspect.signature(port_fn).parameters
+    except (TypeError, ValueError):
+        return True
+    kinds = {p.kind for p in got.values()}
+    for p in want:
+        if p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD) or p.name in got:
+            continue
+        if p.VAR_KEYWORD in kinds:
+            continue
+        if p.kind == p.POSITIONAL_OR_KEYWORD and p.VAR_POSITIONAL in kinds:
+            continue
+        return False
+    return True
+
+
+@pytest.mark.parametrize("path", CLASS_WALK_NAMESPACES)
+def test_class_walk_surface_is_the_references(path):
+    """F5: every public name of the JAX package's module is in the port's,
+    every class has the reference's public methods, and every function
+    and method takes the reference's named parameters, but for
+    ``WALK_EXCEPTIONS`` (each with its reason) and the built-in
+    optimizers' ``update_rule`` parameter names."""
+    import importlib
+    import inspect
+    import types
+    ref = importlib.import_module("incubator_mxnet_tpu." + path)
+    port = importlib.import_module("incubator_mxnet_tpu_torch." + path)
+    gaps = []
+
+    def gap(name):
+        if name not in WALK_EXCEPTIONS and not (
+                name.endswith("." + _UPDATE_RULE) and path == "optimizer"):
+            gaps.append(name)
+    for name in dir(ref):
+        if name.startswith("_") or name == "annotations":
+            continue
+        r = getattr(ref, name)
+        if isinstance(r, types.ModuleType) or getattr(
+                r, "__module__", "").startswith(("jax", "jaxlib", "numpy")):
+            continue
+        if not hasattr(port, name):
+            gap(name)
+            continue
+        p = getattr(port, name)
+        if inspect.isclass(r):
+            for m in dir(r):
+                if m.startswith("_") and m != "__init__":
+                    continue
+                if not hasattr(p, m):
+                    gap("%s.%s" % (name, m))
+                elif callable(getattr(r, m)) and \
+                        not _takes_named(getattr(r, m), getattr(p, m)):
+                    gap("%s.%s()" % (name, m))
+        elif callable(r) and not _takes_named(r, p):
+            gap(name + "()")
+    assert not gaps, gaps
+
+
+def test_walk_exceptions_are_still_needed():
+    """Each named exception still names a real difference: a repaired
+    one must leave the table."""
+    assert not hasattr(mxt.nd.NDArray, "grad_buf")
+    assert not hasattr(mxt.Context, "jax_device")
+    import inspect
+    from incubator_mxnet_tpu.ops import conv_bwd as jconv
+    from incubator_mxnet_tpu_torch.ops import conv_bwd as tconv
+    assert "itemsize" in inspect.signature(jconv.conv3x3_bwd_legal).parameters
+    assert "itemsize" not in \
+        inspect.signature(tconv.conv3x3_bwd_legal).parameters
+
+
+# -------------------------------------------- F5a–F5f against the reference
+def _f5a_optimizer(pkg):
+    class Plain(pkg.optimizer.Optimizer):
+        def create_state(self, index, weight):
+            return None
+
+        def update_rule(self, weight, grad, state, lr, wd, t):
+            return weight - lr * grad, state
+    return Plain
+
+
+def test_f5a_a_user_update_rule_trains_through_trainer_as_the_reference():
+    """ROADMAP §3 F5a's input: Dense(1, in_units=2, no bias) of ones, x =
+    ones(1, 2), loss sum, learning_rate 0.5, one Trainer.step(1): the
+    reference gives [[0.5, 0.5]], exactly."""
+    got = {}
+    for pkg, ctx in ((mx, None), (mxt, mxt.cpu())):
+        net = pkg.gluon.nn.Dense(1, in_units=2, use_bias=False)
+        kw = {"ctx": ctx} if ctx is not None else {}
+        net.initialize(pkg.init.One(), **kw)
+        tr = pkg.gluon.Trainer(net.collect_params(),
+                               _f5a_optimizer(pkg)(learning_rate=0.5))
+        x = pkg.nd.ones((1, 2), **kw)
+        with pkg.autograd.record():
+            loss = net(x).sum()
+        loss.backward()
+        tr.step(1)
+        got[pkg.__name__] = net.weight.data().asnumpy()
+    assert onp.array_equal(got["incubator_mxnet_tpu"], [[0.5, 0.5]])
+    assert onp.array_equal(got["incubator_mxnet_tpu_torch"],
+                           got["incubator_mxnet_tpu"])
+
+
+def test_f5a_update_rule_through_the_update_ops_and_a_captured_step(
+        monkeypatch):
+    """The same rule through ``Optimizer.update`` (the update ops' path,
+    with a state tensor written in place) and through ``TrainStep``, eager
+    and through the CPU stand-in of its CUDA graph: a rule of torch ops
+    captures, and each agrees with the reference's ``update``."""
+    from test_torch_aot import CpuCapture
+
+    class Momentum(mxt.optimizer.Optimizer):
+        def create_state(self, index, weight):
+            return torch.zeros_like(weight)
+
+        def update_rule(self, weight, grad, state, lr, wd, t):
+            mom = 0.9 * state - lr * grad
+            return weight + mom, mom
+
+    class JMomentum(mx.optimizer.Optimizer):
+        def create_state(self, index, weight):
+            return mx.nd.zeros(weight.shape)
+
+        def update_rule(self, weight, grad, state, lr, wd, t):
+            mom = 0.9 * state._data - lr * grad
+            return weight + mom, mx.nd.NDArray(mom)
+    w0 = onp.arange(4, dtype="float32").reshape(2, 2)
+    g = onp.full((2, 2), 0.5, "float32")
+    jopt, topt = JMomentum(learning_rate=0.1), Momentum(learning_rate=0.1)
+    jw, tw = mx.nd.array(w0), torch.tensor(w0)
+    jst, tst = jopt.create_state(0, jw), topt.create_state(0, tw)
+    for _ in range(2):
+        jst = jopt.update(0, jw, mx.nd.array(g), jst)
+        topt.update(0, tw, torch.tensor(g), tst)
+    assert onp.allclose(tw.numpy(), jw.asnumpy(), rtol=0, atol=1e-6)
+    assert onp.allclose(tst.numpy(), jst.asnumpy(), rtol=0, atol=1e-6)
+
+    def step_weights(graphs):
+        net = mxt.gluon.nn.Dense(2, in_units=2, use_bias=False)
+        net.initialize(mxt.init.Constant(0.5), ctx=mxt.cpu())
+        tr = mxt.gluon.Trainer(net.collect_params(),
+                               Momentum(learning_rate=0.1))
+        step = tjit.TrainStep(net, lambda out, y: ((out - y) ** 2).sum(),
+                              tr)
+        x = torch.tensor(w0)
+        for _ in range(3):
+            step(x, torch.zeros(2, 2))
+        return net.weight.data().asnumpy()
+    eager = step_weights(False)
+    monkeypatch.setattr(tjit, "_uses_graphs", lambda device: True)
+    monkeypatch.setattr(tjit, "_GraphCapture", CpuCapture)
+    assert onp.array_equal(step_weights(True), eager)
+
+
+@pytest.mark.parametrize("name", ["Zero", "One", "Constant", "Uniform",
+                                  "Normal", "Orthogonal", "Xavier",
+                                  "MSRAPrelu", "LSTMBias"])
+def test_f5b_initializer_dumps_and_init_weight_by_name(name):
+    """F5b: ``dumps()`` gives the reference's string on every class (the
+    ROADMAP input ``Xavier(magnitude=2)`` among them) and
+    ``init_weight_by_name`` dispatches as ``__call__``."""
+    kw = {"Xavier": {"magnitude": 2}, "Constant": {"value": 0.25},
+          "Orthogonal": {"scale": 1.0}}.get(name, {})
+    port, ref = getattr(mxt.init, name)(**kw), getattr(mx.init, name)(**kw)
+    assert port.dumps() == ref.dumps()
+    if name == "Xavier":
+        assert port.dumps() == ('["xavier", {"rnd_type": "uniform", '
+                                '"factor_type": "avg", "magnitude": 2}]')
+    arr = torch.full((4,), 7.0)
+    port.init_weight_by_name("fc_bias", arr)
+    assert torch.equal(arr, torch.zeros(4))
+    port.init_weight_by_name("bn_gamma", arr)
+    assert torch.equal(arr, torch.ones(4))
+
+
+def test_f5c_context_device_typeid_and_empty_cache():
+    """F5c: cpu().device_typeid is 1 and empty_cache() returns None, as
+    the reference; gpu() is 2 (the card's path frees the caching
+    allocator's idle blocks)."""
+    assert mxt.cpu().device_typeid == mx.cpu().device_typeid == 1
+    assert mxt.gpu(0).device_typeid == mx.gpu(0).device_typeid
+    assert mxt.cpu().empty_cache() is None and mx.cpu().empty_cache() is None
+
+
+def test_f5d_parameterdict_initialize_verbose(caplog):
+    """F5d: ``verbose=True`` initializes the same parameters as without
+    it, and logs each one with its initializer."""
+    import logging
+    nets = []
+    for verbose in (False, True):
+        net = mxt.gluon.nn.Dense(3, in_units=2)
+        with caplog.at_level(logging.INFO):
+            net.collect_params().initialize(mxt.init.Xavier(), ctx=mxt.cpu(),
+                                            verbose=verbose)
+        nets.append(net)
+    for a, b in zip(nets[0].collect_params().values(),
+                    nets[1].collect_params().values()):
+        assert torch.equal(a._tensor(), b._tensor())
+    assert "xavier" in caplog.text
+    ref = jgluon.nn.Dense(3, in_units=2)
+    ref.collect_params().initialize(mx.init.Xavier(), verbose=True)
+
+
+def test_f5e_registry_alias_and_keys():
+    """F5e: ``alias`` registers a class under extra names, ``create`` of an
+    alias builds it, and ``keys`` lists the names, as the reference's."""
+    got = []
+    for base in (mxt.base, mx.base):
+        reg = base.Registry("x")
+
+        @reg.alias("y", "z")
+        class Thing:
+            pass
+        assert isinstance(reg.create("y"), Thing)
+        assert "z" in reg
+        got.append(sorted(reg.keys()))
+    assert got[0] == got[1] == ["thing", "y", "z"]
+
+
+def test_f5f_ndarray_constructor_takes_any_array_and_a_context():
+    """F5f: ``nd.NDArray(numpy.ones(3), ctx=cpu())`` is an NDArray on
+    cpu(0), float32 as the reference's; a tensor is wrapped without a
+    copy."""
+    a = mxt.nd.NDArray(onp.ones(3), ctx=mxt.cpu())
+    r = mx.nd.NDArray(onp.ones(3), ctx=mx.cpu())
+    assert a.context == mxt.cpu(0) and str(a.dtype) == str(r.dtype)
+    assert onp.array_equal(a.asnumpy(), r.asnumpy())
+    t = torch.ones(2)
+    assert mxt.nd.NDArray(t)._data is t
+    assert mxt.nd.NDArray([1, 2], ctx=mxt.cpu()).dtype == \
+        mx.nd.NDArray(onp.array([1, 2], "float32")).dtype
+
+
+def test_f5f_tile_keywords_are_accepted_and_checked():
+    """F5f: flash_attention's block_q/block_k and conv3x3_bwd's
+    block_n/interpret are the reference's TPU knobs: a valid tile changes
+    nothing (Hopper's tiles are the kernels' own), an impossible one
+    raises (a departure logged in ROADMAP §3), and interpret (None or a
+    bool) changes nothing: CPU tensors take the plain version, CUDA
+    tensors launch K4 either way (test_torch_conv_bwd.py)."""
+    from incubator_mxnet_tpu_torch.ops import attention, conv_bwd
+    rng = onp.random.RandomState(0)
+    q, k, v = (torch.tensor(rng.randn(1, 2, 64, 64).astype("float32"))
+               for _ in range(3))
+    base = attention.flash_attention(q, k, v, causal=True)
+    tiled = attention.flash_attention(q, k, v, causal=True, block_q=128,
+                                      block_k=64)
+    assert torch.equal(base, tiled)
+    assert attention.flash_attention_legal(q.shape, block_q=64)
+    for bad in (0, -1, 1.5, True):
+        with pytest.raises(ValueError, match="block_q"):
+            attention.flash_attention(q, k, v, block_q=bad)
+        with pytest.raises(ValueError, match="block_k"):
+            attention.flash_attention_lse(q, k, v, block_k=bad)
+    x = torch.tensor(rng.randn(1, 4, 4, 8).astype("float32"))
+    dy = torch.tensor(rng.randn(1, 4, 4, 8).astype("float32"))
+    w = torch.tensor(rng.randn(3, 3, 8, 8).astype("float32"))
+    plain = conv_bwd.conv3x3_bwd(x, dy, w)
+    for kw in ({"block_n": 2}, {"interpret": True},
+               {"block_n": 1, "interpret": False}):
+        got = conv_bwd.conv3x3_bwd(x, dy, w, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    with pytest.raises(ValueError, match="block_n"):
+        conv_bwd.conv3x3_bwd(x, dy, w, block_n=0)
+    with pytest.raises(ValueError, match="interpret"):
+        conv_bwd.conv3x3_bwd(x, dy, w, interpret="yes")

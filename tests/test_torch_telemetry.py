@@ -3,7 +3,9 @@ registry, ringbuf, trace, spans, flightrec, watchdog, faultlab) against
 the JAX package's: the same calls through both give the same Prometheus
 text, the same cardinality clamp, the same span tree and flight-recorder
 records, the same watchdog report and the same faultlab firing patterns.
-The modules that wait for ROADMAP §1 item 7 raise, naming it.
+The package carries every module of the JAX package's; the five that read
+the device or feed SLOs have their own tests (tests/test_torch_devstats.py
+and its neighbours).
 
 Module-global state (the span ring, the tape, the armed faults) is reset
 around each test that touches it; the watchdog's monitor is stopped in a
@@ -258,13 +260,12 @@ def test_request_ids_and_telemetry_surface():
     rid = trace.new_request_id()
     assert len(rid) == 16 and rid != trace.new_request_id()
     assert ttel.REQUEST_ID_HEADER == jtel.REQUEST_ID_HEADER
-    missing = [n for n in jtel.__all__ if n not in ttel.WAITING
-               and not hasattr(ttel, n)]
+    missing = [n for n in jtel.__all__ if not hasattr(ttel, n)]
     assert not missing, missing
-    for name in ttel.WAITING:
-        assert name in jtel.__all__
-        with pytest.raises(NotImplementedError, match="item 7"):
-            getattr(ttel, name)
+    for name in ("devstats", "profstats", "numwatch", "slo", "history"):
+        assert name in ttel.__all__ and name in jtel.__all__
+        module, ref = getattr(ttel, name), getattr(jtel, name)
+        assert [n for n in ref.__all__ if not hasattr(module, n)] == [], name
     with pytest.raises(AttributeError):
         ttel.no_such_module
 
@@ -282,3 +283,25 @@ def test_periodic_flush_writes_the_exposition(tmp_path):
         ttel.stop_periodic_flush()
     assert "t_flush_total 1" in open(path).read()
     assert ttel.flush_to_file(path) == path
+
+
+def test_kvstore_counts_push_and_pull_bytes_as_the_reference():
+    """The local kvstore's push/pull byte counters and spans, as the JAX
+    package's: the same pushes and pulls give the same byte deltas."""
+    import numpy as onp
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu.kvstore import kvstore as jkv
+    from incubator_mxnet_tpu_torch.kvstore import kvstore as tkv
+    deltas = []
+    for pkg, mod, kw in ((mxt, tkv, {"ctx": mxt.cpu()}), (mx, jkv, {})):
+        push0 = mod._PUSH_BYTES.value(store="local")
+        pull0 = mod._PULL_BYTES.value(store="local")
+        kv = pkg.kv.create("local")
+        kv.init(3, pkg.nd.zeros((2, 5), **kw))
+        kv.push(3, [pkg.nd.ones((2, 5), **kw), pkg.nd.ones((2, 5), **kw)])
+        out = pkg.nd.zeros((2, 5), **kw)
+        kv.pull(3, out=out)
+        assert onp.array_equal(out.asnumpy(), onp.full((2, 5), 2.0))
+        deltas.append((mod._PUSH_BYTES.value(store="local") - push0,
+                       mod._PULL_BYTES.value(store="local") - pull0))
+    assert deltas[0] == deltas[1] == (80, 40)
