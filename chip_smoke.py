@@ -421,6 +421,53 @@ Phases, each of which must pass, in order:
    storm episode; ``/debug/slo`` and ``/debug/history`` with this
    traffic's series. Prints a {"programs": ...} line; the kernels line's
    ``launches_by_path`` carries the HTTP path's K1 launches.
+22. (Run after phase 21.) SPMD over a device mesh (``parallel_phase``,
+   ``--parallel-only``). Meshes name cuda:0 once per position unless the
+   machine shows that many devices (``_par_devices``). First ring
+   attention (sp = 4) against flash_attention over the whole sequence on
+   one device, forward and the gradients in q, k, v: bf16 (1, 8, 8192,
+   128) causal within 3e-2 relative Frobenius, fp32 (1, 2, 2048, 128) full
+   and causal within 1e-4. (a) GPT at bench.py bench_long_context width
+   (vocab 32768, units 1024, 4 layers, 8 heads, S 8192, B 1, bf16,
+   FeaturesView + ChunkedLMLoss) from one set of weights with
+   ``attention`` flash (one device), ring (sp = 4) and Ulysses (sp = 4):
+   one plain forward/backward each, the loss within 1e-2 and every
+   gradient within 3e-2 of flash's in Frobenius norm relative to its own
+   norm, but those zero to rounding: a gradient whose norm with the
+   model cast to fp32 is below 1e-2 of its bf16 norm (only the key
+   biases may be: softmax ignores a shift of a row's scores; their norms
+   are printed); then Adam
+   (multi_precision) TrainSteps from the same weights, 2 warm-up + 5
+   timed: step ms (median), tokens/s, peak memory, captured or not (a
+   step that runs shard_map runs eagerly), and K1, K2, K3 each launched
+   exactly 4 (flash), 40 (ring: 4 layers x (4 + 6)) and 16 (Ulysses: 4 x
+   4) times a step. (b) The same model at S 32768 with flash (one device)
+   and ring (local S 8192): 1 + 3 steps, the same numbers. (c)
+   Full-width BERT (B 64 x S 512, bf16, flash, Adam multi_precision),
+   three steps through DataParallelTrainStep (dp = 4) and
+   TrainStep(mesh, zero=True) from the same weights against TrainStep on
+   one device: every loss within 1e-1 of one device's 3-step loss drop;
+   per parameter (but the key biases, zero to rounding as in (a)) the
+   Adam first moment within 3e-2 and the fp32 master's change within
+   2.5e-1 relative Frobenius (Adam moves an element whose gradient is
+   below bf16 noise either way); the same check must fail two planted
+   faults, a step that updates nothing and one device trained on a
+   quarter of the batch. K1/K2/K3 48 a step (12 layers x 4 positions),
+   every Adam state of a row-divisible parameter in 4 slices of a
+   quarter; step ms. (d) BERT with ``tp_axis="tp"`` as a
+   MeshServable tp = 2 x replicas = 2 behind ModelRegistry: 16 requests
+   from 4 threads at bucket 8 x S 512, replies within 3e-2 of the largest
+   logit of BlockServable's, the replica dispatch counts summing to 16,
+   K1 exactly 12 a batch; p50 and max. (e) 4 full-width BERT encoder
+   layers (flash, bf16) as a pp = 4 PipelineStack, B 32 x S 512, 8
+   microbatches: the forward within 3e-2 of the sequential stack; 1F1B
+   (pp = 4) and interleaved (pp = 2, v = 2) gradients within 3e-2 of
+   GPipe's (the ring under autograd), ms each. (f) MoELayer (D 1024, E 8,
+   ffn 4096, top-2, capacity 1.25) over 8192 tokens, fp32 with TF32 off,
+   ep = 4 against ep = 1: output, auxiliary loss and gradients within
+   1e-4. Prints a {"parallel": ...} line; the kernels line's
+   ``launches_by_path`` carries each GPT layout's and the DP, ZeRO and
+   mesh-serving paths' K1/K2/K3 launches.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -440,8 +487,8 @@ Prints the card's name and power limit, an {"ndarray": ...}, a
 {"serving": ...}, a {"captured": ...}, a {"training": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
 {"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...},
-a {"bucketing": ...}, a {"serving_http": ...}, a {"programs": ...} and a
-{"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
+a {"bucketing": ...}, a {"serving_http": ...}, a {"programs": ...}, a
+{"parallel": ...} and a {"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
 this script, or any phase fails.
 
@@ -462,8 +509,9 @@ phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ``--ctc-only`` phase 16 ({"ctc": {...}}), ``--module-only`` phase 17
 ({"module": {...}}), ``--bucketing-only`` phase 19
 ({"bucketing": {...}}), ``--serving-http-only`` phase 20
-({"serving_http": {...}}) and ``--programs-only`` phase 21
-({"programs": {...}}).
+({"serving_http": {...}}), ``--programs-only`` phase 21
+({"programs": {...}}) and ``--parallel-only`` phase 22
+({"parallel": {...}}).
 """
 import gc
 import itertools
@@ -7559,6 +7607,793 @@ def programs_phase(card):
                           http=http, seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------- phase 22: SPMD on a mesh
+PAR_SP = 4                  # sequence-parallel positions (ring, Ulysses)
+PAR_GPT_STEPS = (2, 5)      # GPT S 8192: (warm-up, timed; median)
+PAR_LONG_S, PAR_LONG_STEPS = 32768, (2, 3)
+PAR_DP, PAR_DP_STEPS, PAR_LR = 4, 3, 1e-4
+PAR_TP, PAR_TP_REPLICAS = 2, 2
+PAR_PIPE_LAYERS, PAR_PIPE_B, PAR_PIPE_MICRO = 4, 32, 8
+PAR_MOE = dict(hidden_size=1024, num_experts=8, ffn_hidden=4096, top_k=2,
+               capacity_factor=1.25)
+PAR_MOE_TOKENS, PAR_EP = 8192, 4
+# bf16 tolerances, stated before the first run: a loss within 1e-2
+# relative, each gradient and each output within 3e-2 relative Frobenius
+# error (a ring's local outputs are rounded to bf16 before the fp32 merge,
+# a data-parallel gradient is summed from bf16 parts, a row-parallel
+# output from bf16 partial products); fp32 (the FMA kernels) within 1e-4
+PAR_LOSS_TOL, PAR_BF16_TOL, PAR_FP32_TOL = 1e-2, 3e-2, 1e-4
+# a parameter whose gradient is zero to rounding: its fp32 gradient's norm
+# below 1e-2 of its bf16 gradient's (the bf16 values are rounding noise).
+# The attention key projection's bias is such a leaf: softmax ignores a
+# shift of a row's scores, so its exact gradient is zero
+PAR_ZERO_GRAD_REL = 1e-2
+# data parallel and ZeRO-1 against one device after PAR_DP_STEPS Adam
+# steps: each loss within 1e-1 of one device's loss drop over the steps;
+# per parameter, its Adam first moment (a running sum of gradients)
+# within PAR_BF16_TOL and its fp32 master's change within PAR_MASTER_TOL
+# of one device's, relative Frobenius, or within PAR_NOISE_MULT times the
+# parameter's own bf16 rounding error where that is larger: a gradient
+# that is a near-cancelling sum (a query bias) is mostly rounding noise,
+# and data parallelism rounds each position's part to bf16 before the sum
+PAR_DP_LOSS_TOL, PAR_MASTER_TOL, PAR_NOISE_MULT = 1e-1, 1e-1, 4.0
+
+
+def _par_devices(n):
+    """``n`` mesh positions: the visible CUDA devices if there are that
+    many, else cuda:0 named ``n`` times (one card)."""
+    import torch
+    count = torch.cuda.device_count()
+    if count >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def _rel_frob(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _set_attention(model, kind):
+    """Every MultiHeadAttention of ``model`` to ``kind`` (same weights)."""
+    from incubator_mxnet_tpu_torch.models.bert import MultiHeadAttention
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m._attention = kind
+
+
+def check_ring_kernels():
+    """Ring attention (sp = 4) on the card against flash_attention over the
+    whole sequence on one device: bf16 (1, 8, 8192, 128) causal and fp32
+    (1, 2, 2048, 128) full and causal, forward and the gradients of
+    sum(out * dO) in q, k and v."""
+    import torch
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    mesh = parallel.make_mesh({"sp": PAR_SP}, devices=_par_devices(PAR_SP))
+    rows = []
+    gen = torch.Generator(device="cuda:0").manual_seed(22)
+    for dtype, shape, causal, tol in (
+            (torch.bfloat16, (1, 8, 8192, 128), True, PAR_BF16_TOL),
+            (torch.float32, (1, 2, 2048, 128), False, PAR_FP32_TOL),
+            (torch.float32, (1, 2, 2048, 128), True, PAR_FP32_TOL)):
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(4))
+        got = {}
+        for name, fn in (("flash", lambda a, b, c: flash_attention(
+                a, b, c, causal)), ("ring", lambda a, b, c: parallel
+                .ring_attention(a, b, c, mesh=mesh, causal=causal))):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves)
+            grads = torch.autograd.grad((out.float() * do.float()).sum(),
+                                        leaves)
+            got[name] = (out.detach(), grads)
+        errs = [_rel_frob(got["ring"][0], got["flash"][0])] + [
+            _rel_frob(a, b) for a, b in zip(got["ring"][1], got["flash"][1])]
+        row = dict(dtype=str(dtype).split(".")[-1], shape=list(shape),
+                   causal=causal, out_rel=errs[0], dq_rel=errs[1],
+                   dk_rel=errs[2], dv_rel=errs[3], tol=tol)
+        rows.append(row)
+        log("  parallel ring vs flash %s %s causal=%s: out %.3g, dq %.3g, "
+            "dk %.3g, dv %.3g relative (tol %g)" % (
+                row["dtype"], shape, causal, *errs, tol))
+        check(all(math.isfinite(e) and e <= tol for e in errs),
+              "ring attention disagrees with flash on the card: %s" % row)
+        del q, k, v, do, got
+    return rows
+
+
+def _leaf_grads(model, loss_of):
+    """(the loss, every parameter's gradient in fp32) of one plain forward
+    and backward of the mean of ``loss_of()``."""
+    import torch
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.gluon._functional import plain
+    params = [p._tensor() for p in model.collect_params().values()]
+    with autograd.record(), plain():
+        loss = loss_of().float().mean()
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return float(loss.detach()), [None if g is None else g.detach().float()
+                                  for g in grads]
+
+
+def _gpt_loss(model, tokens):
+    """FeaturesView + ChunkedLMLoss: the per-token losses."""
+    from incubator_mxnet_tpu_torch import models
+    return models.ChunkedLMLoss(model)(models.FeaturesView(model)(tokens),
+                                       tokens)
+
+
+def _gpt_grads(model, tokens):
+    return _leaf_grads(model, lambda: _gpt_loss(model, tokens))
+
+
+def _rounding(model, loss_of, bf16_grads, what):
+    """(the parameters of bf16 ``model`` whose gradient is zero to rounding
+    (PAR_ZERO_GRAD_REL), each parameter's bf16 rounding error): the
+    gradients of ``loss_of`` once more with the model cast to fp32 (and
+    back: exact; TF32 off), against ``bf16_grads``; the error is
+    |bf16 - fp32| / |fp32| in Frobenius norm. Each leaf zero to rounding
+    must be an attention key projection's bias; their norms are
+    printed."""
+    import torch
+    names = list(model.collect_params().keys())
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.cast("float32")
+    try:
+        _, fp32 = _leaf_grads(model, loss_of)
+    finally:
+        model.cast("bfloat16")
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    zero, noise = {}, {}
+    for n, g, g32 in zip(names, bf16_grads, fp32):
+        if g is None or g32 is None:
+            continue
+        noise[n] = _rel_frob(g, g32) if float(g32.norm()) > 0 else (
+            0.0 if float(g.norm()) == 0 else math.inf)
+        if float(g32.norm()) < PAR_ZERO_GRAD_REL * float(g.norm()):
+            zero[n] = dict(bf16_norm=float(g.norm()),
+                           fp32_norm=float(g32.norm()))
+    log("  %s: gradients zero to rounding (fp32 norm below %g of bf16's): "
+        "%s" % (what, PAR_ZERO_GRAD_REL, ", ".join(
+            "%s %.3g / %.3g" % (n, v["fp32_norm"], v["bf16_norm"])
+            for n, v in zero.items()) or "none"))
+    check(all(n.endswith("key.bias") for n in zero),
+          "%s: a gradient other than a key bias is zero to rounding: %s"
+          % (what, sorted(zero)))
+    return zero, noise
+
+
+def _gpt_layout_steps(model, kind, tokens, warm, timed, init):
+    """``timed`` TrainSteps (after ``warm``) of ``model`` with attention
+    ``kind`` from the weights ``init``: step ms (median over the timed
+    steps, CUDA events), tokens/s, peak memory, the K1/K2/K3 launches over
+    the timed steps, whether the step was captured, losses."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import jit, models
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    params = list(model.collect_params().values())
+    _reset(params, init)
+    _set_attention(model, kind)
+    net = models.FeaturesView(model)
+    trainer = mxt.gluon.Trainer(net.collect_params(), "adam", {
+        "learning_rate": 1e-4, "multi_precision": True})
+    step = jit.TrainStep(net, models.ChunkedLMLoss(model), trainer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(tokens, tokens) for _ in range(warm)]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    times = []
+    for _ in range(timed):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        losses.append(step(tokens, tokens))
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    launches = {k: _kernels.LAUNCHES.get(k, 0) for k in (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    means = [float(l._data.float().mean()) for l in losses]
+    check(all(math.isfinite(m) for m in means),
+          "parallel GPT %s: a loss is not finite: %s" % (kind, means))
+    profiled = device_idle_share(lambda: step(tokens, tokens))
+    row = dict(step_ms=sorted(times)[len(times) // 2], step_ms_all=times,
+               issue_ms=issue_ms(lambda: step(tokens, tokens)),
+               idle_share=profiled["idle_share"],
+               tokens_per_s=tokens.numel() / (sorted(times)[len(times) // 2]
+                                              / 1e3),
+               peak_memory_gb=peak, captured=step.captures,
+               launches=launches, losses=means)
+    del step, trainer, net
+    return row
+
+
+def parallel_gpt(card):
+    """22(a) and (b): GPT at bench.py bench_long_context width with flash,
+    ring (sp = 4) and Ulysses (sp = 4) attention from one set of weights:
+    one plain forward/backward each against flash's, then TrainSteps; then
+    S 32768 with flash and ring."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models, parallel
+    dev = torch.device("cuda", 0)
+    n_layers = GPT["num_layers"]
+    per_step = {"flash": n_layers, "ring": n_layers * (
+        PAR_SP + PAR_SP * (PAR_SP - 1) // 2), "ulysses": n_layers * PAR_SP}
+    parallel.make_mesh({"sp": PAR_SP}, devices=_par_devices(PAR_SP))
+    out, launches = {}, {}
+    for S, layouts, (warm, timed) in (
+            (GPT_S, ("flash", "ring", "ulysses"), PAR_GPT_STEPS),
+            (PAR_LONG_S, ("flash", "ring"), PAR_LONG_STEPS)):
+        model = models.GPTModel(**dict(GPT, max_length=S))
+        model.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                         .Generator(device=dev).manual_seed(17))
+        model.cast("bfloat16")
+        names = list(model.collect_params().keys())
+        params = list(model.collect_params().values())
+        init = [p._tensor().detach().clone() for p in params]
+        tokens = torch.from_numpy(onp.random.RandomState(S).randint(
+            0, GPT["vocab_size"], (1, S)).astype("int32")).to(dev)
+        rows = {}
+        if S == GPT_S:
+            ref_loss, ref, zero = None, None, None
+            for kind in layouts:
+                _set_attention(model, kind)
+                loss, grads = _gpt_grads(model, tokens)
+                if ref is None:
+                    ref_loss, ref = loss, grads
+                    zero, _ = _rounding(model, lambda: _gpt_loss(
+                        model, tokens), ref, "parallel GPT S %d flash" % S)
+                    rows[kind] = dict(loss=loss, zero_to_rounding=zero)
+                    continue
+                # each gradient's error over its own norm, but for those
+                # zero to rounding (both computed values are noise)
+                rel = {n: _rel_frob(g, r)
+                       for n, g, r in zip(names, grads, ref)
+                       if g is not None and r is not None and n not in zero}
+                worst = max(rel, key=rel.get)
+                loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+                vals = sorted(rel.values())
+                rows[kind] = dict(loss=loss, loss_rel=loss_rel,
+                                  grad_rel_max=rel[worst], grad_worst=worst,
+                                  grad_rel_median=vals[len(vals) // 2],
+                                  grad_rel=rel)
+                log("  parallel GPT S %d %s vs flash: loss %.5f vs %.5f "
+                    "(%.3g rel), gradients max %.3g (%s) / median %.3g rel "
+                    "Frobenius (tol %g / %g)" % (
+                        S, kind, loss, ref_loss, loss_rel, rel[worst], worst,
+                        rows[kind]["grad_rel_median"], PAR_LOSS_TOL,
+                        PAR_BF16_TOL))
+                check(loss_rel <= PAR_LOSS_TOL and rel[worst] <= PAR_BF16_TOL,
+                      "parallel GPT %s: loss or gradients disagree with "
+                      "flash: %s" % (kind, rows[kind]))
+                del grads
+            del ref
+        for kind in layouts:
+            row = _gpt_layout_steps(model, kind, tokens, warm, timed, init)
+            want = per_step[kind] * timed
+            check(all(v == want for v in row["launches"].values()),
+                  "parallel GPT S %d %s: K1/K2/K3 launched %s over %d "
+                  "steps, expected %d each" % (S, kind, row["launches"],
+                                               timed, want))
+            rows.setdefault(kind, {}).update(row)
+            launches["parallel_gpt%s_%s" % ("" if S == GPT_S else "_long",
+                                            kind)] = row["launches"]
+            log("  parallel GPT S %d %s: step %.1f ms (median of %d, %s), "
+                "%.0f tokens/s, peak %.2f GB, issue %.1f ms, idle %.1f%%, "
+                "K1/K2/K3 %s a step" % (
+                    S, kind, row["step_ms"], timed,
+                    "captured" if row["captured"] else "eager",
+                    row["tokens_per_s"], row["peak_memory_gb"],
+                    row["issue_ms"], 100 * row["idle_share"],
+                    per_step[kind]))
+        out["S%d" % S] = rows
+        del model, params, init, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    parallel.set_current_mesh(None)
+    return launches, out
+
+
+def _bert_trained(model, init, make_step, tokens, steps, timing=True):
+    """(mean losses, step ms, each parameter's (fp32 master, Adam first
+    moment) after ``steps`` steps (ZeRO's slices gathered), trainer,
+    {issue ms, idle share} of further steps, unless not ``timing``) of a
+    step made by ``make_step(trainer)`` from the weights ``init``."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    from incubator_mxnet_tpu_torch.parallel.data_parallel import gathered
+    params = list(model.collect_params().values())
+    _reset(params, init)
+    trainer = mxt.gluon.Trainer(model.collect_params(), "adam", {
+        "learning_rate": PAR_LR, "multi_precision": True})
+    step = make_step(trainer)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for _ in range(steps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        losses.append(float(step(tokens, tokens)._data.float().mean()))
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    after = []
+    for st in trainer._states:
+        master, (mean, _) = gathered(st)
+        after.append((master.detach().clone(), mean.detach().clone()))
+    counts = {k: _kernels.LAUNCHES.get(k, 0) for k in (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    host = dict(launches=counts)
+    if timing:
+        profiled = device_idle_share(lambda: step(tokens, tokens))
+        host.update(issue_ms=issue_ms(lambda: step(tokens, tokens)),
+                    idle_share=profiled["idle_share"])
+    return losses, times, after, trainer, host
+
+
+def _dp_errors(losses, states, ref_losses, ref_states, init, names, zero):
+    """A data-parallel run against one device's: the worst loss error over
+    one device's loss drop, and per parameter (but those zero to rounding)
+    the relative Frobenius errors of its fp32 master's change from
+    ``init`` and of its Adam first moment."""
+    drop = abs(ref_losses[-1] - ref_losses[0])
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses)) / drop
+    master, moment = {}, {}
+    for n, (m, mean), (rm, rmean), w0 in zip(names, states, ref_states,
+                                             init):
+        if n not in zero:
+            w0 = w0.float()
+            master[n] = _rel_frob(m - w0, rm - w0)
+            moment[n] = _rel_frob(mean, rmean)
+    return loss_err, master, moment
+
+
+def _dp_over(loss_err, master, moment, noise):
+    """Each check's errors over their bounds (1 or less passes): the loss
+    error over PAR_DP_LOSS_TOL; per parameter the first moment's error
+    over max(PAR_BF16_TOL, PAR_NOISE_MULT x the parameter's bf16 rounding
+    error) and the master change's over max(PAR_MASTER_TOL, the same)."""
+    def over(errs, tol):
+        return {n: e / max(tol, PAR_NOISE_MULT * noise.get(n, 0.0))
+                for n, e in errs.items()}
+    return dict(loss=loss_err / PAR_DP_LOSS_TOL,
+                master=over(master, PAR_MASTER_TOL),
+                moment=over(moment, PAR_BF16_TOL))
+
+
+def _dp_report(what, loss_err, master, moment, noise):
+    """Log a data-parallel comparison; returns (passes, its row)."""
+    over = _dp_over(loss_err, master, moment, noise)
+    row = dict(loss_err=loss_err)
+    for kind, errs in (("master", master), ("moment", moment)):
+        worst = sorted(over[kind], key=over[kind].get, reverse=True)
+        row[kind] = dict(
+            rel_max=max(errs.values()),
+            rel_median=sorted(errs.values())[len(errs) // 2],
+            over_bound=sum(v > 1 for v in over[kind].values()),
+            leaves=len(errs),
+            worst=[(n, errs[n], noise.get(n, 0.0)) for n in worst[:6]])
+    log("  parallel BERT %s: loss error %.3g of the drop (tol %g); master "
+        "change rel max %.3g / median %.3g, %d of %d leaves over bound; "
+        "first moment rel max %.3g / median %.3g, %d of %d over; worst "
+        "(leaf, rel, bf16 noise): masters %s, moments %s" % (
+            what, loss_err, PAR_DP_LOSS_TOL, row["master"]["rel_max"],
+            row["master"]["rel_median"], row["master"]["over_bound"],
+            row["master"]["leaves"], row["moment"]["rel_max"],
+            row["moment"]["rel_median"], row["moment"]["over_bound"],
+            row["moment"]["leaves"],
+            ["%s %.3g %.3g" % w for w in row["master"]["worst"][:3]],
+            ["%s %.3g %.3g" % w for w in row["moment"]["worst"][:3]]))
+    passes = over["loss"] <= 1 and row["master"]["over_bound"] == 0 and \
+        row["moment"]["over_bound"] == 0
+    return passes, row
+
+
+def parallel_bert_dp(card):
+    """22(c): full-width BERT (B 64 x S 512, bf16, flash, Adam
+    multi_precision) three steps through DataParallelTrainStep (dp = 4)
+    and TrainStep(mesh, zero=True) against TrainStep on one device."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import jit, models, parallel
+    from incubator_mxnet_tpu_torch.parallel.data_parallel import (
+        ShardedState, _leaves)
+    dev = torch.device("cuda", 0)
+    model = models.BERTModel(**BERT)
+    model.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                     .Generator(device=dev).manual_seed(23))
+    model.cast("bfloat16")
+    init = [p._tensor().detach().clone()
+            for p in model.collect_params().values()]
+    tokens = torch.from_numpy(onp.random.RandomState(23).randint(
+        0, BERT["vocab_size"], (BERT_TRAIN_B, BERT_S)).astype("int32")) \
+        .to(dev)
+    loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+    names = list(model.collect_params().keys())
+    # each parameter's bf16 rounding error on one position's share
+    part = tokens[:BERT_TRAIN_B // PAR_DP]
+
+    def part_loss():
+        return loss_fn(model(part), part)
+    _, part_grads = _leaf_grads(model, part_loss)
+    zero, noise = _rounding(model, part_loss, part_grads,
+                            "parallel BERT B %d" % part.shape[0])
+    del part_grads
+    mesh = parallel.make_mesh({"dp": PAR_DP}, devices=_par_devices(PAR_DP))
+    one_l, one_t, one_s, _, one_host = _bert_trained(
+        model, init, lambda tr: jit.TrainStep(model, loss_fn, tr), tokens,
+        PAR_DP_STEPS)
+    one_host.pop("launches")
+    rows = {"one_device": dict(losses=one_l, step_ms=one_t, **one_host),
+            "zero_to_rounding": zero, "bf16_noise": noise}
+    # the check must fail a step that updates nothing, and one that trains
+    # on one position's quarter of the batch (one device on that quarter)
+    planted = {"no_update": ([one_l[0]] * PAR_DP_STEPS, [
+        (w0.float(), torch.zeros_like(w0, dtype=torch.float32))
+        for w0 in init])}
+    q_l, _, q_s, _, _ = _bert_trained(
+        model, init, lambda tr: jit.TrainStep(model, loss_fn, tr),
+        tokens[:BERT_TRAIN_B // PAR_DP], PAR_DP_STEPS, timing=False)
+    planted["quarter_batch"] = (q_l, q_s)
+    failures = []
+    for name, (losses, states) in planted.items():
+        passes, rows["planted_" + name] = _dp_report(
+            "planted " + name, *_dp_errors(losses, states, one_l, one_s,
+                                           init, names, zero), noise)
+        # checked after the runs below, so that all their numbers print
+        failures.append((not passes, "parallel BERT: the data-parallel "
+                         "check passes a planted %s step" % name))
+    del q_s, planted
+    launches = {}
+    per_forward = BERT["num_layers"] * PAR_DP
+    for name, make in (
+            ("dp", lambda tr: parallel.DataParallelTrainStep(
+                model, loss_fn, tr, mesh=mesh)),
+            ("zero", lambda tr: jit.TrainStep(model, loss_fn, tr, mesh=mesh,
+                                              zero=True))):
+        losses, times, states, trainer, host = _bert_trained(
+            model, init, make, tokens, PAR_DP_STEPS)
+        counts = host.pop("launches")
+        want = per_forward * PAR_DP_STEPS
+        check(all(v == want for v in counts.values()),
+              "parallel BERT %s: K1/K2/K3 launched %s over %d steps, "
+              "expected %d each (%d a forward)" % (
+                  name, counts, PAR_DP_STEPS, want, per_forward))
+        passes, row = _dp_report(
+            name + " against one device", *_dp_errors(
+                losses, states, one_l, one_s, init, names, zero), noise)
+        failures.append((passes, "parallel BERT %s against one device: "
+                         "losses %s vs %s; %s" % (name, losses, one_l, row)))
+        row.update(losses=losses, step_ms=times, launches=counts, **host)
+        if name == "zero":
+            n_sharded = 0
+            for p, st in zip(trainer._params, trainer._states):
+                for leaf in _leaves(st):
+                    if isinstance(leaf, ShardedState):
+                        n_sharded += 1
+                        check(len(leaf.slices) == PAR_DP and all(
+                            s.numel() * PAR_DP == p._tensor().numel()
+                            for s in leaf.slices),
+                            "ZeRO-1: a state is not in %d quarters" % PAR_DP)
+            check(n_sharded >= 3 * len([p for p in trainer._params
+                                        if p.shape[0] % PAR_DP == 0]),
+                  "ZeRO-1: %d states held in slices" % n_sharded)
+            row["sharded_states"] = n_sharded
+        rows[name] = row
+        launches["parallel_bert_" + name] = counts
+        log("  parallel BERT %s (dp %d): step ms %s (one device %s), issue "
+            "%.1f ms (%.1f), idle %.1f%% (%.1f%%), losses %s vs %s, K1 %d "
+            "a forward%s" % (
+                name, PAR_DP, ["%.1f" % t for t in times],
+                ["%.1f" % t for t in one_t], host["issue_ms"],
+                one_host["issue_ms"], 100 * host["idle_share"],
+                100 * one_host["idle_share"], ["%.4f" % v for v in losses],
+                ["%.4f" % v for v in one_l], counts["flash_fwd"]
+                // PAR_DP_STEPS, "; %d states in %d slices" % (
+                    row["sharded_states"], PAR_DP) if name == "zero"
+                else ""))
+        del trainer, states
+        gc.collect()
+        torch.cuda.empty_cache()
+    parallel.set_current_mesh(None)
+    for ok, msg in failures:
+        check(ok, msg)
+    del model, init, one_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def parallel_mesh_serving(card):
+    """22(d): BERT with tp_axis="tp" as MeshServable tp = 2 x replicas = 2
+    behind ModelRegistry: 16 requests from 4 threads at bucket 8 x S 512
+    against BlockServable's replies; K1 12 a batch."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models, serving
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    net = models.BERTModel(**dict(BERT, tp_axis="tp"))
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                   .Generator(device="cuda:0").manual_seed(24))
+    net.cast("bfloat16")
+    rows = onp.random.RandomState(24).randint(
+        0, BERT["vocab_size"], (BERT_REQUESTS, BERT_S)).astype("int32")
+    plain = serving.BlockServable(net)
+    want = onp.concatenate([plain.predict_batch(rows[i:i + BERT_BUCKET])[0]
+                            for i in range(0, BERT_REQUESTS, BERT_BUCKET)])
+    plain.release()
+    sv = serving.MeshServable(net, tp=PAR_TP, replicas=PAR_TP_REPLICAS,
+                              devices=_par_devices(PAR_TP * PAR_TP_REPLICAS))
+    reg = serving.ModelRegistry()
+    # one bucket, prewarmed on both replicas: the timed traffic replays
+    # built programs (a build runs the forward under FlopCounterMode)
+    reg.load("bert_tp", sv, max_batch_size=BERT_BUCKET, batch_timeout_ms=50,
+             replicas=PAR_TP_REPLICAS, buckets=[BERT_BUCKET],
+             warm_spec=[((BERT_S,), "int32")])
+    try:
+        base = reg.metrics("bert_tp").batch_count
+        replies, lat, errors = {}, [], []
+
+        def client(c):
+            try:
+                t = time.perf_counter()
+                reqs = {i: reg.submit("bert_tp", rows[i])
+                        for i in range(c, BERT_REQUESTS, CLIENTS)}
+                for i, r in reqs.items():
+                    replies[i] = r.result(600)[0]
+                    lat.append((time.perf_counter() - t) * 1e3)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        launches = {"flash_fwd": _kernels.LAUNCHES.get("flash_fwd", 0)}
+        batches = reg.metrics("bert_tp").batch_count - base
+        counts = reg._entry("bert_tp").batcher.replica_dispatch_counts()
+    finally:
+        reg.close()
+        sv.release()
+    check(not errors and len(replies) == BERT_REQUESTS,
+          "mesh serving: requests failed: %r" % errors[:3])
+    check(sum(counts) == BERT_REQUESTS, "mesh serving: replica dispatch "
+          "counts %s do not sum to %d" % (counts, BERT_REQUESTS))
+    check(launches["flash_fwd"] == BERT["num_layers"] * batches,
+          "mesh serving: K1 launched %d times for %d batches, expected %d "
+          "a batch" % (launches["flash_fwd"], batches, BERT["num_layers"]))
+    err = max(float(onp.abs(onp.asarray(replies[i], "float32") - want[i])
+                    .max() / onp.abs(want[i]).max())
+              for i in range(BERT_REQUESTS))
+    check(err <= PAR_BF16_TOL, "mesh serving: replies differ from "
+          "BlockServable's by %.3g of their largest logit" % err)
+    lat.sort()
+    row = dict(tp=PAR_TP, replicas=PAR_TP_REPLICAS, batches=batches,
+               replica_dispatch_counts=counts, k1=launches["flash_fwd"],
+               p50_ms=lat[len(lat) // 2], max_ms=lat[-1], max_rel_err=err)
+    log("  parallel mesh serving tp %d x replicas %d: %d batches %s, K1 %d, "
+        "p50 %.1f ms, max %.1f ms, replies within %.3g of BlockServable's"
+        % (PAR_TP, PAR_TP_REPLICAS, batches, counts, launches["flash_fwd"],
+           row["p50_ms"], row["max_ms"], err))
+    del net, sv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"parallel_mesh_serving": launches}, row
+
+
+def _cuda_ms(fn, warm=True):
+    """(fn()'s result, its ms by CUDA events); with ``warm`` one call
+    first, untimed (first-use costs: handles, allocator growth)."""
+    import torch
+    if warm:
+        fn()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def parallel_pipeline(card):
+    """22(e): 4 full-width BERT encoder layers (flash, bf16) as pp = 4
+    stages of a PipelineStack, B 32 x S 512, 8 microbatches: the forward
+    against the sequential stack; 1F1B (pp = 4) and interleaved (pp = 2,
+    v = 2) gradients against GPipe's (the ring under autograd)."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.gluon import parameter as _param
+    from incubator_mxnet_tpu_torch.models.bert import TransformerEncoderLayer
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    layers = []
+    for _ in range(PAR_PIPE_LAYERS):
+        layer = TransformerEncoderLayer(BERT["units"], BERT["hidden_size"],
+                                        BERT["num_heads"], dropout=0.0,
+                                        attention="flash")
+        layer.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=gen)
+        layer.cast("bfloat16")
+        layers.append(layer)
+    shape = (PAR_PIPE_B, BERT_S, BERT["units"])
+    x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    y = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    m, mb = PAR_PIPE_MICRO, PAR_PIPE_B // PAR_PIPE_MICRO
+    mesh4 = parallel.make_mesh({"pp": PAR_PIPE_LAYERS},
+                               devices=_par_devices(PAR_PIPE_LAYERS))
+    stack = parallel.PipelineStack(layers, mesh4, n_microbatches=m)
+    per = [list(l.collect_params().values()) for l in layers]
+
+    def loss_fn(out, yb):
+        return ((out.float() - yb.float()) ** 2).mean()
+
+    def stage_fn(stage_params, h):
+        mapping = {id(p): t for p, t in zip(per[0], stage_params)}
+        saved = getattr(_param._OVERRIDE, "fn", None)
+        _param._OVERRIDE.fn = lambda p: mapping.get(id(p))
+        try:
+            return layers[0](h)
+        finally:
+            _param._OVERRIDE.fn = saved
+
+    with torch.no_grad():
+        seq, seq_ms = _cuda_ms(lambda: _sequential(layers, x))
+        piped, pipe_ms = _cuda_ms(lambda: stack(x))
+    fwd_rel = _rel_frob(piped, seq)
+    check(fwd_rel <= PAR_BF16_TOL, "PipelineStack forward vs the sequential "
+          "stack: %.3g relative" % fwd_rel)
+    flat = [p._tensor() for ps in per for p in ps]
+
+    def gpipe():
+        out = stack(x).reshape(m, mb, *shape[1:])
+        loss = sum(loss_fn(out[i], y.reshape(m, mb, *shape[1:])[i])
+                   for i in range(m)) / m
+        return loss, torch.autograd.grad(loss, flat)
+    (g_loss, g_grads), gpipe_ms = _cuda_ms(gpipe)
+    g_loss = g_loss.detach()
+    nper = len(per[0])
+    g_by = [[g_grads[s * nper + j] for s in range(PAR_PIPE_LAYERS)]
+            for j in range(nper)]
+    stacked = [torch.stack([per[s][j]._tensor().detach()
+                            for s in range(PAR_PIPE_LAYERS)])
+               for j in range(nper)]
+    (l1, g1, _), ms_1f1b = _cuda_ms(lambda: parallel.pipeline_1f1b_grads(
+        stage_fn, loss_fn, stacked, x, y, mesh4, m))
+    mesh2 = parallel.make_mesh({"pp": 2}, devices=_par_devices(2))
+    v, p = 2, 2
+    inter = [s.reshape(v, p, *s.shape[1:]) for s in stacked]
+    (li, gi, _), ms_inter = _cuda_ms(
+        lambda: parallel.pipeline_interleaved_grads(
+            stage_fn, loss_fn, inter, x, y, mesh2, m, v))
+    errs = {"1f1b": max(_rel_frob(a / m, torch.stack(b))
+                        for a, b in zip(g1, g_by)),
+            "interleaved": max(_rel_frob(a.reshape(PAR_PIPE_LAYERS,
+                                                   *a.shape[2:]) / m,
+                                         torch.stack(b))
+                               for a, b in zip(gi, g_by))}
+    loss_rel = max(abs(float(l1) - float(g_loss)), abs(float(li) - float(
+        g_loss))) / abs(float(g_loss))
+    row = dict(forward_rel=fwd_rel, sequential_ms=seq_ms,
+               pipeline_forward_ms=pipe_ms, gpipe_ms=gpipe_ms,
+               one_f_one_b_ms=ms_1f1b, interleaved_ms=ms_inter,
+               grad_rel=errs, loss_rel=loss_rel)
+    log("  parallel pipeline (4 BERT layers, B %d x S %d, %d microbatches): "
+        "forward %.1f ms vs sequential %.1f (%.3g rel); GPipe fwd+bwd %.1f "
+        "ms, 1F1B %.1f ms, interleaved (pp 2, v 2) %.1f ms; gradients vs "
+        "GPipe %s, loss %.3g rel" % (
+            PAR_PIPE_B, BERT_S, m, pipe_ms, seq_ms, fwd_rel, gpipe_ms,
+            ms_1f1b, ms_inter, {k: "%.3g" % e for k, e in errs.items()},
+            loss_rel))
+    check(loss_rel <= PAR_LOSS_TOL and all(e <= PAR_BF16_TOL
+                                           for e in errs.values()),
+          "pipeline gradients disagree with GPipe's: %s" % row)
+    parallel.set_current_mesh(None)
+    del layers, stack, x, y, g_grads, g1, gi, stacked, inter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sequential(layers, h):
+    for layer in layers:
+        h = layer(h)
+    return h
+
+
+def parallel_moe(card):
+    """22(f): MoELayer (D 1024, E 8, ffn 4096, top-2, capacity 1.25) over
+    8192 tokens, ep = 4 against ep = 1, fp32 with TF32 off: the output,
+    the auxiliary loss and the gradients of sum(out * dY) + aux."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import parallel
+    dev = torch.device("cuda", 0)
+    layer = parallel.MoELayer(**PAR_MOE)
+    layer.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                     .Generator(device=dev).manual_seed(26))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(PAR_MOE_TOKENS, PAR_MOE["hidden_size"], device=dev,
+                    generator=gen)
+    dy = torch.randn(x.shape, device=dev, generator=gen)
+    params = [layer.gate_weight._tensor(), layer.w1._tensor(),
+              layer.w2._tensor()]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = {}
+    try:
+        for ep in (1, PAR_EP):
+            parallel.make_mesh({"ep": ep}, devices=_par_devices(ep))
+
+            def run():
+                xi = x.clone().requires_grad_()
+                out, aux = layer.forward_with_aux(xi)
+                grads = torch.autograd.grad((out * dy).sum() + aux,
+                                            [xi] + params)
+                return out.detach(), float(aux.detach()), grads
+            got[ep], ms = _cuda_ms(run)
+            got[ep] += (ms,)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        parallel.set_current_mesh(None)
+    (o1, a1, g1, ms1), (o4, a4, g4, ms4) = got[1], got[PAR_EP]
+    errs = dict(out=_rel_frob(o4, o1), aux=abs(a4 - a1) / abs(a1),
+                **{n: _rel_frob(a, b) for n, a, b in zip(
+                    ("dx", "dgate", "dw1", "dw2"), g4, g1)})
+    row = dict(tokens=PAR_MOE_TOKENS, ep=PAR_EP, ep1_ms=ms1,
+               ep4_ms=ms4, rel=errs, aux=a4)
+    log("  parallel MoE (E %d, top-2, capacity 1.25, %d tokens): ep %d "
+        "%.1f ms vs ep 1 %.1f ms (forward + backward); relative %s" % (
+            PAR_MOE["num_experts"], PAR_MOE_TOKENS, PAR_EP, ms4, ms1,
+            {k: "%.3g" % v for k, v in errs.items()}))
+    check(all(v <= PAR_FP32_TOL for v in errs.values()),
+          "MoE ep %d disagrees with ep 1: %s" % (PAR_EP, errs))
+    del layer, x, dy, params, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def parallel_phase(card):
+    """Phase 22: SPMD over a mesh (``--parallel-only``). Returns (launches
+    by path, summary)."""
+    t0 = time.perf_counter()
+    build_kernels()
+    log("parallel: %s; meshes over %s" % (
+        card, sorted({str(d) for d in _par_devices(PAR_SP)})))
+    ring = check_ring_kernels()
+    launches, gpt = parallel_gpt(card)
+    release_graphs()
+    more, bert = parallel_bert_dp(card)
+    launches.update(more)
+    release_graphs()
+    more, serving = parallel_mesh_serving(card)
+    launches.update(more)
+    release_graphs()
+    pipeline = parallel_pipeline(card)
+    moe = parallel_moe(card)
+    return launches, dict(card=card, ring_vs_flash=ring, gpt=gpt, bert=bert,
+                          mesh_serving=serving, pipeline=pipeline, moe=moe,
+                          seconds=time.perf_counter() - t0)
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -7907,6 +8742,8 @@ def main(argv):
     parser.add_argument("--programs-only", action="store_true",
                         help="run programs on disk and device telemetry "
                         "(phase 21) alone")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="run SPMD over a mesh (phase 22) alone")
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
@@ -7975,7 +8812,9 @@ def main(argv):
                              (opts.serving_http_only, "serving_http",
                               serving_http_phase),
                              (opts.programs_only, "programs",
-                              programs_phase)):
+                              programs_phase),
+                             (opts.parallel_only, "parallel",
+                              parallel_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -8021,6 +8860,8 @@ def main(argv):
         release_graphs()
         programs_launches, programs = programs_phase(card)
         release_graphs()
+        parallel_launches, parallel = parallel_phase(card)
+        release_graphs()
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         rtc_host = rtc_host_breakdown()
     except SmokeFailure as e:
@@ -8036,6 +8877,7 @@ def main(argv):
              "module": module_launches, "bucketing": bucketing_launches,
              "serving_http": serving_http_launches,
              "programs": programs_launches,
+             **parallel_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -8161,6 +9003,7 @@ def main(argv):
     log(json.dumps({"bucketing": bucketing}))
     log(json.dumps({"serving_http": serving_http}))
     log(json.dumps({"programs": programs}))
+    log(json.dumps({"parallel": parallel}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

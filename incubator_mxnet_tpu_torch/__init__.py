@@ -65,7 +65,7 @@ from . import ndarray as nd  # noqa: F401
 from .ndarray import random  # noqa: F401
 from . import contrib, gluon, jit, models, ops  # noqa: F401
 from . import callback, lr_scheduler, metric  # noqa: F401
-from . import optimizer, rtc, serving  # noqa: F401
+from . import optimizer, parallel, rtc, serving  # noqa: F401
 from .optimizer import Optimizer  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .name import NameManager  # noqa: F401

@@ -275,6 +275,18 @@ ENV_VARS = {
         "Default per-request serving deadline in milliseconds: requests "
         "still queued when it passes fail with DeadlineExceededError. "
         "None = no deadline; a request's own deadline_ms overrides."),
+    "MXTPU_SERVE_TP": (
+        int, 1,
+        "Default tensor-parallel degree for serving.sharded.MeshServable "
+        "when no mesh is passed: parameters annotated by "
+        "parallel.tensor_parallel split over a 'tp' mesh axis of this size "
+        "(the layers compute per shard and gather at their boundaries). "
+        "1 = single-device predict."),
+    "MXTPU_SPMD_TIMEOUT_S": (
+        float, 300.0,
+        "Deadline in seconds of each collective's rendezvous inside "
+        "parallel.shard_map: a position whose peers do not all arrive "
+        "within it raises RendezvousTimeout instead of waiting forever."),
     "MXTPU_SERVE_PORT": (
         int, 8080,
         "Default port of serving.ServingServer's HTTP front end; 0 picks "

@@ -21,6 +21,12 @@ in one package and ``load_parameters`` in the other carry the same names,
 bfloat16 bit for bit (but for the fused RNN layers' weights, which the
 JAX package's file leaves out).
 
+The parallel layers need nothing more: ``MoELayer``'s ``gate_weight``,
+``w1`` and ``w2``, a tensor-parallel layer's weights (global arrays in;
+the port keeps each parameter one global tensor and its positions read
+their slices) and ``PipelineStack``'s per-stage parameters (its stages
+are its children ``0``, ``1``, ...) carry under the same names.
+
 ``tinylm_from_jax`` builds the port's generative ``TinyLM`` from the JAX
 package's (whose weights are plain arrays, not Gluon parameters), so both
 compute the same thing.

@@ -176,9 +176,10 @@ class _Lease:
 class _Entry:
     """A signature's instances and the bindings they were captured on."""
 
-    def __init__(self, bindings):
+    def __init__(self, bindings, eager=False):
         self.bindings = bindings
         self.instances = []
+        self.eager = eager        # its first call ran parallel.shard_map
 
 
 class _Replay(torch.autograd.Function):
@@ -258,10 +259,18 @@ def call(block, *args, **kwargs):
     entry = cache.pop(sig, None)
     params = _params(block)
     if entry is None or any(p._data is None for p in params):
+        from ..parallel import compat
         with plain():
-            out = _plain_call(block, args, kwargs)
-        _store(cache, sig, _Entry(_bindings(_params(block))))
+            mapped, out = compat.tracking(
+                lambda: _plain_call(block, args, kwargs))
+        # a forward that runs shard_map launches from its positions'
+        # threads: its signature stays eager
+        _store(cache, sig, _Entry(_bindings(_params(block)), bool(mapped)))
         return out
+    if entry.eager:
+        _store(cache, sig, entry)
+        with plain():
+            return _plain_call(block, args, kwargs)
     bindings = _bindings(params)
     if entry.bindings != bindings:
         entry = _Entry(bindings)           # rebound or rewritten: again

@@ -8,6 +8,7 @@ import torch
 
 from ... import initializer
 from ... import ndarray as nd
+from ...ndarray import NDArray
 from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
@@ -87,11 +88,29 @@ class Dense(HybridBlock):
             self.weight._finish_deferred_init()
             if self.bias is not None:
                 self.bias._finish_deferred_init()
+        if self.weight.sharding is not None:
+            out = self._tensor_parallel(x)
+            if out is not None:
+                return out
         out = nd.FullyConnected(x, self.weight._tensor(),
                                 self.bias._tensor() if self.bias is not None
                                 else None,
                                 num_hidden=self._units, flatten=self._flatten,
                                 no_bias=self.bias is None)
+        if self.act_type:
+            out = nd.Activation(out, act_type=self.act_type)
+        return out
+
+    def _tensor_parallel(self, x):
+        """The forward computed per shard over the current mesh when the
+        weight's ``sharding`` splits over one of its axes
+        (``parallel.tensor_parallel``); None otherwise."""
+        from ...parallel.tensor_parallel import dense_forward
+        out = dense_forward(self, x._data if isinstance(x, NDArray) else x)
+        if out is None:
+            return None
+        if isinstance(x, NDArray):
+            out = NDArray(out)
         if self.act_type:
             out = nd.Activation(out, act_type=self.act_type)
         return out
@@ -206,15 +225,12 @@ class BatchNorm(HybridBlock):
 
 class SyncBatchNorm(BatchNorm):
     """Batch normalisation whose statistics MXNet synchronises across
-    devices. On one device it is ``BatchNorm``, as in the JAX package;
-    across devices (``num_devices`` > 1) it waits for the multi-GPU slice
-    (ROADMAP.md §1 item 5)."""
+    devices. It is ``BatchNorm``, as in the JAX package: on one device the
+    batch's statistics, and inside a data-parallel step over a mesh
+    (``TrainStep(mesh=)``) those of the global batch, whatever
+    ``num_devices`` says."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):
-        if num_devices is not None and num_devices > 1:
-            raise NotImplementedError("SyncBatchNorm across devices comes "
-                                      "with the multi-GPU slice (ROADMAP.md "
-                                      "§1 item 5)")
         super().__init__(in_channels=in_channels, **kwargs)
 
 

@@ -24,6 +24,7 @@ hybridized block's captured graphs compare.
 from __future__ import annotations
 
 import logging
+import threading
 
 import numpy as onp
 import torch
@@ -36,6 +37,13 @@ from ..ndarray.ndarray import _mx_dtype, array as nd_array
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
+
+
+#: ``.fn``: a function Parameter -> tensor or None that, on this thread,
+#: stands in for parameters' own tensors (``Parameter._tensor``): a
+#: position of a data-parallel step reads its device's replica, a pipeline
+#: stage the slice of its stacked parameters (``parallel``)
+_OVERRIDE = threading.local()
 
 
 class DeferredInitializationError(Exception):
@@ -65,6 +73,9 @@ class Parameter:
         self._deferred_init = None   # (init, default_init, device, generator)
         self._owners = []            # (module, attribute) registrations
         self._version = 0            # bumped when rewritten or rebound
+        #: a ``parallel.P`` over mesh axes (tensor and expert parallel
+        #: layers set it); None replicates
+        self.sharding = None
 
     @property
     def shape(self):
@@ -159,7 +170,14 @@ class Parameter:
 
     # ----------------------------------------------------------------
     def _tensor(self):
-        """The ``nn.Parameter``: what the package's own code computes on."""
+        """The ``nn.Parameter``: what the package's own code computes on
+        (or, inside a ``parallel`` override on this thread, the tensor that
+        stands in for it)."""
+        fn = getattr(_OVERRIDE, "fn", None)
+        if fn is not None:
+            t = fn(self)
+            if t is not None:
+                return t
         if self._data is None:
             if self._deferred_init is not None:
                 raise DeferredInitializationError(

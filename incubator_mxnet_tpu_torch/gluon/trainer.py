@@ -19,12 +19,19 @@ JAX package reads the states alone, and the port restores the counts when
 a file has them (so a resumed run continues its bias correction and
 ``lr_scheduler``; a JAX package file restarts them, as there). Loaded
 states land on each parameter's device as new tensors, so a captured
-``jit.TrainStep`` captures again.
+``jit.TrainStep`` captures again. Under ``TrainStep(mesh=, zero=True)``
+the states are held in ZeRO-1 slices (``parallel.data_parallel``): the
+update runs per slice and ``save_states`` gathers them.
 
 Local only: ``kvstore`` "device", "local" or None. A "dist*" kvstore waits
 for the multi-GPU slice of the port.
 """
 from __future__ import annotations
+
+import copy
+import functools
+
+import torch
 
 from .. import autograd
 from .. import optimizer as opt
@@ -70,6 +77,7 @@ class Trainer:
         self._scale = self._optimizer.rescale_grad
         self._states = [None] * len(self._params)
         self._states_initialized = False
+        self._zero = False      # states held in ZeRO-1 slices (parallel)
 
     @property
     def learning_rate(self):
@@ -124,10 +132,13 @@ class Trainer:
         (one per parameter, None for zeros) with ``scalars``, a
         ``_scalars`` vector on the parameters' device."""
         live = self._live()
-        self._optimizer.update_all(
-            [self._params[i]._tensor() for i in live],
-            [grads[i] for i in live], [self._states[i] for i in live],
-            *self._optimizer.split_scalars(scalars))
+        update = self._optimizer.update_all
+        if self._zero:
+            from ..parallel.data_parallel import zero_apply
+            update = functools.partial(zero_apply, self._optimizer)
+        update([self._params[i]._tensor() for i in live],
+               [grads[i] for i in live], [self._states[i] for i in live],
+               *self._optimizer.split_scalars(scalars))
 
     def _update(self, batch_size, t=None, grads=None, donate=True):
         """The update of ``step`` and ``jit.TrainStep``: every parameter
@@ -163,7 +174,11 @@ class Trainer:
         if not self._states_initialized:
             self._init_states()
         updater = opt.Updater(self._optimizer)
-        updater.states = {i: s for i, s in enumerate(self._states)
+        states = self._states
+        if self._zero:
+            from ..parallel.data_parallel import gathered
+            states = [gathered(s) for s in states]
+        updater.states = {i: s for i, s in enumerate(states)
                           if s is not None}
         with open(fname, "wb") as f:
             f.write(updater.get_states(dump_optimizer=True))
@@ -179,6 +194,7 @@ class Trainer:
             i = int(i)
             self._states[i] = opt.optimizer._state_to(
                 s, self._params[i]._tensor().device)
+        self._zero = False      # whole again; a ZeRO-1 step splits them
 
 
 def _upload(host, device):
@@ -190,7 +206,14 @@ def _upload(host, device):
 
 
 def _clone(state):
-    """A copy of an optimizer state (None, a tensor or nested tuples)."""
+    """A copy of an optimizer state (None, a tensor, a ZeRO-1 slice set or
+    nested tuples)."""
     if isinstance(state, (tuple, list)):
         return tuple(_clone(s) for s in state)
-    return None if state is None else state.detach().clone()
+    if state is None:
+        return None
+    if not isinstance(state, torch.Tensor):       # parallel's ShardedState
+        state = copy.copy(state)
+        state.slices = [s.detach().clone() for s in state.slices]
+        return state
+    return state.detach().clone()

@@ -29,9 +29,10 @@ new tensors (``Trainer._update``).
 forward's dropout masks and without a second running-statistics update
 (``autograd.remat_contexts``). ``grad_postprocess`` maps the list of
 gradients of the trainer's parameters (zeros where the loss does not
-reach) before the update, as in the JAX step. ``mesh`` and ``zero`` wait
-for the multi-GPU slice; ``data_axis`` (the mesh axis the batch is split
-over) is accepted and only matters with a mesh. ``model_id`` is accepted
+reach) before the update, as in the JAX step. With ``mesh`` the step is
+data parallel over ``data_axis`` and, with ``zero``, keeps its optimizer
+states in slices over it (``parallel.data_parallel``; the mesh step runs
+eagerly, uncaptured, and takes no ``remat``). ``model_id`` is accepted
 and stored: a training graph updates its own parameters in place and is
 never shared, so ``TrainStep`` keeps its own table.
 
@@ -300,7 +301,11 @@ def _capture(body, args, kind, tensors=()):
     back at each replay. ``tensors`` are held by the capture, so the
     addresses it reads stay theirs. Counts one compile of ``kind`` with
     its wall time. Returns (the ``_Captured``, the eager run's outputs).
-    A capture that fails raises, naming the line of the operation."""
+    A capture that fails raises, naming the line of the operation. A body
+    whose eager run went through ``parallel.shard_map`` (its positions
+    launch from threads of their own) is not captured: it comes back as a
+    ``_Direct`` program that runs it eagerly each call."""
+    from .parallel import compat
     t0 = _time.perf_counter()
     flightrec.record("compile_begin", kind=kind)
     device = args[0].device
@@ -314,9 +319,15 @@ def _capture(body, args, kind, tensors=()):
         got, stats = devstats.measure(lambda: body(*static))
         measured.append(stats)
         return [*got, *static]
-    got = cap.eager(eager)
+    mapped, got = compat.tracking(lambda: cap.eager(eager))
     stats = measured[0]
     out, static = got[:len(got) - n], got[len(got) - n:]
+    if mapped:
+        direct = _Direct(body)
+        direct.stats = stats
+        flightrec.record("compile_end", kind=kind, dur_s=round(
+            _time.perf_counter() - t0, 6))
+        return direct, out
     try:
         with _kernels.collecting() as launches:
             graph, captured = cap.capture(lambda: body(*static))
@@ -462,10 +473,11 @@ class TrainStep:
     def __init__(self, net, loss_fn, trainer, batch_axis=0,
                  grad_postprocess=None, mesh=None, data_axis="dp",
                  remat=None, zero=False, model_id=None):
-        if mesh is not None or zero:
-            raise NotImplementedError(
-                "TrainStep mesh/zero (data-parallel and ZeRO-1 sharding) "
-                "come with the multi-GPU slice of the port")
+        if mesh is not None and data_axis not in mesh.shape:
+            raise ValueError("data_axis %r is not an axis of the mesh %s"
+                             % (data_axis, dict(mesh.shape)))
+        self.mesh = mesh
+        self.zero = bool(zero)
         self.net = net
         self.loss_fn = loss_fn
         self.trainer = trainer
@@ -474,9 +486,14 @@ class TrainStep:
         self._model_id = model_id
         self.remat = config.get_env("MXTPU_REMAT") if remat is None \
             else remat
+        if mesh is not None and remat:
+            raise NotImplementedError(
+                "remat under a mesh: a rematerialised forward would run its "
+                "collectives again in the backward, where no peer waits")
         self._grad_postprocess = grad_postprocess
         self._step_count = 0
         self._graphs = collections.OrderedDict()
+        self._uncaptured = set()     # signatures whose step runs shard_map
         self.captures = 0
 
     def __call__(self, *inputs, batch_size=None, n_net_inputs=1):
@@ -484,7 +501,11 @@ class TrainStep:
         if batch_size is None:
             batch_size = args[0].shape[self.batch_axis]
         donate = not config.get_env("MXTPU_NO_DONATE")
-        if donate and net_device(self.net).type == "cuda":
+        if self.mesh is not None:
+            return NDArray(self._mesh_step(args, n_net_inputs, batch_size,
+                                           donate))
+        if donate and net_device(self.net).type == "cuda" and \
+                self._sig(args, n_net_inputs) not in self._uncaptured:
             return NDArray(self._replay(args, n_net_inputs, batch_size))
         loss = self._forward(args, n_net_inputs)
         grads = self._backward(loss)
@@ -524,6 +545,59 @@ class TrainStep:
                                   preserve_rng_state=False,
                                   context_fn=autograd.remat_contexts)
             return run(*args)
+
+    # -- the mesh step ------------------------------------------------
+    def _mesh_step(self, args, n_net_inputs, batch_size, donate):
+        """One eager data-parallel step over ``mesh`` (see
+        ``parallel.data_parallel``): the forward split over ``data_axis``,
+        one backward, then the update (per slice under ``zero``)."""
+        from .parallel import data_parallel
+        if self.zero:
+            data_parallel.shard_states(self.trainer, self.mesh,
+                                       self.data_axis)
+        loss = self._forward_mesh(args, n_net_inputs)
+        self._update(batch_size, self._backward(loss), donate)
+        return loss.detach()
+
+    def _forward_mesh(self, args, n_net_inputs):
+        """The per-sample loss of the whole batch, each position's slice
+        computed by that position on its replica of the parameters."""
+        from .gluon import parameter as _param
+        from .gluon._functional import plain
+        from .parallel.compat import shard_map
+        from .parallel.mesh import P
+        master = net_device(self.net)
+
+        def run(*a):
+            device = a[0].device
+            saved = getattr(_param._OVERRIDE, "fn", None)
+            if device != master:
+                copies = {}
+
+                def replica(p):
+                    if p._data is None:
+                        return None
+                    t = copies.get(id(p))
+                    if t is None:
+                        t = copies[id(p)] = p._data.to(device)
+                    return t
+                _param._OVERRIDE.fn = replica
+            try:
+                loss = self.loss_fn(self.net(*a[:n_net_inputs]),
+                                    *a[n_net_inputs:])
+            finally:
+                _param._OVERRIDE.fn = saved
+            loss = loss._data if isinstance(loss, NDArray) else loss
+            if loss.dim() <= self.batch_axis:
+                raise ValueError("TrainStep over a mesh needs a per-sample "
+                                 "loss (one value per batch row); got shape "
+                                 "%s" % (tuple(loss.shape),))
+            return loss
+        spec = P(*([None] * self.batch_axis), self.data_axis)
+        with autograd.record(train_mode=True), plain():
+            return shard_map(run, self.mesh, in_specs=spec, out_specs=spec,
+                             axes=(self.data_axis,),
+                             batch_axes=(self.data_axis,))(*args)
 
     def _backward(self, loss):
         """The loss's gradients (seeded with ones: those of its sum, which
@@ -570,10 +644,18 @@ class TrainStep:
         return tuple(t.data_ptr() for t in tensors) + \
             tuple(p.grad_req for p in self.trainer._params)
 
+    @staticmethod
+    def _sig(args, n_net_inputs):
+        return (tuple((tuple(a.shape), a.dtype) for a in args), n_net_inputs)
+
     def _replay(self, args, n_net_inputs, batch_size):
         """One step through this signature's graph, captured first if it
-        has none (or its tensors were rebound); returns the loss."""
-        sig = (tuple((tuple(a.shape), a.dtype) for a in args), n_net_inputs)
+        has none (or its tensors were rebound); returns the loss. A step
+        whose first run went through ``parallel.shard_map`` (sequence
+        parallel attention, tensor parallel layers) is not captured: its
+        positions launch from threads of their own, and the signature runs
+        eagerly from then on."""
+        sig = self._sig(args, n_net_inputs)
         tensors = self._bound()
         bindings = self._bindings(tensors)
         entry = self._graphs.pop(sig, None)
@@ -584,6 +666,9 @@ class TrainStep:
         if entry is None:
             entry, loss = self._capture(args, n_net_inputs, scalars,
                                         tensors, bindings)
+            if entry is None:
+                self._uncaptured.add(sig)
+                return loss
         else:
             with torch.no_grad():
                 for buf, a in zip(entry.inputs, args):
@@ -619,7 +704,9 @@ class TrainStep:
         """This call's step, run eagerly on a side stream, then the same
         body captured (running nothing) on static copies of ``args`` and
         ``scalars``, both on the parameters' detached leaves
-        (``_on_leaves``). Returns (the capture, the eager step's loss)."""
+        (``_on_leaves``). Returns (the capture, the eager step's loss), or
+        (None, the loss) when the step ran a ``shard_map``."""
+        from .parallel import compat
         cap = _GraphCapture(args[0].device)
 
         def first_step():
@@ -627,7 +714,10 @@ class TrainStep:
             static = scalars.to(args[0].device)
             return [self._on_leaves(lambda: self._body(
                 inputs, n_net_inputs, static)), static, *inputs]
-        first, static, *inputs = cap.eager(first_step)
+        mapped, (first, static, *inputs) = compat.tracking(
+            lambda: cap.eager(first_step))
+        if mapped:
+            return None, first
         try:
             with _kernels.collecting() as launches:
                 graph, loss = cap.capture(lambda: self._on_leaves(
@@ -761,7 +851,7 @@ class EvalStep:
                 captured, out = _capture(
                     body, args, "eval", tensors=[
                         p._tensor() for p in self._params()])
-            self.captures += 1
+            self.captures += isinstance(captured, _Captured)
             _record_compile_span("eval:compile",
                                  _time.perf_counter() - t0)
             first.append(out)
@@ -788,7 +878,7 @@ class EvalStep:
                 with spans.span("eval:build"):
                     captured, out = _capture(body, args, "eval",
                                              tensors=tensors)
-                self.captures += 1
+                self.captures += isinstance(captured, _Captured)
             else:
                 captured = _Direct(body)
                 out, captured.stats = devstats.measure(lambda: body(*args))

@@ -4,8 +4,12 @@
 Child names equal the JAX package's, so ``state_dict()`` keys are its
 structural parameter names. ``attention="flash"`` runs the CUDA
 flash-attention kernels (ops/attention.py: the forward, and the two
-backward kernels when training); ``"dense"`` the composite.
-Ring and Ulysses sequence parallelism come with the multi-GPU slice.
+backward kernels when training); ``"dense"`` the composite; ``"ring"`` and
+``"ulysses"`` the sequence-parallel attentions of ``parallel`` over the
+``sp_axis`` of ``parallel.current_mesh()`` (their local steps are the same
+kernels). ``tp_axis`` splits the heads and the FFN hidden over a mesh axis,
+as the JAX package annotates them: q, k, v and ffn1 column parallel, proj
+and ffn2 row parallel (``parallel.tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from .. import ndarray as nd
 from ..gluon import nn
 from ..gluon.block import HybridBlock
 from ..gluon.parameter import Parameter
+from ..parallel.mesh import P
 from .lm_head import ChunkedHeadLossBase
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "BERTEncoder",
@@ -30,20 +35,23 @@ class MultiHeadAttention(HybridBlock):
         if units % num_heads:
             raise ValueError("units %d not divisible by num_heads %d"
                              % (units, num_heads))
-        if attention in ("ring", "ulysses") or tp_axis:
-            raise NotImplementedError(
-                "attention=%r / tp_axis come with the multi-GPU slice of the "
-                "port" % attention)
-        if attention not in ("dense", "flash"):
+        if attention not in ("dense", "flash", "ring", "ulysses"):
             raise ValueError("unknown attention %r" % attention)
         self._num_heads = num_heads
         self._dropout = dropout
         self._attention = attention
+        self._sp_axis = sp_axis
         self._causal = causal
         self.query = nn.Dense(units, flatten=False, in_units=units)
         self.key = nn.Dense(units, flatten=False, in_units=units)
         self.value = nn.Dense(units, flatten=False, in_units=units)
         self.proj = nn.Dense(units, flatten=False, in_units=units)
+        if tp_axis:
+            # heads split over tp: q, k, v column parallel, proj row parallel
+            for lyr in (self.query, self.key, self.value):
+                lyr.weight.sharding = P(tp_axis, None)
+                lyr.bias.sharding = P(tp_axis)
+            self.proj.weight.sharding = P(None, tp_axis)
 
     def forward(self, x, mask=None):
         B, S, U = x.shape
@@ -53,7 +61,16 @@ class MultiHeadAttention(HybridBlock):
         k = self.key(x).reshape(B, S, H, D).transpose(1, 2)
         v = self.value(x).reshape(B, S, H, D).transpose(1, 2)
         causal = self._causal
-        if self._attention == "flash":
+        if self._attention in ("ring", "ulysses"):
+            from ..parallel import mesh as _mesh
+            from ..parallel.ring_attention import ring_attention
+            from ..parallel.ulysses import ulysses_attention
+            fn = ring_attention if self._attention == "ring" \
+                else ulysses_attention
+            out = fn(q.contiguous(), k.contiguous(), v.contiguous(),
+                     mesh=_mesh.current_mesh(), axis=self._sp_axis,
+                     causal=causal)
+        elif self._attention == "flash":
             from ..ops.attention import flash_attention
             # the kernel reads (B, H, S, D) rows densely
             out = flash_attention(q.contiguous(), k.contiguous(),
@@ -91,6 +108,10 @@ class TransformerEncoderLayer(HybridBlock):
         self.ffn2 = nn.Dense(units, flatten=False, in_units=hidden_size)
         self.ln2 = nn.LayerNorm(in_channels=units)
         self.dropout_layer = nn.Dropout(dropout) if dropout else None
+        if tp_axis:
+            self.ffn1.weight.sharding = P(tp_axis, None)
+            self.ffn1.bias.sharding = P(tp_axis)
+            self.ffn2.weight.sharding = P(None, tp_axis)
 
     def forward(self, x, mask=None):
         h = self.attention_cell(x, mask)

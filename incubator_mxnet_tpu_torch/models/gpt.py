@@ -10,6 +10,7 @@ import torch
 from .. import ndarray as nd
 from ..gluon import nn
 from ..gluon.block import HybridBlock
+from ..parallel.mesh import P
 from .bert import MultiHeadAttention
 from .lm_head import ChunkedHeadLossBase
 
@@ -30,6 +31,10 @@ class TransformerDecoderLayer(HybridBlock):
         self.ln2 = nn.LayerNorm(in_channels=units)
         self.fc1 = nn.Dense(hidden_size, flatten=False, in_units=units)
         self.fc2 = nn.Dense(units, flatten=False, in_units=hidden_size)
+        if tp_axis:
+            self.fc1.weight.sharding = P(tp_axis, None)
+            self.fc1.bias.sharding = P(tp_axis)
+            self.fc2.weight.sharding = P(None, tp_axis)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))

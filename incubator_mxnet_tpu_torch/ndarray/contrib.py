@@ -160,14 +160,11 @@ def allclose(a, b, rtol=1e-05, atol=1e-08, equal_nan=False):
 
 
 def SyncBatchNorm(data, gamma, beta, moving_mean, moving_var, **kw):
-    """Batch norm over the batch on one device; across devices it comes
-    with the multi-GPU slice (ROADMAP.md §1 item 5)."""
-    ndev = kw.pop("ndev", 1)
+    """``BatchNorm``, whose statistics are those of the global batch inside
+    a data-parallel step over a mesh (``ndev`` and ``key`` are accepted, as
+    in the JAX package)."""
+    kw.pop("ndev", None)
     kw.pop("key", None)
-    if ndev not in (None, 1):
-        raise NotImplementedError("SyncBatchNorm across %d devices comes with "
-                                  "the multi-GPU slice (ROADMAP.md §1 item "
-                                  "5)" % ndev)
     return BatchNorm(data, gamma, beta, moving_mean, moving_var, **kw)
 
 

@@ -2048,6 +2048,12 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
         raise NotImplementedError("BatchNorm output_mean_var is not ported")
     axis = axis % data.dim()
     if autograd.is_training() and not use_global_stats:
+        from ..parallel import compat as _spmd
+        batch_axes = _spmd.batch_axes()
+        if batch_axes:
+            return _batch_norm_global(data, gamma, beta, moving_mean,
+                                      moving_var, eps, momentum, fix_gamma,
+                                      axis, batch_axes)
         shift = moving_mean
         if autograd._in_remat():     # the recomputation shifts as the forward
             shift = autograd._remat_keep(lambda: moving_mean.detach().clone())
@@ -2065,6 +2071,39 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     scale = g.reshape(bshape) * torch.rsqrt(moving_var.reshape(bshape) + eps)
     out = (data - moving_mean.reshape(bshape)) * scale + beta.reshape(bshape)
     return out.to(data.dtype)
+
+
+def _batch_norm_global(x, gamma, beta, moving_mean, moving_var, eps,
+                       momentum, fix_gamma, axis, batch_axes):
+    """Training-mode batch norm of one position of a data-parallel
+    ``shard_map`` with the statistics of the global batch: the shifted
+    sums and sums of squares are all-reduced over ``batch_axes`` (as the
+    JAX package's mean over a dp-split axis lowers to an all-reduce), and
+    the normalisation is composed of differentiable ops, so the one
+    backward carries the statistics' gradient across the positions. The
+    position at index 0 of the batch axes updates the running statistics
+    (every position holds the same values)."""
+    from ..parallel import compat as _spmd
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    bshape = _bshape(x, axis)
+    count = (x.numel() // x.shape[axis]) * _spmd.axis_size(batch_axes)
+    xf = x.float()
+    # a copy: the position at index 0 updates the running mean in place
+    # while its peers may still read the shift
+    s = moving_mean.detach().float().clone()
+    mean_ = _spmd.psum(xf.sum(dim=red), batch_axes) / count
+    d2 = _spmd.psum((xf - s.reshape(bshape)).square().sum(dim=red),
+                    batch_axes) / count
+    var = (d2 - (mean_ - s).square()).clamp_min(0.0)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    out = (xf - mean_.reshape(bshape)) * torch.rsqrt(var + eps).reshape(
+        bshape) * g.float().reshape(bshape) + beta.float().reshape(bshape)
+    if _spmd.axis_index(batch_axes) == 0 and not autograd._recomputing():
+        with torch.no_grad():
+            moving_mean.copy_(momentum * moving_mean
+                              + (1 - momentum) * mean_)
+            moving_var.copy_(momentum * moving_var + (1 - momentum) * var)
+    return out.to(x.dtype)
 
 
 # ================================================================ sequences

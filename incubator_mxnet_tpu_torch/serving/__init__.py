@@ -18,8 +18,8 @@
 - ``server``     — ServingServer: the HTTP front end (JSON tensors,
   chunked JSONL generation, /healthz, Prometheus /metrics, /debug/).
 
-``MeshServable`` and ``serving_mesh`` (``sharded.py``, tensor-parallel
-serving) wait for ROADMAP §1 item 5 and raise, naming it.
+- ``sharded``    — MeshServable: a block tensor-parallel over a mesh,
+  in data-parallel replica groups (``serving_mesh``).
 
 Start::
 
@@ -43,6 +43,7 @@ from .registry import (ModelRegistry, BlockServable,  # noqa: F401
                        ModelNotFoundError)
 from .resilience import Supervisor  # noqa: F401
 from .server import ServingServer, serve  # noqa: F401
+from .sharded import MeshServable, serving_mesh  # noqa: F401
 from . import accesslog, generate  # noqa: F401
 
 __all__ = [
@@ -54,25 +55,3 @@ __all__ = [
     "ServingServer", "serve",
     "MeshServable", "serving_mesh",
 ]
-
-_ITEM_5 = ("tensor-parallel serving (serving/sharded.py) comes with the "
-           "multi-GPU slice of the port, ROADMAP §1 item 5")
-
-
-class MeshServable:
-    """The JAX package's tensor-parallel servable: item 5's."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_ITEM_5)
-
-    @property
-    def replicas(self):
-        raise NotImplementedError(_ITEM_5)
-
-    def predict_batch(self, *stacked_inputs, replica=0):
-        raise NotImplementedError(_ITEM_5)
-
-
-def serving_mesh(*args, **kwargs):
-    """The JAX package's serving mesh: item 5's."""
-    raise NotImplementedError(_ITEM_5)

@@ -562,8 +562,13 @@ def test_contrib_sync_batch_norm_on_one_device():
                       lambda *a: tcontrib.SyncBatchNorm(*a, ndev=1, key="k"),
                       *args)
     _close(got, want)
-    with pytest.raises(NotImplementedError):
-        tcontrib.SyncBatchNorm(*[torch.from_numpy(a) for a in args], ndev=2)
+    # across devices it is the same operator outside a data-parallel step
+    # (inside one it takes the global batch's statistics:
+    # tests/test_torch_parallel.py)
+    two = tcontrib.SyncBatchNorm(*[torch.from_numpy(a) for a in args],
+                                 ndev=2)
+    assert torch.equal(two, tcontrib.SyncBatchNorm(
+        *[torch.from_numpy(a) for a in args], ndev=1, key="k"))
 
 
 def test_contrib_sparse_embedding_and_index_array():

@@ -249,8 +249,9 @@ def test_layers_match_the_reference(name):
 
 def test_sync_batch_norm_is_batch_norm_on_one_device():
     """The same weights and batch: SyncBatchNorm and BatchNorm give the
-    same output, gradients and running statistics bit for bit; across
-    devices it waits for the multi-GPU slice."""
+    same output, gradients and running statistics bit for bit; with
+    num_devices > 1 it is the same layer (it takes the global batch's
+    statistics inside a data-parallel step: tests/test_torch_parallel.py)."""
     x = onp.random.RandomState(3).randn(4, 3, 5, 5).astype("float32")
     runs = []
     for cls in (mxt.gluon.nn.SyncBatchNorm, mxt.gluon.nn.BatchNorm):
@@ -261,8 +262,11 @@ def test_sync_batch_norm_is_batch_norm_on_one_device():
                                  bn.collect_params().values()])
     for a, b in zip(*runs):
         assert onp.array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        mxt.gluon.nn.SyncBatchNorm(num_devices=2)
+    bn = mxt.gluon.nn.SyncBatchNorm(in_channels=3, num_devices=2)
+    bn.initialize(ctx=mxt.cpu())
+    out, dx = _run(bn, tnd, tautograd, x, ctx=mxt.cpu())
+    assert onp.array_equal(out, runs[1][0]) and onp.array_equal(dx,
+                                                                runs[1][1])
 
 
 def _transposed_conv_numpy(x, w, stride, pad, adj, groups):

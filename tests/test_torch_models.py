@@ -143,9 +143,29 @@ def test_gpt_rejects_sequences_past_max_length():
 
 
 def test_ring_and_ulysses_wait_for_the_multi_gpu_slice():
-    for attention in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            tmodels.MultiHeadAttention(64, 2, attention=attention)
+    """They no longer wait: ``attention="ring"|"ulysses"`` run over the
+    current mesh's ``sp`` axis and equal flash attention from the same
+    weights (against the JAX package: tests/test_torch_ring_attention.py);
+    an unknown attention still raises."""
+    from incubator_mxnet_tpu_torch import parallel
+    x = torch.tensor(onp.random.RandomState(4).randn(2, 64, 64)
+                     .astype("float32"))
+    flash = tmodels.MultiHeadAttention(64, 4, attention="flash",
+                                       causal=True)
+    flash.initialize(ctx=mxt.cpu())
+    want = flash(x).detach()
+    parallel.make_mesh({"sp": 4}, devices=[torch.device("cpu")] * 4)
+    try:
+        for attention in ("ring", "ulysses"):
+            cell = tmodels.MultiHeadAttention(64, 4, attention=attention,
+                                              causal=True)
+            cell.initialize(ctx=mxt.cpu())
+            cell.load_state_dict(flash.state_dict())
+            torch.testing.assert_close(cell(x).detach(), want, **TOL)
+    finally:
+        parallel.set_current_mesh(None)
+    with pytest.raises(ValueError, match="unknown attention"):
+        tmodels.MultiHeadAttention(64, 2, attention="sparse")
 
 
 #: modules every walk of the port must reach (the array layer, serving,
@@ -165,7 +185,12 @@ PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "serving.resilience", "serving.generate", "telemetry",
                 "telemetry.registry", "telemetry.spans",
                 "telemetry.flightrec", "telemetry.watchdog",
-                "telemetry.faultlab")
+                "telemetry.faultlab", "parallel", "parallel.compat",
+                "parallel.mesh", "parallel.data_parallel",
+                "parallel.tensor_parallel", "parallel.ring_attention",
+                "parallel.ulysses", "parallel.moe", "parallel.pipeline",
+                "parallel.pipeline_interleaved", "parallel.gluon_pipeline",
+                "serving.sharded")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -25,6 +25,7 @@ import threading
 
 import numpy as onp
 import pytest
+import torch
 
 import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu import models as jmodels
@@ -286,16 +287,19 @@ def test_serve_refuses_an_artifact_path_naming_the_next_slice(tmp_path):
     """``serve`` of a path loads it as a ``.mxtpu`` artifact (served in
     tests/test_torch_export.py): a missing file or one without the magic
     is refused, as the JAX package's ``load`` refuses it. The mesh
-    servables still name item 5; a shadow needs a loaded model."""
+    servables (tests/test_torch_serving_sharded.py) take the visible CUDA
+    devices unless given ``devices=``: with none they refuse, never falling
+    back to the CPU; a shadow needs a loaded model."""
     with pytest.raises(FileNotFoundError):
         serving.serve({"m": str(tmp_path / "model.mxtpu")}, port=0)
     garbage = tmp_path / "garbage.mxtpu"
     garbage.write_bytes(b"not an artifact")
     with pytest.raises(ValueError, match="not an mxtpu serving artifact"):
         serving.serve({"m": str(garbage)}, port=0)
-    for fn in (lambda: serving.MeshServable(None), serving.serving_mesh):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn()
+    if not torch.cuda.is_available():
+        for fn in (lambda: serving.MeshServable(None), serving.serving_mesh):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                fn()
     reg = serving.ModelRegistry()
     try:
         with pytest.raises(serving.ModelNotFoundError):

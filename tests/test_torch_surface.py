@@ -484,8 +484,15 @@ def test_steps_and_servable_take_model_id_and_data_axis():
     assert ev(_x(mxt)).asnumpy().tolist() == WANT
     servable = mxt.serving.BlockServable(net, model_id="f1")
     assert servable._model_id == "f1"
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tjit.TrainStep(net, loss, trainer, mesh=object(), data_axis="dp")
+    mesh = mxt.parallel.make_mesh({"dp": 2}, devices=[torch.device("cpu")]
+                                  * 2)
+    try:
+        step = tjit.TrainStep(net, loss, trainer, mesh=mesh, data_axis="dp")
+        assert step.mesh is mesh and step.data_axis == "dp"
+        with pytest.raises(ValueError, match="data_axis 'sp'"):
+            tjit.TrainStep(net, loss, trainer, mesh=mesh, data_axis="sp")
+    finally:
+        mxt.parallel.set_current_mesh(None)
 
 
 # ====================================================== test_utils, config
@@ -631,8 +638,7 @@ def test_serving_surface_is_the_references(path):
     every class has its public methods and every function takes its
     parameters; names the port has not ported raise when used, naming
     their item (``telemetry``'s five modules of item 7 on access,
-    ``MeshServable``/``serving_mesh`` of item 5 on call: held by
-    tests/test_torch_telemetry.py and test_torch_serving_http.py)."""
+    held by tests/test_torch_telemetry.py)."""
     import importlib
     import inspect
     import types
@@ -676,7 +682,12 @@ CLASS_WALK_NAMESPACES = [
     "ops.attention", "ops.conv_bwd", "ops.ctc", "ops.deformable",
     "ops.detection", "ops.kvcache", "ops.lm_ce", "ops.multibox",
     "contrib.serving", "telemetry.devstats", "telemetry.profstats",
-    "telemetry.numwatch", "telemetry.slo", "telemetry.history"]
+    "telemetry.numwatch", "telemetry.slo", "telemetry.history",
+    "parallel", "parallel.compat", "parallel.mesh", "parallel.data_parallel",
+    "parallel.tensor_parallel", "parallel.ring_attention",
+    "parallel.ulysses", "parallel.moe", "parallel.pipeline",
+    "parallel.pipeline_interleaved", "parallel.gluon_pipeline",
+    "serving.sharded"]
 
 #: what the walk leaves out, each with its reason
 WALK_EXCEPTIONS = {

@@ -219,17 +219,26 @@ def test_train_step_gives_trainer_params_outside_the_net_fresh_grads():
 
 
 def test_train_step_and_sgd_refuse_options_the_port_has_not():
-    """Options whose machinery the port does not have yet raise instead of
-    being ignored: a mesh and ZeRO sharding. The reference's keywords that
-    change nothing without them are accepted and kept: ``model_id`` and
-    ``data_axis`` (the AOT cache key and the mesh axis), and SGD's
-    ``lazy_update`` (gradients are dense)."""
+    """Options the port has are taken and checked rather than ignored: a
+    mesh (``parallel.make_mesh``; its ``data_axis`` must be one of its
+    axes, and ``remat`` under it is refused) and ZeRO sharding (which, as
+    in the JAX package, does nothing without a mesh). The reference's
+    keywords that change nothing without them are accepted and kept:
+    ``model_id`` and ``data_axis`` (the AOT cache key and the mesh axis),
+    and SGD's ``lazy_update`` (gradients are dense)."""
     net = mxt.gluon.nn.Dense(3, in_units=5)
     trainer = mxt.gluon.Trainer(net.collect_params(), "sgd")
     loss = mxt.gluon.loss.L2Loss()
-    for kw in (dict(mesh=object()), dict(zero=True)):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            mxt.jit.TrainStep(net, loss, trainer, data_axis="dp", **kw)
+    mesh = mxt.parallel.make_mesh({"dp": 2},
+                                  devices=[torch.device("cpu")] * 2)
+    try:
+        for kw, err in ((dict(mesh=mesh, data_axis="sp"), ValueError),
+                        (dict(mesh=mesh, remat=True), NotImplementedError)):
+            with pytest.raises(err):
+                mxt.jit.TrainStep(net, loss, trainer, **kw)
+        assert mxt.jit.TrainStep(net, loss, trainer, zero=True).mesh is None
+    finally:
+        mxt.parallel.set_current_mesh(None)
     step = mxt.jit.TrainStep(net, loss, trainer, model_id="m",
                              data_axis="dp")
     assert (step._model_id, step.data_axis) == ("m", "dp")
@@ -346,9 +355,18 @@ def test_dropout_follows_the_training_flag():
 
 
 def test_train_step_options_wait_for_their_slices():
+    """They no longer wait: ``zero=True`` without a mesh changes nothing,
+    as in the JAX package; a mesh must hold the data axis (the mesh step
+    itself is held in tests/test_torch_parallel.py)."""
     net = _port_net("gpt", _random_arrays("gpt"))
     trainer = mxt.gluon.Trainer(net.collect_params(), "sgd")
     loss = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
-    for kw in (dict(mesh=object()), dict(zero=True)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            mxt.jit.TrainStep(net, loss, trainer, **kw)
+    step = mxt.jit.TrainStep(net, loss, trainer, zero=True)
+    assert step.zero and step.mesh is None
+    mesh = mxt.parallel.make_mesh({"tp": 2},
+                                  devices=[torch.device("cpu")] * 2)
+    try:
+        with pytest.raises(ValueError, match="data_axis 'dp'"):
+            mxt.jit.TrainStep(net, loss, trainer, mesh=mesh)
+    finally:
+        mxt.parallel.set_current_mesh(None)
