@@ -468,6 +468,28 @@ Phases, each of which must pass, in order:
    1e-4. Prints a {"parallel": ...} line; the kernels line's
    ``launches_by_path`` carries each GPT layout's and the DP, ZeRO and
    mesh-serving paths' K1/K2/K3 launches.
+23. Several processes: two workers on cuda:0 (gloo: NCCL refuses two
+   ranks on one GPU) started by tools/launch.py -n 2, each first checking
+   that gloo's broadcast, all_gather and all_reduce take CUDA tensors,
+   then running tests/dist_worker.py's matrix through the port's stores
+   at small size (push/pull, compression, dist_async diverged / synced /
+   forced / uneven, row-sparse, Module updating on the store: closed
+   forms in the workers, digests equal across ranks here), then
+   full-width BERT (S 512, bf16, flash, Adam multi_precision, B 32 a rank
+   of the global 64) three steps through autograd.record and
+   Trainer(kvstore="dist_sync"): (a) every parameter and optimizer state
+   bitwise equal across the ranks (SHA-256 a leaf); (b) losses, first
+   moments and fp32 masters against one process's Trainer on the whole
+   batch at the same effective scale, with phase 22(c)'s bounds, which a
+   planted fault (rank 1's pushes carry nothing) must fail; (c) K1/K2/K3
+   12 a step on each rank; step ms, the store's collective ms and bytes a
+   step, a profiled step's idle share (with telemetry.profstats), the
+   backend and the workers' start seconds. (d) a dist_device_sync store
+   over NCCL in a group of one process: init, push and pull of a
+   BERT-sized bf16 gradient list, bit for bit. (e) Module over [gpu(0),
+   gpu(0)] against one context, Estimator.fit and one SVRGModule epoch
+   against the CPU, within 1e-5 (fp32, TF32 off). A worker that fails
+   fails the phase. Prints a {"dist": ...} line.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -488,7 +510,9 @@ Prints the card's name and power limit, an {"ndarray": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
 {"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...},
 a {"bucketing": ...}, a {"serving_http": ...}, a {"programs": ...}, a
-{"parallel": ...} and a {"kernels": [...]} line and, as the last line, {"ok": true, "device": {...}}. Exits
+{"parallel": ...}, a {"dist": ...}, a {"phase_seconds": ...} and a
+{"kernels": [...]} line and, as the last line, {"ok": true, "device":
+{...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
 this script, or any phase fails.
 
@@ -510,8 +534,8 @@ phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"module": {...}}), ``--bucketing-only`` phase 19
 ({"bucketing": {...}}), ``--serving-http-only`` phase 20
 ({"serving_http": {...}}), ``--programs-only`` phase 21
-({"programs": {...}}) and ``--parallel-only`` phase 22
-({"parallel": {...}}).
+({"programs": {...}}), ``--parallel-only`` phase 22
+({"parallel": {...}}) and ``--dist-only`` phase 23 ({"dist": {...}}).
 """
 import gc
 import itertools
@@ -539,7 +563,7 @@ RESNET_FLOPS_PER_IMAGE = 24.6e9    # bench.py:32, forward + backward
 NDARRAY_STEPS = 5      # imperative BERT steps, held to TrainStep's
 EAGER_STEPS = 5        # TrainStep's eager body, held to its captured graph
 CAPTURE_REL_TOL = 1e-3     # full width: step EAGER_STEPS's loss, relative
-PROFILED_STEPS = 3     # steps under torch.profiler for the idle share
+PROFILED_STEPS = 2     # steps under torch.profiler for the idle share
 REMAT_STEPS = (2, 3)   # GPT with remat: (first, timed) steps
 SMALL_CAPTURED_STEPS = 4
 AB_STEPS = 12          # the same, with --imperative-only
@@ -1794,12 +1818,14 @@ def _device_events(prof):
                   for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def device_idle_share(fn, steps=PROFILED_STEPS):
+def device_idle_share(fn, steps=PROFILED_STEPS, top=0):
     """``steps`` calls of ``fn`` under torch.profiler (CPU and CUDA
     activity): the device's busy time (the union of its activity
     intervals), the window (host clock from the first call to the end of a
     final synchronise, the profiler's own cost included), the idle share
-    1 - busy / window, and the device activities a step."""
+    1 - busy / window, and the device activities a step; with ``top``, the
+    ``top`` device activities taking the most time a step, as
+    ``top_kernels`` gives them, from the same trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1820,9 +1846,27 @@ def device_idle_share(fn, steps=PROFILED_STEPS):
             cur[1] = max(cur[1], end)
     busy += 0.0 if cur is None else cur[1] - cur[0]
     check(events, "torch.profiler recorded no device activity")
-    return dict(idle_share=1.0 - busy / window_us, busy_ms=busy / 1e3,
-                window_ms=window_us / 1e3,
-                device_activities_per_step=len(events) / steps)
+    out = dict(idle_share=1.0 - busy / window_us, busy_ms=busy / 1e3,
+               window_ms=window_us / 1e3,
+               device_activities_per_step=len(events) / steps)
+    if top:
+        out["top_kernels"] = _top_of(prof, top, steps)
+    return out
+
+
+def _top_of(prof, n, steps):
+    """The ``n`` device activities of a trace taking the most time, summed
+    by name over its ``steps`` calls: [name (240 characters), ms a call,
+    share of the device time]."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
+            by_name[e.name[:240]] = by_name.get(e.name[:240], 0.0) + ms
+    total = sum(by_name.values()) or 1.0
+    return [[k, ms, ms / total] for k, ms in
+            sorted(by_name.items(), key=lambda t: -t[1])[:n] if ms > 0]
 
 
 def kernels_in(fn):
@@ -5178,9 +5222,11 @@ def train_ctc(net, inputs, init, flops):
     timed replays), its eager body (a step phase by phase, then
     CTC_EAGER_TIMED timed), and the hybridized Gluon loop (record,
     forward, CTCLoss, backward, Trainer.step; CTC_LOOP_STEPS). Each then
-    PROFILED_STEPS under the profiler, 3 issued with the card idle and one
-    split by kernel. Every loss finite, and each run's last loss below its
-    first. Returns rows."""
+    one step under the profiler (its idle share and its split by kernel,
+    from one trace: a step is ~60,000 device activities, and the profiler
+    takes seconds for each trace) and 3 (eager: 1) issued with the card
+    idle. Every loss finite, and each run's last loss below its first.
+    Returns rows."""
     import torch
     import incubator_mxnet_tpu_torch as mxt
     params = list(net.collect_params().values())
@@ -5202,9 +5248,9 @@ def train_ctc(net, inputs, init, flops):
     losses.append(step(*inputs))
     got, ms, host_ms = _timed_steps(lambda: step(*inputs), CTC_TIMED)
     losses = [float(v._data.mean()) for v in losses + got]
-    idle = device_idle_share(lambda: step(*inputs))
+    idle = device_idle_share(lambda: step(*inputs), steps=1, top=10)
+    kernels = idle.pop("top_kernels")
     issue = issue_ms(lambda: step(*inputs))
-    kernels = top_kernels(lambda: step(*inputs))
     check(step.captures == 1, "CTC TrainStep: %d captures" % step.captures)
     falling("captured TrainStep", losses)
     rows["captured"] = _ctc_row(ms, host_ms, issue, idle, kernels, flops,
@@ -5222,9 +5268,10 @@ def train_ctc(net, inputs, init, flops):
     got, ms, host_ms = _timed_steps(lambda: _eager_step(step, *inputs),
                                     CTC_EAGER_TIMED)
     losses = [float(v._data.mean()) for v in losses + got]
-    idle = device_idle_share(lambda: _eager_step(step, *inputs), steps=1)
+    idle = device_idle_share(lambda: _eager_step(step, *inputs), steps=1,
+                             top=10)
+    kernels = idle.pop("top_kernels")
     issue = issue_ms(lambda: _eager_step(step, *inputs), n=1)
-    kernels = top_kernels(lambda: _eager_step(step, *inputs))
     falling("eager body", losses)
     rows["eager"] = _ctc_row(ms, host_ms, issue, idle, kernels, flops,
                              losses, dict(step_phases_ms=phases))
@@ -5248,9 +5295,9 @@ def train_ctc(net, inputs, init, flops):
     losses = [round_() for _ in range(warm)]
     got, ms, host_ms = _timed_steps(round_, timed)
     losses = [float(v.asnumpy().mean()) for v in losses + got]
-    idle = device_idle_share(round_, steps=1)
+    idle = device_idle_share(round_, steps=1, top=10)
+    kernels = idle.pop("top_kernels")
     issue = issue_ms(round_, n=1)
-    kernels = top_kernels(round_)
     falling("Gluon loop", losses)
     rows["gluon_loop"] = _ctc_row(ms, host_ms, issue, idle, kernels, flops,
                                   losses, dict(captures=net._captures))
@@ -8394,6 +8441,675 @@ def parallel_phase(card):
                           seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------- phase 23: several processes
+DIST_N = 2                  # worker processes, both on cuda:0 (gloo)
+DIST_STEPS = 3
+DIST_B = BERT_TRAIN_B // DIST_N     # each rank's rows of the global batch
+DIST_WORKER_TIMEOUT_S = 600         # the launcher's subprocess bound
+DIST_GROUP_TIMEOUT_S = 180          # the process group's, each collective's
+DIST_SMALL_TOL = 1e-5       # card against one context / the CPU, fp32
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sha256_leaves(tensors):
+    """SHA-256 of each tensor's bytes (a thread pool: hashlib releases the
+    interpreter lock on large buffers)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+
+    def digest(t):
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        return list(pool.map(digest, tensors))
+
+
+def _gloo_cuda_collectives(dist_mod):
+    """Whether gloo's broadcast, all_gather and all_reduce take CUDA
+    tensors on this build, each checked on a small value: {op: "ok" or the
+    error}. Nothing is copied to the host around them."""
+    import torch
+    import torch.distributed as tdist
+    rank, n = dist_mod.rank(), dist_mod.num_workers()
+    dev = torch.device("cuda", 0)
+    got = {}
+    for op in ("broadcast", "all_gather", "all_reduce"):
+        try:
+            t = torch.full((4,), float(rank + 1), device=dev)
+            if op == "broadcast":
+                tdist.broadcast(t, src=0)
+                ok = torch.equal(t, torch.ones_like(t))
+            elif op == "all_gather":
+                rows = [torch.empty_like(t) for _ in range(n)]
+                tdist.all_gather(rows, t)
+                ok = all(torch.equal(r, torch.full_like(t, i + 1.0))
+                         for i, r in enumerate(rows))
+            else:
+                tdist.all_reduce(t)
+                ok = torch.equal(t, torch.full_like(t, n * (n + 1) / 2))
+            got[op] = "ok" if ok else "wrong values"
+        except Exception as e:        # reported, and fatal in the parent
+            got[op] = "%s: %s" % (type(e).__name__, e)
+    return got
+
+
+def _dist_matrix(mxt, rank, n):
+    """tests/dist_worker.py's matrix through the port's stores on the
+    card, at small size: push/pull, dist_sync SGD, compression, dist_async
+    diverged / synced / forced / uneven, Module updating on the store,
+    row-sparse sync and async. Closed forms are checked here; the digests,
+    which must agree across ranks (but the diverged one), go back to the
+    parent."""
+    import hashlib
+    import numpy as onp
+    nd, gpu = mxt.nd, mxt.gpu(0)
+
+    def arr(a):
+        return nd.array(onp.asarray(a, dtype="float32"), ctx=gpu)
+
+    def digest(a):
+        return hashlib.sha256(a.asnumpy().tobytes()).hexdigest()
+    out = {}
+    kv = mxt.kv.create("dist_sync")
+    check((kv.rank, kv.num_workers) == (rank, n), "dist_sync's rank")
+    kv.init("a", arr(onp.full(4, 100.0 if rank == 0 else 0.0)))
+    o = arr(onp.zeros(4))
+    kv.pull("a", out=o)
+    check(onp.all(o.asnumpy() == 100.0), "init did not broadcast rank 0's")
+    kv.push("a", arr(onp.full(4, rank + 1.0)))
+    kv.pull("a", out=o)
+    check(onp.all(o.asnumpy() == n * (n + 1) / 2), "push/pull: %s" % o)
+    kv2 = mxt.kv.create("dist_sync")
+    kv2.set_optimizer(mxt.optimizer.SGD(learning_rate=0.1))
+    kv2.init(0, arr(onp.random.RandomState(7).randn(8, 4)))
+    for step in range(3):
+        kv2.push(0, arr(onp.full((8, 4), 0.01 * (rank + 1) * (step + 1))))
+    w = arr(onp.zeros((8, 4)))
+    kv2.pull(0, out=w)
+    out["params"] = digest(w)
+    kv3 = mxt.kv.create("dist_sync")
+    kv3.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kv3.init("c", arr(onp.zeros(4)))
+    kv3.push("c", arr([0.6, -0.7, 0.2, 0.0] if rank == 0 else
+                      [0.4, 0.0, -0.9, 0.1]))
+    kv3.pull("c", out=o)
+    check(o.asnumpy().tolist() == [0.5, -0.5, -0.5 * (n - 1), 0.0],
+          "compression: %s" % o.asnumpy())
+    kva = mxt.kv.create("dist_async")
+    kva._staleness = 2
+    kva.set_optimizer(mxt.optimizer.SGD(learning_rate=0.1))
+    w_init = onp.random.RandomState(11).randn(4, 2).astype("float32")
+    kva.init(0, arr(w_init))
+    wa = arr(onp.zeros((4, 2)))
+    kva.push(0, arr(onp.full((4, 2), rank + 1.0)))
+    kva.pull(0, out=wa)
+    out["async_diverged"] = digest(wa)
+    kva.push(0, arr(onp.full((4, 2), rank + 1.0)))
+    kva.pull(0, out=wa)
+    out["async_synced"] = digest(wa)
+    want = sum(w_init - 0.2 * (r + 1) for r in range(n)) / n
+    check(onp.allclose(wa.asnumpy(), want, atol=1e-5), "dist_async average")
+    kva.push(0, arr(onp.full((4, 2), rank + 1.0)))
+    kva.sync()
+    kva.pull(0, out=wa)
+    out["async_forced"] = digest(wa)
+    planned = 5 if rank == 0 else 3
+    budget = kva.begin_epoch(planned)
+    check(budget == 1, "uneven shards: budget %s" % budget)
+    for _ in range(planned):
+        kva.push(0, arr(onp.full((4, 2), rank + 1.0)))
+    kva.sync()
+    kva.pull(0, out=wa)
+    out["async_uneven"] = digest(wa)
+    sym = mxt.sym
+    net = sym.LinearRegressionOutput(
+        sym.FullyConnected(sym.Variable("data"), num_hidden=1, name="fc"),
+        sym.Variable("softmax_label"), name="lro")
+    m = mxt.mod.Module(net, context=gpu)
+    m.bind(data_shapes=[("data", (4, 3))],
+           label_shapes=[("softmax_label", (4, 1))])
+    m.init_params(arg_params={
+        "fc_weight": arr(onp.random.RandomState(5).randn(1, 3)),
+        "fc_bias": arr(onp.zeros(1))})
+    m.init_optimizer(kvstore=mxt.kv.create("dist_sync"), optimizer="sgd",
+                     optimizer_params={"learning_rate": 0.1})
+    check(m._update_on_kvstore, "Module does not update on a dist store")
+    batch = mxt.io.DataBatch(data=[arr(onp.full((4, 3), rank + 1.0))],
+                             label=[arr(onp.full((4, 1), -float(rank)))])
+    for _ in range(2):
+        m.forward_backward(batch)
+        m.update()
+    out["module_kv"] = digest(m.get_params()[0]["fc_weight"])
+    dense = onp.zeros((6, 3), "float32")
+    for r in (rank % 6, (rank + 2) % 6):
+        dense[r] = rank + 1
+    want_rs = onp.zeros((6, 3), "float32")
+    for r in range(n):
+        for row in (r % 6, (r + 2) % 6):
+            want_rs[row] += r + 1
+    kvr = mxt.kv.create("dist_sync")
+    kvr.init("rs", arr(onp.zeros((6, 3))))
+    kvr.push("rs", arr(dense).tostype("row_sparse"))
+    outr = arr(onp.zeros((6, 3)))
+    kvr.pull("rs", out=outr)
+    check(onp.array_equal(outr.asnumpy(), want_rs), "row_sparse sync")
+    kvar = mxt.kv.create("dist_async")
+    kvar._staleness = 10 ** 9
+    kvar.init("ars", arr(onp.zeros((6, 3))))
+    kvar.push("ars", arr(dense).tostype("row_sparse"))
+    kvar.sync()
+    kvar.pull("ars", out=outr)
+    out["rowsparse_async"] = digest(outr)
+    return out
+
+
+def _dist_bert_run(mxt, model, init, tokens, kvstore, skip_push=False,
+                   profile_dir=None):
+    """DIST_STEPS Adam (multi_precision) steps of ``model`` from the
+    weights ``init`` on ``tokens`` through ``Trainer(kvstore=...)``, each
+    step recorded through ``autograd.record`` and ``Trainer.step(DIST_B)``.
+    Returns (the global mean losses, a row a step, each parameter's (fp32
+    master, first moment, second moment), trainer). With ``skip_push``
+    this rank's gradients are zeroed before the push (the planted fault:
+    its pushes carry nothing). With ``profile_dir`` one more step runs
+    under torch.profiler after the checked ones."""
+    import torch
+    import torch.distributed as tdist
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    params = list(model.collect_params().values())
+    _reset(params, init)
+    trainer = mxt.gluon.Trainer(model.collect_params(), "adam", {
+        "learning_rate": PAR_LR, "multi_precision": True}, kvstore=kvstore)
+    loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, rows = [], []
+    tokens = mxt.nd.NDArray(tokens)     # NDArrays: backward seeds ones
+
+    def one_step():
+        with autograd.record():
+            loss = loss_fn(model(tokens), tokens)
+        loss.backward()
+        if skip_push:
+            for p in params:
+                p.grad()._data.zero_()
+        trainer.step(DIST_B)
+        return loss
+    for _ in range(DIST_STEPS):
+        kv = trainer._kvstore
+        before = dict(kv.collective_stats) if kv is not None else None
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        h0 = time.perf_counter()
+        s.record()
+        loss = one_step()
+        e.record()
+        e.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        row = dict(step_ms=s.elapsed_time(e), host_ms=host_ms,
+                   launches={k: _kernels.LAUNCHES.get(k, 0) for k in (
+                       "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+        mean = loss._data.detach().float().mean().reshape(1)
+        kv = trainer._kvstore
+        if kv is not None:
+            tdist.all_reduce(mean)
+            mean = mean / kv.num_workers
+            after = kv.collective_stats
+            row.update(
+                collective_ms=(after["seconds"] - (before or {}).get(
+                    "seconds", 0.0)) * 1e3,
+                bytes_pushed=after["bytes"] - (before or {}).get("bytes", 0),
+                collectives=after["collectives"] - (before or {}).get(
+                    "collectives", 0))
+        losses.append(float(mean))
+        rows.append(row)
+    states = trainer._kvstore._updater.states if trainer._update_on_kvstore \
+        else dict(enumerate(trainer._states))
+    after = [(st[0].detach().clone(), st[1][0].detach().clone(),
+              st[1][1].detach().clone())
+             for _, st in sorted(states.items())]
+    if profile_dir is not None:
+        rows.append(dict(profiled=_profiled_step(one_step, profile_dir)))
+    return losses, rows, after, trainer
+
+
+def _profiled_step(step, out_dir):
+    """One call of ``step`` under torch.profiler: the device's idle share
+    over the host's window and, from the chrome trace through the port's
+    ``telemetry.profstats``, its idle ratio and device time by
+    category."""
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+    from incubator_mxnet_tpu_torch.telemetry import profstats
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if torch.cuda.is_available() else
+                 [ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(out_dir, "trace-%d.json" % os.getpid())
+    prof.export_chrome_trace(path)
+    summary = profstats.summarize_trace(path)
+    busy_ms = summary["device_busy_us"] / 1e3
+    os.remove(path)
+    return dict(window_ms=window_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / window_ms,
+                profstats_idle_ratio=summary["device_idle_ratio"],
+                categories_ms={k: v["self_us"] / 1e3 for k, v in
+                               summary["categories"].items()},
+                top=[(o["op"][:60], o["self_us"] / 1e3)
+                     for o in summary["ops"][:6]])
+
+
+def dist_worker(opts):
+    """One rank of phase 23 (started by tools/launch.py; the package import
+    started the gloo group from the launcher's environment). Writes its
+    results to ``<out>/rank<r>.json``."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.parallel import dist
+    ready_s = time.time() - opts.t0
+    rank, n = dist.rank(), dist.num_workers()
+    res = dict(rank=rank, workers=n, backend=dist.backend(), start_s=ready_s,
+               device=str(dist._STATE["device"]))
+    check(n == DIST_N and res["backend"] == "gloo",
+          "rank %d: %d workers over %s" % (rank, n, res["backend"]))
+    res["gloo_cuda"] = _gloo_cuda_collectives(dist)
+    t0 = time.perf_counter()
+    res["matrix"] = _dist_matrix(mxt, rank, n)
+    res["matrix_s"] = time.perf_counter() - t0
+    dev = mxt.context.as_device(mxt.gpu(0))
+    model = models.BERTModel(**BERT)
+    model.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                     .Generator(device=dev).manual_seed(23))
+    model.cast("bfloat16")
+    params = list(model.collect_params().values())
+    init = [p._tensor().detach().clone() for p in params]
+    everything = torch.from_numpy(onp.random.RandomState(23).randint(
+        0, BERT["vocab_size"], (BERT_TRAIN_B, BERT_S)).astype("int32")) \
+        .to(dev)
+    mine = everything[rank * DIST_B:(rank + 1) * DIST_B]
+    losses, rows, states, trainer = _dist_bert_run(
+        mxt, model, init, mine, "dist_sync", profile_dir=opts.out)
+    res.update(losses=losses, steps=rows)
+    res["digests"] = _sha256_leaves(
+        [p._tensor() for p in params] + [t for st in states for t in st])
+    del trainer
+    f_losses, _, f_states, trainer = _dist_bert_run(
+        mxt, model, init, mine, "dist_sync", skip_push=rank == 1)
+    res["fault_digests"] = _sha256_leaves([t for st in f_states
+                                           for t in st])
+    del trainer
+    if rank == 0:
+        res["check"] = _dist_against_one_process(
+            mxt, model, init, everything, mine, losses, states, f_losses,
+            f_states)
+    with open(os.path.join(opts.out, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    log("rank %d: done %.1f s after the launch" % (
+        rank, time.time() - opts.t0))
+    return 0
+
+
+def _dist_against_one_process(mxt, model, init, everything, mine, losses,
+                              states, f_losses, f_states):
+    """(b), on rank 0 once the collectives are done: the two ranks'
+    parameters, first moments and losses against one process's Trainer on
+    the whole batch at the same effective scale, with phase 22(c)'s bounds
+    (each leaf's bf16 rounding error measured on this rank's rows), and
+    the planted fault (rank 1's pushes carry nothing) must fail them. The
+    scale: the ranks push their gradient sums over 32 rows each, the store
+    sums them and the update rescales by 1/DIST_B, so the step takes the
+    global 64 rows' gradient sum over 32, twice the batch mean; one
+    process takes the 64 rows and Trainer.step(DIST_B), the same."""
+    import torch
+    names = list(model.collect_params().keys())
+    loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+    _reset(list(model.collect_params().values()), init)
+    _, part_grads = _leaf_grads(model, lambda: loss_fn(model(mine), mine))
+    zero, noise = _rounding(model, lambda: loss_fn(model(mine), mine),
+                            part_grads, "dist BERT B %d" % DIST_B)
+    del part_grads
+    one_l, one_rows, one_s, trainer = _dist_bert_run(
+        mxt, model, init, everything, None)
+    del trainer
+    torch.cuda.empty_cache()
+
+    def two(st):
+        return [(m, mean) for m, mean, _ in st]
+    out = dict(one_process_losses=one_l,
+               one_process_step_ms=[r["step_ms"] for r in one_rows],
+               zero_to_rounding=zero)
+    passes, out["two_ranks"] = _dp_report(
+        "dist_sync (2 ranks) against one process", *_dp_errors(
+            losses, two(states), one_l, two(one_s), init, names, zero),
+        noise)
+    fault_passes, out["planted_skipped_push"] = _dp_report(
+        "planted: rank 1 skips its push", *_dp_errors(
+            f_losses, two(f_states), one_l, two(one_s), init, names, zero),
+        noise)
+    out.update(passes=passes, planted_fails=not fault_passes)
+    return out
+
+
+def dist_nccl_one(opts):
+    """(d): a dist_device_sync store over NCCL in a group of one process:
+    init, push and pull of a gradient list of full-width BERT's shapes
+    (bf16), the pulled values the pushed ones bit for bit. Writes
+    ``<out>/nccl.json``."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.parallel import dist
+    dist.init_distributed("127.0.0.1:%d" % _free_port(), 1, 0,
+                          backend="nccl", device="cuda:0",
+                          timeout=DIST_GROUP_TIMEOUT_S)
+    check(dist.backend() == "nccl", "backend %s" % dist.backend())
+    dev = torch.device("cuda", 0)
+    model = models.BERTModel(**BERT)
+    model.initialize(ctx=mxt.gpu(0))
+    shapes = [tuple(p.shape) for p in model.collect_params().values()]
+    del model
+    g = torch.Generator(device=dev).manual_seed(5)
+    grads = [mxt.nd.NDArray(torch.randn(s, generator=g, device=dev).to(
+        torch.bfloat16)) for s in shapes]
+    keys = list(range(len(shapes)))
+    kv = mxt.kv.create("dist_device_sync")
+    kv.init(keys, [mxt.nd.NDArray(torch.zeros(s, dtype=torch.bfloat16,
+                                              device=dev)) for s in shapes])
+    outs = [mxt.nd.NDArray(torch.empty(s, dtype=torch.bfloat16, device=dev))
+            for s in shapes]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kv.push(keys, grads)
+    kv.pull(keys, out=outs)
+    torch.cuda.synchronize()
+    push_pull_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(o._data, w._data) for o, w in zip(outs, grads)),
+          "NCCL world of one: a pulled value is not the pushed one")
+    st = kv.collective_stats
+    res = dict(backend=dist.backend(), leaves=len(shapes),
+               bytes=st["bytes"], collectives=st["collectives"],
+               push_pull_ms=push_pull_ms)
+    with open(os.path.join(opts.out, "nccl.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _small_module_on_contexts(mxt, ctx, x, y):
+    """A small fp32 MLP symbol through two SGD-momentum updates over
+    ``ctx``: (parameters, outputs)."""
+    import numpy as onp
+    sym = mxt.sym
+    net = sym.FullyConnected(sym.var("data"), num_hidden=16, name="fc1")
+    net = sym.Activation(net, act_type="tanh", name="t1")
+    net = sym.SoftmaxOutput(sym.FullyConnected(net, num_hidden=4,
+                                               name="fc2"), name="softmax")
+    mod = mxt.mod.Module(net, context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    rng = onp.random.RandomState(3)
+    dev = ctx[0] if isinstance(ctx, list) else ctx
+    mod.init_params(arg_params={
+        k: mxt.nd.array((rng.randn(*s) * 0.3).astype("float32"), ctx=dev)
+        for k, s in (("fc1_weight", (16, x.shape[1])), ("fc1_bias", (16,)),
+                     ("fc2_weight", (4, 16)), ("fc2_bias", (4,)))})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    batch = mxt.io.DataBatch(data=[mxt.nd.array(x, ctx=dev)],
+                             label=[mxt.nd.array(y, ctx=dev)])
+    for _ in range(2):
+        mod.forward_backward(batch)
+        mod.update()
+    return ({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+            mod.get_outputs()[0].asnumpy())
+
+
+def _small_estimator(mxt, ctx):
+    """Estimator.fit of a Dense net (2 epochs x 3 batches) with a logging
+    handler on ``ctx``: (weight, bias, evaluate's accuracy)."""
+    import numpy as onp
+    from incubator_mxnet_tpu_torch.gluon.contrib import estimator
+    net = mxt.gluon.nn.Dense(3, in_units=4)
+    net.initialize(ctx=ctx)
+    rng = onp.random.RandomState(4)
+    net.weight.set_data(mxt.nd.array(
+        rng.uniform(-0.5, 0.5, (3, 4)).astype("float32"), ctx=ctx))
+    net.bias.set_data(mxt.nd.zeros((3,), ctx=ctx))
+    batches = [(mxt.nd.array(rng.randn(4, 4).astype("float32"), ctx=ctx),
+                mxt.nd.array(rng.randint(0, 3, 4).astype("float32"),
+                             ctx=ctx)) for _ in range(3)]
+    est = estimator.Estimator(
+        net, mxt.gluon.loss.SoftmaxCrossEntropyLoss(),
+        train_metrics=mxt.metric.Accuracy(),
+        trainer=mxt.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.5}))
+    est.fit(batches, epochs=2, event_handlers=[
+        estimator.LoggingHandler(metrics=est.train_metrics)])
+    return (net.weight.data().asnumpy(), net.bias.data().asnumpy(),
+            est.evaluate(batches)[0].get()[1])
+
+
+def _small_svrg(mxt, ctx):
+    """One SVRGModule.fit epoch of a linear regression symbol on ``ctx``:
+    (weight, mu)."""
+    import numpy as onp
+    S = mxt.sym
+    net = S.LinearRegressionOutput(
+        S.FullyConnected(S.var("data"), num_hidden=1, name="fc"),
+        S.var("lin_reg_label"), name="lro")
+    rng = onp.random.RandomState(0)
+    x = rng.randn(16, 3).astype("float32")
+    y = (x @ onp.array([[1.5], [-2.0], [0.5]], "float32") + 0.3).ravel()
+    it = mxt.io.NDArrayIter(x, y, batch_size=4, label_name="lin_reg_label")
+    mod = mxt.contrib.svrg.SVRGModule(net, label_names=["lin_reg_label"],
+                                      context=ctx, update_freq=1)
+    mod.fit(it, num_epoch=1, eval_metric="mse", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.05),),
+            arg_params={"fc_weight": mxt.nd.array(
+                rng.randn(1, 3).astype("float32") * 0.1, ctx=ctx),
+                "fc_bias": mxt.nd.zeros((1,), ctx=ctx)})
+    return (mod.get_params()[0]["fc_weight"].asnumpy(),
+            mod._mu["fc_weight"].asnumpy())
+
+
+def _close_rel(got, want):
+    import numpy as onp
+    want = onp.asarray(want, "float64")
+    return float(onp.abs(onp.asarray(got, "float64") - want).max()) / max(
+        float(onp.abs(want).max()), 1e-30)
+
+
+def dist_single_process_checks():
+    """(e)'s single-process part on the card, fp32 with TF32 off:
+    Module(context=[gpu(0), gpu(0)]) against one context, Estimator.fit
+    and one SVRGModule.fit epoch against the CPU, each within
+    DIST_SMALL_TOL of the largest value."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = onp.random.RandomState(8)
+        x = rng.randn(8, 6).astype("float32")
+        y = rng.randint(0, 4, 8).astype("float32")
+        two = _small_module_on_contexts(mxt, [mxt.gpu(0), mxt.gpu(0)], x, y)
+        one = _small_module_on_contexts(mxt, mxt.gpu(0), x, y)
+        errs = {"module_two_contexts": max(
+            [_close_rel(two[0][k], one[0][k]) for k in one[0]]
+            + [_close_rel(two[1], one[1])])}
+        card = _small_estimator(mxt, mxt.gpu(0))
+        host = _small_estimator(mxt, mxt.cpu())
+        errs["estimator"] = max(_close_rel(card[0], host[0]),
+                                _close_rel(card[1], host[1]))
+        check(card[2] == host[2], "Estimator: accuracy %s on the card, %s "
+              "on the CPU" % (card[2], host[2]))
+        card, host = _small_svrg(mxt, mxt.gpu(0)), _small_svrg(mxt, mxt.cpu())
+        errs["svrg"] = max(_close_rel(card[0], host[0]),
+                           _close_rel(card[1], host[1]))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    log("  dist: single-process checks on the card (relative to the "
+        "largest value, tol %g): %s" % (DIST_SMALL_TOL, errs))
+    check(all(e <= DIST_SMALL_TOL for e in errs.values()),
+          "dist single-process checks: %s" % errs)
+    return errs
+
+
+def _dist_verdicts(ranks, nccl_res):
+    """Phase 23's checks on the workers' results (each fatal) and its
+    lines; returns the main path's K1/K2/K3 launches (both ranks' three
+    steps)."""
+    for r in ranks:
+        check(all(v == "ok" for v in r["gloo_cuda"].values()),
+              "rank %d: gloo collectives on CUDA tensors: %s"
+              % (r["rank"], r["gloo_cuda"]))
+    # (e) the matrix: every digest the same on both ranks, but the
+    # diverged dist_async one
+    for k in ranks[0]["matrix"]:
+        same = len({r["matrix"][k] for r in ranks}) == 1
+        check(same != (k == "async_diverged"),
+              "dist matrix %s: digests %s" % (k, [r["matrix"][k]
+                                                  for r in ranks]))
+    # (a) bitwise equal across ranks, leaf by leaf
+    diff = [i for i, (a, b) in enumerate(zip(ranks[0]["digests"],
+                                             ranks[1]["digests"])) if a != b]
+    check(not diff and len(ranks[0]["digests"]) == len(
+        ranks[1]["digests"]), "dist BERT: leaves %s differ across ranks"
+        % diff[:8])
+    check(ranks[0]["fault_digests"] == ranks[1]["fault_digests"],
+          "dist BERT: the planted fault's ranks differ")
+    # (c) K1/K2/K3 a step: one each a layer
+    per = BERT["num_layers"]
+    for r in ranks:
+        for i, row in enumerate(r["steps"][:DIST_STEPS]):
+            check(all(v == per for v in row["launches"].values()),
+                  "rank %d step %d: K1/K2/K3 launched %s, expected %d each"
+                  % (r["rank"], i, row["launches"], per))
+    got = ranks[0]["check"]
+    check(got["passes"], "dist BERT (2 ranks) against one process: %s"
+          % got["two_ranks"])
+    check(got["planted_fails"], "the dist check passes the planted skipped "
+          "push: %s" % got["planted_skipped_push"])
+    # (d)
+    check(nccl_res["backend"] == "nccl", "NCCL world of one: %s" % nccl_res)
+    launches = {"dist_bert": {k: sum(row["launches"][k] for r in ranks
+                                     for row in r["steps"][:DIST_STEPS])
+                              for k in ("flash_fwd", "flash_bwd_dkv",
+                                        "flash_bwd_dq")}}
+    for r in ranks:
+        steps = r["steps"][:DIST_STEPS]
+        prof = r["steps"][DIST_STEPS]["profiled"]
+        log("  dist rank %d: backend %s, started in %.1f s, step ms %s "
+            "(host %s), kvstore collectives ms a step %s (%d collectives, "
+            "%.1f MB sent a step), profiled step: idle %.1f%% of %.0f ms "
+            "(profstats %.1f%%), device ms by category %s, top %s; "
+            "losses %s" % (
+                r["rank"], r["backend"], r["start_s"],
+                ["%.1f" % s["step_ms"] for s in steps],
+                ["%.1f" % s["host_ms"] for s in steps],
+                ["%.1f" % s["collective_ms"] for s in steps],
+                steps[-1]["collectives"], steps[-1]["bytes_pushed"] / 1e6,
+                100 * prof["idle_share"], prof["window_ms"],
+                100 * (prof["profstats_idle_ratio"] or 0.0),
+                {k: round(v, 1) for k, v in prof["categories_ms"].items()},
+                prof["top"], ["%.4f" % v for v in r["losses"]]))
+    log("  dist BERT: one process %s ms a step, losses %s; NCCL world of "
+        "one: %d leaves, %.1f MB, push + pull %.1f ms" % (
+            ["%.1f" % v for v in got["one_process_step_ms"]],
+            ["%.4f" % v for v in got["one_process_losses"]],
+            nccl_res["leaves"], nccl_res["bytes"] / 1e6,
+            nccl_res["push_pull_ms"]))
+    return launches
+
+
+def dist_phase(card):
+    """Phase 23 (``--dist-only``): several processes. Two workers on the
+    one card (cuda:0, so gloo: NCCL refuses two ranks on one GPU), started
+    through the reference's own launcher, tools/launch.py -n 2, run (e)'s
+    small-size dist matrix, then train full-width BERT (S 512, bf16,
+    flash, Adam multi_precision, B 32 each of the global 64) three steps
+    through autograd.record and Trainer(kvstore="dist_sync"), then the
+    same with a planted fault; rank 0 then holds both to one process's
+    Trainer on the whole batch (b). The parent checks (a) every parameter
+    and optimizer state bitwise equal across the ranks (SHA-256 a leaf),
+    (c) K1/K2/K3 launches a step, (d) a dist_device_sync store over NCCL
+    in a group of one process (its own process, started with the
+    workers), and (e)'s single-process checks. Returns (launches by path,
+    summary)."""
+    import shutil
+    t0 = time.perf_counter()
+    build_kernels()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        sys.modules["incubator_mxnet_tpu_torch"].__file__)))
+    out = _build_tmp()
+    env = dict(os.environ, MXTPU_DIST_TIMEOUT_S=str(DIST_GROUP_TIMEOUT_S))
+    me = [sys.executable, os.path.abspath(__file__), "--root", root,
+          "--out", out]
+    try:
+        nccl = subprocess.Popen(me + ["--dist-nccl-one"], env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        launch_t0 = time.time()
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(root, "tools", "launch.py"),
+                 "-n", str(DIST_N), "--coord-addr",
+                 "127.0.0.1:%d" % _free_port()] + me + [
+                    "--dist-worker", "--t0", repr(launch_t0)],
+                env=env, capture_output=True, text=True,
+                timeout=DIST_WORKER_TIMEOUT_S)
+        finally:
+            try:
+                nccl_out, _ = nccl.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                nccl.kill()
+                nccl_out, _ = nccl.communicate()
+        for line in proc.stdout.splitlines():
+            log("  [dist] " + line)
+        for line in nccl_out.splitlines():
+            log("  [nccl] " + line)
+        if proc.returncode != 0:
+            log(proc.stderr[-8000:])
+        check(proc.returncode == 0, "dist workers exited with %d"
+              % proc.returncode)
+        check(nccl.returncode == 0, "the NCCL world of one exited with %d"
+              % nccl.returncode)
+        ranks = []
+        for r in range(DIST_N):
+            with open(os.path.join(out, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(out, "nccl.json")) as f:
+            nccl_res = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    launches = _dist_verdicts(ranks, nccl_res)
+    singles = dist_single_process_checks()
+    for r in ranks:
+        r["leaves_hashed"] = len(r.pop("digests"))
+        r.pop("fault_digests")
+    return launches, dict(card=card, ranks=ranks, nccl_world_of_one=nccl_res,
+                          single_process=singles,
+                          seconds=time.perf_counter() - t0)
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -8707,6 +9423,21 @@ def stage_breakdown(net, batch, reps=3):
     return out
 
 
+PHASE_SECONDS = {}      # the whole script's phases, seconds each
+_PHASE_MARK = [None]
+
+
+def phase_done(name):
+    """Log and keep the seconds since the previous phase ended (or since
+    the first call)."""
+    now = time.perf_counter()
+    if _PHASE_MARK[0] is not None:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + \
+            now - _PHASE_MARK[0]
+        log("phase %s: %.1f s" % (name, PHASE_SECONDS[name]))
+    _PHASE_MARK[0] = now
+
+
 def main(argv):
     import argparse
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
@@ -8744,9 +9475,21 @@ def main(argv):
                         "(phase 21) alone")
     parser.add_argument("--parallel-only", action="store_true",
                         help="run SPMD over a mesh (phase 22) alone")
+    parser.add_argument("--dist-only", action="store_true",
+                        help="run several processes (phase 23) alone")
+    parser.add_argument("--dist-worker", action="store_true",
+                        help=argparse.SUPPRESS)   # one rank of phase 23
+    parser.add_argument("--dist-nccl-one", action="store_true",
+                        help=argparse.SUPPRESS)   # phase 23(d)
+    parser.add_argument("--out", help=argparse.SUPPRESS)
+    parser.add_argument("--t0", type=float, help=argparse.SUPPRESS)
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
+    # a run still going near the driver's 1200 s limit prints where every
+    # thread waits (stderr), so a hang names itself
+    import faulthandler
+    faulthandler.dump_traceback_later(1100, exit=False)
     try:
         import torch
     except ImportError:
@@ -8763,6 +9506,14 @@ def main(argv):
         print("chip_smoke: the port package is not in %s (%s)"
               % (opts.root, e), file=sys.stderr)
         return 2
+    for flag, fn in ((opts.dist_worker, dist_worker),
+                     (opts.dist_nccl_one, dist_nccl_one)):
+        if flag:
+            try:
+                return fn(opts)
+            except SmokeFailure as e:
+                print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
+                return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -8814,7 +9565,8 @@ def main(argv):
                              (opts.programs_only, "programs",
                               programs_phase),
                              (opts.parallel_only, "parallel",
-                              parallel_phase)):
+                              parallel_phase),
+                             (opts.dist_only, "dist", dist_phase)):
         if flag:
             try:
                 _, got = phase(card)
@@ -8826,44 +9578,71 @@ def main(argv):
                 opts.root))}))
             return 0
     try:
+        phase_done("start")
         ptxas = build_kernels()
+        phase_done("build_kernels")
         served = check_flash_fwd()
+        phase_done("check_flash_fwd")
         bwd = check_flash_bwd()
+        phase_done("check_flash_bwd")
         conv_launches, conv_rows = check_conv_bwd()
+        phase_done("check_conv_bwd")
         check_small_models_against_cpu()
+        phase_done("check_small_models_against_cpu")
         check_small_training_against_cpu()
+        phase_done("check_small_training_against_cpu")
         check_small_vision_against_cpu()
+        phase_done("check_small_vision_against_cpu")
         captured = check_captured_small()
+        phase_done("check_captured_small")
         serve_launches, serving = serve_full_width()
+        phase_done("serve_full_width")
         release_graphs()
         ndarray_launches, ndarray_summary = check_ndarray(card)
+        phase_done("check_ndarray")
         release_graphs()
         train_launches, training = train_full_width(bwd)
+        phase_done("train_full_width")
         release_graphs()
         train_launches["resnet50"], vision = train_resnet_full_width()
+        phase_done("train_resnet_full_width")
         release_graphs()
         gluon_launches, gluon = gluon_loop(card)
+        phase_done("gluon_loop")
         release_graphs()
         rnn_launches, rnn = lstm_lm(card)
+        phase_done("lstm_lm")
         release_graphs()
         zoo_launches, zoo = model_zoo(card)
+        phase_done("model_zoo")
         release_graphs()
         ssd_launches, ssd = ssd_phase(card)
+        phase_done("ssd_phase")
         release_graphs()
         ctc_launches, ctc = ctc_phase(card)
+        phase_done("ctc_phase")
         release_graphs()
         module_launches, module = module_phase(card)
+        phase_done("module_phase")
         release_graphs()
         bucketing_launches, bucketing = bucketing_phase(card)
+        phase_done("bucketing_phase")
         release_graphs()
         serving_http_launches, serving_http = serving_http_phase(card)
+        phase_done("serving_http_phase")
         release_graphs()
         programs_launches, programs = programs_phase(card)
+        phase_done("programs_phase")
         release_graphs()
         parallel_launches, parallel = parallel_phase(card)
+        phase_done("parallel_phase")
         release_graphs()
+        dist_launches, dist = dist_phase(card)
+        phase_done("dist_phase")
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
+        phase_done("check_rtc")
         rtc_host = rtc_host_breakdown()
+        phase_done("rtc_host_breakdown")
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -8878,6 +9657,7 @@ def main(argv):
              "serving_http": serving_http_launches,
              "programs": programs_launches,
              **parallel_launches,
+             **dist_launches,
              **gluon_launches,
              **{"training_" + m: train_launches[m] for m in train_launches}}
     by_path = {k: {p: launches.get(k, 0) for p, launches in paths.items()}
@@ -9004,6 +9784,8 @@ def main(argv):
     log(json.dumps({"serving_http": serving_http}))
     log(json.dumps({"programs": programs}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"dist": dist}))
+    log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -89,4 +89,10 @@ from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
 from .convert import from_jax_params, to_numpy_params  # noqa: F401
 from . import initializer as init  # noqa: F401
 
+# several worker processes (tools/launch.py sets MXTPU_NUM_PROC and
+# MXTPU_COORD_ADDR): the import starts the process group, as the JAX
+# package's import starts jax.distributed
+from .parallel import dist as _dist  # noqa: E402
+_dist._init_from_launcher()
+
 __version__ = "0.1.0"

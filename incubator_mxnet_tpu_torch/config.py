@@ -8,7 +8,9 @@ the telemetry knobs, the AOT cache's, the gate of the conv-backward
 kernel and the training step's (``jit.TrainStep``: remat, donation), the
 image iterator's threads, the engine's bulk size and the device
 telemetry's (``devstats``, ``profstats``, ``numwatch``, ``slo``,
-``history``). The flash-attention block/force/interpret knobs of the JAX
+``history``), and those of several processes (the launcher's rendezvous,
+the process group's timeout, the dist kvstores and the server role). The
+flash-attention block/force/interpret knobs of the JAX
 package are TPU tiling and Pallas interpret switches and have no
 counterpart here.
 """
@@ -287,6 +289,50 @@ ENV_VARS = {
         "Deadline in seconds of each collective's rendezvous inside "
         "parallel.shard_map: a position whose peers do not all arrive "
         "within it raises RendezvousTimeout instead of waiting forever."),
+    "MXTPU_COORD_ADDR": (
+        str, None,
+        "host:port of the rendezvous of several worker processes (rank "
+        "0's TCP store). Set by tools/launch.py; with MXTPU_NUM_PROC > 1 "
+        "importing the package starts torch.distributed "
+        "(parallel.dist.init_distributed). DMLC_PS_ROOT_URI and "
+        "DMLC_PS_ROOT_PORT stand in when it is unset."),
+    "MXTPU_NUM_PROC": (
+        int, 1,
+        "Number of distributed worker processes (tools/launch.py; "
+        "DMLC_NUM_WORKER stands in when it is unset)."),
+    "MXTPU_PROC_ID": (
+        int, 0,
+        "This worker's rank in [0, MXTPU_NUM_PROC) (tools/launch.py; "
+        "DMLC_RANK stands in when it is unset)."),
+    "MXTPU_DIST_TIMEOUT_S": (
+        float, 300.0,
+        "Timeout in seconds of the torch.distributed process group: its "
+        "rendezvous and every collective of the dist kvstores raise past "
+        "it instead of waiting forever for a missing rank."),
+    "MXTPU_ASYNC_STALENESS": (
+        int, 4,
+        "dist_async staleness bound: pushes per key between cross-process "
+        "parameter averages (kvstore.DistAsyncKVStore, local SGD with "
+        "periodic averaging)."),
+    "MXTPU_KVSTORE_BIGARRAY_BOUND": (
+        int, 1000000,
+        "Element count at or above which a dense value pushed into a dist "
+        "kvstore gets its own all-gather instead of riding its dtype's "
+        "concatenated one (bounds the concatenation buffer)."),
+    "MXTPU_P3_SLICE": (
+        int, 1000000,
+        "Slice bound in elements of dist_async's priority averaging "
+        "(kvstore.DistAsyncKVStore._average_batch): no collective carries "
+        "more elements than this, and high-priority keys go first."),
+    "MXTPU_KVSTORE_DEBUG": (
+        int, 0,
+        "Verbose logging in the kvstore server role "
+        "(kvstore_server.py)."),
+    "MXTPU_ROLE": (
+        str, "worker",
+        "Process role for launch scripts that branch on it "
+        "(kvstore_server._init_kvstore_server_module): 'worker' or "
+        "'server'. DMLC_ROLE, when set, takes precedence."),
     "MXTPU_SERVE_PORT": (
         int, 8080,
         "Default port of serving.ServingServer's HTTP front end; 0 picks "

@@ -173,9 +173,9 @@ class Executor:
     def output_dict(self):
         return dict(zip(self._symbol.list_outputs(), self.outputs))
 
-    def forward(self, is_train=False, **kwargs):
-        """Copy the fed arrays into their buffers and run the graph,
-        recording it when ``is_train``; returns the outputs."""
+    def _feed(self, **kwargs):
+        """Copy each fed array into its buffer (an unknown name gets a
+        buffer of its own)."""
         for k, v in kwargs.items():
             dst = self.arg_dict.get(k, self.aux_dict.get(k))
             if dst is None:
@@ -183,6 +183,11 @@ class Executor:
                     self._device, copy=True))
             else:
                 _copy_into(dst, v)
+
+    def forward(self, is_train=False, **kwargs):
+        """Copy the fed arrays into their buffers and run the graph,
+        recording it when ``is_train``; returns the outputs."""
+        self._feed(**kwargs)
         scope = autograd.record(train_mode=True) if is_train else \
             autograd.pause(train_mode=False)
         with scope, self._ctx:       # creation ops make their arrays here

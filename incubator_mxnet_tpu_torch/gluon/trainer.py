@@ -23,8 +23,25 @@ states land on each parameter's device as new tensors, so a captured
 the states are held in ZeRO-1 slices (``parallel.data_parallel``): the
 update runs per slice and ``save_states`` gathers them.
 
-Local only: ``kvstore`` "device", "local" or None. A "dist*" kvstore waits
-for the multi-GPU slice of the port.
+``kvstore`` "device", "local" or None updates locally, as above (a local
+store's compression is never used: nothing is pushed into it, as in the
+JAX package). A "dist*" store (a name or a ``KVStore``), or
+``update_on_kvstore=True``, goes the JAX package's way through the store,
+made at the first step: ``compression_params`` are set on it, every
+parameter is ``init``-ed into it (rank 0's values reach every process),
+and ``update_on_kvstore`` defaults to True for "dist*". Then each step
+sets ``rescale_grad / batch_size`` on the optimizer, pushes each
+gradient (``push(i, grad, priority=-i)``: the store sums it over the
+processes and runs its updater, which keeps fp32 masters under
+``multi_precision`` as the local path does) and pulls each parameter back
+(``pull(i, data)``). The store sums over the processes and does not
+average: with n workers each at batch b, the update sees the n·b samples'
+gradient sum over b. ``save_states``/``load_states`` then read and write
+the store's updater. With ``update_on_kvstore=False`` a dist store sums
+the gradients (``pushpull`` into each gradient) and the update runs
+locally, as MXNet's Trainer does (the JAX package's skips the sum there).
+A ``jit.TrainStep`` runs its own update and refuses a trainer that updates
+through a store.
 """
 from __future__ import annotations
 
@@ -49,15 +66,6 @@ class Trainer:
         if not isinstance(params, (list, tuple)):
             raise ValueError("First argument must be a list or dict of "
                              "Parameters")
-        if isinstance(kvstore, str) and kvstore.startswith("dist"):
-            raise NotImplementedError(
-                "kvstore=%r comes with the multi-GPU slice of the port"
-                % kvstore)
-        if kvstore not in (None, "device", "local") or compression_params \
-                or update_on_kvstore:
-            raise NotImplementedError(
-                "only a local kvstore ('device', 'local' or None) without "
-                "compression or update_on_kvstore is ported")
         self._params = []
         for param in params:
             if not isinstance(param, Parameter):
@@ -78,6 +86,51 @@ class Trainer:
         self._states = [None] * len(self._params)
         self._states_initialized = False
         self._zero = False      # states held in ZeRO-1 slices (parallel)
+        self._compression_params = compression_params
+        self._kvstore_params = {"kvstore": kvstore,
+                                "update_on_kvstore": update_on_kvstore}
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = False
+
+    def _init_kvstore(self):
+        """Make the store when the step goes through one (see the module
+        docstring); the local path keeps none."""
+        from .. import kvstore as kvs_mod
+        kvstore = self._kvstore_params["kvstore"]
+        update = self._kvstore_params["update_on_kvstore"]
+        name = kvstore if isinstance(kvstore, str) else \
+            getattr(kvstore, "type", "")
+        self._kv_initialized = True
+        if kvstore is None or not (name.startswith("dist") or update):
+            return
+        kv = kvs_mod.create(kvstore) if isinstance(kvstore, str) \
+            else kvstore
+        if self._compression_params:
+            kv.set_gradient_compression(self._compression_params)
+        self._update_on_kvstore = name.startswith("dist") \
+            if update is None else bool(update)
+        if self._update_on_kvstore:
+            kv.set_optimizer(self._optimizer)
+        for i, param in enumerate(self._params):
+            if param.grad_req != "null":
+                kv.init(i, param.data())
+        self._kvstore = kv
+
+    def _store(self):
+        """The store the update goes through (made at first use), or
+        None."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        return self._kvstore
+
+    def _refuse_kvstore(self, what):
+        """Raise if the update goes through a store (``what`` runs its own
+        update)."""
+        if self._store() is not None:
+            raise NotImplementedError(
+                "%s runs the update itself; this Trainer updates through its "
+                "%r kvstore: call Trainer.step" % (what, self._kvstore.type))
 
     @property
     def learning_rate(self):
@@ -100,14 +153,40 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Update every parameter from its gradient, scaled by
-        ``rescale_grad / batch_size``."""
-        self.update(batch_size, ignore_stale_grad)
+        ``rescale_grad / batch_size`` (through the store with a dist
+        kvstore: the module docstring)."""
+        if self._store() is None:
+            return self._update(batch_size)
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._allreduce_grads()
+        self._kv_update(batch_size)
 
     def update(self, batch_size, ignore_stale_grad=False):
-        """The update of ``step`` (with one local copy there is nothing to
-        all-reduce first). A gradient no backward has written counts as
+        """The update of ``step`` without its push (after
+        ``allreduce_grads``; with one local copy there is nothing to
+        reduce first). A gradient no backward has written counts as
         zeros."""
-        self._update(batch_size)
+        if self._store() is None:
+            return self._update(batch_size)
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._kv_update(batch_size)
+
+    def _allreduce_grads(self):
+        """Push every live gradient into the store (``priority=-i``); with
+        ``update_on_kvstore`` False, pull the sums back into the
+        gradients."""
+        kv = self._kvstore
+        for i in self._live():
+            kv.push(i, self._params[i].grad(), priority=-i)
+            if not self._update_on_kvstore:
+                kv.pull(i, self._params[i].grad(), priority=-i)
+
+    def _kv_update(self, batch_size):
+        if self._update_on_kvstore:
+            for i in self._live():
+                self._kvstore.pull(i, self._params[i].data(), priority=-i)
+        else:
+            self._update(batch_size)
 
     def _live(self):
         """Indices of the parameters the update touches (grad_req not
@@ -166,11 +245,18 @@ class Trainer:
                                    self._params[live[0]]._tensor().device))
 
     def allreduce_grads(self):
-        """Nothing to reduce with one local copy of each parameter."""
+        """Push the gradients into a dist store (nothing to reduce with one
+        local copy of each parameter)."""
+        if self._store() is not None:
+            self._allreduce_grads()
 
     def save_states(self, fname):
         """Write every parameter's optimizer state and the optimizer's
-        update counts to ``fname``."""
+        update counts to ``fname`` (the store's updater's, when the update
+        runs in the store)."""
+        if self._store() is not None and self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         if not self._states_initialized:
             self._init_states()
         updater = opt.Updater(self._optimizer)
@@ -186,6 +272,9 @@ class Trainer:
     def load_states(self, fname):
         """Read a ``save_states`` file (either package's): each state onto
         its parameter's device, and the update counts when it has them."""
+        if self._store() is not None and self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         updater = opt.Updater(self._optimizer)
         with open(fname, "rb") as f:
             updater.set_states(f.read())

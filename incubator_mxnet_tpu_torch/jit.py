@@ -514,7 +514,9 @@ class TrainStep:
 
     def _prepare(self, inputs, n_net_inputs):
         """Inputs on the net's device; deferred parameters initialized by
-        one forward; the trainer's states created."""
+        one forward; the trainer's states created. A trainer that updates
+        through a kvstore is refused (this step runs its own update)."""
+        self.trainer._refuse_kvstore("jit.TrainStep")
         params = list(self.net.collect_params().values())
         if any(p._data is None for p in params):
             device = next((p._data.device for p in params

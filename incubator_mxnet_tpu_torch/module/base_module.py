@@ -4,6 +4,9 @@
 ``fit`` is MXNet's epoch/batch loop: bind, init_params, init_optimizer,
 then forward_backward / update / update_metric per batch, the batch-end
 callbacks, and the epoch-end callbacks (checkpoints) with the parameters.
+Over a "dist_async" kvstore each epoch starts with the store's
+``begin_epoch`` (the iterator's length, 0 without one) and ends with its
+``sync``.
 """
 from __future__ import annotations
 
@@ -135,11 +138,22 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
+        # dist_async's epoch contract (DistAsyncKVStore): agree on the
+        # averaging rounds at each epoch's start, average at its end
+        kv = getattr(self, "_kvstore", None)
+        kv_async = kv is not None and hasattr(kv, "begin_epoch")
         for epoch in range(begin_epoch, num_epoch):
             tic = time.perf_counter()
             eval_metric.reset()
             nbatch = 0
             train_data.reset()
+            if kv_async:
+                try:
+                    planned = len(train_data)
+                except TypeError:
+                    planned = 0
+                # a collective: a worker with an empty shard joins it too
+                kv.begin_epoch(planned)
             for data_batch in train_data:
                 if monitor is not None:
                     monitor.tic()
@@ -153,6 +167,8 @@ class BaseModule:
                     for cb in _as_list(batch_end_callback):
                         cb(param)
                 nbatch += 1
+            if kv_async:
+                kv.sync()
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

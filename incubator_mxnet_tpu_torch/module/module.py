@@ -12,8 +12,27 @@ its per-index ``update``; one state per index, written to and read from the
 JAX package's states file format). Parameters and optimizer states are
 written in place and never shared with arrays the caller gave.
 
-A list of several contexts, the JAX package's data-parallel mesh, comes
-with the multi-GPU slice (ROADMAP.md §1 item 5) and raises.
+Several contexts (``context=[gpu(0), gpu(1)]``, or one device named
+more than once) make one executor on the first, whose forward runs the
+batch split over a "dp" mesh of the contexts through ``parallel.shard_map``
+(the JAX package shards one program's batch over a dp mesh of them): each
+position evaluates the graph on its slice of the fed arrays and of the
+label variables, with the parameters (on another
+device, a differentiable copy), batch norm and SoftmaxOutput's "batch" /
+"valid" normalisation take the global batch's statistics and counts, and
+the outputs are joined along axis 0 (each output must carry the batch
+there; the batch must divide over the contexts). One backward sums every
+position's gradient into the parameters' gradients, so the update is the
+one of a single context over the whole batch, up to the order of the
+sums.
+
+With a "dist*" kvstore the update runs in the store (``update_on_kvstore``,
+as MXNet's ``model._update_params_on_kvstore``): ``init_optimizer`` sets
+the optimizer on it and ``init``s every trained parameter (rank 0's values
+reach every process); ``update`` pushes every gradient in one multi-key
+push (``priority=-i``) and pulls every parameter back. The store sums over
+the processes; the optimizer built from a name rescales by 1/the local
+batch, as the JAX package's and MXNet's do.
 """
 from __future__ import annotations
 
@@ -45,11 +64,14 @@ class Module(BaseModule):
         self.symbol = symbol
         self._data_names = list(data_names)
         self._label_names = list(label_names or [])
+        self._contexts = self._mesh = None
         if isinstance(context, (list, tuple)):
             if len(context) > 1:
-                raise NotImplementedError(
-                    "a Module over several contexts comes with the "
-                    "multi-GPU slice (ROADMAP.md §1 item 5)")
+                kinds = {as_device(c).type for c in context}
+                if len(kinds) > 1:
+                    raise ValueError("the contexts of a Module are of one "
+                                     "device type; got %s" % (list(context),))
+                self._contexts = list(context)
             context = context[0]
         self._context = context if context is not None else current_context()
         self._fixed_param_names = set(fixed_param_names or [])
@@ -220,8 +242,14 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._update_on_kvstore = False
         if kvstore:
-            self._kvstore = kvs_mod.create(kvstore) \
-                if isinstance(kvstore, str) else kvstore
+            kv = kvs_mod.create(kvstore) if isinstance(kvstore, str) \
+                else kvstore
+            self._kvstore = kv
+            self._update_on_kvstore = kv.type.startswith("dist")
+            if self._update_on_kvstore:
+                kv.set_optimizer(optimizer)
+                for i, name in self._trained():
+                    kv.init(i, self._exec.arg_dict[name])
         self._updater_states = {}
         self.optimizer_initialized = True
         states = getattr(self, "_preloaded_states", None)
@@ -240,22 +268,82 @@ class Module(BaseModule):
         if data_batch.label is not None:
             for name, arr in zip(self._label_names, data_batch.label):
                 feed[name] = arr
-        self._exec.forward(is_train=is_train, **feed)
+        if self._contexts is None:
+            self._exec.forward(is_train=is_train, **feed)
+        else:
+            self._forward_dp(feed, is_train)
+
+    def _forward_dp(self, feed, is_train):
+        """The forward over several contexts: the fed batch split over a
+        "dp" mesh of them (module docstring)."""
+        from .. import autograd
+        from ..parallel.compat import shard_map
+        from ..parallel.mesh import Mesh, P
+        import numpy as onp
+        ex = self._exec
+        ex._feed(**feed)
+        n = len(self._contexts)
+        # the fed arrays and every label variable (one row a sample, fed
+        # or left at the zeros of the bind) split over the contexts
+        names = list(feed) + [k for k in ex.arg_dict
+                              if k.endswith("_label") and k not in feed]
+        for name in names:
+            if ex.arg_dict[name].shape[0] % n:
+                raise ValueError("a batch of %d does not divide over %d "
+                                 "contexts" % (ex.arg_dict[name].shape[0], n))
+        if self._mesh is None:
+            self._mesh = Mesh(onp.asarray([as_device(c) for c in
+                                           self._contexts], dtype=object),
+                              axis_names=("dp",))
+        rest = {k: v for k, v in list(ex.arg_dict.items()) +
+                list(ex.aux_dict.items()) if k not in names}
+        master = ex._device
+
+        def run(*shards):
+            device = shards[0].device
+            bindings = {k: a if device == master else NDArray(
+                a._data.to(device)) for k, a in rest.items()}
+            bindings.update((k, NDArray(t)) for k, t in zip(names, shards))
+            out = self.symbol.eval_imperative(bindings)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            return tuple(o._data for o in outs)
+        scope = autograd.record(train_mode=True) if is_train else \
+            autograd.pause(train_mode=False)
+        with scope, ex._ctx:
+            outs = shard_map(run, self._mesh, in_specs=P("dp"),
+                             out_specs=P("dp"), batch_axes=("dp",))(
+                *[ex.arg_dict[k]._data for k in names])
+        ex.outputs = [NDArray(o) for o in outs]
 
     def backward(self, out_grads=None):
         self._exec.backward(out_grads)
 
+    def _trained(self):
+        """(index, name) of every parameter the update touches."""
+        return [(i, n) for i, n in enumerate(self.param_names)
+                if self._exec.grad_dict.get(n) is not None
+                and n not in self._fixed_param_names]
+
     def update(self):
         """One optimizer step of every parameter from its gradient:
         ``update_all`` over the lot, with each index's learning rate, weight
-        decay and update count, in place."""
+        decay and update count, in place; with a dist kvstore, one push of
+        every gradient and one pull of every parameter."""
         assert self.optimizer_initialized
+        trained = self._trained()
+        if self._update_on_kvstore and self._kvstore is not None:
+            if trained:
+                keys = [i for i, _ in trained]
+                ex = self._exec
+                self._kvstore.push(keys, [ex.grad_dict[n] for _, n in trained],
+                                   priority=[-i for i in keys])
+                self._kvstore.pull(keys, out=[ex.arg_dict[n]
+                                              for _, n in trained])
+            return
         opt = self._optimizer
         idx, weights, grads, states = [], [], [], []
-        for i, name in enumerate(self.param_names):
-            g = self._exec.grad_dict.get(name)
-            if g is None or name in self._fixed_param_names:
-                continue
+        for i, name in trained:
+            g = self._exec.grad_dict[name]
             w = self._exec.arg_dict[name]._data
             if i not in self._updater_states:
                 self._updater_states[i] = \

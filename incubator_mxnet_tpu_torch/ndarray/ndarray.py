@@ -2232,9 +2232,9 @@ class _SoftmaxOutputFn(torch.autograd.Function):
             grad = grad * keep.unsqueeze(axis).to(grad.dtype)
         scale = cfg["grad_scale"]
         if cfg["normalization"] == "batch":
-            grad = grad * (scale / label.shape[0])
+            grad = grad * (scale / (label.shape[0] * cfg.get("positions", 1)))
         elif cfg["normalization"] == "valid":
-            count = keep.sum().clamp_min(1).to(grad.dtype)
+            count = cfg.get("valid", keep.sum()).clamp_min(1).to(grad.dtype)
             grad = grad * scale / count
         else:
             grad = grad * scale
@@ -2252,14 +2252,24 @@ def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1,
     2-D data the three agree. The JAX package always takes the last axis
     and ignores ``multi_output``, ``preserve_shape``, ``smooth_alpha`` and
     ``out_grad``, and its "valid" normalisation needs ``use_ignore``: the
-    port takes MXNet's meaning of each."""
+    port takes MXNet's meaning of each. In a position of a data-parallel
+    ``shard_map`` (a ``Module`` over several contexts) "batch" and "valid"
+    divide by the global batch's count, as one program over the whole
+    batch does."""
+    from ..parallel import compat as _spmd
     if normalization not in ("null", "batch", "valid"):
         raise ValueError("unknown normalization %r" % normalization)
     cfg = dict(grad_scale=float(grad_scale), ignore_label=ignore_label,
                use_ignore=bool(use_ignore), normalization=normalization,
                out_grad=bool(out_grad), smooth_alpha=float(smooth_alpha))
+    batch_axes = _spmd.batch_axes()
 
     def fn(x, lbl):
+        if batch_axes and normalization == "batch":
+            cfg["positions"] = _spmd.axis_size(batch_axes)
+        elif batch_axes and normalization == "valid":
+            cfg["valid"] = _spmd.psum((lbl != ignore_label).sum(),
+                                      batch_axes).detach()
         if multi_output:
             return _SoftmaxOutputFn.apply(x, lbl, dict(cfg, axis=1))
         if preserve_shape or x.dim() <= 2:

@@ -11,10 +11,10 @@
 - pipeline_interleaved: virtual-stage (interleaved) 1F1B
 - gluon_pipeline:    PipelineStack, a pipelined trunk as a Gluon block
 - moe:               expert-parallel mixture of experts
-
-Several processes (``init_distributed``, ``rank``, ``num_workers``,
-gradient compression, the ``dist*`` kvstores) are the next slice of the
-port (ROADMAP §1 item 5): those names raise, naming it.
+- compression:       2-bit gradient compression with error feedback
+- dist:              several processes over torch.distributed
+                     (``init_distributed``, ``rank``, ``num_workers``);
+                     the ``dist*`` kvstores run over its process group
 """
 from .compat import shard_map, HAVE_SHARD_MAP, ShardMapUnavailable  # noqa
 from .mesh import (make_mesh, current_mesh, set_current_mesh,  # noqa
@@ -30,35 +30,5 @@ from .pipeline_interleaved import (  # noqa
     pipeline_interleaved_grads, interleaved_schedule, schedule_stats)
 from .gluon_pipeline import PipelineStack  # noqa
 from .moe import MoELayer, load_balancing_loss, router_z_loss  # noqa
-
-_NEXT_SLICE = ("several processes (jax.distributed's counterpart: "
-               "torch.distributed, gradient compression) come with the next "
-               "slice of the port, ROADMAP §1 item 5")
-
-
-def init_distributed(coordinator_address=None, num_processes=None,
-                     process_id=None):
-    """The JAX package's ``jax.distributed`` start-up: item 5's next
-    slice."""
-    raise NotImplementedError(_NEXT_SLICE)
-
-
-def rank():
-    """This process's rank: item 5's next slice."""
-    raise NotImplementedError(_NEXT_SLICE)
-
-
-def num_workers():
-    """The number of processes: item 5's next slice."""
-    raise NotImplementedError(_NEXT_SLICE)
-
-
-class GradientCompression:
-    """The JAX package's 2-bit gradient compression: item 5's next
-    slice."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NEXT_SLICE)
-
-    def compress_decompress(self, grad, key):
-        raise NotImplementedError(_NEXT_SLICE)
+from .compression import GradientCompression  # noqa
+from .dist import init_distributed, rank, num_workers  # noqa

@@ -190,7 +190,11 @@ PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "parallel.tensor_parallel", "parallel.ring_attention",
                 "parallel.ulysses", "parallel.moe", "parallel.pipeline",
                 "parallel.pipeline_interleaved", "parallel.gluon_pipeline",
-                "serving.sharded")
+                "serving.sharded", "parallel.dist", "parallel.compression",
+                "gluon.contrib", "gluon.contrib.nn", "gluon.contrib.cnn",
+                "gluon.contrib.rnn", "gluon.contrib.data",
+                "gluon.contrib.estimator", "contrib.svrg",
+                "contrib.tensorboard")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

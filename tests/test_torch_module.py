@@ -26,7 +26,10 @@ that waited for them, against the JAX package's, on the CPU.
   tensors), MXNet's sharing; ``SequentialModule`` passes the gradient back
   to its first module, whose gradients the JAX package leaves at zero.
 - The local kvstore's push/pull/updater against the JAX package's; the
-  ``dist*`` stores raise naming ROADMAP item 5; ``Monitor`` stats.
+  ``dist*`` stores alone in one process (several processes:
+  tests/test_torch_dist.py); ``Monitor`` stats.
+- ``Module`` over two contexts against the JAX ``Module`` over two of its
+  forced host devices, within 1e-5 of the largest value.
 - Aliasing, one test per site where an in-place tensor could carry a write
   across (the JAX package shares buffers there because its arrays are
   immutable): kvstore ``pull`` and ``push``, ``Module.init_params`` /
@@ -198,6 +201,9 @@ def test_module_load_restores_the_optimizer_states(tmp_path):
 
 
 def test_module_defaults_to_the_card_and_refuses_several_contexts():
+    """The default context is the card; several contexts must be of one
+    device type (they make one dp mesh), and a batch must divide over
+    them."""
     sym = lenet(mxt)
     with CPU:
         assert mxt.mod.Module(sym)._context == CPU
@@ -206,8 +212,84 @@ def test_module_defaults_to_the_card_and_refuses_several_contexts():
             mxt.mod.Module(sym)
     else:
         assert mxt.mod.Module(sym)._context == mxt.gpu(0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mxt.mod.Module(sym, context=[CPU, mxt.cpu(1)])
+        with pytest.raises(ValueError, match="one device type"):
+            mxt.mod.Module(sym, context=[CPU, mxt.gpu(0)])
+    two = mxt.mod.Module(sym, context=[CPU, mxt.cpu(1)])
+    assert two._context == CPU and len(two._contexts) == 2
+    two.bind(data_shapes=[("data", (3, 1, 12, 12))],
+             label_shapes=[("softmax_label", (3,))])
+    two.init_params()
+    batch = mxt.io.DataBatch(data=[_arr(mxt, X[:3])], label=[_arr(mxt, Y[:3])])
+    with pytest.raises(ValueError, match="does not divide over 2"):
+        two.forward(batch)
+
+
+def _context_steps(pkg, ctx, steps=2):
+    """lenet over ``ctx`` from the same parameters, ``steps``
+    SGD-momentum updates on the batches of X."""
+    arg, aux = _lenet_params()
+    mod = pkg.mod.Module(lenet(pkg), context=ctx)
+    mod.bind(data_shapes=[("data", (BATCH, 1, 12, 12))],
+             label_shapes=[("softmax_label", (BATCH,))])
+    mod.init_params(arg_params={k: _arr(pkg, v) for k, v in arg.items()},
+                    aux_params={k: _arr(pkg, v) for k, v in aux.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    for i in range(steps):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        mod.forward_backward(pkg.io.DataBatch(data=[_arr(pkg, X[sl])],
+                                              label=[_arr(pkg, Y[sl])]))
+        mod.update()
+    return mod
+
+
+def test_module_over_two_contexts_is_the_references():
+    """Module(context=[cpu] * 2): the batch split over a dp mesh of two
+    positions (batch norm over the global batch), against the JAX Module
+    over two of its eight forced host devices: parameters, moving
+    statistics and outputs after two updates within 1e-5 of the largest
+    value; the parameters also against the port's Module on one
+    context."""
+    jmod = _context_steps(mx, [mx.cpu(0), mx.cpu(1)])
+    tmod = _context_steps(mxt, [CPU, CPU])
+    one = _context_steps(mxt, CPU)
+    (ja, jx), (ta, tx) = jmod.get_params(), tmod.get_params()
+    oa, _ = one.get_params()
+    for k in ta:
+        _close(ta[k].asnumpy(), ja[k].asnumpy(), k)
+        _close(ta[k].asnumpy(), oa[k].asnumpy(), k)
+    for k in tx:
+        _close(tx[k].asnumpy(), jx[k].asnumpy(), k)
+    assert tmod.get_outputs()[0].shape == (BATCH, 10)
+    _close(tmod.get_outputs()[0].asnumpy(), jmod.get_outputs()[0].asnumpy(),
+           "outputs")
+
+
+@pytest.mark.parametrize("normalization", ["batch", "valid"])
+def test_two_contexts_normalise_by_the_global_batch(normalization):
+    """SoftmaxOutput's "batch" and "valid" normalisation over two contexts
+    divide by the whole batch's count (a label ignored on one position
+    only), as one context does: the same gradients within 1e-6."""
+    x = onp.random.RandomState(2).randn(6, 5).astype("float32")
+    y = onp.array([1, 0, 2, 0, 0, 1], "float32")     # 0 ignored: 1 + 3
+    grads = []
+    for ctx in (CPU, [CPU, CPU]):
+        tsymm._NAME_COUNT.clear()
+        net = mxt.sym.SoftmaxOutput(
+            mxt.sym.FullyConnected(mxt.sym.var("data"), num_hidden=3,
+                                   name="fc"),
+            name="softmax", normalization=normalization, use_ignore=True,
+            ignore_label=0)
+        mod = mxt.mod.Module(net, context=ctx)
+        mod.bind(data_shapes=[("data", (6, 5))],
+                 label_shapes=[("softmax_label", (6,))])
+        mod.init_params(arg_params={
+            "fc_weight": _arr(mxt, onp.ones((3, 5), "float32") * 0.1),
+            "fc_bias": _arr(mxt, onp.zeros(3, "float32"))})
+        mod.forward_backward(mxt.io.DataBatch(data=[_arr(mxt, x)],
+                                              label=[_arr(mxt, y)]))
+        grads.append(mod._exec.grad_dict["fc_weight"].asnumpy())
+    _close(grads[1], grads[0], normalization, tol=1e-6)
 
 
 def _bound(pkg, arg, aux, for_training=True):
@@ -535,11 +617,13 @@ def test_local_kvstore_is_the_references():
     _close(ts, js, "updated")
     assert kv.type == "local" and kv.rank == 0 and kv.num_workers == 1
     assert mxt.kv.create("device").type == "device"
-    for name in ("dist_sync", "dist_async", "dist_device_sync"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            mxt.kv.create(name)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mxt.kvstore.KVStoreServer(kv)
+    for name, cls in (("dist_sync", mxt.kv.DistKVStore),
+                      ("dist_async", mxt.kv.DistAsyncKVStore),
+                      ("dist_device_sync", mxt.kv.DistKVStore)):
+        store = mxt.kv.create(name)
+        assert type(store) is cls and store.type == name
+        assert (store.rank, store.num_workers) == (0, 1)
+    assert mxt.kvstore.KVStoreServer(kv).kvstore is kv
 
 
 def test_kvstore_pull_and_push_share_no_buffer():

@@ -133,7 +133,16 @@ def test_trainer_step_updates_from_grads_and_consumes_them():
 
 
 def test_trainer_refuses_distributed_kvstore():
-    params = _dense().collect_params()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        mxt.gluon.Trainer(params, "sgd", kvstore="dist_sync")
-    mxt.gluon.Trainer(params, "sgd", kvstore=None)
+    """A Trainer over a dist kvstore updates through the store
+    (tests/test_torch_dist.py); a jit.TrainStep runs its own update and
+    refuses such a trainer rather than skip the sum over the processes."""
+    net = _dense()
+    trainer = mxt.gluon.Trainer(net.collect_params(), "sgd",
+                                kvstore="dist_sync")
+    step = mxt.jit.TrainStep(net, mxt.gluon.loss.L2Loss(), trainer)
+    x = torch.ones(2, 4)
+    with pytest.raises(NotImplementedError, match="dist_sync"):
+        step(x, torch.zeros(2, 3))
+    local = mxt.gluon.Trainer(net.collect_params(), "sgd", kvstore=None)
+    mxt.jit.TrainStep(net, mxt.gluon.loss.L2Loss(), local)(
+        x, torch.zeros(2, 3))
