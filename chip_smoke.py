@@ -490,6 +490,36 @@ Phases, each of which must pass, in order:
    gpu(0)] against one context, Estimator.fit and one SVRGModule epoch
    against the CPU, within 1e-5 (fp32, TF32 off). A worker that fails
    fails the phase. Prints a {"dist": ...} line.
+24. ROADMAP item 6 (``contrib_phase``, ``--contrib-only``). (a) bench.py
+   bench_quantized_inference: model-zoo resnet50_v1 (1000 classes,
+   Xavier, bf16), B 256 x 3 x 224 x 224 from a seeded generator;
+   quantize_net on the first 32 images (BN-folded int8 groups, V1
+   residual wrappers, int8 chained); the bf16 and int8 nets as captured
+   EvalSteps timed by CUDA events in alternating pairs: img/s, int8 TOPS
+   at 8.2 GFLOP an image and its share of 1979 TOPS, peak memory, logit
+   cosine and argmax agreement. Gates: finite int8 logits, the captured
+   int8 output = its eager forward bit for bit, and the test's small
+   int8 net on the card against the CPU (int8 weights equal, logits
+   within 1e-2 relative Frobenius, equal argmax). (b) Full-width BERT
+   (bf16, flash) with every Dense int8 (calibrated on 8 rows x S 512)
+   served behind ModelRegistry at bucket 8 beside the bf16 net, 16
+   requests from 4 threads each: fp32 replies equal to a direct EvalStep
+   forward of the int8 net bit for bit, K1 exactly 12 a batch (its fp32
+   instantiation flash_fwd_fma: the int8 Dense returns fp32, as in the
+   reference), p50 and max against the bf16 net's, logit cosine. (c)
+   Phase 17's ResNet-50 v1 symbol through contrib.onnx export_model and
+   import_model, bound on gpu(0) through Module: B 32 fp32 with TF32 off
+   within 1e-5 of the original symbol; export s, file MB, import+bind s.
+   (d) Every mx.np/mx.npx case of tests/np_cases.py on the card against
+   the CPU (fp32 within 1e-5 + 1e-6 relative, TF32 off; ints and bools
+   exact), np.random and npx.random by moments, a gradient through
+   mx.np ops. (e) A softmax CustomOp (MXNet's custom_softmax.py) as the
+   loss head of a small MLP, 3 SGD steps, and a TorchBlock over
+   torch.nn.Linear, one step, each within 1e-5 of the CPU; to_torch and
+   from_torch keep the device and do not alias; a contrib.text embedding
+   file looked up on the card through nd.Embedding. Prints a
+   {"contrib": ...} line; the kernels line's ``launches_by_path`` carries
+   (b)'s K1 launches as ``int8_bert_serving``.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -510,7 +540,8 @@ Prints the card's name and power limit, an {"ndarray": ...}, a
 {"vision": ...}, a {"gluon_loop": ...}, an {"rnn": ...}, a
 {"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...},
 a {"bucketing": ...}, a {"serving_http": ...}, a {"programs": ...}, a
-{"parallel": ...}, a {"dist": ...}, a {"phase_seconds": ...} and a
+{"parallel": ...}, a {"dist": ...}, a {"contrib": ...}, a
+{"phase_seconds": ...} and a
 {"kernels": [...]} line and, as the last line, {"ok": true, "device":
 {...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
@@ -535,8 +566,17 @@ phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"bucketing": {...}}), ``--serving-http-only`` phase 20
 ({"serving_http": {...}}), ``--programs-only`` phase 21
 ({"programs": {...}}), ``--parallel-only`` phase 22
-({"parallel": {...}}) and ``--dist-only`` phase 23 ({"dist": {...}}).
+({"parallel": {...}}), ``--dist-only`` phase 23 ({"dist": {...}}) and
+``--contrib-only`` phase 24 ({"contrib": {...}}).
+
+    python3 chip_smoke.py --profile-stress N [--root DIR]
+
+repeats phase 21's profile N times under its BERT and generation traffic
+at once (the decode loop replaying its graph while each capture starts
+and stops) and prints {"profile_stress": {...}}; a capture that hangs
+ends the process after WAIT_S with every thread's stack.
 """
+import contextlib
 import gc
 import itertools
 import json
@@ -903,7 +943,12 @@ def check_flash_fwd():
             ("bf16 B2 H8 S512 D128 (EvalStep)", (2, 8, BERT_S, 128), False,
              torch.bfloat16, False),
             ("bf16 B4 H8 S512 D128 (EvalStep)", (4, 8, BERT_S, 128), False,
-             torch.bfloat16, False)):
+             torch.bfloat16, False),
+            # the contrib phase's int8 BERT: its quantized Dense returns
+            # fp32, so K1 runs its fp32 instantiation at the served shape
+            ("fp32 B8 H8 S512 D128 (int8 BERT)", (BERT_BUCKET, 8, BERT_S,
+                                                  128), False, torch.float32,
+             False)):
         compare(tag, *shape, causal, dtype, masked)
 
     served = []
@@ -1871,12 +1916,12 @@ def _top_of(prof, n, steps):
 
 def kernels_in(fn):
     """The device activities (kernels, copies, fills) torch.profiler
-    records while ``fn()`` runs."""
+    records while ``fn()`` runs (CUDA activity only: the host's operator
+    events would add nothing to the count and most of the trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return len(_device_events(prof))
@@ -6713,9 +6758,56 @@ def _direct(net, row):
     return jit.EvalStep(net)(row[None])[0].asnumpy()
 
 
-def _http(srv, method, path, payload=None, headers=None, timeout=600):
-    """-> (status, lower-cased headers, body bytes)."""
+WAIT_S = 120    # every wait of the HTTP sections (phases 20 and 21)
+
+
+def _stuck(what):
+    """Print every thread's stack (stderr) and fail naming the wait that
+    ran out: a hang names itself long before the script's time limit."""
+    import faulthandler
+    faulthandler.dump_traceback(all_threads=True)
+    raise SmokeFailure("%s did not finish within %d s (every thread's "
+                       "stack is on stderr)" % (what, WAIT_S))
+
+
+def _join(threads, what):
+    """Join ``threads`` within WAIT_S in all, else ``_stuck(what)``."""
+    end = time.monotonic() + WAIT_S
+    for t in threads:
+        t.join(max(0.0, end - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        _stuck(what)
+
+
+def _drain(numwatch, what):
+    if not numwatch.shadow_drain(WAIT_S):
+        _stuck(what)
+    return True
+
+
+@contextlib.contextmanager
+def _hang_guard(what, seconds):
+    """Past ``seconds``, print every thread's stack (stderr) and exit 1,
+    naming the wait first: a thread that blocks holding the interpreter
+    lock (a ``torch.profiler`` stop that never returned did) lets no
+    Python timeout fire, only faulthandler's own thread. Then the
+    script's 1100 s dump is armed again."""
+    import faulthandler
+    print("chip_smoke: waiting for %s (past %d s: every thread's stack, "
+          "then exit 1)" % (what, seconds), file=sys.stderr, flush=True)
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        _arm_script_dump()
+
+
+def _http(srv, method, path, payload=None, headers=None, timeout=WAIT_S):
+    """-> (status, lower-cased headers, body bytes); a reply that does not
+    come within ``timeout`` fails the phase (``_stuck``)."""
     import http.client
+    import socket
     c = http.client.HTTPConnection(srv.host, srv.port, timeout=timeout)
     try:
         body = None if payload is None else (
@@ -6726,6 +6818,8 @@ def _http(srv, method, path, payload=None, headers=None, timeout=600):
         r = c.getresponse()
         return (r.status, {k.lower(): v for k, v in r.getheaders()},
                 r.read())
+    except (socket.timeout, TimeoutError):
+        _stuck("HTTP %s %s" % (method, path.split("?")[0]))
     finally:
         c.close()
 
@@ -6861,7 +6955,7 @@ def _gen_client(srv, body, hang_up_after=None):
     """One streaming POST /generate: (status, tokens, finish reason,
     seconds to each token line)."""
     import http.client
-    c = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+    c = http.client.HTTPConnection(srv.host, srv.port, timeout=WAIT_S)
     try:
         t0 = time.perf_counter()
         c.request("POST", "/generate", json.dumps(body).encode("utf-8"),
@@ -7386,13 +7480,14 @@ def _profile(srv, traffic, progress, seconds, batch_kernel=None):
             time.sleep(0.01)
         p1 = progress()
         check(p1 > p0, "the traffic made no progress in 300 s")
-        st, _h, body = _http(srv, "GET", "/debug/profile?seconds=%g"
-                             % seconds)
+        with _hang_guard("GET /debug/profile?seconds=%g" % seconds,
+                         WAIT_S + seconds):
+            st, _h, body = _http(srv, "GET", "/debug/profile?seconds=%g"
+                                 % seconds)
         p2 = progress()
     finally:
         stop.set()
-        for t in threads:
-            t.join(600)
+        _join(threads, "the traffic threads of /debug/profile")
     check(st == 200, "/debug/profile answered %d: %s" % (st, body[:300]))
     check(p2 > p1, "the traffic made no progress during the capture")
     out = json.loads(body)
@@ -7434,6 +7529,101 @@ def _profile(srv, traffic, progress, seconds, batch_kernel=None):
                            for i, o in enumerate(full["ops"])
                            if "flash_fwd" in o["op"]],
                 capture_id=out["capture_id"])
+
+
+def _gen_traffic(srv, rng):
+    """``traffic(stop)`` for ``_profile``: GEN_STREAMS streaming clients of
+    the registry's TinyLM ("tinylm"), each sending its request again until
+    ``stop`` is set."""
+    def traffic(stop):
+        reqs = _gen_requests(rng, sampled=False)
+
+        def loop(body):
+            while not stop.is_set():
+                _gen_client(srv, body)
+        threads = [threading.Thread(target=loop, args=(b,)) for b in reqs]
+        for t in threads:
+            t.start()
+        return threads
+    return traffic
+
+
+def _decoded():
+    """The TinyLM's decoded tokens so far (``progress`` for ``_profile``)."""
+    from incubator_mxnet_tpu_torch.serving import generate
+    return sum(v for l, v in generate._TOKENS.series()
+               if l.get("model") == "tinylm" and l.get("phase") == "decode")
+
+
+def _bert_http_traffic(srv, rows):
+    """``traffic(stop)`` for ``_profile``: CLIENTS clients of the
+    registry's "bert", each posting its next row of ``rows`` until
+    ``stop`` is set."""
+    def traffic(stop):
+        def loop(c):
+            i = c
+            while not stop.is_set():
+                _http(srv, "POST", "/v1/models/bert:predict",
+                      {"inputs": [rows[i % len(rows)].tolist()],
+                       "dtype": "int32"})
+                i += CLIENTS
+        threads = [threading.Thread(target=loop, args=(c,))
+                   for c in range(CLIENTS)]
+        for t in threads:
+            t.start()
+        return threads
+    return traffic
+
+
+def profile_stress(card, n):
+    """``--profile-stress N``: phase 21's profiles N times over under all
+    of its traffic at once: BERT (S 64, B 8, every batch tapped, an fp32
+    shadow comparing each) from CLIENTS HTTP clients and TinyLM
+    generation from GEN_STREAMS streaming clients, each capture
+    ``GET /debug/profile?seconds=PROFILE_GEN_S``; so captures start and
+    stop while batches, shadow comparisons and decode steps launch on
+    other threads. Every capture must answer with device activity; one
+    that does not return within WAIT_S ends the process
+    (``_hang_guard``)."""
+    import copy
+    import numpy as onp
+    from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.telemetry import numwatch
+    build_kernels()
+    rng = onp.random.RandomState(22)
+    rows = rng.randint(0, BERT["vocab_size"], (SERVE_HTTP_REQUESTS,
+                                               SERVE_HTTP_S)).astype("int32")
+    bert = _serving_bert(seed=0)
+    fp32 = copy.deepcopy(bert)
+    fp32.cast("float32")
+    saved = os.environ.get("MXTPU_NUMWATCH_SAMPLE")
+    os.environ["MXTPU_NUMWATCH_SAMPLE"] = "1"
+    srv = serving.serve({"bert": bert}, port=0, max_batch_size=PROGRAMS_B,
+                        batch_timeout_ms=20)
+    busy = []
+    t0 = time.perf_counter()
+    try:
+        srv.registry.register_shadow("bert", fp32, stride=1, threshold=1e9)
+        srv.registry.load_generator("tinylm", seed=0, **GEN)
+        bert_traffic = _bert_http_traffic(srv, rows)
+        gen_traffic = _gen_traffic(srv, rng)
+
+        def traffic(stop):
+            return bert_traffic(stop) + gen_traffic(stop)
+        for i in range(n):
+            busy.append(_profile(srv, traffic, _decoded,
+                                 PROFILE_GEN_S)["busy_share"])
+            log("  profile stress: capture %d of %d, busy %.4f (%.1f s)"
+                % (i + 1, n, busy[-1], time.perf_counter() - t0))
+        _drain(numwatch, "the shadow worker's drain")
+    finally:
+        srv.stop()
+        if saved is None:
+            os.environ.pop("MXTPU_NUMWATCH_SAMPLE", None)
+        else:
+            os.environ["MXTPU_NUMWATCH_SAMPLE"] = saved
+    return dict(card=card, captures=n, seconds=time.perf_counter() - t0,
+                busy_share_min=min(busy), busy_share_max=max(busy))
 
 
 def serve_artifact_over_http(bert, tmp):
@@ -7491,8 +7681,7 @@ def serve_artifact_over_http(bert, tmp):
             range(c, len(rows), CLIENTS),)) for c in range(CLIENTS)]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join(600)
+        _join(threads, "the artifact's HTTP clients")
         errs = []
         for (st, body), want in zip(replies, direct):
             check(st == 200, "POST predict of the artifact: %d %s"
@@ -7515,53 +7704,23 @@ def serve_artifact_over_http(bert, tmp):
         from incubator_mxnet_tpu_torch.telemetry import numwatch
         st, _h, _b = _http(srv, "POST", "/v1/models/bert:predict",
                            {"inputs": [rows[0].tolist()], "dtype": "int32"})
-        check(st == 200 and numwatch.shadow_drain(600),
+        check(st == 200 and _drain(numwatch, "the shadow's first sample"),
               "the shadow's first sample: %d" % st)
 
-        def http_traffic(stop):
-            def loop(c):
-                i = c
-                while not stop.is_set():
-                    _http(srv, "POST", "/v1/models/bert:predict",
-                          {"inputs": [rows[i % len(rows)].tolist()],
-                           "dtype": "int32"})
-                    i += CLIENTS
-            threads = [threading.Thread(target=loop, args=(c,))
-                       for c in range(CLIENTS)]
-            for t in threads:
-                t.start()
-            return threads
         http_profile = _profile(
-            srv, http_traffic,
+            srv, _bert_http_traffic(srv, rows),
             lambda: srv.registry.metrics("bert").batch_count,
             PROFILE_HTTP_S, batch_kernel="flash_fwd_tc")
         check(bool(http_profile["flash_fwd"]),
               "K1 (flash_fwd) is not among the kernels the profile under "
               "HTTP traffic recorded")
         srv.registry.load_generator("tinylm", seed=0, **GEN)
-
-        def gen_traffic(stop):
-            reqs = _gen_requests(rng, sampled=False)
-
-            def loop(body):
-                while not stop.is_set():
-                    _gen_client(srv, body)
-            threads = [threading.Thread(target=loop, args=(b,))
-                       for b in reqs]
-            for t in threads:
-                t.start()
-            return threads
-        from incubator_mxnet_tpu_torch.serving import generate
-
-        def decoded():
-            return sum(v for l, v in generate._TOKENS.series()
-                       if l.get("model") == "tinylm"
-                       and l.get("phase") == "decode")
-        gen_profile = _profile(srv, gen_traffic, decoded, PROFILE_GEN_S)
+        gen_profile = _profile(srv, _gen_traffic(srv, rng), _decoded,
+                               PROFILE_GEN_S)
         st, _h, hot = _http(srv, "GET", "/debug/hotspots?n=8")
         check(st == 200, "/debug/hotspots answered %d" % st)
         hot = json.loads(hot)
-        check(numwatch.shadow_drain(600), "the shadow worker did not drain")
+        _drain(numwatch, "the shadow worker's drain")
         st, _h, num = _http(srv, "GET", "/debug/numerics")
         num = json.loads(num)
         tap = num["taps"].get("bert/serve:outputs")
@@ -9110,6 +9269,567 @@ def dist_phase(card):
                           seconds=time.perf_counter() - t0)
 
 
+RESNET_INT8_B = 256         # bench.py bench_quantized_inference's batch
+RESNET_CALIB_B = 32         # its calibration batch (one)
+RESNET_INT8_TIMED = (4, 5)  # (alternating pairs, forwards a leg a pair)
+RESNET_INT8_FLOPS = 8.2e9   # bench.py:416: 4.1 GMACs x 2 at 224 x 224
+PEAK_INT8_OPS = 1979e12     # H100 SXM dense int8 tensor-core rate
+INT8_SMALL_TOL = 1e-2       # tests/test_torch_quantization.py: logits,
+                            # relative Frobenius, equal argmax
+ONNX_B = 32
+ONNX_TOL = 1e-5             # of the largest probability, TF32 off
+CUSTOM_TOL = 1e-5           # the custom-op MLP and TorchBlock card vs CPU
+CUSTOM_STEPS = 3
+
+
+def _small_int8_net(mxt, ctx, x, arrays=None):
+    """tests/test_torch_quantization.py's net (a Conv-BN-ReLU group, a
+    max-pool, a BottleneckV1, a group after it, a max-pool and a Dense
+    head) on ``ctx``: its weights from ``arrays`` (else Xavier from seed 0
+    and random BatchNorm statistics), quantized on ``x``. Returns (the
+    float arrays, the net's logits, its int8 weights in order)."""
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch.contrib import quantization as quant
+    nn = mxt.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+            nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+            nn.MaxPool2D(2, 2),
+            mxt.gluon.model_zoo.vision.BottleneckV1(16, 1, downsample=True,
+                                                    in_channels=8),
+            nn.Conv2D(8, 1, in_channels=16), nn.BatchNorm(in_channels=8),
+            nn.Activation("relu"), nn.MaxPool2D(2, 2),
+            nn.Dense(10, in_units=8 * 8 * 8))
+    net.initialize(mxt.init.Xavier(), ctx=ctx,
+                   generator=torch.Generator().manual_seed(0))
+    xa = mxt.nd.array(x, ctx=ctx)
+    net(xa)
+    if arrays is None:
+        rng = onp.random.RandomState(6)
+        arrays = {}
+        for name, p in sorted(net._collect_params_with_prefix().items()):
+            a = p.data().asnumpy()
+            if name.endswith(("running_var", "gamma")):
+                a = onp.abs(rng.randn(*a.shape)).astype("float32") + 0.5
+            elif name.endswith(("running_mean", "beta")):
+                a = (rng.randn(*a.shape) * 0.1).astype("float32")
+            arrays[name] = a
+    mxt.convert.from_jax_params(net, arrays)
+    quant.quantize_net(net, calib_data=[(xa,)], num_calib_batches=1)
+    wq = []
+
+    def walk(b):
+        for c in b._modules.values():
+            if c is None:
+                continue
+            w = getattr(c, "_wq", None)
+            inner = c.__dict__.get("_inner")
+            if w is None and inner is not None:
+                w = inner._wq
+            if w is not None:
+                wq.append(w.asnumpy())
+            walk(c)
+    walk(net)
+    return arrays, net(xa).asnumpy(), wq
+
+
+def check_int8_small():
+    """Phase 24(a)'s small gate: the test's int8 net on the card against
+    the same net on the CPU (same float weights, same calibration batch):
+    the int8 weights equal, the logits within INT8_SMALL_TOL relative
+    Frobenius with equal argmax."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    x = onp.random.RandomState(7).randn(4, 3, 32, 32).astype("float32")
+    arrays, cpu_logits, cpu_wq = _small_int8_net(mxt, mxt.cpu(), x)
+    with _TF32(False):
+        _, gpu_logits, gpu_wq = _small_int8_net(mxt, mxt.gpu(0), x, arrays)
+    check(len(cpu_wq) == len(gpu_wq) and all(
+        onp.array_equal(a, b) for a, b in zip(cpu_wq, gpu_wq)),
+        "the small int8 net's int8 weights differ card vs CPU")
+    rel = float(onp.linalg.norm(gpu_logits - cpu_logits)
+                / onp.linalg.norm(cpu_logits))
+    check(rel <= INT8_SMALL_TOL and (gpu_logits.argmax(1)
+                                     == cpu_logits.argmax(1)).all(),
+          "the small int8 net card vs CPU: %.3g relative, argmax %s vs %s"
+          % (rel, gpu_logits.argmax(1), cpu_logits.argmax(1)))
+    return dict(rel_frobenius=rel, int8_weights=len(gpu_wq))
+
+
+def _leg_ms(step, x, n):
+    """ms a forward of ``step`` over ``n`` back-to-back calls (CUDA
+    events)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        step(x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def int8_resnet(card):
+    """Phase 24(a): bench.py's bench_quantized_inference on the card."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch.contrib import quantization as quant
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+
+    def net_from_seed():
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                       .Generator(device="cuda:0").manual_seed(0))
+        net.cast("bfloat16")
+        return net
+
+    x = torch.randn((RESNET_INT8_B, 3, 224, 224), device="cuda:0",
+                    generator=torch.Generator(device="cuda:0")
+                    .manual_seed(1)).to(torch.bfloat16)
+    small = check_int8_small()
+    fp = net_from_seed()
+    fp(x[:1])
+    qnet = net_from_seed()
+    qnet(x[:1])
+    t0 = time.perf_counter()
+    quant.quantize_net(qnet, calib_data=[(x[:RESNET_CALIB_B],)],
+                       num_calib_batches=1)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    groups = sum(type(m).__name__ == "_QuantizedConvGroup"
+                 for m in qnet.modules())
+    chained = sum(bool(getattr(m, "emit_int8", False))
+                  for m in qnet.modules())
+    bf16_step, int8_step = jit.EvalStep(fp), jit.EvalStep(qnet)
+    ref = bf16_step(x).asnumpy()
+    torch.cuda.reset_peak_memory_stats()
+    q1 = int8_step(x).asnumpy()             # capture
+    q2 = int8_step(x).asnumpy()             # replay
+    int8_peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        eager = qnet(x).float().cpu().numpy()
+    check(bool(onp.isfinite(q2).all()), "int8 ResNet-50 logits not finite")
+    check(onp.array_equal(q1, q2) and onp.array_equal(q2, eager),
+          "int8 ResNet-50: captured %s eager bit for bit (max |d| %.3g)"
+          % ("!=", float(onp.abs(q2 - eager).max())))
+    pairs, n = RESNET_INT8_TIMED
+    legs = []
+    for _ in range(pairs):
+        legs.append((_leg_ms(bf16_step, x, n), _leg_ms(int8_step, x, n)))
+    bf16_ms = min(b for b, _ in legs)
+    int8_ms = min(i for _, i in legs)
+    a, b = ref.astype("float64").ravel(), q2.astype("float64").ravel()
+    cos = float(a @ b / (onp.linalg.norm(a) * onp.linalg.norm(b)))
+    agree = float((ref.argmax(1) == q2.argmax(1)).mean())
+    int8_img_s = RESNET_INT8_B / int8_ms * 1e3
+    row = dict(
+        card=card, batch=RESNET_INT8_B, bf16_ms=bf16_ms, int8_ms=int8_ms,
+        legs_ms=legs, bf16_img_s=RESNET_INT8_B / bf16_ms * 1e3,
+        int8_img_s=int8_img_s, int8_over_bf16=bf16_ms / int8_ms,
+        int8_tops=int8_img_s * RESNET_INT8_FLOPS / 1e12,
+        int8_share_of_peak=int8_img_s * RESNET_INT8_FLOPS / PEAK_INT8_OPS,
+        int8_peak_gb=int8_peak / 1e9, logit_cos=cos, argmax_agreement=agree,
+        quantize_s=quantize_s, conv_groups=groups, int8_chained=chained,
+        small_card_vs_cpu=small)
+    log("int8 ResNet-50 B %d: bf16 %.2f ms, int8 %.2f ms (%.1f img/s, "
+        "%.1f TOPS), cos %.4f, argmax %.3f, %d groups (%d emit int8)"
+        % (RESNET_INT8_B, bf16_ms, int8_ms, int8_img_s, row["int8_tops"],
+           cos, agree, groups, chained))
+    del fp, qnet, bf16_step, int8_step
+    release_graphs()
+    return row
+
+
+def int8_bert_served(card):
+    """Phase 24(b): full-width BERT with every Dense int8, served behind
+    ModelRegistry beside the bf16 net. Returns (K1 launches, row)."""
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch import jit, serving
+    from incubator_mxnet_tpu_torch.contrib import quantization as quant
+    from incubator_mxnet_tpu_torch.ops import _kernels, attention
+
+    rng = onp.random.RandomState(0)
+    rows = rng.randint(0, BERT["vocab_size"], (BERT_REQUESTS, BERT_S)) \
+        .astype("int32")
+    bf16 = _serving_bert(0)
+    qnet = _serving_bert(0)
+    t0 = time.perf_counter()
+    quant.quantize_net(qnet, calib_data=[(torch.from_numpy(
+        rows[:BERT_BUCKET]).cuda(),)], num_calib_batches=1)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    dense = sum(type(m).__name__ == "_QuantizedDenseBlock"
+                for m in qnet.modules())
+    dtypes = set()
+    launch = attention._flash_fwd_cuda
+
+    def noted(q, *a, **k):
+        dtypes.add(str(q.dtype))
+        return launch(q, *a, **k)
+    reg = serving.ModelRegistry()
+    out = {}
+    try:
+        attention._flash_fwd_cuda = noted
+        reg.load("bert", bf16, max_batch_size=BERT_BUCKET,
+                 batch_timeout_ms=50)
+        reg.load("bert_int8", qnet, max_batch_size=BERT_BUCKET,
+                 batch_timeout_ms=50)
+        for name in ("bert", "bert_int8"):
+            reg.predict(name, rows[0])                 # warm-up: captures
+        attention._flash_fwd_cuda = launch
+        for name in ("bert", "bert_int8"):
+            base = reg.metrics(name).batch_count
+            replies, lat, errors = {}, [], []
+
+            def client(c):
+                try:
+                    t = time.perf_counter()
+                    reqs = {i: reg.submit(name, rows[i])
+                            for i in range(c, BERT_REQUESTS, CLIENTS)}
+                    for i, r in reqs.items():
+                        replies[i] = r.result(120)[0]
+                        lat.append((time.perf_counter() - t) * 1e3)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(CLIENTS)]
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            check(not any(t.is_alive() for t in threads),
+                  "a %s client hung" % name)
+            check(not errors, "%s requests failed: %r" % (name, errors[:3]))
+            out[name] = dict(replies=replies, lat=sorted(lat),
+                             launches=dict(_kernels.LAUNCHES),
+                             batches=reg.metrics(name).batch_count - base)
+    finally:
+        attention._flash_fwd_cuda = launch
+        reg.close()
+    q = out["bert_int8"]
+    k1 = q["launches"].get("flash_fwd", 0)
+    check(q["batches"] > 0 and out["bert"]["batches"] > 0,
+          "int8 BERT served: the registry ran %d int8 and %d bf16 batches"
+          % (q["batches"], out["bert"]["batches"]))
+    check(k1 == BERT["num_layers"] * q["batches"],
+          "int8 BERT served: flash_fwd launched %d times for %d batches "
+          "(expected %d a batch)" % (k1, q["batches"], BERT["num_layers"]))
+    check(dtypes == {"torch.bfloat16", "torch.float32"},
+          "K1's input types on the two nets: %s" % sorted(dtypes))
+    step = jit.EvalStep(qnet)
+    direct = onp.concatenate([step(rows[i:i + BERT_BUCKET]).asnumpy()
+                              for i in range(0, BERT_REQUESTS,
+                                             BERT_BUCKET)])
+    worst, cos = 0.0, []
+    for i in range(BERT_REQUESTS):
+        r = q["replies"][i]
+        check(r.dtype == onp.float32 and r.shape == (BERT_S,
+                                                     BERT["vocab_size"]),
+              "int8 reply %d: %s %s" % (i, r.dtype, r.shape))
+        check(bool(onp.isfinite(r).all()), "int8 reply %d not finite" % i)
+        worst = max(worst, float(onp.abs(r - direct[i]).max()))
+        a = out["bert"]["replies"][i].astype("float64").ravel()
+        b = r.astype("float64").ravel()
+        cos.append(float(a @ b / (onp.linalg.norm(a) * onp.linalg.norm(b))))
+    check(worst == 0.0, "int8 replies differ from the direct EvalStep "
+          "forward by up to %.3g" % worst)
+    row = dict(
+        card=card, requests=BERT_REQUESTS, bucket=BERT_BUCKET,
+        int8_dense_blocks=dense, quantize_s=quantize_s,
+        k1_instantiation="flash_fwd_fma (fp32: the int8 Dense returns "
+                         "fp32, as in the reference)",
+        k1_launches=k1, int8_batches=q["batches"],
+        bf16_batches=out["bert"]["batches"],
+        int8_p50_ms=_pct(q["lat"], 50), int8_max_ms=max(q["lat"]),
+        bf16_p50_ms=_pct(out["bert"]["lat"], 50),
+        bf16_max_ms=max(out["bert"]["lat"]),
+        logit_cos_min=min(cos), logit_cos_mean=sum(cos) / len(cos),
+        reply_dtype="float32")
+    log("int8 BERT served: p50 %.1f ms (bf16 %.1f), max %.1f (bf16 %.1f), "
+        "K1 %d for %d batches, cos %.4f"
+        % (row["int8_p50_ms"], row["bf16_p50_ms"], row["int8_max_ms"],
+           row["bf16_max_ms"], k1, q["batches"], row["logit_cos_min"]))
+    del bf16, qnet, step
+    release_graphs()
+    return {"flash_fwd": k1}, row
+
+
+def onnx_round_trip(card):
+    """Phase 24(c): phase 17's ResNet-50 v1 symbol through export_model
+    and import_model, bound on gpu(0) through Module: B ONNX_B fp32 with
+    TF32 off, the imported graph within ONNX_TOL of the original."""
+    import shutil
+    import tempfile
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.contrib import onnx as tonnx
+    sym = resnet_v1_symbol(mxt.sym, (3, 4, 6, 3),
+                           (64, 256, 512, 1024, 2048), 1000, 224)
+    shape = (ONNX_B, 3, 224, 224)
+    rng = onp.random.RandomState(3)
+    x = rng.randn(*shape).astype("float32")
+    tmp = tempfile.mkdtemp(prefix="mxtpu_onnx_")
+    try:
+        with _TF32(False):
+            mod = mxt.mod.Module(sym, context=mxt.gpu(0))
+            mod.bind([("data", shape)], [("softmax_label", (ONNX_B,))],
+                     for_training=False)
+            mod.init_params(_xavier())
+            arg, aux = mod.get_params()
+            aux = {k: mxt.nd.array(
+                (onp.abs(rng.randn(*v.shape)) + 0.5 if "var" in k
+                 else rng.randn(*v.shape) * 0.1).astype("float32"),
+                ctx=mxt.cpu()) for k, v in aux.items()}
+            mod.set_params(arg, aux)
+            batch = mxt.io.DataBatch([mxt.nd.array(x, ctx=mxt.cpu())],
+                                     [mxt.nd.zeros((ONNX_B,), ctx=mxt.cpu())])
+            mod.forward(batch, is_train=False)
+            want = mod.get_outputs()[0].asnumpy()
+            path = os.path.join(tmp, "resnet50_v1.onnx")
+            t0 = time.perf_counter()
+            tonnx.export_model(sym, {**arg, **aux},
+                               [shape, (ONNX_B,)], onnx_file_path=path)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sym2, arg2, aux2 = tonnx.import_model(path)
+            mod2 = mxt.mod.Module(sym2, label_names=None,
+                                  context=mxt.gpu(0))
+            mod2.bind([("data", shape)], for_training=False)
+            mod2.set_params(arg2, aux2)
+            import_s = time.perf_counter() - t0
+            mod2.forward(mxt.io.DataBatch([mxt.nd.array(x, ctx=mxt.cpu())]),
+                         is_train=False)
+            got = mod2.get_outputs()[0].asnumpy()
+        mb = os.path.getsize(path) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = float(onp.abs(got - want).max() / onp.abs(want).max())
+    check(got.shape == want.shape and err <= ONNX_TOL,
+          "ONNX round trip of ResNet-50 v1: %.3g of the largest value" % err)
+    row = dict(card=card, batch=ONNX_B, export_s=export_s, file_mb=mb,
+               import_bind_s=import_s, max_rel_err=err)
+    log("ONNX ResNet-50 v1: export %.2f s, %.1f MB, import+bind %.2f s, "
+        "%.3g of the largest value" % (export_s, mb, import_s, err))
+    return row
+
+
+def np_on_card(card, root):
+    """Phase 24(d): every mx.np/mx.npx case of tests/np_cases.py on the
+    card against the same call on the CPU (fp32 within np_cases' ATOL +
+    RTOL with TF32 off, ints and bools exact), np.random and npx.random
+    by moments, and a gradient through a chain of mx.np ops."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import np_cases as C
+    np, npx = mxt.np, mxt.npx
+    cases = C.NP_CASES + C.LINALG_CASES + C.NPX_CASES + C.NPX_IMAGE_CASES
+    failed = []
+    t0 = time.perf_counter()
+    with _TF32(False):
+        with mxt.cpu():
+            xc = C.inputs(np)
+        with mxt.gpu(0):
+            xg = C.inputs(np)
+        for label, fn in cases:
+            try:
+                with mxt.cpu():
+                    want = C.host(fn(np, npx, xc))
+                with mxt.gpu(0):
+                    got = C.host(fn(np, npx, xg))
+                C.compare(got, want, label)
+            except Exception as e:  # noqa: BLE001 — listed below
+                failed.append("%s: %s" % (label, repr(e)[:300]))
+        for label, draw, moments in C.RANDOM_CASES:
+            try:
+                with mxt.gpu(0):
+                    s = draw(np, npx)
+                check(s._data.is_cuda, "%s drew on the host" % label)
+                C.moments_ok(s.asnumpy(), *moments, label)
+            except Exception as e:  # noqa: BLE001 — listed below
+                failed.append("%s: %s" % (label, repr(e)[:300]))
+        grads = []
+        rng = onp.random.RandomState(2)
+        xh, wh = rng.randn(3, 4).astype("float32"), \
+            rng.randn(4, 5).astype("float32")
+        for ctx in (mxt.cpu(), mxt.gpu(0)):
+            with ctx:
+                a, b = np.array(xh), np.array(wh)
+                a.attach_grad()
+                with mxt.autograd.record():
+                    h = np.tanh(np.matmul(a, b))
+                    h = np.concatenate([h, np.exp(-np.square(h))], axis=1)
+                    y = np.sum(np.mean(h, axis=0) * np.arange(10) / 10.0)
+                y.backward()
+                grads.append(a.grad.asnumpy())
+        try:
+            C.compare(grads[1], grads[0], "gradient through mx.np")
+        except AssertionError as e:
+            failed.append(repr(e)[:300])
+    check(not failed, "mx.np/mx.npx card vs CPU: %d failed: %s"
+          % (len(failed), failed[:5]))
+    row = dict(card=card, cases=len(cases), random=len(C.RANDOM_CASES),
+               seconds=time.perf_counter() - t0)
+    log("mx.np/mx.npx: %d cases and %d draws card = CPU in %.1f s"
+        % (len(cases), len(C.RANDOM_CASES), row["seconds"]))
+    return row
+
+
+def _custom_softmax(mxt):
+    """MXNet's example/numpy-ops/custom_softmax.py: the softmax loss head
+    as a CustomOp (backward p - onehot(label))."""
+    nd = mxt.nd
+    if "chip_smoke_softmax" in mxt.operator.get_all_registered():
+        return
+
+    class Softmax(mxt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]
+            y = nd.exp(x - nd.max(x, axis=1, keepdims=True))
+            self.assign(out_data[0], req[0],
+                        y / nd.sum(y, axis=1, keepdims=True))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0],
+                        y - nd.one_hot(in_data[1], y.shape[1]))
+            self.assign(in_grad[1], "null", in_data[1])
+
+    @mxt.operator.register("chip_smoke_softmax")
+    class SoftmaxProp(mxt.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def custom_bridge_text(card):
+    """Phase 24(e): a custom softmax head on a small MLP (CUSTOM_STEPS SGD
+    steps), a TorchBlock over torch.nn.Linear (one step), to_torch /
+    from_torch and a contrib.text embedding, each card against the CPU."""
+    import shutil
+    import tempfile
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    import incubator_mxnet_tpu_torch.torch as bridge
+    nd = mxt.nd
+    _custom_softmax(mxt)
+    rng = onp.random.RandomState(4)
+    x = rng.randn(16, 8).astype("float32")
+    lab = rng.randint(0, 4, (16,)).astype("float32")
+    w0 = [(rng.randn(8, 16) * 0.3).astype("float32"),
+          (rng.randn(16, 4) * 0.3).astype("float32")]
+
+    def mlp(ctx):
+        ws = [nd.array(w, ctx=ctx) for w in w0]
+        xa, la = nd.array(x, ctx=ctx), nd.array(lab, ctx=ctx)
+        for w in ws:
+            w.attach_grad()
+        for _ in range(CUSTOM_STEPS):
+            with mxt.autograd.record():
+                h = nd.relu(nd.dot(xa, ws[0]))
+                p = nd.Custom(nd.dot(h, ws[1]), la,
+                              op_type="chip_smoke_softmax")
+            p.backward()
+            for w in ws:
+                w[:] = w - 0.5 * w.grad
+        return [w.asnumpy() for w in ws]
+
+    def linear(device):
+        torch.manual_seed(0)
+        lin = torch.nn.Linear(8, 4).to(device)
+        blk = bridge.TorchBlock(lin)
+        opt = torch.optim.SGD(lin.parameters(), lr=0.5)
+        xa = nd.array(x, ctx=mxt.gpu(0) if device == "cuda" else mxt.cpu())
+        xa.attach_grad()
+        with mxt.autograd.record():
+            loss = (blk(xa) ** 2).mean()
+        loss.backward()
+        opt.step()
+        return lin.weight.detach().cpu().numpy(), xa.grad.asnumpy()
+
+    with _TF32(False):
+        got, want = mlp(mxt.gpu(0)), mlp(mxt.cpu())
+        lin_got, lin_want = linear("cuda"), linear("cpu")
+    mlp_err = max(float(onp.abs(g - w).max()) for g, w in zip(got, want))
+    lin_err = max(float(onp.abs(g - w).max())
+                  for g, w in zip(lin_got, lin_want))
+    check(mlp_err <= CUSTOM_TOL, "custom-op MLP card vs CPU: %.3g" % mlp_err)
+    check(lin_err <= CUSTOM_TOL, "TorchBlock card vs CPU: %.3g" % lin_err)
+    a = nd.array(x, ctx=mxt.gpu(0))
+    t = bridge.to_torch(a)
+    check(t.is_cuda and t.data_ptr() != a._data.data_ptr(),
+          "to_torch moved or aliased the array")
+    t.add_(1.0)
+    check(onp.array_equal(a.asnumpy(), x), "to_torch aliased the array")
+    src = torch.from_numpy(x.copy())
+    b = bridge.from_torch(src, ctx=mxt.gpu(0))
+    src.add_(1.0)
+    check(b._data.is_cuda and onp.array_equal(b.asnumpy(), x),
+          "from_torch did not copy onto the card")
+    tmp = tempfile.mkdtemp(prefix="mxtpu_text_")
+    try:
+        path = os.path.join(tmp, "emb.txt")
+        vecs = {w: rng.randn(6).astype("float32")
+                for w in ("the", "cat", "sat", "mat")}
+        with open(path, "w") as f:
+            for w, v in vecs.items():
+                f.write(w + " " + " ".join("%r" % float(e) for e in v) + "\n")
+        text = mxt.contrib.text
+        vocab = text.Vocabulary(text.count_tokens_from_str(
+            "the cat sat on the mat"))
+        emb = text.CustomEmbedding(file_path=path, vocabulary=vocab,
+                                   ctx=mxt.gpu(0))
+        ids = nd.array(emb.to_indices(["cat", "mat", "on"]),
+                       ctx=mxt.gpu(0))
+        out = nd.Embedding(ids, emb.idx_to_vec, input_dim=len(vocab),
+                           output_dim=emb.vec_len)
+        want_text = onp.stack([vecs["cat"], vecs["mat"],
+                               onp.zeros(6, "float32")])
+        check(out._data.is_cuda and onp.array_equal(out.asnumpy(),
+                                                    want_text),
+              "contrib.text vectors through nd.Embedding on the card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = dict(card=card, custom_mlp_max_abs=mlp_err,
+               torch_block_max_abs=lin_err, text_tokens=len(vocab))
+    log("custom op MLP %d steps card vs CPU %.3g, TorchBlock %.3g, text "
+        "ok" % (CUSTOM_STEPS, mlp_err, lin_err))
+    return row
+
+
+def contrib_phase(card, root=None):
+    """Phase 24: ROADMAP item 6 on the card (``--contrib-only``). Returns
+    (the int8 BERT path's K1 launches, summary)."""
+    import torch
+    root = root or os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    summary = dict(card=card)
+    summary["int8_resnet50"] = int8_resnet(card)
+    launches, summary["int8_bert_served"] = int8_bert_served(card)
+    summary["onnx"] = onnx_round_trip(card)
+    summary["np_npx"] = np_on_card(card, root)
+    summary["custom_bridge_text"] = custom_bridge_text(card)
+    summary["seconds"] = time.perf_counter() - t0
+    release_graphs()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -9438,6 +10158,19 @@ def phase_done(name):
     _PHASE_MARK[0] = now
 
 
+_SCRIPT_T0 = time.monotonic()
+SCRIPT_DUMP_S = 1100    # the script's own stack dump, before the 1200 s limit
+
+
+def _arm_script_dump():
+    """A run still going SCRIPT_DUMP_S after the script started prints
+    where every thread waits (stderr), so a hang names itself."""
+    import faulthandler
+    faulthandler.dump_traceback_later(
+        max(1.0, SCRIPT_DUMP_S - (time.monotonic() - _SCRIPT_T0)),
+        exit=False)
+
+
 def main(argv):
     import argparse
     parser = argparse.ArgumentParser(description="Run the PyTorch/CUDA port "
@@ -9477,6 +10210,14 @@ def main(argv):
                         help="run SPMD over a mesh (phase 22) alone")
     parser.add_argument("--dist-only", action="store_true",
                         help="run several processes (phase 23) alone")
+    parser.add_argument("--contrib-only", action="store_true",
+                        help="run mx.np/mx.npx, int8 quantization, ONNX, "
+                        "nd.Custom, contrib.text and the torch bridge "
+                        "(phase 24) alone")
+    parser.add_argument("--profile-stress", type=int, metavar="N",
+                        help="N GET /debug/profile captures under TinyLM "
+                        "generation traffic (phase 21's second profile, "
+                        "repeated) alone")
     parser.add_argument("--dist-worker", action="store_true",
                         help=argparse.SUPPRESS)   # one rank of phase 23
     parser.add_argument("--dist-nccl-one", action="store_true",
@@ -9486,10 +10227,7 @@ def main(argv):
     parser.add_argument("--root", default=os.path.dirname(
         os.path.abspath(__file__)), help="the checkout whose port runs")
     opts = parser.parse_args(argv)
-    # a run still going near the driver's 1200 s limit prints where every
-    # thread waits (stderr), so a hang names itself
-    import faulthandler
-    faulthandler.dump_traceback_later(1100, exit=False)
+    _arm_script_dump()
     try:
         import torch
     except ImportError:
@@ -9566,7 +10304,12 @@ def main(argv):
                               programs_phase),
                              (opts.parallel_only, "parallel",
                               parallel_phase),
-                             (opts.dist_only, "dist", dist_phase)):
+                             (opts.dist_only, "dist", dist_phase),
+                             (opts.contrib_only, "contrib",
+                              lambda c: contrib_phase(c, opts.root)),
+                             (opts.profile_stress, "profile_stress",
+                              lambda c: (None, profile_stress(
+                                  c, opts.profile_stress)))):
         if flag:
             try:
                 _, got = phase(card)
@@ -9639,6 +10382,9 @@ def main(argv):
         release_graphs()
         dist_launches, dist = dist_phase(card)
         phase_done("dist_phase")
+        release_graphs()
+        contrib_launches, contrib = contrib_phase(card, opts.root)
+        phase_done("contrib_phase")
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         phase_done("check_rtc")
         rtc_host = rtc_host_breakdown()
@@ -9656,6 +10402,7 @@ def main(argv):
              "module": module_launches, "bucketing": bucketing_launches,
              "serving_http": serving_http_launches,
              "programs": programs_launches,
+             "int8_bert_serving": contrib_launches,
              **parallel_launches,
              **dist_launches,
              **gluon_launches,
@@ -9785,6 +10532,7 @@ def main(argv):
     log(json.dumps({"programs": programs}))
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"dist": dist}))
+    log(json.dumps({"contrib": contrib}))
     log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(json.dumps({"kernels": kernels}))
     log(card)

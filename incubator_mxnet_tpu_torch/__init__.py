@@ -83,6 +83,11 @@ from .monitor import Monitor  # noqa: F401,E402
 from . import rnn, profiler, engine, util  # noqa: F401,E402
 from .util import is_np_array, set_np, reset_np, np_shape, np_array  # noqa
 from . import visualization  # noqa: F401,E402
+from . import operator  # noqa: F401,E402
+from . import numpy  # noqa: F401,E402
+from . import numpy as np  # noqa: F401,E402
+from . import numpy_extension  # noqa: F401,E402
+from . import numpy_extension as npx  # noqa: F401,E402
 from . import visualization as viz  # noqa: F401,E402
 from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
                       gpu, num_gpus, num_tpus, tpu)

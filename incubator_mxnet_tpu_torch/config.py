@@ -22,6 +22,12 @@ __all__ = ["ENV_VARS", "get_env", "evict_to_bound", "describe"]
 
 ENV_VARS = {
     # name: (type, default, doc)
+    "MXTPU_INT8_SIM": (
+        bool, False,
+        "Run the quantized matmul/conv (ndarray/contrib.py quantized_* "
+        "ops, contrib/quantization.py blocks) by dequantize -> fp32 -> "
+        "requantize instead of int8 operands with int32 accumulators "
+        "(torch._int_mm)."),
     "MXTPU_DEVICE_PEAK_FLOPS": (
         float, None,
         "Override the per-chip peak FLOP/s the device-truth MFU gauges "

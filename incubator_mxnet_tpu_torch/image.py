@@ -68,13 +68,20 @@ def imresize(src, w, h, interp=1):
     nearest for 0."""
     a = src._data if isinstance(src, NDArray) else \
         torch.from_numpy(onp.ascontiguousarray(src))
-    x = a.to(torch.float32).permute(2, 0, 1).unsqueeze(0)
+    out = _resize_nhwc(a.unsqueeze(0), h, w, interp)
+    return NDArray(out[0].to(a.dtype))
+
+
+def _resize_nhwc(a, h, w, interp):
+    """NHWC images resized to (h, w) in float32: ``jax.image.resize``'s
+    "linear" (antialiased) for ``interp`` > 0, "nearest" for 0."""
+    x = a.to(torch.float32).permute(0, 3, 1, 2)
     if interp:
         out = F.interpolate(x, size=(h, w), mode="bilinear",
                             align_corners=False, antialias=True)
     else:
         out = F.interpolate(x, size=(h, w), mode="nearest-exact")
-    return NDArray(out[0].permute(1, 2, 0).contiguous().to(a.dtype))
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def resize_short(src, size, interp=2):

@@ -123,9 +123,13 @@ def _uses_graphs(device):
 
 
 def net_device(net):
-    """The device of the net's (first) parameter."""
+    """The device of the net's (first) parameter, else of its first buffer
+    (a net made int8 by ``contrib.quantization`` keeps its weights in
+    buffers and owns no parameters)."""
     for p in net.parameters():
         return p.device
+    for b in net.buffers():
+        return b.device
     raise RuntimeError("%s has no initialized parameters; call "
                        ".initialize() first" % type(net).__name__)
 

@@ -32,10 +32,10 @@ from .ndarray import Pooling as Pooling_v1  # noqa: F401,E402
 
 
 def Custom(*inputs, op_type, **kwargs):
-    """A registered custom operator: waits for the port of
-    ``operator.py``."""
-    raise NotImplementedError("nd.Custom comes with the port of operator.py "
-                              "(ROADMAP.md §1 item 6)")
+    """Run a custom operator registered with ``mx.operator.register``
+    (``operator.Custom``)."""
+    from ..operator import Custom as _custom
+    return _custom(*inputs, op_type=op_type, **kwargs)
 
 
 def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,

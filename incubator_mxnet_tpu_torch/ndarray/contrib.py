@@ -1,6 +1,5 @@
 """``nd.contrib``: MXNet's contrib operators (counterpart of
-``incubator_mxnet_tpu/ndarray/contrib.py``), the part without control flow,
-sparse storage or quantization.
+``incubator_mxnet_tpu/ndarray/contrib.py``).
 
 Each operator takes NDArrays or tensors, as every ``nd`` operator does
 (``_apply``). The detection operators are ``ops.detection``'s and
@@ -21,9 +20,10 @@ operators on CSR storage (``getnnz``, ``edge_id``, the ``dgl_*`` graph
 samplers) are eager host operators, as in the JAX package; ``hawkesll``
 is a loop over the sequence axis.
 
-Still to port, and raising with the ROADMAP item that brings them: the
-quantized family (``quantize*``, ``dequantize``, ``requantize``,
-``calibrate_entropy``, ``quantized_*``; §1 item 6).
+The quantized family (``quantize*``, ``dequantize``, ``requantize``,
+``calibrate_entropy``, ``quantized_*``) is ``contrib.quantization``'s int8
+route: int8 operands, int32 accumulators (``torch._int_mm``), an fp32
+rescale; ``MXTPU_INT8_SIM=1`` runs the dequantize → fp32 → requantize one.
 """
 from __future__ import annotations
 
@@ -48,7 +48,12 @@ __all__ = ["isinf", "isnan", "isfinite", "ROIAlign", "MultiProposal",
            "group_adagrad_update", "interleaved_matmul_selfatt_qk",
            "interleaved_matmul_selfatt_valatt", "interleaved_matmul_encdec_qk",
            "interleaved_matmul_encdec_valatt", "box_encode", "box_decode",
-           "RROIAlign"]
+           "RROIAlign", "quantize", "quantize_v2", "dequantize",
+           "requantize", "calibrate_entropy", "quantized_fully_connected",
+           "quantized_conv", "quantized_pooling", "quantized_act",
+           "quantized_flatten", "quantized_concat", "quantized_elemwise_add",
+           "quantized_elemwise_mul", "quantized_embedding",
+           "quantized_batch_norm"]
 
 
 def isinf(data):
@@ -342,25 +347,212 @@ def RROIAlign(data, rois, pooled_size, spatial_scale, sampling_ratio=2):
     return _apply(fn, data, rois)
 
 
-# ============================================================ still to port
+# ============================================================ quantization
 
-def _waits(name, item, what):
-    def op(*args, **kwargs):
-        raise NotImplementedError(
-            "nd.contrib.%s comes with the port of %s (ROADMAP.md §1 item %d)"
-            % (name, what, item))
-    op.__name__ = name
-    return op
+def _q_contrib():
+    from ..contrib import quantization as q
+    return q
 
 
-for _name in ("quantize", "quantize_v2", "dequantize", "requantize",
-              "calibrate_entropy", "quantized_fully_connected",
-              "quantized_conv", "quantized_pooling", "quantized_act",
-              "quantized_flatten", "quantized_concat",
-              "quantized_elemwise_add", "quantized_elemwise_mul",
-              "quantized_embedding", "quantized_batch_norm"):
-    globals()[_name] = _waits(_name, 6, "contrib/quantization.py")
-del _name
+def _q_float(v):
+    return float(v.asnumpy().reshape(-1)[0]) if isinstance(v, NDArray) \
+        else float(v)
+
+
+def _int8_native():
+    """The int8 route, unless ``MXTPU_INT8_SIM=1`` asks for the
+    dequantize → fp32 → requantize one (the only way onto it)."""
+    from ..config import get_env
+    return not get_env("MXTPU_INT8_SIM")
+
+
+def _q_scale(lo, hi):
+    return max(abs(_q_float(lo)), abs(_q_float(hi))) / 127.0 or 1.0
+
+
+def _requant_out(x_float):
+    return _q_contrib().quantize(x_float)
+
+
+def quantize(data, min_range, max_range, out_type="int8"):
+    """MXNet's quantize.cc (the op form of contrib.quantization's)."""
+    return _q_contrib().quantize(data, _q_float(min_range),
+                                 _q_float(max_range), out_type)
+
+
+def quantize_v2(data, min_calib_range=None, max_calib_range=None,
+                out_type="int8"):
+    """MXNet's quantize_v2.cc: the range from calibration or the data."""
+    return _q_contrib().quantize(data, min_calib_range, max_calib_range,
+                                 out_type)
+
+
+def dequantize(data, min_range, max_range, out_type="float32"):
+    return _q_contrib().dequantize(data, min_range, max_range, out_type)
+
+
+def requantize(data, min_range, max_range, min_calib_range=None,
+               max_calib_range=None):
+    return _q_contrib().requantize(data, min_range, max_range,
+                                   min_calib_range, max_calib_range)
+
+
+def calibrate_entropy(hist, hist_edges, num_quantized_bins=255):
+    """MXNet's calibrate.cc: the KL-optimal threshold of a histogram (the
+    search quantize_net uses)."""
+    h = hist.asnumpy() if isinstance(hist, NDArray) else onp.asarray(hist)
+    e = hist_edges.asnumpy() if isinstance(hist_edges, NDArray) \
+        else onp.asarray(hist_edges)
+    thr = _q_contrib()._entropy_threshold(h, e, num_quantized_bins)
+    dev = hist._data.device if isinstance(hist, NDArray) else None
+    return (NDArray(torch.tensor([-thr], dtype=torch.float32, device=dev)),
+            NDArray(torch.tensor([thr], dtype=torch.float32, device=dev)))
+
+
+def quantized_fully_connected(data, weight, bias, min_data, max_data,
+                              min_weight, max_weight, min_bias=None,
+                              max_bias=None, num_hidden=None, no_bias=False,
+                              flatten=True):
+    """MXNet's quantized_fully_connected.cc: int8 × int8 → int32 over the
+    last axis (``torch._int_mm``), rescaled in fp32 by scale_d · scale_w,
+    the bias added in fp32, requantized."""
+    q = _q_contrib()
+    from .ndarray import FullyConnected
+    if not _int8_native():
+        d = q.dequantize(data, min_data, max_data)
+        w = q.dequantize(weight, min_weight, max_weight)
+        b = None if no_bias or bias is None else \
+            q.dequantize(bias, min_bias, max_bias)
+        out = FullyConnected(d, w, b, num_hidden=num_hidden,
+                             no_bias=b is None, flatten=flatten)
+        return _requant_out(out)
+    s_out = _q_scale(min_data, max_data) * _q_scale(min_weight, max_weight)
+
+    def fn(x, wt):
+        x2 = x.reshape(x.shape[0], -1) if flatten and x.dim() > 2 else x
+        return q._int8_dense_acc(x2, wt.to(x2.device)).to(torch.float32) \
+            * s_out
+
+    out = _apply(fn, data, weight)
+    if not (no_bias or bias is None):
+        out = out + q.dequantize(bias, min_bias, max_bias).reshape(1, -1)
+    return _requant_out(out)
+
+
+def quantized_conv(data, weight, bias, min_data, max_data, min_weight,
+                   max_weight, min_bias=None, max_bias=None, kernel=None,
+                   stride=(1, 1), pad=(0, 0), dilate=(1, 1), num_filter=None,
+                   num_group=1, no_bias=False, layout="NCHW"):
+    """MXNet's quantized_conv.cc: int8 convolution with int32
+    accumulators (im2col + ``torch._int_mm``), fp32 rescale."""
+    q = _q_contrib()
+    from .ndarray import Convolution
+    if not _int8_native():
+        d = q.dequantize(data, min_data, max_data)
+        w = q.dequantize(weight, min_weight, max_weight)
+        b = None if no_bias or bias is None else \
+            q.dequantize(bias, min_bias, max_bias)
+        out = Convolution(d, w, b, kernel=kernel, stride=stride, pad=pad,
+                          dilate=dilate, num_filter=num_filter,
+                          num_group=num_group, no_bias=b is None)
+        return _requant_out(out)
+    s_out = _q_scale(min_data, max_data) * _q_scale(min_weight, max_weight)
+    geom = q._conv_geometry({"kernel": kernel, "stride": stride, "pad": pad,
+                             "dilate": dilate, "num_group": num_group})
+
+    def fn(x, w):
+        return q._int8_conv_acc(x, w.to(x.device), *geom).to(
+            torch.float32) * s_out
+
+    out = _apply(fn, data, weight)
+    if not (no_bias or bias is None):
+        b = q.dequantize(bias, min_bias, max_bias)
+        out = out + b.reshape((1, -1, 1, 1))
+    return _requant_out(out)
+
+
+def quantized_pooling(data, min_data, max_data, kernel=(2, 2),
+                      pool_type="max", stride=None, pad=(0, 0),
+                      global_pool=False, **kw):
+    """MXNet's quantized_pooling.cc: int8 in, int8 out (max and avg keep
+    the range)."""
+    from .ndarray import Pooling
+    out = _apply(lambda x: x.to(torch.float32), data)
+    out = Pooling(out, kernel=kernel, pool_type=pool_type,
+                  stride=stride or kernel, pad=pad, global_pool=global_pool)
+    qd = _apply(lambda x: torch.round(x).to(torch.int8), out)
+    return qd, min_data, max_data
+
+
+def quantized_act(data, min_data, max_data, act_type="relu"):
+    """MXNet's quantized_act.cc: relu on int8 keeps the range."""
+    assert act_type == "relu", "int8 activation supports relu"
+    return (_apply(lambda x: torch.clamp_min(x, 0), data), min_data,
+            max_data)
+
+
+def quantized_flatten(data, min_data, max_data):
+    """MXNet's quantized_flatten.cc."""
+    return (_apply(lambda x: x.reshape(x.shape[0], -1), data),
+            min_data, max_data)
+
+
+def quantized_concat(*args, dim=1, num_args=None):
+    """MXNet's quantized_concat.cc: inputs dequantized, concatenated and
+    requantized to the widest range; args = d0..dn, min0..minn,
+    max0..maxn (MXNet's input order)."""
+    n = num_args or len(args) // 3
+    datas, mins, maxs = args[:n], args[n:2 * n], args[2 * n:3 * n]
+    q = _q_contrib()
+    lo = min(_q_float(m) for m in mins)
+    hi = max(_q_float(m) for m in maxs)
+    parts = [q.dequantize(d, mn, mx_)
+             for d, mn, mx_ in zip(datas, mins, maxs)]
+    cat = _apply(lambda *xs: torch.cat(xs, dim=dim), *parts)
+    return q.quantize(cat, lo, hi)
+
+
+def quantized_elemwise_add(lhs, rhs, lhs_min, lhs_max, rhs_min, rhs_max):
+    """MXNet's quantized_elemwise_add.cc."""
+    q = _q_contrib()
+    a = q.dequantize(lhs, lhs_min, lhs_max)
+    b = q.dequantize(rhs, rhs_min, rhs_max)
+    return _requant_out(a + b)
+
+
+def quantized_elemwise_mul(lhs, rhs, lhs_min, lhs_max, rhs_min, rhs_max):
+    """MXNet's quantized_elemwise_mul.cc."""
+    q = _q_contrib()
+    a = q.dequantize(lhs, lhs_min, lhs_max)
+    b = q.dequantize(rhs, rhs_min, rhs_max)
+    return _requant_out(a * b)
+
+
+def quantized_embedding(data, weight, min_weight, max_weight, input_dim=None,
+                        output_dim=None):
+    """MXNet's quantized_embedding.cc: an int8 table lookup, the weight's
+    range kept (ids clamped into the table, as the reference's ``take``
+    clamps them)."""
+    def fn(idx, w):
+        i = idx.to(torch.int64).clamp(0, w.shape[0] - 1)
+        return w[i.to(w.device)]
+    return _apply(fn, data, weight), min_weight, max_weight
+
+
+def quantized_batch_norm(data, gamma, beta, moving_mean, moving_var,
+                         min_data, max_data, eps=1e-3, min_calib_range=None,
+                         max_calib_range=None, **kw):
+    """MXNet's quantized_batch_norm.cc: inference BN on the dequantized
+    stream, requantized to the calibrated range."""
+    q = _q_contrib()
+    d = q.dequantize(data, min_data, max_data)
+
+    def fn(x, g, b, mm, mv):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = g.reshape(shape) / torch.sqrt(mv.reshape(shape) + eps)
+        return x * scale + (b.reshape(shape) - mm.reshape(shape) * scale)
+    out = _apply(fn, d, gamma, beta, moving_mean, moving_var)
+    return q.quantize(out, min_calib_range, max_calib_range)
 
 
 # ============================================================ control flow

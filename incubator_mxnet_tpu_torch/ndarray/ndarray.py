@@ -1953,8 +1953,12 @@ def Pooling(data, kernel=None, pool_type="max", global_pool=False,
         return y.squeeze(2) if n == 1 else y
 
     if pool_type == "max":
-        return out(max_pool(spatial(F.pad(data, padding, value=-math.inf)),
-                            kernel, stride))
+        # integer codes (int8 from contrib.quantization) pool exactly in
+        # float32, as the reference's reduce_window pools them in int8
+        x = data if data.is_floating_point() else data.to(torch.float32)
+        y = out(max_pool(spatial(F.pad(x, padding, value=-math.inf)),
+                         kernel, stride))
+        return y if y.dtype == data.dtype else y.to(data.dtype)
     if pool_type == "lp":
         p = kw.get("p_value", 2) or 2
         return out(sum_pool(spatial(F.pad(data.abs() ** p, padding)))) \

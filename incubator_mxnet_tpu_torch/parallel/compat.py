@@ -104,6 +104,13 @@ def _mapped():
     return getattr(_ENV, "mapped", 0)
 
 
+def note_host_body():
+    """Count a call whose body is host Python that must run at every
+    step (a custom operator, ``operator.Custom``) as a ``shard_map`` call
+    is counted: a capture site that sees one leaves the body uncaptured."""
+    _ENV.mapped = _mapped() + 1
+
+
 def tracking(fn):
     """(how many ``shard_map`` calls ``fn()`` made, its result). Calls of
     its positions on their own threads count, other threads' calls do

@@ -99,8 +99,7 @@ def _start_trace(trace_dir):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
-    from . import jit
-    with jit._CAPTURE_LOCK:          # not inside another thread's capture
+    with devstats.profiler_transition():
         prof.start()
     _STATE["trace"], _STATE["trace_dir"] = prof, trace_dir
 
@@ -109,9 +108,8 @@ def _stop_trace():
     from .telemetry import devstats
     prof, trace_dir = _STATE["trace"], _STATE["trace_dir"]
     _STATE["trace"] = _STATE["trace_dir"] = None
-    from . import jit
     try:
-        with jit._CAPTURE_LOCK:
+        with devstats.profiler_transition():
             prof.stop()
     finally:
         devstats.TORCH_PROFILER_LOCK.release()

@@ -723,7 +723,8 @@ class DynamicBatcher:
             with self._route_lock:
                 self._inflight[replica] += len(batch)
             try:
-                self._process_batch(batch, replica)
+                with devstats.LAUNCH_GATE.shared():
+                    self._process_batch(batch, replica)
             except BaseException as e:
                 # a worker-killing defect (BaseException escaping the
                 # per-batch Exception guards) must still answer the batch

@@ -84,7 +84,8 @@ from .. import aot, config
 from .. import jit as jit_mod
 from .. import telemetry
 from ..ops import kvcache
-from ..telemetry import faultlab, flightrec, numwatch, spans, watchdog
+from ..telemetry import (devstats, faultlab, flightrec, numwatch, spans,
+                         watchdog)
 from ..telemetry import slo as slo_mod
 from . import accesslog
 from .batcher import DynamicBatcher, QueueFullError, ServingClosedError, \
@@ -946,9 +947,12 @@ class GenerativeEngine:
         try:
             while True:
                 watchdog.heartbeat(self._hb)
-                self._admit()
-                if self._active:
-                    self._step()
+                with devstats.LAUNCH_GATE.shared():
+                    self._admit()
+                    stepped = bool(self._active)
+                    if stepped:
+                        self._step()
+                if stepped:
                     continue
                 with self._wake:
                     if self._closed and not self._pending:

@@ -48,7 +48,7 @@ import torch
 from .. import config
 from ..gluon.block import Block
 from ..jit import EvalStep, net_device
-from ..telemetry import faultlab, flightrec, numwatch, spans
+from ..telemetry import devstats, faultlab, flightrec, numwatch, spans
 from .batcher import (DynamicBatcher, ServingClosedError, _accepts_replica,
                       replica_device)
 from .metrics import ServingMetrics
@@ -312,7 +312,8 @@ class _ModelEntry:
                     for r in range(n_rep):
                         with spans.span("aot:warm", model=self.name,
                                         version=version, bucket=b,
-                                        replica=r):
+                                        replica=r), \
+                                devstats.LAUNCH_GATE.shared():
                             if aware:
                                 servable.predict_batch(*synth, replica=r)
                             else:

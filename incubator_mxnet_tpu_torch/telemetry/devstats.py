@@ -647,6 +647,75 @@ _capture_lock = threading.Lock()
 _capture_seq = itertools.count(1)
 
 
+class _LaunchGate:
+    """Shared sections (a serving thread's unit of device work) against
+    exclusive ones (``torch.profiler``'s start or stop): an exclusive
+    section waits until no other thread is inside a shared one and holds
+    new ones back until it ends. Shared sections nest within a thread;
+    the thread inside an exclusive section passes its own shared ones, and
+    a thread inside a shared section does not wait for itself."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._inside = 0
+        self._owner = None          # the thread inside the exclusive section
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._local, "depth", 0)
+        me = threading.get_ident()
+        if not depth:
+            with self._cond:
+                while self._owner is not None and self._owner != me:
+                    self._cond.wait()
+                self._inside += 1
+        self._local.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._local.depth = depth
+            if not depth:
+                with self._cond:
+                    self._inside -= 1
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        mine = 1 if getattr(self._local, "depth", 0) else 0
+        with self._cond:
+            while self._owner is not None:
+                self._cond.wait()
+            self._owner = threading.get_ident()
+            while self._inside > mine:
+                self._cond.wait()
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._owner = None
+                self._cond.notify_all()
+
+
+#: the batchers' batches, the decode loops' steps, a prewarm's buckets
+#: and the shadow comparisons run inside ``LAUNCH_GATE.shared()``; the
+#: profiler starts and stops inside ``profiler_transition``
+LAUNCH_GATE = _LaunchGate()
+
+
+@contextlib.contextmanager
+def profiler_transition():
+    """Start or stop ``torch.profiler`` here: with no serving thread
+    inside a unit of device work (``LAUNCH_GATE``) and no CUDA graph
+    capture in flight (``jit._CAPTURE_LOCK``; both synchronise the
+    device, which a capture forbids). A stop while a decode loop replayed
+    its graph on another thread hung the whole process: the stopping
+    thread never returned and held the interpreter lock."""
+    from .. import jit
+    with LAUNCH_GATE.exclusive(), jit._CAPTURE_LOCK:
+        yield
+
+
 def _capture_base(out_dir=None):
     from .. import config
     base = out_dir or config.get_env("MXTPU_PROFILE_DIR")
@@ -690,21 +759,17 @@ def _trace_session(path):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    from .. import jit
     prof = profile(activities=activities,
                    with_stack=bool(config.get_env(
                        "MXTPU_PROFILE_PYTHON_TRACER")))
-    # the profiler's start and stop synchronise the device, which a CUDA
-    # graph capture on another thread (a prewarm, a shadow's first batch)
-    # forbids: they wait for the capture lock
     span = {}
-    with jit._CAPTURE_LOCK:
+    with profiler_transition():
         prof.start()
         t0 = _time.monotonic()
     try:
         yield span
     finally:
-        with jit._CAPTURE_LOCK:
+        with profiler_transition():
             span["traced_s"] = _time.monotonic() - t0
             prof.stop()
         prof.export_chrome_trace(os.path.join(path, "capture.trace.json"))

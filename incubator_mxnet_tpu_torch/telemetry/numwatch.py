@@ -66,6 +66,7 @@ import threading
 import numpy as onp
 
 from .registry import counter, gauge
+from . import devstats
 from . import faultlab
 from . import flightrec
 
@@ -386,7 +387,8 @@ def _shadow_loop(q):
             # telemetry failure never fails traffic (R005 discipline)
             if faultlab.armed:
                 faultlab.fire("numwatch.shadow", model=model)
-            _shadow_compare(model, stacked, primary)
+            with devstats.LAUNCH_GATE.shared():
+                _shadow_compare(model, stacked, primary)
         except Exception:
             _LOG.debug("shadow comparison for model %r dropped", model,
                        exc_info=True)

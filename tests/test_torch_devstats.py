@@ -10,7 +10,9 @@ the allocator (0 on the CPU), and ``bytes_accessed`` None (a departure,
 ROADMAP §3). The same calls go through both packages where both run on
 the CPU; the numbers are exact (the same float arithmetic).
 """
+import contextlib
 import threading
+import time
 
 import pytest
 import torch
@@ -198,6 +200,111 @@ def test_profile_capture_is_single_flight_and_exclusive(tmp_path):
     assert 0.05 <= out["traced_s"] < 30.0
     import os
     assert os.listdir(out["dir"]) == ["capture.trace.json"]
+
+
+def test_launch_gate_keeps_device_work_out_of_profiler_transitions():
+    """An exclusive section (torch.profiler's start or stop) waits for
+    the shared section in flight (a serving thread's unit of device work)
+    and holds new ones back until it ends; shared sections nest, the
+    exclusive thread passes its own, and a thread inside a shared section
+    does not wait for itself."""
+    gate = devstats._LaunchGate()
+    inside, leave = threading.Event(), threading.Event()
+    order = []
+
+    def worker():
+        with gate.shared():
+            with gate.shared():
+                inside.set()
+                leave.wait(30)
+                order.append("unit")
+
+    def transition():
+        with gate.exclusive():
+            order.append("transition")
+            with gate.shared():
+                order.append("own unit")
+    w = threading.Thread(target=worker)
+    w.start()
+    assert inside.wait(30)
+    t = threading.Thread(target=transition)
+    t.start()
+    t.join(0.2)
+    assert t.is_alive() and order == []
+    leave.set()
+    t.join(30)
+    w.join(30)
+    assert order == ["unit", "transition", "own unit"]
+
+    held, go, entered = threading.Event(), threading.Event(), \
+        threading.Event()
+
+    def holder():
+        with gate.exclusive():
+            held.set()
+            go.wait(30)
+
+    def late():
+        with gate.shared():
+            entered.set()
+    h = threading.Thread(target=holder)
+    h.start()
+    assert held.wait(30)
+    lt = threading.Thread(target=late)
+    lt.start()
+    assert not entered.wait(0.2)
+    go.set()
+    assert entered.wait(30)
+    h.join(30)
+    lt.join(30)
+    with gate.shared():
+        with gate.exclusive():
+            pass
+    assert gate._inside == 0 and gate._owner is None
+
+
+def test_profile_capture_waits_for_the_batch_in_flight(tmp_path):
+    """A batcher worker's batch is a unit of device work: a capture asked
+    for while a batch runs starts (and so stops) only once the batch has
+    returned, and the batch's reply is untouched."""
+    import numpy as onp
+    from incubator_mxnet_tpu_torch import serving
+    started, release = threading.Event(), threading.Event()
+
+    class Blocking:
+        def predict_batch(self, x):
+            started.set()
+            release.wait(30)
+            return (x * 2,)
+    devstats.capture_profile(0.01, str(tmp_path))   # its first start is slow
+    real, traced = devstats._trace_session, []
+
+    @contextlib.contextmanager
+    def session(path):
+        with real(path) as span:
+            traced.append(time.monotonic())     # the profiler has started
+            yield span
+    devstats._trace_session = session
+    reg = serving.ModelRegistry()
+    reg.load("m", Blocking(), max_batch_size=1, batch_timeout_ms=0)
+    try:
+        req = reg.submit("m", onp.ones(1, "float32"))
+        assert started.wait(30)
+        out = {}
+        t = threading.Thread(target=lambda: out.update(
+            devstats.capture_profile(0.05, str(tmp_path))))
+        t.start()
+        t.join(0.5)
+        released = time.monotonic()
+        release.set()
+        t.join(30)
+        assert out["capture_id"].startswith("capture-")
+        assert traced and traced[0] >= released
+        onp.testing.assert_array_equal(req.result(30)[0], [2.0])
+    finally:
+        devstats._trace_session = real
+        release.set()
+        reg.close()
 
 
 from test_torch_aot import cpu_graphs  # noqa: E402,F401 — a fixture

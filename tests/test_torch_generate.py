@@ -332,6 +332,34 @@ def test_decode_numeric_error_retires_row_and_frees_kv():
         e.close()
 
 
+def test_decode_steps_run_inside_the_launch_gate():
+    """Every decode step is a unit of device work (``devstats.LAUNCH_GATE``):
+    a profiler transition waits for the step in flight, so a profile
+    capture cannot stop while the loop replays its graph."""
+    from incubator_mxnet_tpu_torch.telemetry import devstats
+    e = gen.GenerativeEngine(name="gen-gate", seed=0, ctx=mxt.cpu(), **GEO)
+    try:
+        real, depths = e._decode_fn, []
+
+        def watched(pool=None):
+            fn = real(pool)
+
+            def wrapped(*a):
+                depths.append(getattr(devstats.LAUNCH_GATE._local, "depth",
+                                      0))
+                return fn(*a)
+            return wrapped
+
+        e._decode_fn = watched
+        toks, reason = e.submit([5, 6, 7], max_new_tokens=4,
+                                seed=3).tokens(timeout=60.0)
+        assert reason == "max_tokens" and len(toks) == 4
+        assert depths and all(d > 0 for d in depths)
+    finally:
+        e.close()
+    assert devstats.LAUNCH_GATE._inside == 0
+
+
 # ------------------------------------------- captured programs (stand-in)
 def test_warm_captures_every_program_and_decode_captures_nothing_after(
         cpu_graphs, serving):

@@ -194,7 +194,11 @@ PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "gluon.contrib", "gluon.contrib.nn", "gluon.contrib.cnn",
                 "gluon.contrib.rnn", "gluon.contrib.data",
                 "gluon.contrib.estimator", "contrib.svrg",
-                "contrib.tensorboard")
+                "contrib.tensorboard", "numpy", "numpy.fallback",
+                "numpy_extension", "numpy_extension.image",
+                "numpy_extension.random", "contrib.quantization",
+                "contrib.onnx", "contrib.onnx_proto", "contrib.text",
+                "operator", "torch")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

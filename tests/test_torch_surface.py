@@ -643,8 +643,8 @@ def test_serving_surface_is_the_references(path):
     import importlib
     import inspect
     import types
-    ref = importlib.import_module("incubator_mxnet_tpu." + path)
-    port = importlib.import_module("incubator_mxnet_tpu_torch." + path)
+    ref, port = (_walk_root(pkg + "." + path)
+                 for pkg in ("incubator_mxnet_tpu", "incubator_mxnet_tpu_torch"))
     waiting = getattr(port, "WAITING", ())
     gaps = []
     for name in dir(ref):
@@ -692,7 +692,10 @@ CLASS_WALK_NAMESPACES = [
     "kvstore.kvstore", "kvstore.kvstore_server", "gluon.contrib",
     "gluon.contrib.nn", "gluon.contrib.cnn", "gluon.contrib.rnn",
     "gluon.contrib.data", "gluon.contrib.estimator", "contrib.svrg",
-    "contrib.tensorboard"]
+    "contrib.tensorboard", "numpy", "numpy.random", "numpy.linalg",
+    "numpy_extension", "numpy_extension.image", "numpy_extension.random",
+    "contrib.quantization", "contrib.onnx", "contrib.onnx_proto",
+    "contrib.text", "operator", "torch"]
 
 #: what the walk leaves out, each with its reason
 WALK_EXCEPTIONS = {
@@ -701,6 +704,10 @@ WALK_EXCEPTIONS = {
     "NDArray.grad_buf": "the JAX package's gradient buffer; the port keeps "
                         "a variable's gradient in grad() (_mx_grad on its "
                         "tensor, ROADMAP §3)",
+    "ndarray.grad_buf": "mx.np's ndarray is an NDArray: the gradient "
+                        "buffer, as NDArray.grad_buf",
+    "np_ndarray.grad_buf": "mx.npx's import of mx.np's ndarray: as "
+                           "NDArray.grad_buf",
     "Context": "imported from 'context', walked there",
     "current_context": "imported from 'context', walked there",
     "Context.jax_device": "a jax.Device; a port context maps onto "
@@ -741,6 +748,17 @@ def _takes_named(ref_fn, port_fn):
     return True
 
 
+def _walk_root(dotted):
+    """A module, or a namespace object of one (``numpy.random`` is mx.np's
+    ``random`` object, not a module)."""
+    import importlib
+    try:
+        return importlib.import_module(dotted)
+    except ImportError:
+        parent, attr = dotted.rsplit(".", 1)
+        return getattr(importlib.import_module(parent), attr)
+
+
 @pytest.mark.parametrize("path", CLASS_WALK_NAMESPACES)
 def test_class_walk_surface_is_the_references(path):
     """F5: every public name of the JAX package's module is in the port's,
@@ -751,8 +769,8 @@ def test_class_walk_surface_is_the_references(path):
     import importlib
     import inspect
     import types
-    ref = importlib.import_module("incubator_mxnet_tpu." + path)
-    port = importlib.import_module("incubator_mxnet_tpu_torch." + path)
+    ref, port = (_walk_root(pkg + "." + path)
+                 for pkg in ("incubator_mxnet_tpu", "incubator_mxnet_tpu_torch"))
     gaps = []
 
     def gap(name):
@@ -788,6 +806,8 @@ def test_walk_exceptions_are_still_needed():
     """Each named exception still names a real difference: a repaired
     one must leave the table."""
     assert not hasattr(mxt.nd.NDArray, "grad_buf")
+    assert not hasattr(mxt.np.ndarray, "grad_buf")
+    assert hasattr(mx.np.ndarray, "grad_buf")
     assert not hasattr(mxt.Context, "jax_device")
     import inspect
     from incubator_mxnet_tpu.ops import conv_bwd as jconv
