@@ -310,7 +310,8 @@ Phases, each of which must pass, in order:
    SoftmaxOutput, bucket keys 12 and 20): 3 steps, one shared parameter
    set (the same tensors, gradients and optimizer states in every bucket),
    finite losses, card = CPU within MODULE_SMALL_TOL. (c) ImageRecordIter
-   decodes with PIL: where PIL imports, one timed pass over 512 JPEGs it
+   (tier 1: the C++ JPEG pipeline where g++ builds it): where PIL
+   imports, one timed pass over 512 JPEGs it
    writes (batch 128, 224² random crops, mirror, mean/std, 8 threads);
    where it does not, a line says the pass did not run. (d) MXNet's
    ResNet-50 v1 symbol (symbols/resnet-v1.py: units 3/4/6/3, filters
@@ -520,6 +521,35 @@ Phases, each of which must pass, in order:
    file looked up on the card through nd.Embedding. Prints a
    {"contrib": ...} line; the kernels line's ``launches_by_path`` carries
    (b)'s K1 launches as ``int8_bert_serving``.
+25. ROADMAP item 8 (``native_phase``, ``--native-only``): the C ABI and
+   the native IO, built with g++ from the checkout into build/native/.
+   (a) Full-width BERT (bf16, flash) exported at B 8 x S 512 by
+   contrib.serving.export_model and loaded through the port's
+   libmxtpu_predict in this process over ctypes: NATIVE_FORWARDS
+   MXTPUPredForward calls, each output (raw bf16 words) bit for bit
+   ServedModel.predict's, K1 exactly 12 a forward, the ABI's forward ms
+   against predict's, and K1 held against its plain version at that shape.
+   (b) cpp_package's predict.cc, compiled unchanged, in a fresh process on
+   a float32 BERT exported at B 1 x S 64 (flash_fwd_fma, held against its
+   plain version there): its 2.1 M printed values within NATIVE_CPP_TOL of
+   the largest logit of the in-process forward (TF32 off); a timing client
+   over the same header gives a fresh process's seconds to boot the
+   interpreter and import the port, to load the artifact, and of its first
+   and second forward (the four clients start together and run beside
+   (a)'s export and load and (e); (a)'s timed forwards and (d) wait until
+   no child is left). (c) train_mlp.cc and
+   kvstore_io.cc, unchanged, on gpu(0): their OK lines. (d) 512 seeded
+   256² JPEGs through ImageRecordIter at B 256, 224², 8 threads: tier 1
+   (C++ decode), tier 2 (C++ reader, PIL) and tier 3 (Python) in img/s;
+   then phase 17's ResNet-50 v1 symbol through Module.fit for 4 batches
+   fed by tier 1, every loss finite. (e) The
+   ResNet-50 v1 symbol at B 32 partitioned by a conv/BN/activation
+   backend (at least one subgraph node): training outputs, gradients and
+   moving statistics bit for bit the unpartitioned symbol's
+   (cudnn.deterministic, TF32 off); a library.load-ed .py plugin op with a
+   gradient on the card; runtime.Features with CUDA, CUDNN and NCCL
+   (printed). Prints a {"native": ...} line; the kernels line's
+   ``launches_by_path`` carries (a)'s K1 launches as ``c_predict``.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -541,7 +571,7 @@ Prints the card's name and power limit, an {"ndarray": ...}, a
 {"model_zoo": ...}, an {"ssd": ...}, a {"ctc": ...}, a {"module": ...},
 a {"bucketing": ...}, a {"serving_http": ...}, a {"programs": ...}, a
 {"parallel": ...}, a {"dist": ...}, a {"contrib": ...}, a
-{"phase_seconds": ...} and a
+{"native": ...}, a {"phase_seconds": ...} and a
 {"kernels": [...]} line and, as the last line, {"ok": true, "device":
 {...}}. Exits
 non-zero, printing no result, when CUDA is absent, the port is not beside
@@ -566,8 +596,9 @@ phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"bucketing": {...}}), ``--serving-http-only`` phase 20
 ({"serving_http": {...}}), ``--programs-only`` phase 21
 ({"programs": {...}}), ``--parallel-only`` phase 22
-({"parallel": {...}}), ``--dist-only`` phase 23 ({"dist": {...}}) and
-``--contrib-only`` phase 24 ({"contrib": {...}}).
+({"parallel": {...}}), ``--dist-only`` phase 23 ({"dist": {...}}),
+``--contrib-only`` phase 24 ({"contrib": {...}}) and ``--native-only``
+phase 25 ({"native": {...}}).
 
     python3 chip_smoke.py --profile-stress N [--root DIR]
 
@@ -5724,10 +5755,11 @@ def check_bucketing_small():
 
 
 def check_image_record_iter(tmp):
-    """ImageRecordIter decodes with PIL, as the JAX package's Python path
-    does. Where PIL imports, write MODULE_REC_IMAGES 256x256 JPEGs (and the
-    .idx) and time one pass at batch MODULE_REC_BATCH (rand_crop to 224,
-    rand_mirror, mean/std, 8 decode threads); else say it did not run."""
+    """ImageRecordIter over JPEGs: the native pipeline (tier 1, C++ decode)
+    where g++ builds it, as in the JAX package. Where PIL imports, write
+    MODULE_REC_IMAGES 256x256 JPEGs (and the .idx) and time one pass at
+    batch MODULE_REC_BATCH (rand_crop to 224, rand_mirror, mean/std, 8
+    decode threads); else say it did not run."""
     try:
         import PIL
     except ImportError:
@@ -5763,7 +5795,7 @@ def check_image_record_iter(tmp):
                                                    b.data[0].context))
     pass_s = time.perf_counter() - t0
     check(n == MODULE_REC_IMAGES, "ImageRecordIter: %d images" % n)
-    return dict(pil=PIL.__version__, ran=True, images=n,
+    return dict(pil=PIL.__version__, ran=True, images=n, tier=it.tier,
                 batch=MODULE_REC_BATCH, write_s=write_s, pass_s=pass_s,
                 images_per_s=n / pass_s, decode_threads=8)
 
@@ -9830,6 +9862,653 @@ def contrib_phase(card, root=None):
     return launches, summary
 
 
+# ------------------------------------------- phase 25: the C ABI and native IO
+NATIVE_FORWARDS = 3         # MXTPUPredForward calls on the B 8 x S 512 program
+NATIVE_CPP_S = 64           # predict.cc's float32 BERT: B 1 x S NATIVE_CPP_S
+NATIVE_CPP_TOL = 1e-5       # of the largest logit: printed text vs forward
+NATIVE_REC_IMAGES = 512     # seeded 256x256 JPEGs of the native IO pass
+NATIVE_REC_BATCH = 256
+NATIVE_FIT_EPOCHS = 2       # 2 epochs x 2 batches of 256: 4 Module.fit steps
+NATIVE_PART_B = 32          # the partitioned ResNet-50 v1's batch
+NATIVE_CHILD_TIMEOUT_S = 300
+
+# a fresh process's cold start through cpp_package's Predictor, split:
+# booting the interpreter and importing the port (the first ABI call, here
+# MXTPUNDArrayWaitAll), loading the artifact, the first and second forward
+# (predict.cc itself prints only the values)
+_PREDICT_TIMING_CC = r"""
+#include <dlfcn.h>
+
+#include <chrono>
+#include <cstdio>
+#include <cstdlib>
+#include <fstream>
+#include <iterator>
+#include <vector>
+
+#include "mxnet_tpu_cpp/predictor.hpp"
+
+int main(int argc, char** argv) {
+  using clk = std::chrono::steady_clock;
+  auto s = [](clk::time_point a, clk::time_point b) {
+    return std::chrono::duration<double>(b - a).count();
+  };
+  std::ifstream in(argv[2], std::ios::binary);
+  std::vector<char> buf((std::istreambuf_iterator<char>(in)),
+                        std::istreambuf_iterator<char>());
+  auto t0 = clk::now();
+  void* so = dlopen(std::getenv("MXTPU_PREDICT_LIB"), RTLD_NOW | RTLD_GLOBAL);
+  auto wait_all = reinterpret_cast<int (*)()>(
+      so ? dlsym(so, "MXTPUNDArrayWaitAll") : nullptr);
+  if (!wait_all || wait_all() != 0) return 3;
+  auto t1 = clk::now();
+  mxnet_tpu_cpp::Predictor pred(argv[1]);
+  auto t2 = clk::now();
+  pred.SetInputBytes(0, buf.data(), (int64_t)buf.size());
+  pred.Forward();
+  std::vector<float> a = pred.GetOutput(0);
+  auto t3 = clk::now();
+  pred.SetInputBytes(0, buf.data(), (int64_t)buf.size());
+  pred.Forward();
+  std::vector<float> b = pred.GetOutput(0);
+  auto t4 = clk::now();
+  std::printf("{\"boot_import_s\": %.6f, \"load_s\": %.6f, "
+              "\"first_forward_s\": %.6f, \"second_forward_s\": %.6f, "
+              "\"values\": %zu, \"repeat_equal\": %s}\n", s(t0, t1),
+              s(t1, t2), s(t2, t3), s(t3, t4), a.size(),
+              a == b ? "true" : "false");
+  return 0;
+}
+"""
+CPP_CLIENTS = ("predict", "train_mlp", "kvstore_io")
+
+
+def _capi(so_path):
+    """libmxtpu_predict loaded into this process over ctypes (it finds the
+    running interpreter) and an ``ok(rc, what)`` that fails with its last
+    error."""
+    import ctypes as c
+    so = c.CDLL(so_path)
+    so.MXTPUPredGetLastError.restype = c.c_char_p
+    so.MXTPUPredGetLastError.argtypes = []
+    for fn, args in (
+            ("MXTPUPredCreate", [c.c_char_p, c.POINTER(c.c_void_p)]),
+            ("MXTPUPredGetInputDType", [c.c_void_p, c.c_int, c.c_char_p,
+                                        c.c_int]),
+            ("MXTPUPredGetOutputDType", [c.c_void_p, c.c_int, c.c_char_p,
+                                         c.c_int]),
+            ("MXTPUPredSetInput", [c.c_void_p, c.c_int, c.c_char_p,
+                                   c.c_int64]),
+            ("MXTPUPredForward", [c.c_void_p]),
+            ("MXTPUPredGetOutput", [c.c_void_p, c.c_int, c.c_char_p,
+                                    c.c_int64]),
+            ("MXTPUPredFree", [c.c_void_p])):
+        getattr(so, fn).argtypes = args
+        getattr(so, fn).restype = c.c_int
+
+    def ok(rc, what):
+        check(rc == 0, "%s: %s" % (what, so.MXTPUPredGetLastError()
+                                   .decode(errors="replace")))
+    return so, ok
+
+
+def _hold_k1(tag, B, H, S, D, dtype):
+    """K1 against its plain version (``hold_fwd``) on seeded inputs of one
+    shape, non-causal, as check_flash_fwd holds it."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import attention as A
+    gen = torch.Generator(device="cuda:0").manual_seed(25)
+    q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda:0",
+                           dtype=dtype) for _ in range(3))
+    scale = 1.0 / D ** 0.5
+    out, lse = A._flash_fwd_cuda(q, k, v, False, scale)
+    torch.cuda.synchronize()
+    return hold_fwd(tag, q, k, v, out, lse, False, scale)
+
+
+def native_predict_load(so_path, tmp):
+    """Phase 25(a), set up: full-width BERT (bf16, flash) exported at B 8 x
+    S 512 by contrib.serving.export_model and loaded through the port's
+    libmxtpu_predict in this process over ctypes (MXTPUPredCreate); the
+    ABI's dtype names."""
+    import ctypes
+    import numpy as onp
+    import torch
+    from incubator_mxnet_tpu_torch.contrib import serving
+
+    bert = _serving_bert(25)
+    rows = onp.random.RandomState(25).randint(
+        0, BERT["vocab_size"], (BERT_BUCKET, BERT_S)).astype("int32")
+    path = os.path.join(tmp, "bert.mxtpu")
+    t0 = time.perf_counter()
+    model = serving.export_model(bert, [torch.from_numpy(rows).cuda()], path)
+    export_s = time.perf_counter() - t0
+    del bert
+    so, ok = _capi(so_path)
+    h = ctypes.c_void_p()
+    t0 = time.perf_counter()
+    ok(so.MXTPUPredCreate(path.encode(), ctypes.byref(h)), "MXTPUPredCreate")
+    create_s = time.perf_counter() - t0
+    names = []
+    for fn in (so.MXTPUPredGetInputDType, so.MXTPUPredGetOutputDType):
+        buf = ctypes.create_string_buffer(32)
+        ok(fn(h, 0, buf, 32), "MXTPUPredGet*DType")
+        names.append(buf.value.decode())
+    check(names == ["int32", "bfloat16"], "the artifact's dtypes through "
+          "the ABI: %s" % names)
+    return dict(so=so, ok=ok, handle=h, model=model, rows=rows,
+                row=dict(shape="B %d x S %d" % (BERT_BUCKET, BERT_S),
+                         dtypes=names, export_s=export_s,
+                         create_s=create_s))
+
+
+def native_predict_run(loaded):
+    """Phase 25(a): NATIVE_FORWARDS MXTPUPredForward calls on the loaded
+    program, each output (raw bf16 words) bit for bit ServedModel.predict's
+    (its first call captures), K1 exactly 12 a forward, the ABI's forward
+    ms against predict's, MXTPUPredGetOutput's ms; K1 held against its
+    plain version at that shape. Returns (K1 launches, row)."""
+    import ctypes
+    import torch
+    from incubator_mxnet_tpu_torch.ops import _kernels
+
+    so, ok, h, model = (loaded[k] for k in ("so", "ok", "handle", "model"))
+    rows, row = loaded["rows"], loaded["row"]
+    x = torch.from_numpy(rows).cuda()
+    want = model.predict(x)._data
+    torch.cuda.synchronize()
+    want_bits = want.contiguous().view(torch.int16).cpu().numpy().tobytes()
+    raw = rows.tobytes()
+    out = ctypes.create_string_buffer(len(want_bits))
+    abi_ms, get_ms = [], []
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for i in range(NATIVE_FORWARDS):
+        t0 = time.perf_counter()
+        ok(so.MXTPUPredSetInput(h, 0, raw, ctypes.c_int64(len(raw))),
+           "MXTPUPredSetInput")
+        ok(so.MXTPUPredForward(h), "MXTPUPredForward")
+        torch.cuda.synchronize()
+        abi_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ok(so.MXTPUPredGetOutput(h, 0, out, ctypes.c_int64(len(want_bits))),
+           "MXTPUPredGetOutput")
+        get_ms.append((time.perf_counter() - t0) * 1e3)
+        check(out.raw == want_bits, "the ABI's forward %d differs from "
+              "ServedModel.predict's output" % i)
+    torch.cuda.synchronize()
+    k1 = _kernels.LAUNCHES.get("flash_fwd", 0)
+    check(k1 == BERT["num_layers"] * NATIVE_FORWARDS,
+          "K1 launched %d times over %d MXTPUPredForward calls, not %d a "
+          "forward" % (k1, NATIVE_FORWARDS, BERT["num_layers"]))
+    predict_ms = []
+    for _ in range(NATIVE_FORWARDS):
+        t0 = time.perf_counter()
+        model.predict(x)
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+    ok(so.MXTPUPredFree(h), "MXTPUPredFree")
+    model.release()
+    err = _hold_k1("bf16 B8 H8 S512 D128 (C predict)", BERT_BUCKET,
+                   BERT["num_heads"], BERT_S, BERT["units"]
+                   // BERT["num_heads"], torch.bfloat16)
+    row.update(forwards=NATIVE_FORWARDS, k1_launches=k1,
+               abi_forward_ms=abi_ms, predict_ms=predict_ms,
+               abi_get_output_ms=get_ms, output_mb=len(want_bits) / 1e6,
+               bit_for_bit=True, k1_max_abs_err=err)
+    log("C predict: BERT B %d x S %d bf16, MXTPUPredForward %s ms against "
+        "predict %s ms, GetOutput %s ms (%.0f MB), K1 %d, create %.1f s, "
+        "export %.1f s" % (BERT_BUCKET, BERT_S,
+                           ["%.2f" % v for v in abi_ms],
+                           ["%.2f" % v for v in predict_ms],
+                           ["%.1f" % v for v in get_ms], row["output_mb"],
+                           k1, row["create_s"], row["export_s"]))
+    return {"flash_fwd": k1}, row
+
+
+def _export_fp32_bert(tmp):
+    """Full-width BERT in float32 exported at B 1 x S NATIVE_CPP_S, its ids
+    file and its in-process forward (TF32 off)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.contrib import serving
+    net = models.BERTModel(**BERT)
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0), generator=torch
+                   .Generator(device="cuda:0").manual_seed(26))
+    ids = onp.random.RandomState(26).randint(
+        0, BERT["vocab_size"], (1, NATIVE_CPP_S)).astype("int32")
+    x = torch.from_numpy(ids).cuda()
+    path = os.path.join(tmp, "bert_fp32.mxtpu")
+    with _TF32(False):
+        model = serving.export_model(net, [x], path)
+        want = model.predict(x).asnumpy()
+    model.release()
+    check(want.dtype == onp.float32 and want.shape == (
+        1, NATIVE_CPP_S, BERT["vocab_size"]), "the float32 BERT's output: "
+        "%s %s" % (want.dtype, want.shape))
+    inp = os.path.join(tmp, "ids.bin")
+    with open(inp, "wb") as f:
+        f.write(ids.tobytes())
+    return path, inp, want
+
+
+def _start_cpp_builds(root, tmp):
+    """One g++ per C++ client at once: cpp_package's predict.cc,
+    train_mlp.cc and kvstore_io.cc as they are, and the timing client.
+    Returns {name: (executable, process)}."""
+    include = os.path.join(root, "cpp_package", "include")
+    timing_src = os.path.join(tmp, "predict_timing.cc")
+    with open(timing_src, "w") as f:
+        f.write(_PREDICT_TIMING_CC)
+    builds = {}
+    for name in CPP_CLIENTS + ("predict_timing",):
+        src = timing_src if name == "predict_timing" else os.path.join(
+            root, "cpp_package", "example", name + ".cc")
+        exe = os.path.join(tmp, name)
+        builds[name] = (exe, subprocess.Popen(
+            ["g++", "-O2", "-std=c++17", src, "-I", include, "-ldl", "-o",
+             exe], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return builds
+
+
+def _start_child(name, argv, env, tmp):
+    """A C++ client in the background, its output into files in tmp."""
+    out = open(os.path.join(tmp, name + ".out"), "w")
+    err = open(os.path.join(tmp, name + ".err"), "w")
+    try:
+        return subprocess.Popen(argv, stdout=out, stderr=err, env=env), \
+            out, err
+    except BaseException:
+        out.close()
+        err.close()
+        raise
+
+
+def _stop_children(children):
+    """Kill what still runs, wait for every child, close its files."""
+    for proc, out, err in children.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        out.close()
+        err.close()
+
+
+def _join_children(children, tmp, t0=None):
+    """Wait for every child (NATIVE_CHILD_TIMEOUT_S in all from ``t0``) and
+    return {name: stdout text}; a child that failed or outlived the bound
+    fails the phase. Every child is stopped either way."""
+    t0 = time.perf_counter() if t0 is None else t0
+    try:
+        for name, (proc, _, _) in children.items():
+            try:
+                proc.wait(timeout=max(1.0, NATIVE_CHILD_TIMEOUT_S - (
+                    time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure("%s ran past %d s" % (
+                    name, NATIVE_CHILD_TIMEOUT_S))
+    finally:
+        _stop_children(children)
+    text = {}
+    for name, (proc, _, _) in children.items():
+        with open(os.path.join(tmp, name + ".err")) as f:
+            err = f.read()
+        check(proc.returncode == 0, "%s failed (exit %d):\n%s"
+              % (name, proc.returncode, err[-4000:]))
+        with open(os.path.join(tmp, name + ".out")) as f:
+            text[name] = f.read()
+    return text
+
+
+def native_cpp_check(text, want):
+    """Phase 25(b) and (c), checked: predict.cc's printed values against
+    the in-process forward (within NATIVE_CPP_TOL of the largest logit),
+    train_mlp's and kvstore_io's OK lines."""
+    import numpy as onp
+    got = onp.array(text["predict"].split(), dtype=onp.float32)
+    check(got.size == want.size, "predict.cc printed %d values, not %d"
+          % (got.size, want.size))
+    got = got.reshape(want.shape)
+    scale = float(onp.abs(want).max())
+    max_err = float(onp.abs(got - want).max())
+    check(bool(onp.isfinite(got).all()) and max_err <= NATIVE_CPP_TOL * scale,
+          "predict.cc's values leave the in-process forward by %.3g (%.3g "
+          "of the largest logit)" % (max_err, max_err / scale))
+    check("CPP GRAPH TRAIN OK" in text["train_mlp"],
+          "train_mlp: %s" % text["train_mlp"][-2000:])
+    check("CPP EXT TIER OK" in text["kvstore_io"],
+          "kvstore_io: %s" % text["kvstore_io"][-2000:])
+    final = [l for l in text["train_mlp"].splitlines()
+             if l.startswith("FINAL")]
+    log("C++ clients: predict.cc %d values within %.3g of the largest logit"
+        " (%.3g); %s; kvstore_io OK" % (got.size, max_err / scale, max_err,
+                                        final[0] if final else ""))
+    return dict(predict_max_abs_err=max_err,
+                predict_rel_err=max_err / scale,
+                train_mlp=final[0] if final else None,
+                kvstore_io="CPP EXT TIER OK")
+
+
+def _write_jpeg_rec(path, n, side, seed):
+    """``n`` seeded side x side JPEGs (quality 90, label i % 1000) into a
+    .rec and its .idx."""
+    import numpy as onp
+    import incubator_mxnet_tpu_torch as mxt
+    rng = onp.random.RandomState(seed)
+    w = mxt.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(n):
+        img = rng.randint(0, 256, (side, side, 3)).astype("uint8")
+        w.write_idx(i, mxt.recordio.pack_img(
+            mxt.recordio.IRHeader(0, float(i % 1000), i, 0), img,
+            quality=90))
+    w.close()
+
+
+def native_io(tmp):
+    """Phase 25(d): NATIVE_REC_IMAGES seeded 256² JPEGs, ImageRecordIter at
+    B 256, 224² random crops, mirror, mean/std, 8 threads through tier 1
+    (the C++ pipeline), tier 2 (the C++ reader, PIL decode) and tier 3
+    (Python): construction s and img/s of a pass after a reset (each
+    batch checked: shape, finite, pad); then phase 17's ResNet-50 v1 symbol
+    through Module.fit (fp32, TF32 on) for NATIVE_FIT_EPOCHS epochs fed by
+    tier 1: every loss finite."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch.io import io as io_mod
+
+    rec = os.path.join(tmp, "images.rec")
+    t0 = time.perf_counter()
+    _write_jpeg_rec(rec, NATIVE_REC_IMAGES, 256, 25)
+    write_s = time.perf_counter() - t0
+    kw = dict(path_imgrec=rec, data_shape=(3, 224, 224),
+              batch_size=NATIVE_REC_BATCH, rand_crop=True, rand_mirror=True,
+              mean_r=123.68, mean_g=116.28, mean_b=103.53, std_r=58.395,
+              std_g=57.12, std_b=57.375, preprocess_threads=8)
+    tiers = {}
+    jpeg_probe = io_mod._payload_is_jpeg
+    for tier in (1, 2, 3):
+        try:
+            if tier == 2:       # JPEG payloads take tier 1 unless told not
+                io_mod._payload_is_jpeg = lambda path: False
+            t0 = time.perf_counter()
+            it = mxt.io.ImageRecordIter(force_python=tier == 3, **kw)
+            construct_s = time.perf_counter() - t0
+        finally:
+            io_mod._payload_is_jpeg = jpeg_probe
+        check(it.tier == tier, "ImageRecordIter took tier %d, not %d"
+              % (it.tier, tier))
+        passes = []
+        for _ in range(2):
+            it.reset()
+            t0 = time.perf_counter()
+            n = 0
+            for b in it:
+                d = b.data[0]
+                check(d.shape == (NATIVE_REC_BATCH, 3, 224, 224)
+                      and d.context == mxt.cpu()
+                      and bool(torch.isfinite(d._data).all()),
+                      "tier %d: a batch %s on %s" % (tier, d.shape,
+                                                     d.context))
+                n += NATIVE_REC_BATCH - b.pad
+            passes.append(time.perf_counter() - t0)
+            check(n == NATIVE_REC_IMAGES, "tier %d: %d images" % (tier, n))
+        tiers["tier%d" % tier] = dict(construct_s=construct_s,
+                                      pass_s=passes,
+                                      images_per_s=n / passes[-1])
+        del it
+    log("ImageRecordIter B %d 224² 8 threads, img/s: tier 1 %.0f, tier 2 "
+        "%.0f, tier 3 %.0f" % (NATIVE_REC_BATCH,
+                               tiers["tier1"]["images_per_s"],
+                               tiers["tier2"]["images_per_s"],
+                               tiers["tier3"]["images_per_s"]))
+    sym = resnet_v1_symbol(mxt.sym, (3, 4, 6, 3), (64, 256, 512, 1024, 2048),
+                           1000, 224)
+    it = mxt.io.ImageRecordIter(**kw)
+    check(it.tier == 1, "Module.fit's iterator took tier %d" % it.tier)
+    mod = mxt.mod.Module(sym)               # gpu(0)
+    losses = []
+
+    def on_batch(param):
+        lo = param.nbatch * NATIVE_REC_BATCH
+        losses.append(_module_loss(mod, onp.arange(
+            lo, lo + NATIVE_REC_BATCH) % 1000))
+    mxt.random.seed(25)
+    t0 = time.perf_counter()
+    with _TF32(True):
+        mod.fit(it, num_epoch=NATIVE_FIT_EPOCHS, optimizer="sgd",
+                optimizer_params=_sgd_params(), initializer=_xavier(),
+                batch_end_callback=on_batch)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = NATIVE_FIT_EPOCHS * NATIVE_REC_IMAGES // NATIVE_REC_BATCH
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          "Module.fit fed by tier 1: losses %s" % losses)
+    log("Module.fit ResNet-50 v1 fed by tier 1: %d steps in %.1f s, losses "
+        "%s" % (steps, fit_s, ["%.3f" % v for v in losses]))
+    del mod, it
+    torch.cuda.empty_cache()
+    return dict(images=NATIVE_REC_IMAGES, batch=NATIVE_REC_BATCH,
+                write_s=write_s, decode_threads=8, **tiers,
+                fit=dict(steps=steps, seconds=fit_s, losses=losses))
+
+
+def _resnet_params(ex, seed):
+    """Seeded values for every argument and auxiliary state of a ResNet
+    executor: He-normal convolution and FC weights, BatchNorm's gamma 1,
+    beta 0, moving mean 0 and variance 1, biases 0."""
+    import numpy as onp
+    rng = onp.random.default_rng(seed)
+    args, aux = {}, {}
+    for name, arr in sorted(ex.arg_dict.items()):
+        if name in ("data", "softmax_label"):
+            continue
+        shape = arr.shape
+        if name.endswith("_weight"):
+            fan_in = int(onp.prod(shape[1:]))
+            v = rng.standard_normal(shape, dtype=onp.float32) \
+                * onp.float32((2.0 / fan_in) ** 0.5)
+        elif name.endswith("_gamma"):
+            v = onp.ones(shape, onp.float32)
+        else:
+            v = onp.zeros(shape, onp.float32)
+        args[name] = v
+    for name, arr in ex.aux_dict.items():
+        aux[name] = onp.ones(arr.shape, onp.float32) \
+            if name.endswith("_var") else onp.zeros(arr.shape, onp.float32)
+    return args, aux
+
+
+def native_extensions(tmp):
+    """Phase 25(e): phase 17's ResNet-50 v1 symbol at B NATIVE_PART_B
+    partitioned by a backend that claims conv, BN and activation chains (at
+    least one subgraph node), bound on gpu(0) beside the unpartitioned
+    symbol with the same values: the training forward's outputs, every
+    gradient and the moving statistics bit for bit (cudnn.deterministic,
+    TF32 off); a library.load-ed .py plugin op with a gradient on the
+    card; runtime.Features with CUDA, CUDNN and NCCL enabled (printed)."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+
+    class ConvChain(mxt.subgraph.SubgraphProperty):
+        name = "conv_bn_relu"
+
+        def match(self, node):
+            return node._op_name in ("Convolution", "BatchNorm",
+                                     "Activation")
+    mxt.subgraph.register_backend("conv_bn_relu", ConvChain)
+    sym = resnet_v1_symbol(mxt.sym, (3, 4, 6, 3), (64, 256, 512, 1024, 2048),
+                           1000, 224)
+    t0 = time.perf_counter()
+    part = sym.optimize_for("conv_bn_relu")
+    partition_s = time.perf_counter() - t0
+    subgraphs = [s for s in part.get_internals()
+                 if s._op_name == "_subgraph_conv_bn_relu"]
+    members = sum(len(s._subgraph[1]) for s in subgraphs)
+    check(len(subgraphs) >= 1, "the partition formed no subgraph node")
+    x, y = _module_data(NATIVE_PART_B, 224, 1000, 27)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    results = []
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        with _TF32(False):
+            for s in (sym, part):
+                ex = s.simple_bind(mxt.gpu(0), data=x.shape,
+                                   softmax_label=y.shape)
+                if not results:
+                    args, aux = _resnet_params(ex, 27)
+                ex.copy_params_from(args, aux)
+                out = ex.forward(is_train=True, data=mxt.nd.array(x),
+                                 softmax_label=mxt.nd.array(y))[0]
+                ex.backward()
+                torch.cuda.synchronize()
+                results.append((out._data.clone(),
+                                {k: g._data.clone()
+                                 for k, g in ex.grad_dict.items()},
+                                {k: a._data.clone()
+                                 for k, a in ex.aux_dict.items()}))
+                del ex, out
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    (o1, g1, a1), (o2, g2, a2) = results
+    check(bool(torch.isfinite(o1).all()) and torch.equal(o1, o2),
+          "the partitioned ResNet-50's outputs differ from the symbol's")
+    check(set(g1) == set(g2), "gradient sets differ")
+    bad = sorted(k for k in g1 if not torch.equal(g1[k], g2[k]))
+    check(not bad, "gradients of the partitioned ResNet-50 differ: %s" % bad)
+    check(all(torch.equal(a1[k], a2[k]) for k in a1),
+          "the partitioned ResNet-50's moving statistics differ")
+    del results, o1, o2, g1, g2, a1, a2
+    plugin = os.path.join(tmp, "native_cube.py")
+    with open(plugin, "w") as f:
+        f.write("from incubator_mxnet_tpu_torch import library\n"
+                "library.register_op(\n"
+                "    'native_cube', lambda x: x * x * x,\n"
+                "    gradient=lambda ins, g: [g * 3 * ins[0] * ins[0]])\n")
+    mxt.library.load(plugin)
+    try:
+        a = mxt.nd.array([1.0, -2.0, 3.0], ctx=mxt.gpu(0))
+        a.attach_grad()
+        with mxt.autograd.record():
+            c = mxt.nd.native_cube(a)
+        c.backward()
+        check(c.context == mxt.gpu(0)
+              and c.asnumpy().tolist() == [1.0, -8.0, 27.0]
+              and a.grad.asnumpy().tolist() == [3.0, 12.0, 27.0],
+              "the plugin op on the card: %s, grad %s"
+              % (c.asnumpy(), a.grad.asnumpy()))
+    finally:
+        mxt.library.unregister_op("native_cube")
+    feats = mxt.runtime.Features()
+    for key in ("CUDA", "CUDNN", "NCCL", "NATIVE_RECORDIO"):
+        check(feats.is_enabled(key), "runtime.Features: %s disabled" % key)
+    log("runtime.Features(): %s" % sorted(feats.values(),
+                                          key=lambda f: f.name))
+    log("subgraph: ResNet-50 v1 B %d, %d subgraph node(s) of %d operators, "
+        "outputs, gradients and moving statistics bit for bit"
+        % (NATIVE_PART_B, len(subgraphs), members))
+    return dict(subgraph_nodes=len(subgraphs), subgraph_members=members,
+                partition_s=partition_s, batch=NATIVE_PART_B,
+                bit_for_bit=True, plugin_op="native_cube",
+                features={f.name: f.enabled for f in feats.values()})
+
+
+def native_phase(card, root=None):
+    """Phase 25: ROADMAP item 8 on the card (``--native-only``): the port's
+    C ABI and native IO. The four C++ clients start together and run
+    beside (a)'s export and load and (e); (a)'s timed forwards and (d) run
+    with no child left. Returns (K1 launches of the C predict path,
+    summary)."""
+    import json as _json
+    import shutil
+    import threading
+    import torch
+    from incubator_mxnet_tpu_torch.native import lib
+    root = root or os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    summary = dict(card=card)
+    tmp = _build_tmp()
+    builds = _start_cpp_builds(root, tmp)
+    children = {}
+    try:
+        t0 = time.perf_counter()
+        failed = []
+
+        def build(fn):
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — raised below
+                failed.append(e)
+        threads = [threading.Thread(target=build, args=(fn,))
+                   for fn in (lib.build, lib.build_predict)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if failed:
+            raise failed[0]
+        so_path = lib.build_predict()
+        summary["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path, inp, want = _export_fp32_bert(tmp)
+        export32_s = time.perf_counter() - t0
+        for name, (_, proc) in builds.items():
+            out, _ = proc.communicate(timeout=NATIVE_CHILD_TIMEOUT_S)
+            check(proc.returncode == 0, "g++ %s failed:\n%s" % (name, out))
+        k1_err = _hold_k1("fp32 B1 H8 S%d D128 (predict.cc)" % NATIVE_CPP_S,
+                          1, BERT["num_heads"], NATIVE_CPP_S,
+                          BERT["units"] // BERT["num_heads"], torch.float32)
+        env = dict(os.environ, MXTPU_PREDICT_LIB=so_path)
+        env.pop("MXTPU_CAPI_CONTEXT", None)        # the default, gpu(0)
+        exe = {name: b[0] for name, b in builds.items()}
+        t0 = time.perf_counter()
+        for name, args in (("predict_timing", [path, inp]),
+                           ("predict", [path, inp]), ("train_mlp", []),
+                           ("kvstore_io", [tmp])):
+            children[name] = _start_child(name, [exe[name], *args], env, tmp)
+        loaded = native_predict_load(so_path, tmp)
+        summary["extensions"] = native_extensions(tmp)
+        text = _join_children(children, tmp, t0)
+        children = {}
+        timing = _json.loads(text["predict_timing"].strip().splitlines()[-1])
+        check(timing["repeat_equal"] and timing["values"] == want.size,
+              "the timing client: %s" % timing)
+        log("predict_timing (a fresh process, cpp_package's Predictor, "
+            "beside the other clients): boot and import %.2f s, load %.2f s,"
+            " first forward %.2f s, second %.3f s" % (
+                timing["boot_import_s"], timing["load_s"],
+                timing["first_forward_s"], timing["second_forward_s"]))
+        joined = native_cpp_check(text, want)
+        summary["cpp_predict"] = dict(
+            shape="B 1 x S %d float32" % NATIVE_CPP_S,
+            k1_instantiation="flash_fwd_fma", export_s=export32_s,
+            k1_max_abs_err=k1_err,
+            max_abs_err=joined.pop("predict_max_abs_err"),
+            rel_err=joined.pop("predict_rel_err"), **timing)
+        summary["cpp_graph_ext"] = joined
+        launches, summary["c_predict"] = native_predict_run(loaded)
+        del loaded
+        release_graphs()
+        summary["io"] = native_io(tmp)
+    finally:
+        for _, proc in builds.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        _stop_children(children)
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_phase
+    release_graphs()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 RTC_SOURCE = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -10214,6 +10893,9 @@ def main(argv):
                         help="run mx.np/mx.npx, int8 quantization, ONNX, "
                         "nd.Custom, contrib.text and the torch bridge "
                         "(phase 24) alone")
+    parser.add_argument("--native-only", action="store_true",
+                        help="run the C ABI and native IO (phase 25) "
+                        "alone")
     parser.add_argument("--profile-stress", type=int, metavar="N",
                         help="N GET /debug/profile captures under TinyLM "
                         "generation traffic (phase 21's second profile, "
@@ -10307,6 +10989,8 @@ def main(argv):
                              (opts.dist_only, "dist", dist_phase),
                              (opts.contrib_only, "contrib",
                               lambda c: contrib_phase(c, opts.root)),
+                             (opts.native_only, "native",
+                              lambda c: native_phase(c, opts.root)),
                              (opts.profile_stress, "profile_stress",
                               lambda c: (None, profile_stress(
                                   c, opts.profile_stress)))):
@@ -10385,6 +11069,9 @@ def main(argv):
         release_graphs()
         contrib_launches, contrib = contrib_phase(card, opts.root)
         phase_done("contrib_phase")
+        release_graphs()
+        native_launches, native = native_phase(card, opts.root)
+        phase_done("native_phase")
         rtc_launches, rtc_rows, rtc_compile_ms = check_rtc()
         phase_done("check_rtc")
         rtc_host = rtc_host_breakdown()
@@ -10403,6 +11090,7 @@ def main(argv):
              "serving_http": serving_http_launches,
              "programs": programs_launches,
              "int8_bert_serving": contrib_launches,
+             "c_predict": native_launches,
              **parallel_launches,
              **dist_launches,
              **gluon_launches,
@@ -10533,6 +11221,7 @@ def main(argv):
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"dist": dist}))
     log(json.dumps({"contrib": contrib}))
+    log(json.dumps({"native": native}))
     log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -84,6 +84,7 @@ from . import rnn, profiler, engine, util  # noqa: F401,E402
 from .util import is_np_array, set_np, reset_np, np_shape, np_array  # noqa
 from . import visualization  # noqa: F401,E402
 from . import operator  # noqa: F401,E402
+from . import library, runtime, subgraph  # noqa: F401,E402
 from . import numpy  # noqa: F401,E402
 from . import numpy as np  # noqa: F401,E402
 from . import numpy_extension  # noqa: F401,E402

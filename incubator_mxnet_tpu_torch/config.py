@@ -6,7 +6,8 @@ Only the knobs the port reads are declared: the serving knobs (the
 batcher, the HTTP front end, the access log, resilience and generation),
 the telemetry knobs, the AOT cache's, the gate of the conv-backward
 kernel and the training step's (``jit.TrainStep``: remat, donation), the
-image iterator's threads, the engine's bulk size and the device
+image iterator's threads, the native library's and the C ABI's
+(``native/``), the engine's bulk size and the device
 telemetry's (``devstats``, ``profstats``, ``numwatch``, ``slo``,
 ``history``), and those of several processes (the launcher's rendezvous,
 the process group's timeout, the dist kvstores and the server role). The
@@ -523,6 +524,27 @@ ENV_VARS = {
         "Default decode/augment thread count of io.ImageRecordIter when "
         "preprocess_threads is not given (MXNET_CPU_WORKER_NTHREADS "
         "analog)."),
+    "MXTPU_NO_NATIVE": (
+        bool, False,
+        "Disable the native C++ library even where g++ can build it "
+        "(io.ImageRecordIter then runs its Python tier; native/lib.py)."),
+    "MXTPU_PREDICT_LIB": (
+        str, None,
+        "Path of the libmxtpu_predict.so that the C++, Perl, R, Julia and "
+        "Scala clients dlopen (cpp_package, the language packages). The "
+        "port's is build/native/libmxtpu_predict.so (python -m "
+        "incubator_mxnet_tpu_torch.native.lib builds it and prints it)."),
+    "MXTPU_PYTHON": (
+        str, None,
+        "Interpreter the embedded C ABI boots in a process with none "
+        "(native/src/c_predict_api.cc); defaults to the interpreter that "
+        "built the library."),
+    "MXTPU_CAPI_CONTEXT": (
+        str, "gpu(0)",
+        "Context every embedded C ABI call runs under (cpu, gpu or "
+        "gpu(i); native/__init__.py capi_context): the port's counterpart "
+        "of the JAX package's JAX_PLATFORMS pin. A loaded serving "
+        "artifact computes on the device it was exported on."),
     "MXTPU_ENGINE_BULK_SIZE": (
         int, 15,
         "Initial engine bulk size (MXNET_ENGINE_BULK_SIZE analog), read "

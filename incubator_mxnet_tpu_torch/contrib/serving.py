@@ -12,8 +12,10 @@ with torch (it registers K1's ``mxtpu::flash_fwd`` operator first), and
 tensors on the card and run as it is on the CPU.
 
 Departures (ROADMAP §3): ``export_mlir`` returns the exported program's
-text, not StableHLO (there is none); ``export_pjrt_bundle`` and a
-Python-free loader belong with ROADMAP §1 item 8 (the C API) and raise.
+text, not StableHLO (there is none); ``export_pjrt_bundle`` raises: a
+Python-free loader is the last piece of ROADMAP §1 item 8 (the C ABI of
+``native/``, libmxtpu_predict, loads these artifacts through an embedded
+interpreter).
 A ServedModel computes on the device its program was exported on: every
 batcher replica dispatches there.
 """
@@ -92,10 +94,13 @@ def export_mlir(path):
 
 def export_pjrt_bundle(artifact_path, out_dir):
     """The JAX package's Python-free serving bundle for its PJRT C loader.
-    The port's counterpart (a C API over the port) is ROADMAP §1 item 8."""
+    The port's counterpart is the last piece of ROADMAP §1 item 8; its C
+    ABI (libmxtpu_predict) loads ``.mxtpu`` artifacts through an embedded
+    interpreter meanwhile."""
     raise NotImplementedError(
         "export_pjrt_bundle: a Python-free loader of the port's artifacts "
-        "comes with ROADMAP §1 item 8 (native/*, the C API)")
+        "is the last piece of ROADMAP §1 item 8 (libmxtpu_predict loads "
+        "them through an embedded interpreter)")
 
 
 class ServedModel:

@@ -7,10 +7,12 @@ arrays, as MXNet's iterators do: the Module's executor copies each batch
 to its device. Where CUDA is available ``NDArrayIter`` gathers each batch
 into pinned host memory, so that copy does not block.
 
-``ImageRecordIter`` takes the Python path of the JAX package (PIL decode
-in a thread pool); its native C++ pipeline waits for the port of
-``native/`` (ROADMAP.md §1 item 8), so ``force_python`` is accepted and
-changes nothing. The io-wait counters wait for telemetry (item 7).
+``ImageRecordIter`` has the JAX package's three tiers: the native C++
+pipeline (``native/src/image.cc``: JPEG decode, augmentation and NCHW
+assembly in C++ threads), the native record reader with PIL decode in a
+thread pool, and the Python path; the tier is chosen by the JAX package's
+rules (``force_python``, 3 channels, JPEG payloads, ``MXTPU_NO_NATIVE``).
+The io-wait counters wait for telemetry (item 7).
 """
 from __future__ import annotations
 
@@ -264,11 +266,35 @@ class PrefetchingIter(DataIter):
         return self.iter.provide_label
 
 
+def _payload_is_jpeg(path):
+    """Whether the first record is an IRHeader (flag u32, label f32, id
+    u64 x 2: 24 bytes, then ``flag`` extra label floats) before JPEG's SOI
+    bytes."""
+    import struct
+    from .. import recordio
+    r = recordio.MXRecordIO(path, "r")
+    try:
+        raw = r.read()
+    finally:
+        r.close()
+    if raw is None or len(raw) < 26:
+        return False
+    flag = struct.unpack("<I", raw[:4])[0]
+    off = 24 + 4 * flag
+    return raw[off:off + 2] == b"\xff\xd8"
+
+
 class ImageRecordIter(DataIter):
-    """MXNet's RecordIO image pipeline, on its Python path: reads a .rec
-    (and its .idx), decodes with PIL and augments in a thread pool
-    (``preprocess_threads``), and assembles NCHW float batches on the host.
-    ``num_parts``/``part_index`` shard the file."""
+    """MXNet's RecordIO image pipeline: reads a .rec (and its .idx),
+    decodes, augments and assembles NCHW float batches on the host, through
+    one of three tiers. Tier 1, the native pipeline (3 channels, JPEG
+    payloads): decode, resize, crop, mirror and normalisation in C++
+    threads. Tier 2, the native reader: C++ read-ahead, PIL decode in a
+    thread pool (``preprocess_threads``). Tier 3 (``force_python``, or
+    ``MXTPU_NO_NATIVE``, or no ``g++``): Python reads and PIL decodes. The
+    native tiers wrap the last batch around with records from the start
+    and report them as ``pad``. ``num_parts``/``part_index`` shard the
+    file."""
 
     def __init__(self, path_imgrec=None, data_shape=(3, 224, 224), batch_size=1,
                  label_width=1, shuffle=False, mean_r=0.0, mean_g=0.0, mean_b=0.0,
@@ -283,6 +309,25 @@ class ImageRecordIter(DataIter):
         if preprocess_threads is None:
             from ..config import get_env
             preprocess_threads = get_env("MXTPU_CPU_WORKER_NTHREADS")
+        from ..native import lib as native
+        self._path = path_imgrec
+        self._pipe_batch = 0
+        self._native_pipe = self._native = None
+        if not force_python and native.available():
+            if data_shape[0] == 3 and _payload_is_jpeg(path_imgrec):
+                self._native_pipe = native.NativeImagePipeline(
+                    path_imgrec, batch_size, data_shape,
+                    label_width=label_width, resize_short=resize,
+                    rand_crop=rand_crop, rand_mirror=rand_mirror,
+                    mean_rgb=(mean_r, mean_g, mean_b),
+                    std_rgb=(std_r, std_g, std_b), shuffle=shuffle,
+                    seed=seed, num_threads=preprocess_threads,
+                    part_index=part_index, num_parts=num_parts)
+            else:
+                self._native = native.NativeBatchReader(
+                    path_imgrec, batch_size, shuffle=shuffle, seed=seed,
+                    num_threads=max(1, preprocess_threads // 2),
+                    part_index=part_index, num_parts=num_parts)
         if path_imgidx is None and path_imgrec is not None:
             guess = path_imgrec[: path_imgrec.rfind(".")] + ".idx"
             path_imgidx = guess if os.path.exists(guess) else None
@@ -336,7 +381,18 @@ class ImageRecordIter(DataIter):
             else (self.batch_size, self._label_width)
         return [DataDesc("softmax_label", shape)]
 
+    @property
+    def tier(self):
+        """1 (native pipeline), 2 (native reader, PIL decode) or 3
+        (Python)."""
+        return 1 if self._native_pipe is not None else \
+            2 if self._native is not None else 3
+
     def reset(self):
+        self._pipe_batch = 0
+        for native in (self._native_pipe, self._native):
+            if native is not None:
+                native.reset(reshuffle=self._shuffle)
         if self._shuffle:
             self._rng.shuffle(self._order)
         self._cursor = 0
@@ -376,7 +432,45 @@ class ImageRecordIter(DataIter):
         label = header.label if onp.ndim(header.label) else float(header.label)
         return chw, label
 
+    def _decode_payload(self, raw):
+        from .. import recordio
+        return self._augment(*recordio.unpack_img(raw, iscolor=1))
+
+    def _native_pad(self, native):
+        """The wrapped records of the epoch's last batch (0 before it)."""
+        if self._pipe_batch != native.num_batches:
+            return 0
+        return (self.batch_size - native.num_records % self.batch_size) \
+            % self.batch_size
+
     def next(self):
+        if self._native_pipe is not None:
+            got = self._native_pipe.next()
+            if got is None:
+                raise StopIteration
+            data, labels, bad = got
+            self._pipe_batch += 1       # the pipeline consumed the batch
+            if bad:
+                raise IOError(
+                    "%d undecodable record(s) in %s (corrupt JPEG data); the "
+                    "native pipeline fails as the Python path does"
+                    % (bad, self._path))
+            if self._label_width == 1:
+                labels = labels[:, 0]
+            # the pipeline reuses its buffers: nd.array copies
+            return DataBatch([nd.array(self._cast_out(data), ctx=cpu())],
+                             [nd.array(labels, ctx=cpu())],
+                             pad=self._native_pad(self._native_pipe))
+        if self._native is not None:
+            payloads = self._native.next()
+            if payloads is None:
+                raise StopIteration
+            self._pipe_batch += 1
+            results = list(self._pool.map(self._decode_payload, payloads))
+            data = onp.stack([r[0] for r in results])
+            return DataBatch([nd.array(self._cast_out(data), ctx=cpu())],
+                             [self._stack_labels(results)],
+                             pad=self._native_pad(self._native))
         n = self._hi - self._lo
         if self._cursor >= n:
             raise StopIteration

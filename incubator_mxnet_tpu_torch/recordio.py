@@ -5,8 +5,9 @@ The files are byte for byte the JAX package's and MXNet's: records framed
 as ``[kMagic u32][lrec u32][data][pad to 4B]`` with ``lrec = cflag<<29 |
 len``, the image header ``IRHeader = (flag u32, label f32, id u64, id2
 u64)``, and a ``.idx`` sidecar of "key\toffset" lines. Images are encoded
-and decoded with PIL. The JAX package's native reader waits for the port of
-``native/`` (ROADMAP.md §1 item 8).
+and decoded with PIL. The native reader, writer and scanner of the same
+format are ``native/lib.py``'s (C++, ``native/src/recordio.cc``), which
+``io.ImageRecordIter``'s native tiers use.
 """
 from __future__ import annotations
 

@@ -236,12 +236,13 @@ class Symbol:
 
     # ---------------------------------------------------------------- io
     def optimize_for(self, backend, args=None, ctx=None, **kwargs):
-        """Partition for a subgraph backend: waits for the port of
-        ``subgraph.py``."""
-        raise NotImplementedError("Symbol.optimize_for comes with the port "
-                                  "of subgraph.py (ROADMAP.md §1 item 8)")
+        """This graph partitioned for a registered subgraph backend
+        (``subgraph.partition``; ref symbol.optimize_for)."""
+        from ..subgraph import partition
+        return partition(self, backend)
 
     def get_backend_symbol(self, backend):
+        """The legacy name of ``optimize_for``."""
         return self.optimize_for(backend)
 
     def tojson(self):
@@ -497,6 +498,31 @@ def _infer(symbol, shapes, dtypes=None, label_default=False, device=_META):
         return NDArray(torch.zeros(shapes[name], device=device,
                                    dtype=dtypes.get(name, torch.float32)))
 
+    def value(s, cache):
+        """The output of operator node ``s`` on the values in ``cache``;
+        a parameter variable not there takes its shape from the data (the
+        first input known). A subgraph node (``subgraph.partition``) runs
+        member by member, so each parameter meets its own operator's
+        data."""
+        args = [cache.get(_key(i)) for i in s._inputs]
+        inner = getattr(s, "_subgraph", None)
+        if inner is not None:
+            ext, members = inner
+            vals = {_key(e): a for e, a in zip(ext, args) if a is not None}
+            for m in members:
+                vals[(id(m), None)] = value(m, vals)
+            return vals[(id(members[-1]), None)]
+        data = next((a for a in args if a is not None), None)
+        for j, i in enumerate(s._inputs):
+            if args[j] is None:
+                if data is None or not getattr(i, "_deferred_shape_fn",
+                                               None):
+                    raise _Unknown(i.name)
+                shapes[i.name] = tuple(
+                    int(d) for d in i._deferred_shape_fn(data.shape))
+                args[j] = cache[_key(i)] = leaf(i.name)
+        return s._op(*args, **s._kwargs)
+
     def run():
         for s in _postorder(roots):
             if isinstance(s, Group):
@@ -517,17 +543,7 @@ def _infer(symbol, shapes, dtypes=None, label_default=False, device=_META):
                 continue
             base_key = (k[0], None)
             if base_key not in cache:
-                args = [cache.get(_key(i)) for i in s._inputs]
-                data = next((a for a in args if a is not None), None)
-                for j, i in enumerate(s._inputs):
-                    if args[j] is None:
-                        if data is None or not getattr(
-                                i, "_deferred_shape_fn", None):
-                            raise _Unknown(i.name)
-                        shapes[i.name] = tuple(
-                            int(d) for d in i._deferred_shape_fn(data.shape))
-                        args[j] = cache[_key(i)] = leaf(i.name)
-                cache[base_key] = s._op(*args, **s._kwargs)
+                cache[base_key] = value(s, cache)
             if s._output_index is not None:
                 cache[k] = cache[base_key][s._output_index]
         outs = []

@@ -44,7 +44,10 @@ setup(
                                     "incubator_mxnet_tpu_torch",
                                     "incubator_mxnet_tpu_torch.*"]),
     package_data={"incubator_mxnet_tpu.native": ["*.so", "src/*.cc"],
-                  "incubator_mxnet_tpu_torch.ops": ["csrc/*.cu"]},
+                  "incubator_mxnet_tpu_torch.ops": ["csrc/*.cu"],
+                  "incubator_mxnet_tpu_torch.native": [
+                      "src/*.cc", "third_party/libjpeg/*.h",
+                      "third_party/PROVENANCE.md"]},
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

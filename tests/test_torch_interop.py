@@ -213,11 +213,12 @@ def test_bridge_not_imported_by_the_package():
 
 
 def _port_tests(name, select=None):
+    """The test functions of the JAX package's ``tests/<name>`` (those
+    ``select`` keeps), with every name of the JAX package read as the
+    port's."""
     src = (_TESTS / name).read_text().replace("incubator_mxnet_tpu",
                                               "incubator_mxnet_tpu_torch")
-    # test_extension.py's second half is the subgraph API (ROADMAP item 8)
-    src = src.split("class _MatmulChain")[0]
-    ns = {"__name__": "port_" + name[:-3]}
+    ns = {"__name__": "port_" + name[:-3], "__file__": str(_TESTS / name)}
     exec(compile(src, "port/" + name, "exec"), ns)
     return {k: v for k, v in ns.items() if k.startswith("test_")
             and (select is None or select(k))}
@@ -228,7 +229,8 @@ _REF.update({("test_torch_bridge.py", k): None
              for k in _port_tests("test_torch_bridge.py")})
 _REF.update({("test_extension.py", k): None
              for k in _port_tests("test_extension.py",
-                                  lambda k: "custom" in k)})
+                                  lambda k: "custom" in k
+                                  or "subgraph" in k)})
 _REF.update({("test_legacy_api.py", k): None
              for k in _port_tests("test_legacy_api.py",
                                   lambda k: "text" in k)})

@@ -198,7 +198,10 @@ PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "numpy_extension", "numpy_extension.image",
                 "numpy_extension.random", "contrib.quantization",
                 "contrib.onnx", "contrib.onnx_proto", "contrib.text",
-                "operator", "torch")
+                "operator", "torch", "library", "subgraph", "runtime",
+                "native", "native.lib", "native.capi",
+                "native._predict_embed", "native._invoke_embed",
+                "native._graph_embed", "native._ext_embed")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

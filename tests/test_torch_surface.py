@@ -601,14 +601,30 @@ def test_symbolic_api_surface_is_the_references(path):
 
 
 def test_symbolic_api_pieces_waiting_for_other_items_name_them():
-    """What still waits names its item (item 8: subgraph.py); item 5's
-    pieces (the dist stores, the server role, compression, several
-    contexts) are ported and no longer raise."""
+    """Nothing of the symbolic API waits any more: item 5's pieces (the
+    dist stores, the server role, compression, several contexts) and item
+    8's ``optimize_for`` (subgraph.py) are ported; an unregistered backend
+    is refused, naming the registered ones."""
     assert isinstance(mxt.kvstore.create("dist_sync"),
                       mxt.kvstore.DistKVStore)
     assert mxt.kvstore.KVStoreServer(None).kvstore is None
     mxt.kvstore.create("local").set_gradient_compression({})
-    with pytest.raises(NotImplementedError, match="item 8"):
+
+    class _Chain(mxt.subgraph.SubgraphProperty):
+        name = "surface_chain"
+
+        def match(self, node):
+            return node._op_name in ("relu", "exp")
+    mxt.subgraph.register_backend("surface_chain", _Chain)
+    x = mxt.sym.var("x")
+    part = mxt.sym.tanh(mxt.sym.exp(mxt.sym.relu(x))) \
+        .optimize_for("surface_chain")
+    assert [s._op_name for s in part.get_internals() if not s.is_var] == \
+        ["_subgraph_surface_chain", "tanh"]
+    v = mxt.nd.array([[-1.0, 0.5]], ctx=mxt.cpu())
+    onp.testing.assert_allclose(part.eval(x=v)[0].asnumpy(),
+                                onp.tanh(onp.exp([[0.0, 0.5]])), rtol=1e-6)
+    with pytest.raises(ValueError, match="surface_chain"):
         mxt.sym.var("x").optimize_for("dnnl")
     assert len(mxt.mod.Module(mxt.sym.var("x"),
                               context=[mxt.cpu(0), mxt.cpu(1)])._contexts) == 2
@@ -695,7 +711,8 @@ CLASS_WALK_NAMESPACES = [
     "contrib.tensorboard", "numpy", "numpy.random", "numpy.linalg",
     "numpy_extension", "numpy_extension.image", "numpy_extension.random",
     "contrib.quantization", "contrib.onnx", "contrib.onnx_proto",
-    "contrib.text", "operator", "torch"]
+    "contrib.text", "operator", "torch", "library", "subgraph", "runtime",
+    "native.capi"]
 
 #: what the walk leaves out, each with its reason
 WALK_EXCEPTIONS = {
