@@ -120,7 +120,9 @@ Phases, each of which must pass, in order:
    first call and replays it after, on a fixed batch: BERT 2 warm-up + 8
    timed steps, GPT 2 + 4, then 3 replays under torch.profiler (the
    device's idle share) and 3 issued on an idle card (the host's own cost
-   of a step). Every loss finite, the last step's mean loss below the
+   of a step, with F7's telemetry around it: every captured call adds one
+   to mxtpu_train_steps_total and to the step histogram's count). Every
+   loss finite, the last step's mean loss below the
    first's, every parameter finite, every bf16 weight equal to its fp32
    master cast to bf16, and over the timed steps K1, K2 and K3 each
    launched layers x steps times (counted at each replay). Then, in the
@@ -401,7 +403,8 @@ Phases, each of which must pass, in order:
    through ``ModelRegistry`` (bucket 8): every reply equal to this
    process's forward (PROGRAMS_TOL), K1 launched 12 times a replay,
    p50, load and capture s. (c) With ``MXTPU_AOT_CACHE_DIR`` set,
-   ``EvalStep`` buckets 1-8 built here (export, write, capture), then a
+   ``EvalStep`` buckets 1 and 8 built here (export, write, capture; 1, 2,
+   4 and 8 before PR 21, a depth cut for 25(f)'s time), then a
    second fresh process gets an artifact hit a bucket, runs the net's
    Python forward 0 times and replays bucket 8 bit for bit: load and
    capture s against build s. (d) ``serving.serve`` of an S 64 artifact
@@ -548,8 +551,18 @@ Phases, each of which must pass, in order:
    moving statistics bit for bit the unpartitioned symbol's
    (cudnn.deterministic, TF32 off); a library.load-ed .py plugin op with a
    gradient on the card; runtime.Features with CUDA, CUDNN and NCCL
-   (printed). Prints a {"native": ...} line; the kernels line's
-   ``launches_by_path`` carries (a)'s K1 launches as ``c_predict``.
+   (printed). (f) (a)'s artifact with no Python in the process:
+   contrib.serving.export_pjrt_bundle compiles it into an AOTInductor
+   package (timed), and native/src/aoti_serve.cc, built with g++ against
+   libtorch, serves it in a fresh process with the C++ operator library
+   ops/csrc/flash_fwd_op.cpp, which launches K1: no libpython in the
+   child's /proc/<pid>/maps, its output words bit for bit those of
+   aoti_load_package of the package in this process and within
+   AOTI_BF16_TOL of the largest |logit| of ServedModel.predict's, K1
+   exactly 12 a forward by the library's counter; the runner's load s
+   and forward ms beside predict's. Prints a {"native": ...} line; the
+   kernels line's ``launches_by_path`` carries (a)'s K1 launches as
+   ``c_predict`` and (f)'s as ``aoti_serve``.
 18. K5 (rtc): CudaModule compiles an axpy and a shared-memory block
    reduction with NVRTC and TritonModule an elementwise add; each launched
    once through its entry point, held against torch (exact for the add,
@@ -2011,8 +2024,10 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
     EAGER_STEPS's mean loss of the two runs must agree within
     CAPTURE_REL_TOL relative, and the running statistics (any parameter
     named "running_*") after EAGER_STEPS steps within it of their largest
-    value. Returns (the captured run's launches over the timed steps,
-    summary row)."""
+    value. The captured run's calls must each add one to
+    mxtpu_train_steps_total and to the step histogram's count (F7's
+    telemetry, on the host around each replay). Returns (the captured
+    run's launches over the timed steps, summary row)."""
     import torch
     from incubator_mxnet_tpu_torch import jit
     from incubator_mxnet_tpu_torch.ops import _kernels
@@ -2024,16 +2039,22 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
     def snap():
         return [p._tensor().detach().float().clone() for p in running]
 
-    # -- captured
+    # -- captured, every call counted against the step's telemetry
     trainer = make_trainer()
     step = jit.TrainStep(net, loss_fn, trainer)
+    steps0, (_, count0) = jit._STEPS.value(), jit._STEP_SECONDS.value()
+    calls = []
+
+    def counted():
+        calls.append(1)
+        return step(*inputs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses = [step(*inputs)]
+    losses = [counted()]
     capture_s = time.perf_counter() - t0
     for _ in range(warm - 1):
-        losses.append(step(*inputs))
+        losses.append(counted())
     held = snap() if len(losses) == EAGER_STEPS else None
     _kernels.reset_launches()
     start = torch.cuda.Event(enable_timing=True)
@@ -2042,7 +2063,7 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
     h0 = time.perf_counter()
     start.record()
     for _ in range(timed):
-        losses.append(step(*inputs))
+        losses.append(counted())
         if len(losses) == EAGER_STEPS:
             held = snap()
     host_ms = (time.perf_counter() - h0) * 1e3 / timed
@@ -2052,10 +2073,17 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
     launches = dict(_kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-    profiled = device_idle_share(lambda: step(*inputs))
-    issue = issue_ms(lambda: step(*inputs))
+    profiled = device_idle_share(counted)
+    issue = issue_ms(counted)
     check(step.captures == 1, "%s: %d captures of one signature"
           % (name, step.captures))
+    telemetry = dict(calls=len(calls),
+                     steps_total=jit._STEPS.value() - steps0,
+                     step_seconds_count=jit._STEP_SECONDS.value()[1]
+                     - count0)
+    check(telemetry["steps_total"] == telemetry["step_seconds_count"]
+          == len(calls), "%s: mxtpu_train_steps_total and the step "
+          "histogram's count against the calls: %s" % (name, telemetry))
     if extra_check is not None:
         extra_check(trainer, losses, launches)
     means = [float(l._data.float().mean()) for l in losses]
@@ -2105,7 +2133,7 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
         step_host_ms=host_ms, issue_ms=issue, capture_step_s=capture_s,
         peak_memory_gb=peak_gb, peak_reserved_gb=reserved_gb,
         idle_share=profiled["idle_share"], profiled=profiled,
-        losses=means, launches=launches,
+        losses=means, launches=launches, telemetry=telemetry,
         eager=dict(steps=EAGER_STEPS, step_ms=eager_ms,
                    step_host_ms=eager_host_ms, issue_ms=eager_issue,
                    peak_memory_gb=eager_peak_gb,
@@ -2121,7 +2149,8 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
         "reserved); eager body %.1f ms (host %.1f, issue %.1f), idle "
         "%.1f%%, peak %.2f GB, phases fwd %.1f / bwd %.1f / update %.1f "
         "ms, update %d device activities; step-%d loss captured vs eager "
-        "%.3g relative (all %s)%s" % (
+        "%.3g relative (all %s)%s; train telemetry: steps_total and the "
+        "step histogram +%d over %d calls" % (
             name, step_ms, host_ms, issue, 100 * profiled["idle_share"],
             PROFILED_STEPS, capture_s, peak_gb, reserved_gb, eager_ms,
             eager_host_ms, eager_issue, 100 * eager_profiled["idle_share"],
@@ -2129,7 +2158,7 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
             phases["update_ms"], update_kernels, EAGER_STEPS,
             rel[EAGER_STEPS - 1], ["%.2g" % r for r in rel],
             "; running statistics %.3g of their largest" % stats_rel
-            if running else ""))
+            if running else "", telemetry["steps_total"], len(calls)))
     return launches, row
 
 
@@ -7248,6 +7277,8 @@ def serving_http_phase(card):
 
 # --------------------------------------------------- phase 21: programs
 PROGRAMS_B = 8              # the exported batch of the S 512 artifact
+PROGRAMS_BUCKETS = (1, 8)   # 21(c)'s buckets on disk ((1, 2, 4, 8) before
+#                             PR 21: a depth cut that makes room for 25(f))
 PROGRAMS_REQUESTS = 16
 PROGRAMS_TOL = 0.0          # the loaded program runs the live one's ops
 PROGRAMS_HTTP_TOL = 0.02    # of the logit range (phase 20's HTTP contract)
@@ -7437,10 +7468,10 @@ def export_and_serve(bert, tmp, root):
 
 
 def artifacts_in_a_fresh_process(bert, tmp, root, rows):
-    """Phase 21(c): with MXTPU_AOT_CACHE_DIR set, EvalStep buckets 1-8
-    built here (export, write, capture), then a fresh process gets an
-    artifact hit a bucket and runs the net's Python forward 0 times; its
-    bucket-8 replay is this process's bit for bit."""
+    """Phase 21(c): with MXTPU_AOT_CACHE_DIR set, EvalStep buckets
+    PROGRAMS_BUCKETS built here (export, write, capture), then a fresh
+    process gets an artifact hit a bucket and runs the net's Python
+    forward 0 times; its bucket-8 replay is this process's bit for bit."""
     import hashlib
     import torch
     from incubator_mxnet_tpu_torch import aot, jit
@@ -7453,11 +7484,11 @@ def artifacts_in_a_fresh_process(bert, tmp, root, rows):
         step = jit.EvalStep(bert)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for b in EVAL_BUCKETS:
+        for b in PROGRAMS_BUCKETS:
             step(x[:b])
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        out = step(x[:max(EVAL_BUCKETS)])._data
+        out = step(x[:max(PROGRAMS_BUCKETS)])._data
         digest = hashlib.sha256(out.view(torch.int16).cpu().numpy()
                                 .tobytes()).hexdigest()
         step.release()
@@ -7467,14 +7498,16 @@ def artifacts_in_a_fresh_process(bert, tmp, root, rows):
         else:
             os.environ["MXTPU_AOT_CACHE_DIR"] = old
     writes = aot._ARTIFACT_WRITES.value(kind="eval") - w0
-    check(writes == len(EVAL_BUCKETS),
-          "%d artifacts written for %d buckets" % (writes, len(EVAL_BUCKETS)))
+    check(writes == len(PROGRAMS_BUCKETS), "%d artifacts written for %d "
+          "buckets" % (writes, len(PROGRAMS_BUCKETS)))
     got = _child(_ARTIFACT_CHILD, root, os.path.join(tmp, "rows.npy"),
-                 json.dumps(list(EVAL_BUCKETS)), os.path.abspath(__file__),
-                 json.dumps(BERT), env={"MXTPU_AOT_CACHE_DIR": cache_dir})
-    check(got["hits"] == len(EVAL_BUCKETS) and got["python_forwards"] == 0,
+                 json.dumps(list(PROGRAMS_BUCKETS)),
+                 os.path.abspath(__file__), json.dumps(BERT),
+                 env={"MXTPU_AOT_CACHE_DIR": cache_dir})
+    check(got["hits"] == len(PROGRAMS_BUCKETS)
+          and got["python_forwards"] == 0,
           "the fresh process: %d artifact hits for %d buckets, %d Python "
-          "forwards" % (got["hits"], len(EVAL_BUCKETS),
+          "forwards" % (got["hits"], len(PROGRAMS_BUCKETS),
                         got["python_forwards"]))
     check(got["replay_launches"].get("flash_fwd") == 12,
           "a loaded bucket-8 replay launched K1 %s times"
@@ -9871,6 +9904,15 @@ NATIVE_REC_BATCH = 256
 NATIVE_FIT_EPOCHS = 2       # 2 epochs x 2 batches of 256: 4 Module.fit steps
 NATIVE_PART_B = 32          # the partitioned ResNet-50 v1's batch
 NATIVE_CHILD_TIMEOUT_S = 300
+# phase 25(f): the Python-free runner's output against ServedModel.predict's
+# on the same bf16 program. Inductor fuses the glue around K1 and rounds
+# where eager bf16 ops would not, so the two differ by a few bf16 roundings
+# (2^-8 relative each): AOTI_BF16_TOL is four of them, relative to the
+# largest |logit|. Against aoti_load_package in this process (the same
+# package) the runner is held bit for bit.
+AOTI_BF16_TOL = 4 * 2.0 ** -8
+AOTI_BUNDLE_TIMEOUT_S = 600     # the bundle's compile in its child process
+AOTI_PREDICT_TIMED = 2      # predict and in-process package forwards timed
 
 # a fresh process's cold start through cpp_package's Predictor, split:
 # booting the interpreter and importing the port (the first ABI call, here
@@ -9966,12 +10008,10 @@ def _hold_k1(tag, B, H, S, D, dtype):
     return hold_fwd(tag, q, k, v, out, lse, False, scale)
 
 
-def native_predict_load(so_path, tmp):
-    """Phase 25(a), set up: full-width BERT (bf16, flash) exported at B 8 x
-    S 512 by contrib.serving.export_model and loaded through the port's
-    libmxtpu_predict in this process over ctypes (MXTPUPredCreate); the
-    ABI's dtype names."""
-    import ctypes
+def native_predict_export(tmp):
+    """Phase 25(a)'s artifact: full-width BERT (bf16, flash) exported at B 8
+    x S 512 by contrib.serving.export_model into tmp/bert.mxtpu. Returns
+    {model (its ServedModel), rows, path, export_s}."""
     import numpy as onp
     import torch
     from incubator_mxnet_tpu_torch.contrib import serving
@@ -9982,8 +10022,16 @@ def native_predict_load(so_path, tmp):
     path = os.path.join(tmp, "bert.mxtpu")
     t0 = time.perf_counter()
     model = serving.export_model(bert, [torch.from_numpy(rows).cuda()], path)
-    export_s = time.perf_counter() - t0
-    del bert
+    return dict(model=model, rows=rows, path=path,
+                export_s=time.perf_counter() - t0)
+
+
+def native_predict_load(so_path, exported):
+    """Phase 25(a), set up: the artifact of ``native_predict_export`` loaded
+    through the port's libmxtpu_predict in this process over ctypes
+    (MXTPUPredCreate); the ABI's dtype names."""
+    import ctypes
+    model, rows, path = (exported[k] for k in ("model", "rows", "path"))
     so, ok = _capi(so_path)
     h = ctypes.c_void_p()
     t0 = time.perf_counter()
@@ -9998,7 +10046,7 @@ def native_predict_load(so_path, tmp):
           "the ABI: %s" % names)
     return dict(so=so, ok=ok, handle=h, model=model, rows=rows,
                 row=dict(shape="B %d x S %d" % (BERT_BUCKET, BERT_S),
-                         dtypes=names, export_s=export_s,
+                         dtypes=names, export_s=exported["export_s"],
                          create_s=create_s))
 
 
@@ -10048,7 +10096,6 @@ def native_predict_run(loaded):
         torch.cuda.synchronize()
         predict_ms.append((time.perf_counter() - t0) * 1e3)
     ok(so.MXTPUPredFree(h), "MXTPUPredFree")
-    model.release()
     err = _hold_k1("bf16 B8 H8 S512 D128 (C predict)", BERT_BUCKET,
                    BERT["num_heads"], BERT_S, BERT["units"]
                    // BERT["num_heads"], torch.bfloat16)
@@ -10137,19 +10184,19 @@ def _stop_children(children):
         err.close()
 
 
-def _join_children(children, tmp, t0=None):
-    """Wait for every child (NATIVE_CHILD_TIMEOUT_S in all from ``t0``) and
-    return {name: stdout text}; a child that failed or outlived the bound
-    fails the phase. Every child is stopped either way."""
+def _join_children(children, tmp, t0=None,
+                   timeout_s=NATIVE_CHILD_TIMEOUT_S):
+    """Wait for every child (``timeout_s`` in all from ``t0``) and return
+    {name: stdout text}; a child that failed or outlived the bound fails
+    the phase. Every child is stopped either way."""
     t0 = time.perf_counter() if t0 is None else t0
     try:
         for name, (proc, _, _) in children.items():
             try:
-                proc.wait(timeout=max(1.0, NATIVE_CHILD_TIMEOUT_S - (
+                proc.wait(timeout=max(1.0, timeout_s - (
                     time.perf_counter() - t0)))
             except subprocess.TimeoutExpired:
-                raise SmokeFailure("%s ran past %d s" % (
-                    name, NATIVE_CHILD_TIMEOUT_S))
+                raise SmokeFailure("%s ran past %d s" % (name, timeout_s))
     finally:
         _stop_children(children)
     text = {}
@@ -10419,12 +10466,162 @@ def native_extensions(tmp):
                 features={f.name: f.enabled for f in feats.values()})
 
 
+def _aoti_runner(argv, out_dir):
+    """The runner in a fresh process with ``--hold``: its key/value lines
+    up to "done", then its /proc/<pid>/maps while it still runs, then its
+    exit. stderr goes to a file. Killed after NATIVE_CHILD_TIMEOUT_S.
+    Returns (lines, maps text, exit code, stderr text)."""
+    err_path = os.path.join(out_dir, "aoti_serve.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(argv, stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    timer = threading.Timer(NATIVE_CHILD_TIMEOUT_S, proc.kill)
+    timer.start()
+    lines, maps = {}, ""
+    try:
+        for line in proc.stdout:
+            if line.strip() == "done":
+                with open("/proc/%d/maps" % proc.pid) as f:
+                    maps = f.read()
+                break
+            key, _, val = line.strip().partition(" ")
+            lines[key] = val
+        proc.stdin.close()
+        proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(err_path) as f:
+        return lines, maps, proc.returncode, f.read()
+
+
+def aoti_bundle_child(opts):
+    """``--aoti-bundle ARTIFACT OUT_DIR``: contrib.serving.export_pjrt_bundle
+    of ARTIFACT into OUT_DIR in this (child) process; prints one JSON line
+    {package, manifest, export_s}."""
+    from incubator_mxnet_tpu_torch.contrib import serving
+    artifact, out_dir = opts.aoti_bundle
+    t0 = time.perf_counter()
+    package, manifest = serving.export_pjrt_bundle(artifact, out_dir)
+    print(json.dumps(dict(package=package, manifest=manifest,
+                          export_s=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+def native_aoti(loaded, tmp, made, waited_s):
+    """Phase 25(f): (a)'s artifact (full-width BERT, bf16, B 8 x S 512)
+    served with no Python in the process. export_pjrt_bundle compiled it
+    into an AOTInductor package on cuda:0 in a child process started when
+    the artifact was written (``made``: its JSON line, the compile's
+    seconds measured there; ``waited_s``: how long the phase then waited
+    for it); the runner
+    (native/src/aoti_serve.cc, built with g++ against libtorch) loads the
+    package and the C++ operator library that launches K1 in a fresh
+    process: its /proc/<pid>/maps holds libtorch_cuda and no libpython;
+    its output words are bit for bit those of aoti_load_package of the
+    same package in this process, and within AOTI_BF16_TOL of the largest
+    |logit| of ServedModel.predict's; K1 exactly 12 a forward by the
+    operator library's counter. Returns (K1 launches of the runner,
+    row)."""
+    import torch
+    import torch._inductor
+    from incubator_mxnet_tpu_torch.native import lib
+    rows, model = loaded["rows"], loaded["model"]
+    package, manifest_path = made["package"], made["manifest"]
+    bundle_s = made["export_s"]
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    want_manifest = dict(
+        device="cuda:0",
+        inputs=[dict(shape=[BERT_BUCKET, BERT_S], dtype="int32")],
+        outputs=[dict(shape=[BERT_BUCKET, BERT_S, BERT["vocab_size"]],
+                      dtype="bfloat16")])
+    check(all(manifest[k] == v for k, v in want_manifest.items()),
+          "the bundle's manifest: %s" % manifest)
+    runner = lib.build_aoti_serve()
+    inp, out = os.path.join(tmp, "aoti_in.bin"), os.path.join(
+        tmp, "aoti_out.bin")
+    with open(inp, "wb") as f:
+        f.write(rows.tobytes())
+    t0 = time.perf_counter()
+    lines, maps, rc, err = _aoti_runner(
+        [runner, "--hold", manifest["op_library"], package, inp, out,
+         "%d,%d" % (BERT_BUCKET, BERT_S)], tmp)
+    process_s = time.perf_counter() - t0
+    check(rc == 0 and maps, "aoti_serve failed (exit %s): %s" % (
+        rc, err[-4000:]))
+    mapped = sorted({line.split()[-1] for line in maps.splitlines()
+                     if len(line.split()) > 5})
+    check(not any("libpython" in m for m in mapped)
+          and any("libtorch_cuda" in m for m in mapped),
+          "the runner's mapped libraries: %s" % mapped)
+    k1 = int(lines["k1_launches"])
+    check(k1 == 2 * BERT["num_layers"] and lines["k1_plain_calls"] == "0"
+          and lines["repeat_equal"] == "true" and lines["device"]
+          == "cuda:0", "aoti_serve's report: %s" % lines)
+    with open(out, "rb") as f:
+        got = f.read()
+    x = torch.from_numpy(rows).cuda()
+    t0 = time.perf_counter()
+    package_model = torch._inductor.aoti_load_package(package)
+    load_in_process_s = time.perf_counter() - t0
+    in_process = package_model(x)
+    torch.cuda.synchronize()
+    want = in_process.contiguous().view(torch.int16).cpu().numpy()
+    check(got == want.tobytes(), "the runner's output differs from "
+          "aoti_load_package's in this process")
+    pred = model.predict(x)._data
+    rel = float((in_process.float() - pred.float()).abs().max()
+                / pred.float().abs().max())
+    check(math.isfinite(rel) and rel <= AOTI_BF16_TOL, "the bundle against "
+          "ServedModel.predict: %.3g of the largest |logit| (bound %.3g)"
+          % (rel, AOTI_BF16_TOL))
+    predict_ms, package_ms = [], []
+    for fn, into in ((lambda: model.predict(x), predict_ms),
+                     (lambda: package_model(x), package_ms)):
+        for _ in range(AOTI_PREDICT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+    del package_model, in_process
+    pkg_mb = os.path.getsize(package) / 1e6
+    row = dict(shape="B %d x S %d bf16" % (BERT_BUCKET, BERT_S),
+               export_and_compile_s=bundle_s, waited_for_it_s=waited_s,
+               package_mb=pkg_mb,
+               runner_process_s=process_s,
+               runner_load_s=float(lines["load_s"]),
+               runner_forward_ms=[float(lines["forward1_ms"]),
+                                  float(lines["forward2_ms"])],
+               predict_ms=predict_ms, in_process_package_ms=package_ms,
+               in_process_load_s=load_in_process_s, k1_launches=k1,
+               k1_per_forward=k1 // 2, bit_for_bit_in_process=True,
+               rel_to_predict=rel, tolerance=AOTI_BF16_TOL,
+               libpython_mapped=False)
+    log("aoti_serve (no Python in the process): BERT B %d x S %d bf16, "
+        "export_pjrt_bundle %.1f s in a child beside (b)-(e) (%.0f MB "
+        "package), runner load %.2f s, "
+        "forwards %s ms against predict %s ms and the package in this "
+        "process %s ms, K1 %d a forward, bit for bit aoti_load_package, "
+        "%.3g of the largest |logit| from predict" % (
+            BERT_BUCKET, BERT_S, bundle_s, pkg_mb, row["runner_load_s"],
+            ["%.2f" % v for v in row["runner_forward_ms"]],
+            ["%.2f" % v for v in predict_ms],
+            ["%.2f" % v for v in package_ms], k1 // 2, rel))
+    return {"flash_fwd": k1}, row
+
+
 def native_phase(card, root=None):
     """Phase 25: ROADMAP item 8 on the card (``--native-only``): the port's
     C ABI and native IO. The four C++ clients start together and run
-    beside (a)'s export and load and (e); (a)'s timed forwards and (d) run
-    with no child left. Returns (K1 launches of the C predict path,
-    summary)."""
+    beside (a)'s load and (e), and (f)'s bundle compiles in a child process
+    from (a)'s export on; (a)'s timed forwards, (f)'s runner and (d) run
+    with no child left. Returns ({"c_predict": K1 launches of (a),
+    "aoti_serve": of (f)'s runner}, summary)."""
     import json as _json
     import shutil
     import threading
@@ -10435,8 +10632,16 @@ def native_phase(card, root=None):
     summary = dict(card=card)
     tmp = _build_tmp()
     builds = _start_cpp_builds(root, tmp)
-    children = {}
+    children, bundle = {}, {}
     try:
+        # (a)'s artifact first: (f)'s bundle compiles in a child beside the
+        # rest of the phase (Inductor takes minutes at full width)
+        exported = native_predict_export(tmp)
+        bundle_t0 = time.perf_counter()
+        bundle["aoti_bundle"] = _start_child("aoti_bundle", [
+            sys.executable, os.path.abspath(__file__), "--root", root,
+            "--aoti-bundle", exported["path"], os.path.join(tmp, "aoti")],
+            dict(os.environ), tmp)
         t0 = time.perf_counter()
         failed = []
 
@@ -10446,7 +10651,8 @@ def native_phase(card, root=None):
             except Exception as e:  # noqa: BLE001 — raised below
                 failed.append(e)
         threads = [threading.Thread(target=build, args=(fn,))
-                   for fn in (lib.build, lib.build_predict)]
+                   for fn in (lib.build, lib.build_predict,
+                              lib.build_aoti_serve)]
         for t in threads:
             t.start()
         for t in threads:
@@ -10472,7 +10678,8 @@ def native_phase(card, root=None):
                            ("predict", [path, inp]), ("train_mlp", []),
                            ("kvstore_io", [tmp])):
             children[name] = _start_child(name, [exe[name], *args], env, tmp)
-        loaded = native_predict_load(so_path, tmp)
+        loaded = native_predict_load(so_path, exported)
+        del exported
         summary["extensions"] = native_extensions(tmp)
         text = _join_children(children, tmp, t0)
         children = {}
@@ -10492,7 +10699,16 @@ def native_phase(card, root=None):
             max_abs_err=joined.pop("predict_max_abs_err"),
             rel_err=joined.pop("predict_rel_err"), **timing)
         summary["cpp_graph_ext"] = joined
+        t0 = time.perf_counter()
+        made = _join_children(bundle, tmp, bundle_t0,
+                              timeout_s=AOTI_BUNDLE_TIMEOUT_S)["aoti_bundle"]
+        bundle = {}
+        made = _json.loads(made.strip().splitlines()[-1])
+        waited_s = time.perf_counter() - t0
         launches, summary["c_predict"] = native_predict_run(loaded)
+        aoti_launches, summary["aoti_serve"] = native_aoti(
+            loaded, tmp, made, waited_s)
+        loaded["model"].release()
         del loaded
         release_graphs()
         summary["io"] = native_io(tmp)
@@ -10502,11 +10718,12 @@ def native_phase(card, root=None):
                 proc.kill()
             proc.wait()
         _stop_children(children)
+        _stop_children(bundle)
         shutil.rmtree(tmp, ignore_errors=True)
     summary["seconds"] = time.perf_counter() - t_phase
     release_graphs()
     torch.cuda.empty_cache()
-    return launches, summary
+    return dict(c_predict=launches, aoti_serve=aoti_launches), summary
 
 
 RTC_SOURCE = r"""
@@ -10904,6 +11121,8 @@ def main(argv):
                         help=argparse.SUPPRESS)   # one rank of phase 23
     parser.add_argument("--dist-nccl-one", action="store_true",
                         help=argparse.SUPPRESS)   # phase 23(d)
+    parser.add_argument("--aoti-bundle", nargs=2, help=argparse.SUPPRESS)
+    #                                               phase 25(f)'s compile
     parser.add_argument("--out", help=argparse.SUPPRESS)
     parser.add_argument("--t0", type=float, help=argparse.SUPPRESS)
     parser.add_argument("--root", default=os.path.dirname(
@@ -10927,7 +11146,8 @@ def main(argv):
               % (opts.root, e), file=sys.stderr)
         return 2
     for flag, fn in ((opts.dist_worker, dist_worker),
-                     (opts.dist_nccl_one, dist_nccl_one)):
+                     (opts.dist_nccl_one, dist_nccl_one),
+                     (opts.aoti_bundle, aoti_bundle_child)):
         if flag:
             try:
                 return fn(opts)
@@ -11090,7 +11310,7 @@ def main(argv):
              "serving_http": serving_http_launches,
              "programs": programs_launches,
              "int8_bert_serving": contrib_launches,
-             "c_predict": native_launches,
+             **native_launches,
              **parallel_launches,
              **dist_launches,
              **gluon_launches,

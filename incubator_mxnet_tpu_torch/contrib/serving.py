@@ -12,12 +12,12 @@ with torch (it registers K1's ``mxtpu::flash_fwd`` operator first), and
 tensors on the card and run as it is on the CPU.
 
 Departures (ROADMAP §3): ``export_mlir`` returns the exported program's
-text, not StableHLO (there is none); ``export_pjrt_bundle`` raises: a
-Python-free loader is the last piece of ROADMAP §1 item 8 (the C ABI of
-``native/``, libmxtpu_predict, loads these artifacts through an embedded
-interpreter).
-A ServedModel computes on the device its program was exported on: every
-batcher replica dispatches there.
+text, not StableHLO (there is none); ``export_pjrt_bundle`` writes an
+AOTInductor package of the artifact's program and a manifest, not
+StableHLO and compile options: ``native/src/aoti_serve.cc``, the
+counterpart of ``tools/pjrt_serve.c``, serves it with no interpreter in
+the process. A ServedModel, and a bundle, computes on the device its
+program was exported on: every batcher replica dispatches there.
 """
 from __future__ import annotations
 
@@ -74,14 +74,31 @@ def _model_id(payload):
     return "x" + hashlib.sha256(payload).hexdigest()[:20]
 
 
-def load(path):
-    """Load a ``.mxtpu`` artifact as a ServedModel (MXPredCreate)."""
+def _payload(path):
+    """The program bytes of a ``.mxtpu`` artifact."""
     with open(path, "rb") as f:
         buf = f.read()
     if not buf.startswith(_MAGIC):
         raise ValueError("%s is not an mxtpu serving artifact of the torch "
                          "port" % path)
-    payload = buf[len(_MAGIC):]
+    return buf[len(_MAGIC):]
+
+
+def _signature(program):
+    """The program's user inputs and outputs, as the fake tensors of its
+    graph (shape, dtype, device)."""
+    nodes = {n.name: n for n in program.graph.nodes}
+    sig = program.graph_signature
+    ins = [nodes[n].meta["val"] for n in sig.user_inputs]
+    out_node = next(n for n in program.graph.nodes if n.op == "output")
+    outs = [a.meta["val"] for a in out_node.args[0]
+            if hasattr(a, "meta")][:len(sig.user_outputs)]
+    return ins, outs
+
+
+def load(path):
+    """Load a ``.mxtpu`` artifact as a ServedModel (MXPredCreate)."""
+    payload = _payload(path)
     return ServedModel(aot.deserialize_program(payload), _model_id(payload))
 
 
@@ -93,14 +110,66 @@ def export_mlir(path):
 
 
 def export_pjrt_bundle(artifact_path, out_dir):
-    """The JAX package's Python-free serving bundle for its PJRT C loader.
-    The port's counterpart is the last piece of ROADMAP §1 item 8; its C
-    ABI (libmxtpu_predict) loads ``.mxtpu`` artifacts through an embedded
-    interpreter meanwhile."""
-    raise NotImplementedError(
-        "export_pjrt_bundle: a Python-free loader of the port's artifacts "
-        "is the last piece of ROADMAP §1 item 8 (libmxtpu_predict loads "
-        "them through an embedded interpreter)")
+    """The Python-free serving bundle of an artifact: its program compiled
+    by AOTInductor (``torch._inductor.aoti_compile_and_package``) into
+    ``out_dir/model.pt2``, on the device it was exported on (Inductor's
+    Triton kernels around K1 on the card, C++ on the CPU; K1 stays one
+    ``mxtpu::flash_fwd`` call a layer), and ``out_dir/manifest.json``: the
+    inputs' and outputs' shapes and dtypes, the device, and the path of the
+    C++ operator library that registers K1 for a process with no Python
+    (``native.lib.build_flash_op``, built here if missing). Returns
+    (package path, manifest path), as the JAX package returns (StableHLO
+    path, compile-options path). ``native/src/aoti_serve.cc``
+    (``native.lib.build_aoti_serve``) loads the package with libtorch's
+    ``AOTIModelPackageLoader``:
+    ``aoti_serve <op_lib> <model.pt2> <input.bin> <output.bin> <d0,d1,...>``.
+    """
+    import json
+    import os
+
+    import torch._inductor
+    from ..native import lib as native_lib
+    program = aot.deserialize_program(_payload(artifact_path))
+    ins, outs = _signature(program)
+    device = next((t.device for t in (*program.state_dict.values(),
+                                      *program.constants.values())
+                   if isinstance(t, torch.Tensor)), ins[0].device)
+    # torch.export's example inputs were dropped with the parameters
+    # (aot.serialize_program); AOTInductor compiles at the signature's
+    program.example_inputs = (tuple(
+        torch.zeros(tuple(v.shape), dtype=v.dtype, device=device)
+        for v in ins), {})
+
+    def dtype_names(vals):
+        return ",".join(str(v.dtype).replace("torch.", "") for v in vals)
+    os.makedirs(out_dir, exist_ok=True)
+    configs = {
+        # the g++ on PATH, the compiler of native.lib's builds (not $CXX: a
+        # toolchain without OpenMP cannot build Inductor's wrapper, which
+        # always passes -fopenmp on Linux)
+        "cpp.cxx": "g++",
+        # one build reuses no precompiled header: making it costs more
+        # than it saves (PERF.md, PR 21)
+        "aot_inductor.precompile_headers": False,
+        "aot_inductor.metadata": {
+            "mxtpu_input_dtypes": dtype_names(ins),
+            "mxtpu_output_dtypes": dtype_names(outs)}}
+    if device.type == "cuda":
+        configs["cpp.vec_isa_ok"] = False    # no CPU kernel to vectorise
+    package = torch._inductor.aoti_compile_and_package(
+        program, package_path=os.path.join(out_dir, "model.pt2"),
+        inductor_configs=configs)
+    manifest = dict(
+        format="mxtpu-aoti-1", package=os.path.basename(package),
+        device=str(device), op_library=native_lib.build_flash_op(),
+        inputs=[dict(shape=list(v.shape), dtype=dtype_names([v]))
+                for v in ins],
+        outputs=[dict(shape=list(v.shape), dtype=dtype_names([v]))
+                 for v in outs])
+    manifest_path = os.path.join(out_dir, "manifest.json")
+    with open(manifest_path, "w") as f:
+        json.dump(manifest, f, indent=1)
+    return package, manifest_path
 
 
 class ServedModel:
@@ -118,12 +187,7 @@ class ServedModel:
         self._tensors = [t.detach() for t in
                          list(self._module.parameters())
                          + list(self._module.buffers())]
-        nodes = {n.name: n for n in program.graph.nodes}
-        sig = program.graph_signature
-        self._in = [nodes[n].meta["val"] for n in sig.user_inputs]
-        out_node = next(n for n in program.graph.nodes if n.op == "output")
-        self._out = [a.meta["val"] for a in out_node.args[0]
-                     if hasattr(a, "meta")][:len(sig.user_outputs)]
+        self._in, self._out = _signature(program)
         self._device = (self._tensors[0].device if self._tensors
                         else self._in[0].device)
         self._owner = object()

@@ -12,11 +12,20 @@ pipeline (``native/src/image.cc``: JPEG decode, augmentation and NCHW
 assembly in C++ threads), the native record reader with PIL decode in a
 thread pool, and the Python path; the tier is chosen by the JAX package's
 rules (``force_python``, 3 channels, JPEG payloads, ``MXTPU_NO_NATIVE``).
-The io-wait counters wait for telemetry (item 7).
+
+The input pipeline's stalls are counted as in the JAX package:
+``mxtpu_io_wait_seconds_total{iter}`` (seconds the consumer spent blocked
+in ``next()``) and ``mxtpu_io_batches_total{iter}`` (batches handed out),
+by ``PrefetchingIter`` (its queue wait, with an ``io_wait`` flight record)
+and ``ImageRecordIter`` (the whole synchronous decode). A prefetching
+thread heartbeats its own ``io_prefetch:<thread id>`` watchdog channel,
+and the iterators it drives count no wait on that thread: their work
+overlaps the consumer's, it is not the consumer's wait.
 """
 from __future__ import annotations
 
 import threading
+import time as _time
 from collections import namedtuple
 from queue import Queue
 
@@ -24,8 +33,21 @@ import numpy as onp
 import torch
 
 from .. import ndarray as nd
+from .. import telemetry
 from ..context import cpu
 from ..ndarray import NDArray
+from ..telemetry import flightrec, watchdog
+
+# Seconds the consumer (the training loop) spends blocked waiting for the
+# next batch, by iterator class: a wait rate near the step rate means the
+# input pipeline, not the card, sets the epoch time.
+_IO_WAIT_SECONDS = telemetry.counter(
+    "mxtpu_io_wait_seconds_total",
+    "Seconds the consumer spent blocked in next() waiting for a batch.",
+    ("iter",))
+_IO_BATCHES = telemetry.counter(
+    "mxtpu_io_batches_total", "Batches delivered to the consumer.",
+    ("iter",))
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "ImageRecordIter", "MNISTIter", "CSVIter",
@@ -226,15 +248,38 @@ class PrefetchingIter(DataIter):
         self._thread = None
         self._start()
 
+    def _mark_producer_chain(self, ident):
+        """Tag the wrapped chain (``ResizeIter.data_iter``,
+        ``CSVIter._inner``, ...) with the producer thread's ident: an inner
+        iterator's ``next()`` on that thread is overlapped work, not the
+        consumer's wait. Compared at call time, so the same iterator used
+        directly by a consumer later counts again."""
+        inner, hops = self.iter, 0
+        while inner is not None and hops < 16:
+            inner._io_wait_suppressed_ident = ident
+            inner = getattr(inner, "data_iter", None) \
+                or getattr(inner, "_inner", None)
+            hops += 1
+
     def _start(self):
         def run():
-            while not self._stop.is_set():
-                try:
-                    batch = self.iter.next()
-                except StopIteration:
-                    self._queue.put(None)
-                    return
-                self._queue.put(batch)
+            # a channel a producer thread: silence means it is stuck
+            # decoding or blocked on a full queue (the consumer stopped
+            # taking batches), which the stall report's stacks tell apart
+            channel = watchdog.register(
+                "io_prefetch:%x" % threading.get_ident())
+            try:
+                self._mark_producer_chain(threading.get_ident())
+                while not self._stop.is_set():
+                    watchdog.heartbeat(channel)
+                    try:
+                        batch = self.iter.next()
+                    except StopIteration:
+                        self._queue.put(None)
+                        return
+                    self._queue.put(batch)
+            finally:
+                watchdog.unregister(channel)   # an ended epoch is no stall
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
 
@@ -252,9 +297,17 @@ class PrefetchingIter(DataIter):
         self._start()
 
     def next(self):
+        # the queue wait is the pipeline's stall: ~0 while the producer
+        # keeps up, the whole decode when it does not
+        t0 = _time.perf_counter()
         batch = self._queue.get()
+        wait_s = _time.perf_counter() - t0
+        _IO_WAIT_SECONDS.inc(wait_s, iter="PrefetchingIter")
+        flightrec.record("io_wait", iter="PrefetchingIter",
+                         dur_s=round(wait_s, 6))
         if batch is None:
             raise StopIteration
+        _IO_BATCHES.inc(iter="PrefetchingIter")
         return batch
 
     @property
@@ -444,6 +497,20 @@ class ImageRecordIter(DataIter):
             % self.batch_size
 
     def next(self):
+        # a synchronous decode: all of next() is the consumer's wait
+        # (PrefetchingIter overlaps it with the step), except on a
+        # PrefetchingIter's producer thread
+        if getattr(self, "_io_wait_suppressed_ident", None) \
+                == threading.get_ident():
+            return self._next_impl()
+        t0 = _time.perf_counter()
+        batch = self._next_impl()
+        _IO_WAIT_SECONDS.inc(_time.perf_counter() - t0,
+                             iter=type(self).__name__)
+        _IO_BATCHES.inc(iter=type(self).__name__)
+        return batch
+
+    def _next_impl(self):
         if self._native_pipe is not None:
             got = self._native_pipe.next()
             if got is None:

@@ -24,6 +24,16 @@ operation; nothing falls back to eager. CPU nets run the same body
 eagerly, and so does ``MXTPU_NO_DONATE`` on the card, whose update writes
 new tensors (``Trainer._update``).
 
+Each ``TrainStep`` call carries the JAX package's training telemetry:
+``mxtpu_train_step_seconds``, ``mxtpu_train_steps_total`` and
+``mxtpu_train_examples_total``; a ``train:step`` span with its
+``train:host_transfer``, ``train:build`` (a capture), ``train:dispatch``
+and retroactive ``train:compile`` children; the ``step_begin`` and
+``step_end`` flight records; the ``train_step`` watchdog channel (gone
+with the last live step); and the ``train:loss``/``train:params``
+numerics taps. It all runs on the host around the step: nothing of it
+enters a capture, and a sampled tap reads the replay's outputs.
+
 ``remat`` (default ``MXTPU_REMAT``) runs the forward and loss under
 ``torch.utils.checkpoint`` and recomputes them in the backward, with the
 forward's dropout masks and without a second running-statistics update
@@ -85,7 +95,7 @@ from . import telemetry
 from .ndarray import NDArray
 from .ndarray import random as _random
 from .ops import _kernels
-from .telemetry import devstats, flightrec, spans
+from .telemetry import devstats, flightrec, numwatch, spans, watchdog
 
 __all__ = ["TrainStep", "EvalStep", "export_forward"]
 
@@ -100,6 +110,18 @@ _COMPILE_SECONDS = telemetry.counter(
     "mxtpu_jit_compile_seconds_total",
     "Wall seconds spent in cache-miss first calls (eager run + capture).",
     ("kind",))
+# The training step's own metrics, as the JAX package registers them.
+_STEP_SECONDS = telemetry.histogram(
+    "mxtpu_train_step_seconds",
+    "Wall time per TrainStep call (cache-hit steady state included).",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0, 60.0))
+_STEPS = telemetry.counter(
+    "mxtpu_train_steps_total", "Completed TrainStep calls.")
+_EXAMPLES = telemetry.counter(
+    "mxtpu_train_examples_total",
+    "Examples consumed by TrainStep (batch-size sum); rate() of this is "
+    "examples/sec.")
 
 #: one capture at a time in the process (see the module's docstring)
 _CAPTURE_LOCK = threading.Lock()
@@ -119,6 +141,14 @@ def _record_compile_span(name, dur_s):
 def _uses_graphs(device):
     """Whether steps on ``device`` replay CUDA graphs (the CPU tests route
     the CPU through a stand-in by patching this and ``_GraphCapture``)."""
+    return device.type == "cuda"
+
+
+def _train_graphs(device):
+    """Whether ``TrainStep`` captures its step on ``device``: on CUDA. The
+    CPU tests route a TrainStep through a stand-in for its graph by
+    patching this and ``_GraphCapture``; patching ``_uses_graphs`` alone
+    routes the other steps and leaves TrainStep eager."""
     return device.type == "cuda"
 
 
@@ -499,22 +529,89 @@ class TrainStep:
         self._graphs = collections.OrderedDict()
         self._uncaptured = set()     # signatures whose step runs shard_map
         self.captures = 0
+        self._hb_registered = False
+        self._built = False          # this call captured (``_replay``)
+
+    #: live instances that have stepped at least once: the shared
+    #: "train_step" watchdog channel goes when the last one does, so a
+    #: finished training loop does not read as a stall
+    _hb_live = 0
 
     def __call__(self, *inputs, batch_size=None, n_net_inputs=1):
-        args = self._prepare(inputs, n_net_inputs)
+        if not self._hb_registered:
+            # on the first step, not at construction: a step built long
+            # before training starts must not page while idle
+            self._hb_registered = True
+            TrainStep._hb_live += 1
+        watchdog.heartbeat("train_step")
+        with spans.span("train:step"):
+            return NDArray(self._call_traced(inputs, batch_size,
+                                             n_net_inputs))
+
+    def __del__(self):
+        try:
+            if self._hb_registered:
+                TrainStep._hb_live -= 1
+                if TrainStep._hb_live <= 0:
+                    watchdog.unregister("train_step")
+        except Exception:
+            pass          # interpreter-teardown __del__ must never raise
+
+    def _call_traced(self, inputs, batch_size, n_net_inputs):
+        """One step with the JAX package's telemetry around it: the
+        ``train:host_transfer``, ``train:build`` (a capture, which runs the
+        step itself eagerly first) and ``train:dispatch`` spans, the
+        ``step_begin``/``step_end`` flight records, the step metrics, a
+        capture's compile counters and retroactive ``train:compile`` span,
+        and the ``train:loss``/``train:params`` taps. All of it runs on the
+        host around the step, never inside a capture; a sampled tap reads
+        the step's outputs after the replay."""
+        with spans.span("train:host_transfer"):
+            args = self._prepare(inputs, n_net_inputs)
         if batch_size is None:
             batch_size = args[0].shape[self.batch_axis]
+        if self._model_id is None:
+            self._model_id = aot.model_id_for(
+                self.net, extra=("train",
+                                 type(self.trainer._optimizer).__name__,
+                                 type(self.loss_fn).__name__))
         donate = not config.get_env("MXTPU_NO_DONATE")
-        if self.mesh is not None:
-            return NDArray(self._mesh_step(args, n_net_inputs, batch_size,
-                                           donate))
-        if donate and net_device(self.net).type == "cuda" and \
+        step_t0 = _time.perf_counter()
+        self._built = False
+        if self.mesh is None and donate and \
+                _train_graphs(net_device(self.net)) and \
                 self._sig(args, n_net_inputs) not in self._uncaptured:
-            return NDArray(self._replay(args, n_net_inputs, batch_size))
-        loss = self._forward(args, n_net_inputs)
-        grads = self._backward(loss)
-        self._update(batch_size, grads, donate)
-        return NDArray(loss.detach())
+            loss = self._replay(args, n_net_inputs, batch_size)
+        else:
+            flightrec.record("step_begin", step=self._step_count + 1,
+                             compile=False)
+            with spans.span("train:dispatch", compile=False):
+                if self.mesh is not None:
+                    loss = self._mesh_step(args, n_net_inputs, batch_size,
+                                           donate)
+                else:
+                    loss = self._forward(args, n_net_inputs)
+                    self._update(batch_size, self._backward(loss), donate)
+                    loss = loss.detach()
+        numwatch.tap(self._model_id, "train:loss", (loss,))
+        numwatch.tap(self._model_id, "train:params",
+                     (p._data for p in self.trainer._params))
+        step_dur = _time.perf_counter() - step_t0
+        _STEP_SECONDS.observe(step_dur)
+        _STEPS.inc()
+        _EXAMPLES.inc(int(batch_size))
+        if self._built:
+            if self._sig(args, n_net_inputs) not in self._uncaptured:
+                _COMPILES.inc(kind="train")
+                _COMPILE_SECONDS.inc(step_dur, kind="train")
+                # the build window is this whole first step (its eager run
+                # and the capture), a child of the open train:step span
+                _record_compile_span("train:compile", step_dur)
+            flightrec.record("compile_end", kind="train",
+                             dur_s=round(step_dur, 6))
+        flightrec.record("step_end", step=self._step_count,
+                         dur_s=round(step_dur, 6))
+        return loss
 
     def _prepare(self, inputs, n_net_inputs):
         """Inputs on the net's device; deferred parameters initialized by
@@ -667,22 +764,28 @@ class TrainStep:
         entry = self._graphs.pop(sig, None)
         if entry is not None and entry.bindings != bindings:
             entry = None                    # rebound: capture again
+        flightrec.record("step_begin", step=self._step_count + 1,
+                         compile=entry is None)
         self._step_count += 1
         scalars = self.trainer._scalars(batch_size, t=self._step_count)
         if entry is None:
-            entry, loss = self._capture(args, n_net_inputs, scalars,
-                                        tensors, bindings)
+            self._built = True
+            flightrec.record("compile_begin", kind="train")
+            with spans.span("train:build"):
+                entry, loss = self._capture(args, n_net_inputs, scalars,
+                                            tensors, bindings)
             if entry is None:
                 self._uncaptured.add(sig)
                 return loss
         else:
-            with torch.no_grad():
-                for buf, a in zip(entry.inputs, args):
-                    buf.copy_(a)
-            entry.upload(entry.scalars, scalars)
-            entry.graph.replay()
-            _kernels.add_launches(entry.launches)
-            loss = entry.out.clone()
+            with spans.span("train:dispatch", compile=False):
+                with torch.no_grad():
+                    for buf, a in zip(entry.inputs, args):
+                        buf.copy_(a)
+                entry.upload(entry.scalars, scalars)
+                entry.graph.replay()
+                _kernels.add_launches(entry.launches)
+                loss = entry.out.clone()
         self._graphs[sig] = entry
         config.evict_to_bound(self._graphs)
         return loss

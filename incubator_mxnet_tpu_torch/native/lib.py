@@ -10,8 +10,14 @@ source is rebuilt; a build writes a temporary name and renames it, so
 processes that build at the same moment do not race. The newest build of
 each is also linked as ``build/native/libmxtpu.so`` and
 ``libmxtpu_predict.so``, the path ``MXTPU_PREDICT_LIB`` names for the C++
-and language shims (``python -m incubator_mxnet_tpu_torch.native.lib``
-builds both and prints their paths).
+and language shims. ``build_flash_op`` and ``build_aoti_serve`` build, the
+same way but against this interpreter's libtorch (never libpython), K1 as
+the C++ operator ``mxtpu::flash_fwd`` and the Python-free runner of
+``contrib.serving.export_pjrt_bundle``'s packages, linked as
+``libmxtpu_flash_op.so`` and ``aoti_serve``; with a CUDA torch they link
+libtorch_cuda, and the operator library K1's nvcc build
+(``python -m incubator_mxnet_tpu_torch.native.lib`` builds all four and
+prints their paths).
 
 The JPEG decoder is the libjpeg (API 62) that Pillow loads: the library
 its wheel bundles (``pillow.libs/``), else the system's ``-ljpeg``. The
@@ -34,7 +40,8 @@ import subprocess
 import sys
 import threading
 
-__all__ = ["available", "get", "build", "build_predict", "NativeBatchReader",
+__all__ = ["available", "get", "build", "build_predict", "build_flash_op",
+           "build_aoti_serve", "NativeBatchReader",
            "NativeImagePipeline", "HostBufferPool", "scan_offsets",
            "BUILD_DIR"]
 
@@ -64,15 +71,16 @@ def _jpeg_link():
     return ["-ljpeg"]
 
 
-def _compile(stem, sources, flags):
+def _compile(stem, sources, flags, suffix=".so"):
     """``g++`` ``sources`` with ``flags`` into ``BUILD_DIR/<stem>-<digest>
-    .so`` unless it is there; link it as ``<stem>.so``; return its path.
-    Raises with g++'s output if the build fails."""
+    <suffix>`` unless it is there; link it as ``<stem><suffix>``; return its
+    path. Raises with g++'s output if the build fails."""
     h = hashlib.sha256(" ".join(flags).encode())
     for s in sources:
         with open(s, "rb") as f:
             h.update(f.read())
-    path = os.path.join(BUILD_DIR, "%s-%s.so" % (stem, h.hexdigest()[:16]))
+    path = os.path.join(BUILD_DIR, "%s-%s%s" % (stem, h.hexdigest()[:16],
+                                                suffix))
     with _locks_lock:
         lock = _build_locks.setdefault(path, threading.Lock())
     with lock:
@@ -86,7 +94,7 @@ def _compile(stem, sources, flags):
                                    % (stem, r.returncode, r.stdout,
                                       r.stderr))
             os.replace(tmp, path)
-        link = os.path.join(BUILD_DIR, stem + ".so")
+        link = os.path.join(BUILD_DIR, stem + suffix)
         if not (os.path.islink(link)
                 and os.readlink(link) == os.path.basename(path)):
             tmp = "%s.tmp%d" % (link, os.getpid())
@@ -123,6 +131,67 @@ def build_predict():
              "-DMXTPU_BUILD_PYTHON=" + json.dumps(sys.executable)]
     return _compile("libmxtpu_predict",
                     [os.path.join(_SRC, "c_predict_api.cc")], flags)
+
+
+def _torch_with_cuda():
+    """Whether this torch was built with CUDA (its ``libtorch_cuda.so`` is
+    there): the operator library and the runner are then built for the
+    card too."""
+    import torch
+    return torch.version.cuda is not None and os.path.exists(os.path.join(
+        os.path.dirname(torch.__file__), "lib", "libtorch_cuda.so"))
+
+
+def _libtorch_flags(cuda):
+    """Compile and link flags against this interpreter's torch (its
+    headers, its C++ ABI, ``libtorch`` and, with ``cuda``, ``libtorch_cuda``;
+    never ``libtorch_python``)."""
+    import torch
+    base = os.path.dirname(torch.__file__)
+    inc, libdir = os.path.join(base, "include"), os.path.join(base, "lib")
+    libs = ["-ltorch", "-ltorch_cpu", "-lc10"]
+    if cuda:
+        libs += ["-ltorch_cuda", "-lc10_cuda"]
+    # the version enters the build's digest: another torch builds anew
+    return ["-O2", "-std=c++17", "-pthread",
+            "-DMXTPU_TORCH_VERSION=" + json.dumps(torch.__version__),
+            "-I", inc, "-I",
+            os.path.join(inc, "torch", "csrc", "api", "include"),
+            "-D_GLIBCXX_USE_CXX11_ABI=%d" % int(
+                torch._C._GLIBCXX_USE_CXX11_ABI),
+            "-L", libdir, "-Wl,-rpath," + libdir, "-Wl,--no-as-needed",
+            *libs, "-Wl,--as-needed"]
+
+
+FLASH_OP_SOURCE = os.path.join(os.path.dirname(_DIR), "ops", "csrc",
+                               "flash_fwd_op.cpp")
+
+
+def build_flash_op():
+    """K1 as the C++ operator ``mxtpu::flash_fwd`` (``ops/csrc/
+    flash_fwd_op.cpp``): its path, built if missing. With a CUDA torch it
+    also links K1's library, built by ``nvcc`` (``ops._kernels``), and its
+    CUDA kernel launches K1; the CPU kernel is K1's plain version. Only a
+    process without the Python registration (the AOTInductor runner) may
+    load it."""
+    cuda = _torch_with_cuda()
+    flags = ["-shared", "-fPIC", *_libtorch_flags(cuda)]
+    if cuda:
+        from ..ops import _kernels
+        k1 = _kernels.build("flash_fwd.cu")["flash_fwd.cu"]
+        include = os.path.join(os.path.dirname(os.path.dirname(
+            _kernels._nvcc())), "include")
+        flags = ["-DMXTPU_WITH_CUDA", "-I", include, *flags, k1,
+                 "-Wl,-rpath," + os.path.dirname(k1)]
+    return _compile("libmxtpu_flash_op", [FLASH_OP_SOURCE], flags)
+
+
+def build_aoti_serve():
+    """The AOTInductor runner (``src/aoti_serve.cc``, the counterpart of
+    ``tools/pjrt_serve.c``): its path, built if missing, linked against
+    libtorch (and libtorch_cuda with a CUDA torch) and never libpython."""
+    return _compile("aoti_serve", [os.path.join(_SRC, "aoti_serve.cc")],
+                    [*_libtorch_flags(_torch_with_cuda()), "-ldl"], suffix="")
 
 
 def _load():
@@ -353,3 +422,5 @@ def scan_offsets(path):
 if __name__ == "__main__":
     print(build())
     print(build_predict())
+    print(build_flash_op())
+    print(build_aoti_serve())

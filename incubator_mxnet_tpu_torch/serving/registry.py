@@ -30,8 +30,8 @@ rollback (``MXTPU_RESILIENCE_ROLLBACK``), ``health()``, and the
 generators (``load_generator``) are served beside the models.
 
 Not here: the JAX package's hlolint and hlodiff load gates read the
-StableHLO of persisted artifacts and have no analog in the port (ROADMAP
-§1 item 8), so ``MXTPU_HLOLINT_GATE`` is not read. Numerics shadows
+StableHLO of persisted artifacts and have no analog in the port (a
+departure, ROADMAP §3), so ``MXTPU_HLOLINT_GATE`` is not read. Numerics shadows
 (``register_shadow``) are ``telemetry.numwatch``'s, as in the JAX
 package. A ``contrib.serving.ServedModel`` (an exported artifact) is a
 servable like any other: its ``predict_batch`` re-chunks each bucket

@@ -44,7 +44,7 @@ setup(
                                     "incubator_mxnet_tpu_torch",
                                     "incubator_mxnet_tpu_torch.*"]),
     package_data={"incubator_mxnet_tpu.native": ["*.so", "src/*.cc"],
-                  "incubator_mxnet_tpu_torch.ops": ["csrc/*.cu"],
+                  "incubator_mxnet_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cpp"],
                   "incubator_mxnet_tpu_torch.native": [
                       "src/*.cc", "third_party/libjpeg/*.h",
                       "third_party/PROVENANCE.md"]},

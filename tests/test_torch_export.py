@@ -144,15 +144,25 @@ def test_predict_batch_chunks_and_pads_as_the_reference(berts, tmp_path):
 
 def test_departures_export_mlir_and_pjrt_bundle(berts, tmp_path):
     """export_mlir returns the exported program's text, not StableHLO;
-    export_pjrt_bundle names ROADMAP item 8 (ROADMAP §3, departures)."""
+    export_pjrt_bundle returns an AOTInductor package and its manifest,
+    not StableHLO and compile options (ROADMAP §3, departures; the
+    runner's tests are tests/test_torch_aoti.py)."""
     _, tnet = berts
     path = str(tmp_path / "t.mxtpu")
     tcs.export_model(tnet, [torch.tensor(_tokens())], path)
     text = tcs.export_mlir(path)
     assert "ExportedProgram" in text and "mxtpu.flash_fwd" in text
     assert "stablehlo" not in text
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcs.export_pjrt_bundle(path, str(tmp_path / "bundle"))
+    out = str(tmp_path / "bundle")
+    package, manifest = tcs.export_pjrt_bundle(path, out)
+    assert package == os.path.join(out, "model.pt2")
+    assert manifest == os.path.join(out, "manifest.json")
+    with open(manifest) as f:
+        m = json.load(f)
+    assert m["package"] == "model.pt2" and m["device"] == "cpu"
+    assert m["inputs"] == [dict(shape=[B, S], dtype="int32")]
+    assert m["outputs"] == [dict(shape=[B, S, V], dtype="float32")]
+    assert os.path.exists(m["op_library"])
 
 
 def test_hybrid_export_and_symbolblock_imports_as_the_reference(berts,

@@ -201,7 +201,8 @@ PORT_MODULES = ("ndarray.ndarray", "ndarray.random", "ndarray.serialization",
                 "operator", "torch", "library", "subgraph", "runtime",
                 "native", "native.lib", "native.capi",
                 "native._predict_embed", "native._invoke_embed",
-                "native._graph_embed", "native._ext_embed")
+                "native._graph_embed", "native._ext_embed",
+                "contrib.serving", "ops.attention", "ops._kernels")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -478,7 +478,10 @@ def test_col_and_row_parallel_dense_match_jax():
 def test_tensor_parallel_dense_splits_only_over_a_mesh_axis():
     """Without a mesh holding the axis (or with one position on it) the
     layer runs its plain forward; column parallel output is the gathered
-    per-shard slices, bit for bit the plain forward in fp32."""
+    per-shard slices: bit for bit the concatenation of the same per-shard
+    products (``F.linear`` of each shard's rows of W and b), and within
+    one fp32 rounding of the unsplit product (a CPU BLAS does not promise
+    the same bits across output widths)."""
     layer = tpar.ColParallelDense(16, in_units=8, flatten=False)
     layer.initialize(ctx=mxt.cpu())
     x = torch.randn(3, 5, 8)
@@ -487,7 +490,11 @@ def test_tensor_parallel_dense_splits_only_over_a_mesh_axis():
         assert torch.equal(layer(x).detach(), plain)
     with tpar.make_mesh({"tp": 4}, devices=CPU8[:4]):
         split = layer(x).detach()
-    assert torch.equal(split, plain)
+    w, b = layer.weight.data()._data, layer.bias.data()._data
+    shards = torch.cat([torch.nn.functional.linear(x, ws, bs) for ws, bs in
+                        zip(w.chunk(4, dim=0), b.chunk(4))], dim=-1)
+    assert torch.equal(split, shards)
+    torch.testing.assert_close(split, plain, rtol=1e-6, atol=1e-6)
 
 
 def test_shard_params_rules():

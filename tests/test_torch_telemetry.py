@@ -14,6 +14,7 @@ around each test that touches it; the watchdog's monitor is stopped in a
 import time
 import warnings
 
+import numpy as onp
 import pytest
 
 from incubator_mxnet_tpu import telemetry as jtel
@@ -305,3 +306,245 @@ def test_kvstore_counts_push_and_pull_bytes_as_the_reference():
         deltas.append((mod._PUSH_BYTES.value(store="local") - push0,
                        mod._PULL_BYTES.value(store="local") - pull0))
     assert deltas[0] == deltas[1] == (80, 40)
+
+
+# ---------------------------------------------------------------- F7
+# The training step's and the input pipeline's telemetry, held to the JAX
+# package's tests/test_telemetry.py (the io-wait tests and the training
+# half of the end-to-end test) and compared registration by registration.
+# The port's TrainStep takes its captured path through the CPU stand-in for
+# the CUDA graph (tests/test_torch_jit.py's), where a capture is its build.
+F7_X = onp.random.RandomState(7).randn(16, 8).astype("float32")
+F7_Y = onp.random.RandomState(8).randn(16, 4).astype("float32")
+F7_STEPS = 3
+
+
+def _f7_nets():
+    """A Dense(4) of each package with the same parameters."""
+    import incubator_mxnet_tpu as mx
+    jnet = mx.gluon.nn.Dense(4, in_units=8)
+    jnet.initialize(mx.init.Xavier())
+    tnet = mxt.gluon.nn.Dense(4, in_units=8)
+    tnet.initialize(ctx=mxt.cpu())
+    mxt.from_jax_params(tnet, jnet)
+    return jnet, tnet
+
+
+def _jax_steps(jnet, n=F7_STEPS):
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu import jit as jjit
+    trainer = mx.gluon.Trainer(jnet.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    step = jjit.TrainStep(jnet, mx.gluon.loss.L2Loss(), trainer)
+    return step, [float(step(mx.nd.array(F7_X), mx.nd.array(F7_Y))
+                        .asnumpy().mean()) for _ in range(n)]
+
+
+def _port_steps(tnet, monkeypatch, n=F7_STEPS):
+    from test_torch_jit import _cpu_capture
+    from incubator_mxnet_tpu_torch import jit as tjit
+    trainer = mxt.gluon.Trainer(tnet.collect_params(), "sgd",
+                                {"learning_rate": 0.1})
+    step = tjit.TrainStep(tnet, mxt.gluon.loss.L2Loss(), trainer)
+    monkeypatch.setattr(tjit, "_train_graphs", lambda device: True)
+    monkeypatch.setattr(tjit, "_GraphCapture", _cpu_capture(step))
+    return step, [float(step(F7_X, F7_Y).asnumpy().mean())
+                  for _ in range(n)]
+
+
+def test_train_step_metrics_are_the_references(monkeypatch):
+    """The training half of the JAX package's end-to-end telemetry test:
+    N steps add N to mxtpu_train_steps_total and to the step histogram's
+    count, the batch to the examples; the capture counts as the train
+    compile; the exposition carries them with the reference's types."""
+    from incubator_mxnet_tpu import jit as jjit
+    from incubator_mxnet_tpu_torch import jit as tjit
+    jnet, tnet = _f7_nets()
+    losses = []
+    for mod, run in ((jjit, lambda: _jax_steps(jnet)),
+                     (tjit, lambda: _port_steps(tnet, monkeypatch))):
+        steps0, examples0 = mod._STEPS.value(), mod._EXAMPLES.value()
+        sum0, count0 = mod._STEP_SECONDS.value()
+        compiles0 = mod._COMPILES.value(kind="train")
+        step, got = run()
+        losses.append(got)
+        assert mod._STEPS.value() - steps0 == F7_STEPS
+        assert mod._EXAMPLES.value() - examples0 == F7_STEPS * 16
+        total, count = mod._STEP_SECONDS.value()
+        assert count - count0 == F7_STEPS and total > sum0
+        assert mod._COMPILES.value(kind="train") - compiles0 == 1
+        del step
+    onp.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    text = ttel.export_text()
+    assert "# TYPE mxtpu_train_step_seconds histogram" in text
+    assert "# TYPE mxtpu_train_steps_total counter" in text
+    assert 'mxtpu_jit_compiles_total{kind="train"}' in text
+
+
+def _prefetched(io_mod):
+    return io_mod.PrefetchingIter(io_mod.NDArrayIter(
+        onp.random.RandomState(0).randn(32, 4).astype("float32"),
+        onp.zeros(32, "float32"), batch_size=8))
+
+
+def test_io_wait_seconds_counted():
+    """tests/test_telemetry.py::test_io_wait_seconds_counted, on the port:
+    4 batches through PrefetchingIter add 4 to its batch counter, and the
+    wait counter does not go down."""
+    from incubator_mxnet_tpu_torch import io as tio
+    from incubator_mxnet_tpu_torch.io.io import _IO_BATCHES, _IO_WAIT_SECONDS
+    it = _prefetched(tio)
+    n0 = _IO_BATCHES.value(iter="PrefetchingIter")
+    w0 = _IO_WAIT_SECONDS.value(iter="PrefetchingIter")
+    assert len(list(it)) == 4
+    assert _IO_BATCHES.value(iter="PrefetchingIter") - n0 == 4
+    assert _IO_WAIT_SECONDS.value(iter="PrefetchingIter") >= w0
+
+
+def test_prefetched_inner_iter_does_not_double_count_wait():
+    """tests/test_telemetry.py::test_prefetched_inner_iter_does_not_double_
+    count_wait, on the port: an ImageRecordIter driven by PrefetchingIter's
+    producer thread counts nothing, also through a ResizeIter between; the
+    same object consumed directly afterwards counts again."""
+    from incubator_mxnet_tpu_torch import io as tio
+    from incubator_mxnet_tpu_torch.io.io import _IO_BATCHES
+
+    class _SlowIter(tio.ImageRecordIter):
+        # only the instrumented next(), not the record file
+        def __init__(self):
+            self.batch_size = 2
+            self._n = 0
+
+        def _next_impl(self):
+            if self._n >= 3:
+                raise StopIteration
+            self._n += 1
+            return tio.DataBatch([mxt.nd.zeros((2, 1), ctx=mxt.cpu())],
+                                 [mxt.nd.zeros((2,), ctx=mxt.cpu())])
+
+        def reset(self):
+            self._n = 0
+
+        @property
+        def provide_data(self):
+            return []
+
+        @property
+        def provide_label(self):
+            return []
+
+    inner0 = _IO_BATCHES.value(iter="_SlowIter")
+    assert len(list(tio.PrefetchingIter(_SlowIter()))) == 3
+    assert _IO_BATCHES.value(iter="_SlowIter") == inner0
+    slow = _SlowIter()
+    it2 = tio.PrefetchingIter(tio.ResizeIter(slow, size=2))
+    assert len(list(it2)) == 2
+    assert _IO_BATCHES.value(iter="_SlowIter") == inner0
+    slow.reset()
+    assert len(list(slow)) == 3
+    assert _IO_BATCHES.value(iter="_SlowIter") == inner0 + 3
+
+
+_F7_PREFIXES = ("mxtpu_train_", "mxtpu_io_", "mxtpu_jit_")
+
+
+def _registrations(tel, run):
+    """Run ``run(channels)`` on a reset span ring and flight recorder; its
+    metrics (name, type, label names) of the training, io and jit
+    families, the metrics whose samples it moved, its span names, flight
+    record kinds and the watchdog channels ``run`` saw (a producer
+    thread's ident replaced by <ident>)."""
+    import re
+    tel.spans.reset()
+    tel.flightrec.reset()
+    before = {(n, tuple(sorted(lab.items()))): v
+              for n, _, lab, v in tel.REGISTRY.samples()}
+    channels = set()
+    run(channels)
+    moved = set()
+    for n, _, lab, v in tel.REGISTRY.samples():
+        if before.get((n, tuple(sorted(lab.items())))) != v:
+            moved.add(re.sub(r"_(sum|count)$", "", n)
+                      if tel.REGISTRY.get(n) is None else n)
+
+    def described(name):
+        m = tel.REGISTRY.get(name)
+        return name, m.type_name, tuple(m.labelnames)
+    names = re.findall(r"^# TYPE (\S+) ", tel.export_text(), re.M)
+    return dict(
+        metrics={described(n) for n in names if n.startswith(_F7_PREFIXES)},
+        moved={described(n) for n in moved if n.startswith(_F7_PREFIXES)},
+        moved_elsewhere={described(n) for n in moved
+                         if not n.startswith(_F7_PREFIXES)},
+        spans={r["name"] for r in tel.spans.snapshot()},
+        flight={e["event"] for e in tel.flightrec.snapshot()},
+        channels={re.sub(r"^io_prefetch:[0-9a-f]+$", "io_prefetch:<ident>",
+                         c) for c in channels})
+
+
+def test_training_and_io_registrations_are_the_references(monkeypatch):
+    """The registration comparison ROADMAP §3 asks for (F7): one small
+    TrainStep (F7_STEPS steps of a Dense with the same parameters) and
+    one PrefetchingIter(NDArrayIter(32 x 4, batch_size=8)) in each
+    package register the same metric names, types and label sets, move
+    the same metrics, emit the same span names and flight-record kinds and
+    open the same watchdog channels; the counts are exact and the waits
+    not negative."""
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu import io as jio
+    from incubator_mxnet_tpu.io import io as jio_mod
+    from incubator_mxnet_tpu_torch import io as tio
+    from incubator_mxnet_tpu_torch.io import io as tio_mod
+    jnet, tnet = _f7_nets()
+    got = {}
+    for tel, io_mod, io_impl, steps in (
+            (jtel, jio, jio_mod, lambda: _jax_steps(jnet)),
+            (ttel, tio, tio_mod, lambda: _port_steps(tnet, monkeypatch))):
+        def run(channels):
+            step, _ = steps()
+            channels.update(tel.watchdog.channels())
+            it = _prefetched(io_mod)
+            b0 = io_impl._IO_BATCHES.value(iter="PrefetchingIter")
+            w0 = io_impl._IO_WAIT_SECONDS.value(iter="PrefetchingIter")
+            batches = [it.next()]
+            channels.update(tel.watchdog.channels())
+            batches += list(it)
+            assert len(batches) == 4
+            assert io_impl._IO_BATCHES.value(iter="PrefetchingIter") \
+                - b0 == 4
+            assert io_impl._IO_WAIT_SECONDS.value(
+                iter="PrefetchingIter") - w0 >= 0
+            del step
+        got[tel] = _registrations(tel, run)
+    want, port = got[jtel], got[ttel]
+    assert {"train_step", "io_prefetch:<ident>"} <= want["channels"]
+    for key in ("metrics", "moved", "spans", "flight"):
+        assert port[key] == want[key], key
+    assert port["channels"] == want["channels"]
+    # what the JAX step moves beyond these families (its program's device
+    # statistics, its aot.CACHE entry) the port registers alike, though
+    # its step keeps its own graph table and measures no program
+    assert {described for described in want["moved_elsewhere"]
+            if ttel.REGISTRY.get(described[0]) is None or (
+                ttel.REGISTRY.get(described[0]).type_name,
+                tuple(ttel.REGISTRY.get(described[0]).labelnames))
+            != described[1:]} == set()
+
+
+def test_train_step_watchdog_channel_goes_with_the_last_step(monkeypatch):
+    """The train_step channel is counted per live stepped instance, as in
+    the JAX package: dropping a stepped TrainStep takes one off."""
+    import gc
+    from incubator_mxnet_tpu_torch import jit as tjit
+    _, tnet = _f7_nets()
+    gc.collect()                 # earlier tests' dropped steps go first
+    live = tjit.TrainStep._hb_live
+    step, _ = _port_steps(tnet, monkeypatch, n=1)
+    assert tjit.TrainStep._hb_live == live + 1
+    assert "train_step" in watchdog.channels()
+    monkeypatch.undo()           # the capture stand-in holds the step
+    del step
+    gc.collect()
+    assert tjit.TrainStep._hb_live == live
+    if live == 0:
+        assert "train_step" not in watchdog.channels()
