@@ -135,7 +135,28 @@ Phases, each of which must pass, in order:
    through TrainStep(remat=True): its second step's mean loss within 1e-3
    relative of TrainStep's without remat from the same weights, step ms
    and peak memory, K1 launched twice a layer and step (the recomputed
-   forward), K2 and K3 once.
+   forward), K2 and K3 once. The captured step's graph is an aot.CACHE
+   entry of kind "train" (``train_entry``): over each captured run
+   mxtpu_aot_misses_total{kind="train"} grows by 1 and the hits by the
+   calls - 1, the entry's FLOPs (FlopCounterMode over the eager first
+   step; K1-K3 by their operators' formulas) stand beside bench.py:358's
+   formula as a ratio, and mxtpu_device_mfu{kind="train"} is finite and
+   > 0; BERT then replays TRAIN_SYNC_STEPS more times under
+   MXTPU_DEVSTATS_TRAIN_SYNC, and the device time the gauge's counters
+   read must be within 10 % of the CUDA events around those replays
+   (the gauge's MFU printed beside the window's and the share of 989
+   TFLOP/s). Dropped and collected, each step leaves none of its entries
+   in aot.CACHE and memory_reserved is back within 5 % of its level
+   before the step was built (both read with cuBLAS's per-stream
+   workspaces given back, as torch's own leak check reads them). Last,
+   the knobs the package applies at import, in a fresh process
+   (``knob_children``): MXTPU_SEED's uniform
+   on gpu(0) repeats after mx.random.seed of the same value, the
+   autostarted profiler's file (MXTPU_PROFILER_AUTOSTART,
+   MXTPU_PROFILER_FILENAME) exists after exit and is not empty, and under
+   MXTPU_MATMUL_PRECISION=highest an fp32 4096² matmul on the card is
+   within 1e-5 relative Frobenius of the CPU's; the same matmul under
+   the knob's 'high' (TF32) is timed beside it.
 8. K4 (ops.conv_bwd) against its plain version (_conv_bwd_reference, dense
    fp32 matrix products, no conv call) at the four ResNet-50 bottleneck
    3x3 shapes in bf16 at batch 256 and at three odd shapes (C and K of 8,
@@ -223,7 +244,9 @@ Phases, each of which must pass, in order:
    4 thread workers and pin_memory into TrainStep with "nag" under a
    CosineScheduler with warm-up: the loader's img/s alone, the loop's
    img/s and the same step fed from the card; every loss finite;
-   Accuracy and TopKAccuracy(5) on the card equal to the host's. Prints
+   Accuracy and TopKAccuracy(5) on the card equal to the host's. Every
+   hybridized block of (b)-(d) captured fewer graphs than
+   MXTPU_EXEC_CACHE_SIZE, the bound of its cache (16 by default). Prints
    a {"gluon_loop": ...} line.
 13. BASELINE config 5, the LSTM language model (``lstm_lm``). (a) At a
    small width (vocab 200, 32 / 32, 2 layers; TF32 off, cuDNN
@@ -600,7 +623,10 @@ example an unpacked parent commit's.
     python3 chip_smoke.py --imperative-only [--root DIR]
 
 likewise runs phase 6c alone, AB_STEPS steps each of the imperative BERT
-loop and of TrainStep, and prints {"imperative": {...}}; ``--gluon-only``
+loop and of TrainStep, and prints {"imperative": {...}}; ``--train-only``
+runs phases 1, 3 and 7 (the kernels' build, K2/K3 at the training
+shapes, the full-width training path) and prints {"training": {...}};
+``--gluon-only``
 runs phase 12 alone and prints {"gluon_loop": {...}}, ``--rnn-only``
 phase 13 ({"rnn": {...}}), ``--zoo-only`` phase 14
 ({"model_zoo": {...}}), ``--ssd-only`` phase 15 ({"ssd": {...}}) and
@@ -646,6 +672,10 @@ RESNET_B, RESNET_STEPS = 256, (3, 10)
 RESNET_FLOPS_PER_IMAGE = 24.6e9    # bench.py:32, forward + backward
 NDARRAY_STEPS = 5      # imperative BERT steps, held to TrainStep's
 EAGER_STEPS = 5        # TrainStep's eager body, held to its captured graph
+TRAIN_SYNC_STEPS = 3   # BERT replays under MXTPU_DEVSTATS_TRAIN_SYNC
+TRAIN_SYNC_TOL = 0.10  # their gauge's device time against CUDA events
+RESERVED_TOL = 0.05    # memory_reserved after a dropped step, relative
+KNOB_MATMUL_TOL = 1e-5     # fp32 matmul under 'highest', card vs CPU
 CAPTURE_REL_TOL = 1e-3     # full width: step EAGER_STEPS's loss, relative
 PROFILED_STEPS = 2     # steps under torch.profiler for the idle share
 REMAT_STEPS = (2, 3)   # GPT with remat: (first, timed) steps
@@ -1899,12 +1929,23 @@ def _eager_step(step, *inputs, n_net_inputs=1):
     return NDArray(loss.detach())
 
 
+def _raw_device_events(prof):
+    """(start µs, end µs, name) of every device activity (kernels, copies,
+    fills) torch.profiler recorded, from its raw results: the events
+    ``prof.events()`` gives as ``FunctionEvent``s (the same intervals and
+    filter), without building one for every host operator too, which took
+    seconds a trace for a step of ~60,000 launches."""
+    from torch.autograd import DeviceType
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def _device_events(prof):
     """(start, end) in microseconds of every device activity (kernels,
     copies, fills) torch.profiler recorded, sorted."""
-    from torch.autograd import DeviceType
-    return sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return sorted((start, end) for start, end, _ in _raw_device_events(prof))
 
 
 def device_idle_share(fn, steps=PROFILED_STEPS, top=0):
@@ -1947,12 +1988,10 @@ def _top_of(prof, n, steps):
     """The ``n`` device activities of a trace taking the most time, summed
     by name over its ``steps`` calls: [name (240 characters), ms a call,
     share of the device time]."""
-    from torch.autograd import DeviceType
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
-            by_name[e.name[:240]] = by_name.get(e.name[:240], 0.0) + ms
+    for start, end, name in _raw_device_events(prof):
+        ms = (end - start) / 1e3 / steps
+        by_name[name[:240]] = by_name.get(name[:240], 0.0) + ms
     total = sum(by_name.values()) or 1.0
     return [[k, ms, ms / total] for k, ms in
             sorted(by_name.items(), key=lambda t: -t[1])[:n] if ms > 0]
@@ -2011,7 +2050,7 @@ def issue_ms(fn, n=3):
 
 
 def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
-                             warm, timed, extra_check=None):
+                             warm, timed, extra_check=None, synced=0):
     """``net`` trained from its current weights through the captured
     TrainStep (a first step that captures, ``warm - 1`` replays, ``timed``
     timed replays, then PROFILED_STEPS replays under the profiler and 3
@@ -2026,11 +2065,22 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
     named "running_*") after EAGER_STEPS steps within it of their largest
     value. The captured run's calls must each add one to
     mxtpu_train_steps_total and to the step histogram's count (F7's
-    telemetry, on the host around each replay). Returns (the captured
-    run's launches over the timed steps, summary row)."""
+    telemetry, on the host around each replay). The step's graph is an
+    aot.CACHE entry of kind "train" (``train_entry``): its calls count one
+    miss (the capture) and a hit each after it, its FLOPs are measured
+    and the gauge mxtpu_device_mfu{kind="train"} is finite and > 0; with
+    ``synced``, that many more replays run under
+    MXTPU_DEVSTATS_TRAIN_SYNC, and the device time the gauge's counters
+    read must be within TRAIN_SYNC_TOL of the same replays' CUDA-event
+    time. Dropped (and collected), the step leaves no entry behind and
+    memory_reserved comes back within RESERVED_TOL of its level before
+    the step was built (both read with cuBLAS's stream workspaces given
+    back: ``_reserved_without_workspaces``). Returns (the captured run's
+    launches over the timed steps, summary row)."""
     import torch
-    from incubator_mxnet_tpu_torch import jit
+    from incubator_mxnet_tpu_torch import aot, jit
     from incubator_mxnet_tpu_torch.ops import _kernels
+    from incubator_mxnet_tpu_torch.telemetry import devstats
 
     params = list(net.collect_params().values())
     running = [p for p in params if p.name.startswith("running")]
@@ -2040,9 +2090,12 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
         return [p._tensor().detach().float().clone() for p in running]
 
     # -- captured, every call counted against the step's telemetry
+    reserved0, workspaces0 = _reserved_without_workspaces()
     trainer = make_trainer()
     step = jit.TrainStep(net, loss_fn, trainer)
     steps0, (_, count0) = jit._STEPS.value(), jit._STEP_SECONDS.value()
+    hits0, misses0 = (aot._HITS.value(kind="train"),
+                      aot._MISSES.value(kind="train"))
     calls = []
 
     def counted():
@@ -2087,9 +2140,26 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
     if extra_check is not None:
         extra_check(trainer, losses, launches)
     means = [float(l._data.float().mean()) for l in losses]
-    del step, trainer
-    gc.collect()
-    torch.cuda.empty_cache()
+    entry = train_entry(name, step, counted, calls, hits0, misses0, synced,
+                        step_ms)
+    keys = [k for k in aot.CACHE.keys() if step._token in k.extra]
+    del step, trainer, counted
+    reserved1, workspaces1 = _reserved_without_workspaces()
+    left = [k for k in aot.CACHE.keys() if k in keys]
+    entry.update(keys_left=len(left), reserved_before_gb=reserved0 / 1e9,
+                 reserved_after_gb=reserved1 / 1e9,
+                 cublas_workspaces_gb=[workspaces0 / 1e9, workspaces1 / 1e9])
+    check(keys and not left, "%s: the dropped step's cache entries stayed "
+          "(%d of %d)" % (name, len(left), len(keys)))
+    check(abs(reserved1 - reserved0) <= RESERVED_TOL * reserved0,
+          "%s: memory_reserved %.3f GB after the step was dropped, %.3f GB "
+          "before it was built (tolerance %.0f%%)" % (
+              name, reserved1 / 1e9, reserved0 / 1e9, 100 * RESERVED_TOL))
+    log("%s: the dropped step left %d of its %d cache entries; "
+        "memory_reserved %.3f GB before the step, %.3f GB after (cuBLAS's "
+        "stream workspaces, %.3f and %.3f GB, given back first)" % (
+            name, len(left), len(keys), reserved0 / 1e9, reserved1 / 1e9,
+            workspaces0 / 1e9, workspaces1 / 1e9))
 
     # -- eager, from the same weights
     _reset(params, init)
@@ -2134,6 +2204,7 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
         peak_memory_gb=peak_gb, peak_reserved_gb=reserved_gb,
         idle_share=profiled["idle_share"], profiled=profiled,
         losses=means, launches=launches, telemetry=telemetry,
+        train_entry=entry,
         eager=dict(steps=EAGER_STEPS, step_ms=eager_ms,
                    step_host_ms=eager_host_ms, issue_ms=eager_issue,
                    peak_memory_gb=eager_peak_gb,
@@ -2160,6 +2231,168 @@ def train_captured_and_eager(name, net, loss_fn, make_trainer, inputs,
             "; running statistics %.3g of their largest" % stats_rel
             if running else "", telemetry["steps_total"], len(calls)))
     return launches, row
+
+
+def _reserved_without_workspaces():
+    """(torch.cuda.memory_reserved() with the cache emptied, the bytes of
+    cuBLAS's workspaces given back before it was read). Torch keeps a
+    workspace for each (thread's handle, stream) that ran a GEMM, a
+    capture's side stream and autograd's thread included, which no step
+    owns; torch's own leak check leaves them out the same way. Call it
+    only while no captured graph that may use one is alive."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    return reserved, held - reserved
+
+
+def train_entry(name, step, counted, calls, hits0, misses0, synced,
+                step_ms):
+    """The captured step's aot.CACHE accounting after its calls: one miss
+    and len(calls) - 1 hits of kind "train", the entry's FLOPs and peak
+    bytes, the train MFU gauge (finite, > 0; unsynced its time is the host
+    window around each replay, so it reads high); then ``synced`` replays
+    under MXTPU_DEVSTATS_TRAIN_SYNC (the gauge's EMA reset first): the
+    device seconds a replay the gauge's counters read, against the CUDA
+    events around the same replays (within TRAIN_SYNC_TOL), their step ms
+    against the unsynced ``step_ms``, and the gauge's MFU beside the
+    window's (FLOPs over the counters' device seconds)."""
+    import torch
+    from incubator_mxnet_tpu_torch import aot
+    from incubator_mxnet_tpu_torch.telemetry import devstats
+    mid = step._model_id
+    stats = dict(step._last_stats or {})
+    mfu = devstats._MFU.value(model=mid, kind="train", replica=0)
+    out = dict(model_id=mid, flops=stats.get("flops"),
+               peak_bytes=stats.get("peak_bytes"), mfu_gauge_unsynced=mfu)
+    check(stats.get("flops", 0) > 0, "%s: the train entry has no FLOPs: %s"
+          % (name, stats))
+    check(math.isfinite(mfu) and mfu > 0, "%s: mxtpu_device_mfu{kind="
+          "train} is %r" % (name, mfu))
+    if synced:
+        devstats.detach_model(mid)
+        sec0 = devstats._DISPATCH_SECONDS.value(model=mid, kind="train")
+        flops0 = devstats._FLOPS_TOTAL.value(model=mid, kind="train")
+        os.environ["MXTPU_DEVSTATS_TRAIN_SYNC"] = "1"
+        try:
+            _, sync_ms, sync_host_ms = _timed_steps(counted, synced)
+        finally:
+            del os.environ["MXTPU_DEVSTATS_TRAIN_SYNC"]
+        gauge_ms = (devstats._DISPATCH_SECONDS.value(model=mid, kind="train")
+                    - sec0) * 1e3 / synced
+        flops = devstats._FLOPS_TOTAL.value(model=mid, kind="train") - flops0
+        rel = abs(gauge_ms - sync_ms) / sync_ms
+        out.update(
+            synced_replays=synced, synced_step_ms=sync_ms,
+            synced_step_host_ms=sync_host_ms, gauge_device_ms=gauge_ms,
+            gauge_vs_events_rel=rel,
+            synced_vs_unsynced_step=sync_ms / step_ms,
+            mfu_gauge_synced=devstats._MFU.value(model=mid, kind="train",
+                                                 replica=0),
+            mfu_window=flops / (gauge_ms * synced / 1e3) / PEAK_BF16_FLOPS)
+        check(rel <= TRAIN_SYNC_TOL, "%s: the synced train gauge reads %.2f "
+              "ms a replay, CUDA events %.2f ms (%.3g apart)"
+              % (name, gauge_ms, sync_ms, rel))
+        check(math.isfinite(out["mfu_gauge_synced"])
+              and out["mfu_gauge_synced"] > 0, "%s: synced train MFU %r"
+              % (name, out["mfu_gauge_synced"]))
+    hits = aot._HITS.value(kind="train") - hits0
+    misses = aot._MISSES.value(kind="train") - misses0
+    out.update(calls=len(calls), hits=hits, misses=misses)
+    check(misses == 1 and hits == len(calls) - 1, "%s: %d train misses and "
+          "%d hits over %d calls, expected 1 and %d" % (
+              name, misses, hits, len(calls), len(calls) - 1))
+    log("%s train entry: %d calls, %d miss, %d hits; %.4g FLOP a step, "
+        "pool %.2f GB; MFU gauge unsynced %.3g (host window)%s" % (
+            name, len(calls), misses, hits, out["flops"],
+            (out["peak_bytes"] or 0) / 1e9, mfu,
+            "; %d synced replays %.2f ms (unsynced %.2f, %.4f x), the "
+            "gauge's device time %.2f ms a replay (%.3g from CUDA events), "
+            "MFU gauge %.4f, window %.4f" % (
+                synced, out["synced_step_ms"], step_ms,
+                out["synced_vs_unsynced_step"], out["gauge_device_ms"],
+                out["gauge_vs_events_rel"], out["mfu_gauge_synced"],
+                out["mfu_window"]) if synced else ""))
+    return out
+
+
+KNOB_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import incubator_mxnet_tpu_torch as mx
+out = dict(precision=torch.get_float32_matmul_precision(),
+           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+           profiler_state=mx.profiler.state())
+if os.environ.get("MXTPU_SEED") is not None:
+    a = mx.nd.random.uniform(shape=(4096,), ctx=mx.gpu(0)).asnumpy()
+    mx.random.seed(int(os.environ["MXTPU_SEED"]))
+    b = mx.nd.random.uniform(shape=(4096,), ctx=mx.gpu(0)).asnumpy()
+    out["seed_repeats"] = bool((a == b).all())
+g = torch.Generator().manual_seed(0)
+x, y = torch.randn(4096, 4096, generator=g), torch.randn(4096, 4096,
+                                                         generator=g)
+cpu = x @ y
+xd, yd = x.cuda(), y.cuda()
+
+
+def matmul():
+    card = xd @ yd
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        xd @ yd
+    end.record()
+    end.synchronize()
+    return dict(ms=start.elapsed_time(end) / 10,
+                rel_frob_to_cpu=float((card.cpu() - cpu).norm() / cpu.norm()))
+out["matmul"] = matmul()
+mx._set_matmul_precision("high")          # the knob's mapping of 'high'
+out["matmul_high"] = dict(matmul(), precision=(
+    torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32))
+print(json.dumps(out))
+"""
+
+
+def knob_children(tmp):
+    """The knobs the package applies at import, in one fresh process on
+    the card: MXTPU_SEED (a uniform draw on gpu(0) repeats after
+    mx.random.seed of the same value), MXTPU_PROFILER_AUTOSTART with
+    MXTPU_PROFILER_FILENAME (the profiler runs from import; its file
+    exists after the process exits and is not empty) and
+    MXTPU_MATMUL_PRECISION=highest (an fp32 4096² matmul within
+    KNOB_MATMUL_TOL relative Frobenius of the CPU's); then the same
+    matmul under the knob's 'high' (TF32): both times and distances
+    printed."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        sys.modules["incubator_mxnet_tpu_torch"].__file__)))
+    trace = os.path.join(tmp, "autostart-profile.json")
+    got = _child(KNOB_CHILD, root, env=dict(
+        MXTPU_SEED="1234", MXTPU_PROFILER_AUTOSTART="1",
+        MXTPU_PROFILER_FILENAME=trace, MXTPU_MATMUL_PRECISION="highest"))
+    trace_bytes = os.path.getsize(trace) if os.path.exists(trace) else 0
+    highest, high = got["matmul"], got["matmul_high"]
+    check(got["seed_repeats"], "MXTPU_SEED: the draws on gpu(0) did not "
+          "repeat after mx.random.seed of the same value")
+    check(got["profiler_state"] == "run" and trace_bytes > 0,
+          "MXTPU_PROFILER_AUTOSTART: state %r, %d bytes in %s after exit"
+          % (got["profiler_state"], trace_bytes, trace))
+    check(got["precision"] == "highest" and not got["cudnn_allow_tf32"]
+          and highest["rel_frob_to_cpu"] <= KNOB_MATMUL_TOL,
+          "MXTPU_MATMUL_PRECISION=highest: %r" % got)
+    check(high["precision"] == ["high", True], "'high': %r" % high)
+    log("import-time knobs in a fresh process: MXTPU_SEED's draws repeat; "
+        "the autostarted profile %d bytes after exit; fp32 4096² matmul "
+        "under 'highest' %.3f ms, %.3g relative Frobenius from the CPU's; "
+        "under 'high' (TF32) %.3f ms, %.3g" % (
+            trace_bytes, highest["ms"], highest["rel_frob_to_cpu"],
+            high["ms"], high["rel_frob_to_cpu"]))
+    return dict(got, profile_bytes=trace_bytes)
 
 
 def train_full_width(bwd):
@@ -2225,7 +2458,7 @@ def train_full_width(bwd):
 
         launches, row = train_captured_and_eager(
             name, net, loss_fn, make_trainer, (tokens, tokens), warm, timed,
-            extra_check)
+            extra_check, synced=TRAIN_SYNC_STEPS if name == "bert" else 0)
         launches_by_model[name] = launches
         shape_i = 0 if name == "bert" else 1
         kernel_ms = {k: bwd[key][shape_i]["ms"] for k, key in (
@@ -2236,9 +2469,16 @@ def train_full_width(bwd):
                    tokens_per_s=B * S / (row["step_ms"] / 1e3),
                    attention_kernels_ms_per_step=attn_ms,
                    attention_kernels_share=attn_ms / row["step_ms"])
+        # bench.py:358's formula; GPT's counts its causal attention whole
+        flops = 6.0 * n_params * B * S \
+            + cfg["num_layers"] * 12.0 * B * S * S * cfg["units"]
+        row["train_entry"].update(
+            formula_flops=flops,
+            entry_over_formula=row["train_entry"]["flops"] / flops)
+        log("%s train entry: %.4g FLOP measured a step against bench.py:358's "
+            "%.4g (%.4f x)" % (name, row["train_entry"]["flops"], flops,
+                               row["train_entry"]["entry_over_formula"]))
         if name == "bert":
-            flops = 6.0 * n_params * B * S \
-                + cfg["num_layers"] * 12.0 * B * S * S * cfg["units"]
             row["share_of_989_tflops"] = flops / (row["step_ms"] / 1e3) \
                 / PEAK_BF16_FLOPS
         else:
@@ -2257,6 +2497,12 @@ def train_full_width(bwd):
         del model, net, loss_fn, tokens
         gc.collect()
         torch.cuda.empty_cache()
+    tmp = _build_tmp()
+    try:
+        summary["knobs"] = knob_children(tmp)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
     return launches_by_model, summary
 
 
@@ -3556,6 +3802,18 @@ def gluon_loop(card):
     torch.cuda.empty_cache()
     gpt_launches, summary["gpt"] = train_gpt_hybridized()
     summary["resnet50"] = train_resnet_loader()
+    from incubator_mxnet_tpu_torch import config
+    bound = config.get_env("MXTPU_EXEC_CACHE_SIZE")
+    captures = {"small_" + k: v["captures"]
+                for k, v in summary["hybridized_small"].items()}
+    captures.update(bert_lamb=summary["bert"]["captures"],
+                    gpt=summary["gpt"]["hybridized"]["captures"])
+    check(all(c < bound for c in captures.values()), "a hybridized block "
+          "captured as many graphs as MXTPU_EXEC_CACHE_SIZE (%d): %s"
+          % (bound, captures))
+    summary["hybridized_captures"] = dict(captures, exec_cache_size=bound)
+    log("hybridized blocks' captures %s, each under MXTPU_EXEC_CACHE_SIZE "
+        "%d" % (captures, bound))
     return {"gluon_bert": bert_launches, "gluon_gpt": gpt_launches}, summary
 
 
@@ -6587,10 +6845,11 @@ GEN_STEP_TIMED = 20        # decode graph replays timed a bucket
 
 
 def release_graphs():
-    """Drop every captured EvalStep/generation graph held by the port's
-    process-wide AOT cache (with the parameters and memory pools they
-    hold), then collect and give cached memory back: between phases, so
-    a phase's graphs do not sit in a later phase's memory peak."""
+    """Drop every captured TrainStep/EvalStep/generation graph held by the
+    port's process-wide AOT cache (with the parameters and memory pools
+    they hold; a live step captures again at its next call), then collect
+    and give cached memory back: between phases, so a phase's graphs do
+    not sit in a later phase's memory peak."""
     import torch
     from incubator_mxnet_tpu_torch import aot
     aot.CACHE.clear()
@@ -11076,6 +11335,9 @@ def main(argv):
     parser.add_argument("--imperative-only", action="store_true",
                         help="time the imperative BERT loop against "
                         "TrainStep (phase 6c) alone")
+    parser.add_argument("--train-only", action="store_true",
+                        help="run the full-width training path (phases 1, "
+                        "3 and 7) alone")
     parser.add_argument("--gluon-only", action="store_true",
                         help="run the Gluon training loop (phase 12) "
                         "alone")
@@ -11181,6 +11443,17 @@ def main(argv):
         log(card)
         log(json.dumps({"imperative": dict(bert,
                                            root=os.path.abspath(opts.root))}))
+        return 0
+    if opts.train_only:
+        try:
+            build_kernels()
+            _, training = train_full_width(check_flash_bwd())
+        except SmokeFailure as e:
+            print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
+            return 1
+        log(card)
+        log(json.dumps({"training": dict(training, root=os.path.abspath(
+            opts.root))}))
         return 0
     if opts.gluon_only:
         try:

@@ -101,4 +101,32 @@ from . import initializer as init  # noqa: F401
 from .parallel import dist as _dist  # noqa: E402
 _dist._init_from_launcher()
 
+
+def _set_matmul_precision(name):
+    """``MXTPU_MATMUL_PRECISION``, as XLA's GPU backend reads its three
+    names: 'highest' is full fp32, 'high' and 'default' are TF32 (matmuls
+    and cuDNN's convolutions alike)."""
+    import torch
+    if name not in ("default", "high", "highest"):
+        raise ValueError("MXTPU_MATMUL_PRECISION must be 'default', 'high' "
+                         "or 'highest'; got %r" % name)
+    torch.set_float32_matmul_precision(
+        "highest" if name == "highest" else "high")
+    torch.backends.cudnn.allow_tf32 = name != "highest"
+
+
+# the knobs the JAX package applies at import (config.ENV_VARS documents
+# each); unset, nothing changes
+if config.get_env("MXTPU_SEED") is not None:
+    random.seed(config.get_env("MXTPU_SEED"))
+if config.get_env("MXTPU_MATMUL_PRECISION"):
+    _set_matmul_precision(config.get_env("MXTPU_MATMUL_PRECISION"))
+if config.get_env("MXTPU_PROFILER_AUTOSTART"):
+    # MXNET_PROFILER_AUTOSTART analog: record from import, dump at exit
+    import atexit as _atexit
+
+    profiler.set_config(filename=config.get_env("MXTPU_PROFILER_FILENAME"))
+    profiler.set_state("run")
+    _atexit.register(profiler.dump)
+
 __version__ = "0.1.0"

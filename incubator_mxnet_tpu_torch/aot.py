@@ -12,14 +12,15 @@ The port keeps the cache, its key, its single-flight misses, its LRU and
 its counters (``mxtpu_aot_{hits,misses,evictions}_total{kind}`` and the
 ``mxtpu_aot_entries`` gauge). What an entry holds differs: on the card it
 is a captured CUDA graph with its static inputs and outputs
-(``jit._Captured``), not an XLA executable. ``jit.EvalStep`` (kind
-``"eval"``) and the generative engine's prefill, decode and KV-join
-programs (kinds ``"serve"`` and ``"decode"``) build through
-``compile_cached``; the LRU's eviction is ``config.evict_to_bound`` over
-the cache's recency-ordered table. ``jit.TrainStep`` and ``hybridize``
-keep their per-instance tables of graphs, bounded by the same knob: a
-training graph updates its own instance's parameters in place, so it is
-never shared.
+(``jit._Captured``), not an XLA executable. ``jit.TrainStep`` (kind
+``"train"``), ``jit.EvalStep`` (kind ``"eval"``) and the generative
+engine's prefill, decode and KV-join programs (kinds ``"serve"`` and
+``"decode"``) build through ``compile_cached``; the LRU evicts from the
+front of the cache's recency-ordered table. A train entry updates its own
+step's parameters in place, so its key carries the step's instance token
+and is never shared, and the step releases its entries when it is
+collected. ``hybridize`` keeps a per-block table of graphs, bounded by
+``MXTPU_EXEC_CACHE_SIZE`` (``config.evict_to_bound``).
 
 A captured graph reads the addresses it was captured on, where the JAX
 package passes parameters as run-time inputs. So a key made for a graph
@@ -133,9 +134,9 @@ class Bound(tuple):
     tensors)."""
 
 #: (model_id, kind, input_sig, mesh, extra): the identity of one program.
-#: kind is 'eval' | 'serve' | 'decode'; input_sig a tuple of (shape tuple,
-#: dtype string) per input; mesh is mesh_sig(); extra the caller's statics
-#: (for a captured graph, the addresses it reads).
+#: kind is 'train' | 'eval' | 'serve' | 'decode'; input_sig a tuple of
+#: (shape tuple, dtype string) per input; mesh is mesh_sig(); extra the
+#: caller's statics (for a captured graph, the addresses it reads).
 CacheKey = namedtuple("CacheKey", ("model_id", "kind", "input_sig", "mesh",
                                    "extra"))
 
@@ -302,7 +303,7 @@ class AOTCache:
     """Thread-safe LRU map CacheKey -> entry (the process-wide instance is
     ``aot.CACHE``). Its table is kept in recency order: a lookup moves the
     entry to the end, and inserts evict from the front past
-    MXTPU_AOT_CACHE_SIZE (``config.evict_to_bound``), counting each."""
+    MXTPU_AOT_CACHE_SIZE (``_evict_locked``), counting each."""
 
     def __init__(self):
         self._lock = threading.RLock()
@@ -339,7 +340,7 @@ class AOTCache:
         with self._lock:
             self._entries.pop(key, None)
             self._entries[key] = entry
-            config.evict_to_bound(self._entries, self._evicted_locked)
+            self._evict_locked()
             _ENTRIES.set(len(self._entries))
             if stats:
                 _publish_program_stats(key, stats)
@@ -348,9 +349,16 @@ class AOTCache:
             sink.append(entry)
         return entry
 
-    def _evicted_locked(self, key, _entry):
-        _EVICTIONS.inc(kind=key.kind)
-        self._unpublish_locked(key)
+    def _evict_locked(self):
+        """Evict from the front of the recency-ordered table (the least
+        recently dispatched entry) past MXTPU_AOT_CACHE_SIZE, counting
+        each."""
+        bound = max(1, config.get_env("MXTPU_AOT_CACHE_SIZE"))
+        while len(self._entries) > bound:
+            key = next(iter(self._entries))
+            del self._entries[key]
+            _EVICTIONS.inc(kind=key.kind)
+            self._unpublish_locked(key)
 
     def _unpublish_locked(self, key):
         """Drop a departed entry's program gauges, or publish a surviving

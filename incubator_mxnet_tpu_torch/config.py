@@ -4,16 +4,21 @@ typed and documented here, and ``get_env(name)`` is the one accessor.
 
 Only the knobs the port reads are declared: the serving knobs (the
 batcher, the HTTP front end, the access log, resilience and generation),
-the telemetry knobs, the AOT cache's, the gate of the conv-backward
-kernel and the training step's (``jit.TrainStep``: remat, donation), the
-image iterator's threads, the native library's and the C ABI's
-(``native/``), the engine's bulk size and the device
-telemetry's (``devstats``, ``profstats``, ``numwatch``, ``slo``,
-``history``), and those of several processes (the launcher's rendezvous,
-the process group's timeout, the dist kvstores and the server role). The
-flash-attention block/force/interpret knobs of the JAX
-package are TPU tiling and Pallas interpret switches and have no
-counterpart here.
+the telemetry knobs, the AOT cache's and the hybridized blocks' bounds,
+the gate of the conv-backward kernel and the training step's
+(``jit.TrainStep``: remat, donation), the image iterator's threads, the
+native library's and the C ABI's (``native/``), the engine's bulk size
+and the device telemetry's (``devstats``, ``profstats``, ``numwatch``,
+``slo``, ``history``), those of several processes (the launcher's
+rendezvous, the process group's timeout, the dist kvstores and the server
+role), the four the package applies at import (``MXTPU_SEED``,
+``MXTPU_PROFILER_AUTOSTART``/``MXTPU_PROFILER_FILENAME`` and
+``MXTPU_MATMUL_PRECISION``) and the large-tensor test tier's gate. The
+JAX package's knobs that have no counterpart here are the
+flash-attention block/force/interpret knobs (TPU tiling and Pallas
+interpret switches), ``MXTPU_HLOLINT_*``/``MXTPU_HLODIFF_*`` (they read
+StableHLO), ``MXTPU_LOADGEN_*``/``MXTPU_PERFGATE_*`` (read by the JAX
+package's ``tools/`` only), ``JAX_PLATFORMS`` and ``XLA_FLAGS``.
 """
 from __future__ import annotations
 
@@ -63,6 +68,15 @@ ENV_VARS = {
         "Serving dispatches (under the batcher's devstats dispatch "
         "context) always observe: there the next step is a copy to the "
         "host anyway."),
+    "MXTPU_DEVSTATS_TRAIN_SYNC": (
+        bool, False,
+        "Time each captured jit.TrainStep replay with CUDA events and wait "
+        "for its end, so the train mxtpu_device_mfu observation has the "
+        "replay's device time. Off by default: the wait stops the host "
+        "from issuing the next step while this one runs, and unsynced the "
+        "observation is the host window around the replay, so the train "
+        "MFU reads HIGH while steps pipeline. Turn it on when attributing "
+        "a training regression, off for peak throughput."),
     "MXTPU_PROFILE_DIR": (
         str, None,
         "Directory for on-demand torch.profiler captures "
@@ -480,15 +494,22 @@ ENV_VARS = {
         "is Pallas): ops.conv_bwd.conv3x3_s1 routes its backward through "
         "it when the shape is legal. 0 takes the library conv's gradient "
         "instead. Model-zoo convs never take it."),
+    "MXTPU_EXEC_CACHE_SIZE": (
+        int, 16,
+        "Bound on each hybridized block's table of CUDA graphs, one entry "
+        "a call signature (gluon/_functional.py, the CachedOp analog; "
+        "each graph keeps its private memory pool); past the bound the "
+        "least recently dispatched signature is evicted and captures "
+        "again on its next call. TrainStep, EvalStep and the generative "
+        "engine's graphs live in the shared AOT cache: size THAT with "
+        "MXTPU_AOT_CACHE_SIZE."),
     "MXTPU_AOT_CACHE_SIZE": (
         int, 64,
         "Bound on the process-wide AOT cache (aot.CACHE) of captured CUDA "
-        "graphs: each jit.EvalStep signature and each generative program "
-        "bucket is one entry; past the bound the least recently "
-        "dispatched entry is evicted (mxtpu_aot_evictions_total) and its "
-        "signature captures again on its next call. The same bound caps "
-        "each jit.TrainStep's and each hybridized block's own table of "
-        "graphs."),
+        "graphs: each jit.TrainStep and jit.EvalStep signature and each "
+        "generative program bucket is one entry; past the bound the least "
+        "recently dispatched entry is evicted (mxtpu_aot_evictions_total) "
+        "and its signature captures again on its next call."),
     "MXTPU_AOT_CACHE_DIR": (
         str, None,
         "Directory of persisted programs (aot.py's artifact layer): eval "
@@ -545,6 +566,31 @@ ENV_VARS = {
         "gpu(i); native/__init__.py capi_context): the port's counterpart "
         "of the JAX package's JAX_PLATFORMS pin. A loaded serving "
         "artifact computes on the device it was exported on."),
+    "MXTPU_SEED": (
+        int, None,
+        "Global RNG seed applied at package import (MXNET_SEED analog): "
+        "nd.random.seed of it, which seeds every device's generator of "
+        "nd.random and mx.np.random."),
+    "MXTPU_PROFILER_AUTOSTART": (
+        bool, False,
+        "Start the profiler at package import and dump on interpreter exit "
+        "(MXNET_PROFILER_AUTOSTART analog)."),
+    "MXTPU_PROFILER_FILENAME": (
+        str, "profile.json",
+        "Chrome-trace output path used by the autostarted profiler dump "
+        "(MXNET_PROFILE_FILENAME analog; profiler.set_config overrides)."),
+    "MXTPU_MATMUL_PRECISION": (
+        str, None,
+        "Float32 matmul and convolution precision on the card, applied at "
+        "package import, read as XLA's GPU backend reads the three names: "
+        "'highest' is full fp32 (torch.set_float32_matmul_precision"
+        "('highest'), torch.backends.cudnn.allow_tf32 False); 'high' and "
+        "'default' are TF32 (set_float32_matmul_precision('high'), "
+        "cudnn.allow_tf32 True). Unset: torch's own defaults stay."),
+    "MXTPU_TEST_LARGE_TENSOR": (
+        bool, False,
+        "Opt into the >2^31-element int64 large-tensor test tier "
+        "(tests/test_torch_large_tensor.py; ~2-6 GB of host RAM)."),
     "MXTPU_ENGINE_BULK_SIZE": (
         int, 15,
         "Initial engine bulk size (MXNET_ENGINE_BULK_SIZE analog), read "
@@ -569,12 +615,14 @@ def get_env(name):
 
 
 def evict_to_bound(cache, on_evict=None):
-    """Drop the least recently used entries of a cache of captured graphs
-    until it holds MXTPU_AOT_CACHE_SIZE (call after inserting). The cache
-    is a dict in recency order: a caller marking a hit moves the entry to
-    the end (``cache[k] = cache.pop(k)``), so the front entry is the least
-    recently used. ``on_evict(key, value)`` runs for each entry dropped."""
-    bound = max(1, get_env("MXTPU_AOT_CACHE_SIZE"))
+    """Drop the least recently used entries of a hybridized block's cache
+    of captured graphs until it fits MXTPU_EXEC_CACHE_SIZE (call after
+    inserting). The cache is a dict in recency order: a caller marking a
+    hit moves the entry to the end (``cache[k] = cache.pop(k)``), so the
+    front entry is the least recently used. ``on_evict(key, value)`` runs
+    for each entry dropped. The shared AOT cache (``aot.AOTCache``) has its
+    own bound, MXTPU_AOT_CACHE_SIZE."""
+    bound = max(1, get_env("MXTPU_EXEC_CACHE_SIZE"))
     while len(cache) > bound:
         key = next(iter(cache))
         value = cache.pop(key)

@@ -37,7 +37,8 @@ a graph the caller still holds (made on another stream) enters it. A parameter r
 re-initialisation) or rewritten by ``set_data``/``load_parameters``
 (``Parameter._version``) captures again at its next call (no eager run
 first); ``Trainer.step`` updates in place and keeps the graphs. The captures live in an LRU bounded by
-``MXTPU_AOT_CACHE_SIZE``.
+``MXTPU_EXEC_CACHE_SIZE``, the JAX package's bound of a hybridized block's
+cache.
 
 Inside ``plain()`` (a ``jit.TrainStep`` or ``EvalStep``, which capture or
 serve the whole step themselves, and a hybridized block's own eager run

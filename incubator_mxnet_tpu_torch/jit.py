@@ -17,12 +17,32 @@ over their storage (``_on_leaves``), so a graph the caller still holds on
 either (a recorded forward's states, not detached) does not enter it. A
 parameter or optimizer state rebound to another tensor after a capture
 (``cast``, ``_states`` replaced) forces a new capture: the graph keeps the
-tensors it was captured on and compares their addresses each call. The
-graphs live in an LRU bounded by ``MXTPU_AOT_CACHE_SIZE`` and go with the
-``TrainStep``. A capture that fails raises, naming the line of the
-operation; nothing falls back to eager. CPU nets run the same body
-eagerly, and so does ``MXTPU_NO_DONATE`` on the card, whose update writes
-new tensors (``Trainer._update``).
+tensors it was captured on, whose addresses are part of its key. Each
+graph is an entry of kind ``"train"`` in the process-wide ``aot.CACHE``,
+keyed as the JAX package keys its train programs (the model's
+``model_id``, the signature, ``n_net_inputs`` and the step's instance
+token, which goes in even under an explicit ``model_id``: two steps never
+share an entry, since each updates its own parameters), bounded by
+``MXTPU_AOT_CACHE_SIZE`` and counted on ``mxtpu_aot_{hits,misses,
+evictions}_total{kind="train"}``. The captured body closes over the net,
+the loss and the trainer, never over the step, so an entry does not keep
+its step alive: a finalizer releases the step's entries when it is
+collected, and an evicted entry captures again (a miss) at its next call.
+The eager first step runs under ``devstats.measure``: the entry's FLOPs
+(K1, K2 and K3 through their operators' formulas), with ``peak_bytes``
+the capture's memory pool; ``_last_stats`` is the entry's stats after
+every captured call, and each replay feeds ``devstats.observe_dispatch
+("train", ...)`` (``mxtpu_device_mfu{kind="train"}``) with the host window
+around it, or, under ``MXTPU_DEVSTATS_TRAIN_SYNC``, with its CUDA-event
+time read after it has ended. Train entries are never persisted. A
+capture that fails raises, naming the line of the operation; nothing
+falls back to eager. CPU nets run the same body eagerly, and so does
+``MXTPU_NO_DONATE`` on the card, whose update writes new tensors
+(``Trainer._update``); a step that runs ``parallel.shard_map`` (a mesh
+step, or a signature whose first run went through it) runs eagerly too.
+None of these three is a program: they stay out of the cache, and their
+``_last_stats`` is None (the JAX package's lazy mesh path has none
+either).
 
 Each ``TrainStep`` call carries the JAX package's training telemetry:
 ``mxtpu_train_step_seconds``, ``mxtpu_train_steps_total`` and
@@ -42,9 +62,9 @@ gradients of the trainer's parameters (zeros where the loss does not
 reach) before the update, as in the JAX step. With ``mesh`` the step is
 data parallel over ``data_axis`` and, with ``zero``, keeps its optimizer
 states in slices over it (``parallel.data_parallel``; the mesh step runs
-eagerly, uncaptured, and takes no ``remat``). ``model_id`` is accepted
-and stored: a training graph updates its own parameters in place and is
-never shared, so ``TrainStep`` keeps its own table.
+eagerly, uncaptured, and takes no ``remat``). ``model_id`` names the
+model in the cache key (default ``aot.model_id_for(net, extra=("train",
+optimizer, loss))``).
 
 ``EvalStep`` moves its inputs to the net's device and runs the forward
 without recording. On a CUDA net each input signature is one CUDA graph
@@ -77,12 +97,13 @@ package's do.
 """
 from __future__ import annotations
 
-import collections
 import gc
+import itertools
 import os
 import threading
 import time as _time
 import traceback
+import weakref
 
 import numpy as onp
 import torch
@@ -197,9 +218,9 @@ def _where(exc):
 
 class _GraphCapture:
     """The card's side of a capture on ``device``: the side stream the
-    eager step and the capture run on, the ``torch.cuda.CUDAGraph``, and
-    the upload of a step's scalars. Nothing else in ``TrainStep`` touches
-    ``torch.cuda``."""
+    eager step and the capture run on, the ``torch.cuda.CUDAGraph``, the
+    upload of a step's scalars and the CUDA-event timing of a replay.
+    Nothing else in ``TrainStep`` touches ``torch.cuda``."""
 
     def __init__(self, device):
         self.current = torch.cuda.current_stream(device)
@@ -295,25 +316,39 @@ class _GraphCapture:
         card."""
         dst.copy_(host.pin_memory(), non_blocking=True)
 
+    @staticmethod
+    def timed(fn):
+        """(``fn()``, the device seconds of the work it issued on the
+        current stream): CUDA events around it, read once that work has
+        ended (the host waits for it)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
 
 class _Captured:
     """One signature's captured program: the graph, its static inputs and
     scalar vector (and how to upload them), its static outputs (the
     step's loss, a forward's tensors), the kernel launches one replay
-    makes, and the tensors it was captured on (held, so their addresses
-    stay theirs) with those addresses. ``lock`` serialises the threads
-    that replay one graph (its static buffers are shared)."""
+    makes, the tensors it was captured on (held, so their addresses stay
+    theirs; the cache key carries the addresses) and how to time a replay
+    on the card (``timed``). ``lock`` serialises the threads that replay
+    one graph (its static buffers are shared)."""
 
     def __init__(self, graph, upload, inputs, scalars, out, launches,
-                 tensors, bindings):
+                 tensors, timed=None):
         self.graph = graph
         self.upload = upload
+        self.timed = timed
         self.inputs = inputs
         self.scalars = scalars
         self.out = out
         self.launches = launches
         self.tensors = [t.detach() for t in tensors]
-        self.bindings = bindings
         self.lock = threading.Lock()
         self.stats = None       # devstats' facts of the program (_capture)
 
@@ -377,7 +412,7 @@ def _capture(body, args, kind, tensors=()):
     _COMPILE_SECONDS.inc(dur, kind=kind)
     flightrec.record("compile_end", kind=kind, dur_s=round(dur, 6))
     result = _Captured(graph, cap.upload, static, None, captured, launches,
-                       tensors, None)
+                       tensors)
     result.stats = stats
     return result, out
 
@@ -486,6 +521,97 @@ def run_program(program, args, stats, kind, model):
     return out
 
 
+class _Uncapturable(Exception):
+    """A train capture's eager first step ran ``parallel.shard_map``: no
+    program is made, and ``loss`` is that step's answer."""
+
+    def __init__(self, loss):
+        super().__init__("the step runs shard_map")
+        self.loss = loss
+
+
+#: instance tokens of TrainSteps, in their cache keys
+_TRAIN_TOKENS = itertools.count()
+
+
+def _release_keys(keys, owner):
+    """A collected TrainStep's finalizer: ``owner`` lets go of each of its
+    cache entries (an entry holds none of the step's objects, so this runs
+    when the step is collected)."""
+    for key in list(keys):
+        aot.CACHE.release(key, owner)
+    keys.clear()
+
+
+def _run_loss(net, loss_fn, remat, args, n_net_inputs):
+    """The loss tensor of ``loss_fn(net(inputs), *extra)``, recorded;
+    under ``remat`` checkpointed, to be recomputed in the backward."""
+    from .gluon._functional import plain
+
+    def run(*a):
+        loss = loss_fn(net(*a[:n_net_inputs]), *a[n_net_inputs:])
+        return loss._data if isinstance(loss, NDArray) else loss
+    with autograd.record(train_mode=True), plain():
+        if remat:
+            return checkpoint(run, *args, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=autograd.remat_contexts)
+        return run(*args)
+
+
+def _grads(trainer, grad_postprocess, loss):
+    """The loss's gradients (seeded with ones: those of its sum, which
+    rescale_grad / batch_size makes the batch mean's), one per trainer
+    parameter, None where it does not reach; with ``grad_postprocess``,
+    its map of the live parameters' gradients (zeros where the loss does
+    not reach)."""
+    params = trainer._params
+    live = trainer._live()
+    got = torch.autograd.grad(loss, [params[i]._tensor() for i in live],
+                              torch.ones_like(loss), allow_unused=True)
+    if grad_postprocess is not None:
+        got = grad_postprocess(
+            [torch.zeros_like(params[i]._tensor()) if g is None else g
+             for i, g in zip(live, got)])
+    grads = [None] * len(params)
+    for i, g in zip(live, got):
+        grads[i] = g
+    return grads
+
+
+def _on_leaves(net, trainer, fn):
+    """``fn()`` with every parameter of the net and the trainer read
+    through a detached leaf of its own over the same storage (the update
+    writes that storage in place), so no autograd node of a graph the
+    caller still holds on them (made on another stream, say by a forward
+    whose states were not detached) enters the step or its capture;
+    ``_to_device`` has detached the inputs."""
+    params = list({id(p): p for p in list(net.collect_params().values())
+                   + trainer._params}.values())
+    saved = [p._data for p in params]
+    for p, t in zip(params, saved):
+        p._data = t.detach().requires_grad_(t.requires_grad)
+    try:
+        return fn()
+    finally:
+        for p, t in zip(params, saved):
+            p._data = t
+
+
+def _step_body(net, loss_fn, trainer, remat, grad_postprocess):
+    """``body(inputs, n_net_inputs, scalars) -> loss``: forward, backward
+    and the update with the device ``scalars``, on the parameters' leaves
+    (``_on_leaves``): what a train graph captures. It closes over the
+    step's parts, never over the ``TrainStep``."""
+    def body(inputs, n_net_inputs, scalars):
+        def run():
+            loss = _run_loss(net, loss_fn, remat, inputs, n_net_inputs)
+            trainer._apply(_grads(trainer, grad_postprocess, loss), scalars)
+            return loss.detach()
+        return _on_leaves(net, trainer, run)
+    return body
+
+
 class TrainStep:
     """``step(*inputs)`` = one training step: ``inputs`` are the net's
     inputs (the first ``n_net_inputs``) followed by the loss's extra
@@ -501,8 +627,9 @@ class TrainStep:
     The gradients are the step's own: like the JAX ``TrainStep``, it leaves
     each parameter's ``grad()`` as it was. Adam's bias-correction step
     ``t`` is this step's own count. On the card the step is a replayed
-    CUDA graph (see the module's docstring); ``captures`` counts the
-    graphs captured."""
+    CUDA graph, an ``aot.CACHE`` entry of kind ``"train"`` (see the
+    module's docstring); ``captures`` counts the graphs captured and
+    ``_last_stats`` is the newest replayed entry's stats."""
 
     def __init__(self, net, loss_fn, trainer, batch_axis=0,
                  grad_postprocess=None, mesh=None, data_axis="dp",
@@ -526,9 +653,16 @@ class TrainStep:
                 "collectives again in the backward, where no peer waits")
         self._grad_postprocess = grad_postprocess
         self._step_count = 0
-        self._graphs = collections.OrderedDict()
         self._uncaptured = set()     # signatures whose step runs shard_map
         self.captures = 0
+        # the step's token in its cache keys and as their holder; the
+        # finalizer holds the key set and the owner, never the step
+        self._token = "i%x" % next(_TRAIN_TOKENS)
+        self._owner = object()
+        self._keys = set()
+        self._last_stats = None      # the newest replayed entry's stats
+        weakref.finalize(self, _release_keys, self._keys,
+                         self._owner).atexit = False
         self._hb_registered = False
         self._built = False          # this call captured (``_replay``)
 
@@ -570,14 +704,11 @@ class TrainStep:
             args = self._prepare(inputs, n_net_inputs)
         if batch_size is None:
             batch_size = args[0].shape[self.batch_axis]
-        if self._model_id is None:
-            self._model_id = aot.model_id_for(
-                self.net, extra=("train",
-                                 type(self.trainer._optimizer).__name__,
-                                 type(self.loss_fn).__name__))
+        self._default_model_id()
         donate = not config.get_env("MXTPU_NO_DONATE")
         step_t0 = _time.perf_counter()
         self._built = False
+        self._last_stats = None
         if self.mesh is None and donate and \
                 _train_graphs(net_device(self.net)) and \
                 self._sig(args, n_net_inputs) not in self._uncaptured:
@@ -613,6 +744,16 @@ class TrainStep:
                          dur_s=round(step_dur, 6))
         return loss
 
+    def _default_model_id(self):
+        """``model_id`` unless given: the JAX package's digest of the net
+        with the optimizer's and the loss's class names."""
+        if self._model_id is None:
+            self._model_id = aot.model_id_for(
+                self.net, extra=("train",
+                                 type(self.trainer._optimizer).__name__,
+                                 type(self.loss_fn).__name__))
+        return self._model_id
+
     def _prepare(self, inputs, n_net_inputs):
         """Inputs on the net's device; deferred parameters initialized by
         one forward; the trainer's states created. A trainer that updates
@@ -636,18 +777,8 @@ class TrainStep:
     def _forward(self, args, n_net_inputs):
         """The loss tensor, recorded; under ``remat`` checkpointed, to be
         recomputed in the backward."""
-        from .gluon._functional import plain
-
-        def run(*a):
-            loss = self.loss_fn(self.net(*a[:n_net_inputs]),
-                                *a[n_net_inputs:])
-            return loss._data if isinstance(loss, NDArray) else loss
-        with autograd.record(train_mode=True), plain():
-            if self.remat:
-                return checkpoint(run, *args, use_reentrant=False,
-                                  preserve_rng_state=False,
-                                  context_fn=autograd.remat_contexts)
-            return run(*args)
+        return _run_loss(self.net, self.loss_fn, self.remat, args,
+                         n_net_inputs)
 
     # -- the mesh step ------------------------------------------------
     def _mesh_step(self, args, n_net_inputs, batch_size, donate):
@@ -703,23 +834,8 @@ class TrainStep:
                              batch_axes=(self.data_axis,))(*args)
 
     def _backward(self, loss):
-        """The loss's gradients (seeded with ones: those of its sum, which
-        rescale_grad / batch_size makes the batch mean's), one per trainer
-        parameter, None where it does not reach; with ``grad_postprocess``,
-        its map of the live parameters' gradients (zeros where the loss
-        does not reach)."""
-        params = self.trainer._params
-        live = self.trainer._live()
-        got = torch.autograd.grad(loss, [params[i]._tensor() for i in live],
-                                  torch.ones_like(loss), allow_unused=True)
-        if self._grad_postprocess is not None:
-            got = self._grad_postprocess(
-                [torch.zeros_like(params[i]._tensor()) if g is None else g
-                 for i, g in zip(live, got)])
-        grads = [None] * len(params)
-        for i, g in zip(live, got):
-            grads[i] = g
-        return grads
+        """The loss's gradients, one per trainer parameter (``_grads``)."""
+        return _grads(self.trainer, self._grad_postprocess, loss)
 
     def _update(self, batch_size, grads, donate=True):
         self._step_count += 1
@@ -727,13 +843,6 @@ class TrainStep:
                              donate=donate)
 
     # -- the captured step ----------------------------------------------
-    def _body(self, args, n_net_inputs, scalars):
-        """Forward, backward and update with the device ``scalars``: what
-        the graph captures. Returns the loss."""
-        loss = self._forward(args, n_net_inputs)
-        self.trainer._apply(self._backward(loss), scalars)
-        return loss.detach()
-
     def _bound(self):
         """Every tensor the step reads or updates in place: the net's and
         the trainer's parameters and the optimizer's states."""
@@ -741,104 +850,120 @@ class TrainStep:
             [p._tensor() for p in self.trainer._params] + \
             [t for s in self.trainer._states for t in _tensors(s)]
 
-    def _bindings(self, tensors):
-        """The addresses a graph captured on ``tensors`` writes, and which
-        parameters it updates."""
-        return tuple(t.data_ptr() for t in tensors) + \
-            tuple(p.grad_req for p in self.trainer._params)
-
     @staticmethod
     def _sig(args, n_net_inputs):
         return (tuple((tuple(a.shape), a.dtype) for a in args), n_net_inputs)
 
+    def _key(self, args, n_net_inputs, tensors):
+        """This call's cache key: the JAX package's train key (the model,
+        the signature, the mesh, ``n_net_inputs`` and this step's token)
+        with the addresses the graph reads and writes and which
+        parameters it updates."""
+        return aot.cache_key(
+            self._default_model_id(), aot.input_signature(args),
+            kind="train", mesh=aot.mesh_sig(self.mesh),
+            extra=(n_net_inputs, self._token,
+                   aot.Bound(t.data_ptr() for t in tensors),
+                   tuple(p.grad_req for p in self.trainer._params)))
+
     def _replay(self, args, n_net_inputs, batch_size):
-        """One step through this signature's graph, captured first if it
-        has none (or its tensors were rebound); returns the loss. A step
-        whose first run went through ``parallel.shard_map`` (sequence
-        parallel attention, tensor parallel layers) is not captured: its
-        positions launch from threads of their own, and the signature runs
-        eagerly from then on."""
-        sig = self._sig(args, n_net_inputs)
+        """One step through this signature's graph in ``aot.CACHE``,
+        captured first if the cache has none (first call, tensors rebound,
+        evicted); returns the loss. A step whose first run went through
+        ``parallel.shard_map`` (sequence parallel attention, tensor
+        parallel layers) is not captured: its positions launch from
+        threads of their own, and the signature runs eagerly from then
+        on."""
         tensors = self._bound()
-        bindings = self._bindings(tensors)
-        entry = self._graphs.pop(sig, None)
-        if entry is not None and entry.bindings != bindings:
-            entry = None                    # rebound: capture again
-        flightrec.record("step_begin", step=self._step_count + 1,
-                         compile=entry is None)
+        key = self._key(args, n_net_inputs, tensors)
         self._step_count += 1
         scalars = self.trainer._scalars(batch_size, t=self._step_count)
-        if entry is None:
+        first = []
+
+        def build():
+            # a rebound signature's old graph goes before the new capture
+            for old in [k for k in self._keys if k.input_sig ==
+                        key.input_sig and k.extra[0] == n_net_inputs]:
+                self._keys.discard(old)
+                aot.CACHE.release(old, self._owner)
             self._built = True
+            flightrec.record("step_begin", step=self._step_count,
+                             compile=True)
             flightrec.record("compile_begin", kind="train")
             with spans.span("train:build"):
                 entry, loss = self._capture(args, n_net_inputs, scalars,
-                                            tensors, bindings)
-            if entry is None:
-                self._uncaptured.add(sig)
-                return loss
-        else:
-            with spans.span("train:dispatch", compile=False):
-                with torch.no_grad():
-                    for buf, a in zip(entry.inputs, args):
-                        buf.copy_(a)
-                entry.upload(entry.scalars, scalars)
-                entry.graph.replay()
-                _kernels.add_launches(entry.launches)
-                loss = entry.out.clone()
-        self._graphs[sig] = entry
-        config.evict_to_bound(self._graphs)
+                                            tensors)
+            first.append(loss)
+            return entry, None, None
+        try:
+            entry = aot.compile_cached(key, build, owner=self._owner)
+        except _Uncapturable as exc:
+            self._uncaptured.add(self._sig(args, n_net_inputs))
+            return exc.loss
+        self._keys.add(key)
+        self._last_stats = entry.stats
+        if first:
+            return first[0]
+        flightrec.record("step_begin", step=self._step_count, compile=False)
+        program = entry.fn
+
+        def replay():
+            program.replay(args)
+            return program.out.clone()
+        with spans.span("train:dispatch", compile=False):
+            program.upload(program.scalars, scalars)
+            if config.get_env("MXTPU_DEVSTATS_TRAIN_SYNC"):
+                loss, dur_s = program.timed(replay)
+            else:
+                t0 = _time.perf_counter()
+                loss = replay()
+                dur_s = _time.perf_counter() - t0
+        devstats.observe_dispatch("train", entry.stats, dur_s,
+                                  model=self._model_id)
         return loss
 
-    def _on_leaves(self, fn):
-        """``fn()`` with every parameter of the net and the trainer read
-        through a detached leaf of its own over the same storage (the
-        update writes that storage in place), so no autograd node of a
-        graph the caller still holds on them (made on another stream, say
-        by a forward whose states were not detached) enters the step or
-        its capture; ``_to_device`` has detached the inputs."""
-        params = list({id(p): p for p in
-                       list(self.net.collect_params().values())
-                       + self.trainer._params}.values())
-        saved = [p._data for p in params]
-        for p, t in zip(params, saved):
-            p._data = t.detach().requires_grad_(t.requires_grad)
-        try:
-            return fn()
-        finally:
-            for p, t in zip(params, saved):
-                p._data = t
-
-    def _capture(self, args, n_net_inputs, scalars, tensors, bindings):
-        """This call's step, run eagerly on a side stream, then the same
-        body captured (running nothing) on static copies of ``args`` and
-        ``scalars``, both on the parameters' detached leaves
-        (``_on_leaves``). Returns (the capture, the eager step's loss), or
-        (None, the loss) when the step ran a ``shard_map``."""
+    def _capture(self, args, n_net_inputs, scalars, tensors):
+        """This call's step, run eagerly on a side stream under
+        ``devstats.measure`` (the program's FLOPs), then the same body
+        captured (running nothing) on static copies of ``args`` and
+        ``scalars``, both on the parameters' detached leaves. Returns (the
+        capture, the eager step's loss); raises ``_Uncapturable`` when the
+        step ran a ``shard_map``."""
         from .parallel import compat
-        cap = _GraphCapture(args[0].device)
+        device = args[0].device
+        cap = _GraphCapture(device)
+        body = _step_body(self.net, self.loss_fn, self.trainer, self.remat,
+                          self._grad_postprocess)
+        measured = []
 
         def first_step():
             inputs = [a.clone() for a in args]
-            static = scalars.to(args[0].device)
-            return [self._on_leaves(lambda: self._body(
-                inputs, n_net_inputs, static)), static, *inputs]
+            static = scalars.to(device)
+            loss, stats = devstats.measure(
+                lambda: body(inputs, n_net_inputs, static))
+            measured.append(stats)
+            return [loss, static, *inputs]
         mapped, (first, static, *inputs) = compat.tracking(
             lambda: cap.eager(first_step))
         if mapped:
-            return None, first
+            raise _Uncapturable(first)
         try:
             with _kernels.collecting() as launches:
-                graph, loss = cap.capture(lambda: self._on_leaves(
-                    lambda: self._body(inputs, n_net_inputs, static)))
+                graph, loss = cap.capture(
+                    lambda: body(inputs, n_net_inputs, static))
         except Exception as exc:
             first_error, where = _where(exc)
             raise RuntimeError(
                 "TrainStep: capturing the step into a CUDA graph failed at "
                 "%s: %s" % (where, first_error)) from exc
         self.captures += 1
-        return _Captured(graph, cap.upload, inputs, static, loss, launches,
-                         tensors, bindings), first
+        stats = measured[0]
+        stats["peak_bytes"] = devstats.pool_bytes(device,
+                                                  getattr(cap, "pool", None))
+        captured = _Captured(graph, cap.upload, inputs, static, loss,
+                             launches, tensors, cap.timed)
+        captured.stats = stats
+        return captured, first
 
 
 class EvalStep:

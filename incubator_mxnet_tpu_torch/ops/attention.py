@@ -25,7 +25,10 @@ Functions around the kernels, the counterparts of the JAX package's
 ``custom_vjp``s: the forward runs K1 and saves q, k, v, out and lse, the
 backward computes ``delta = rowsum(dO * out)`` (minus the LSE cotangent for
 ``flash_attention_lse``, whose LSE output is differentiable) and runs K2
-and K3.
+and K3. The backward is one operator too, ``mxtpu::flash_bwd``, so that
+``FlopCounterMode`` counts K2 and K3 by their formulas (``bwd_flops``: 8·
+and 6·B·H·pairs·D) where it cannot see a kernel launched through
+``ctypes``, as it counts K1 through ``mxtpu::flash_fwd``.
 
 Routing is by shape alone: ``flash_attention_legal`` (q, k and v of one
 shape, head width 64 or 128) takes the kernels, every other shape takes the
@@ -45,7 +48,8 @@ from . import _kernels
 
 __all__ = ["flash_attention", "flash_attention_legal",
            "flash_attention_supported", "flash_attention_lse",
-           "attention_with_lse", "flash_fwd", "fwd_flops"]
+           "attention_with_lse", "flash_fwd", "fwd_flops", "flash_bwd",
+           "bwd_flops"]
 
 KERNEL = "flash_fwd"
 SOURCE = "flash_fwd.cu"
@@ -306,15 +310,49 @@ def _fa_call(q, k, v, causal, scale):
     return torch.ops.mxtpu.flash_fwd(q, k, v, bool(causal), float(scale))
 
 
-def _fa_bwd_call(q, k, v, o, lse, do, causal, scale, g_lse=None):
-    """(dq, dk, dv) in the input type: K2 and K3 on CUDA tensors, their
-    plain version on CPU tensors."""
+@torch.library.custom_op(
+    "mxtpu::flash_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, "
+           "bool causal, float scale, Tensor? g_lse) "
+           "-> (Tensor, Tensor, Tensor)")
+def flash_bwd(q, k, v, o, lse, do, causal, scale, g_lse):
+    """K2 and K3 as one PyTorch operator, ``torch.ops.mxtpu.flash_bwd``:
+    (dq, dk, dv) in the input type, with ``delta`` computed here. K2 and
+    K3 on CUDA tensors, their plain version on CPU tensors; being an
+    operator, ``FlopCounterMode`` counts it by ``bwd_flops``."""
     if _on((q, k, v, o, lse, do)) == "cpu":
         return _fa_bwd_reference(q, k, v, o, lse, do, causal, scale, g_lse)
     delta = _bwd_delta(o, do, g_lse)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
     dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, do, causal, scale, g_lse):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def bwd_flops(q_shape, causal):
+    """K2's and K3's FLOPs together: 8·B·H·pairs·D (s, dp, dV, dK) and
+    6·B·H·pairs·D (s, dp again, dQ), pairs S² or S(S+1)/2 causal."""
+    B, H, S, D = q_shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 14 * B * H * pairs * D
+
+
+@register_flop_formula(torch.ops.mxtpu.flash_bwd)
+def _flash_bwd_flop_formula(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                            do_shape, causal, scale, *_, out_shape=None,
+                            **__):
+    return bwd_flops(q_shape, causal)
+
+
+def _fa_bwd_call(q, k, v, o, lse, do, causal, scale, g_lse=None):
+    """(dq, dk, dv) in the input type through the ``mxtpu::flash_bwd``
+    operator."""
+    return torch.ops.mxtpu.flash_bwd(q, k, v, o, lse, do, bool(causal),
+                                     float(scale), g_lse)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -466,3 +466,126 @@ def test_captured_evalstep_keeps_nested_outputs(cpu_graphs):
             torch.equal(got[1][0], want[1][0]) and \
             torch.equal(got[1][1][0], want[1][1][0])
     assert step.captures == 1
+
+
+# ------------------------------------------------------------ train entries
+# The JAX package's tests/test_aot.py:156-189 on the port, with its
+# assertions. The port's TrainStep takes its captured path through
+# tests/test_torch_jit.py's CPU stand-in for the graph (bound weakly to
+# its step, so the step can be collected while it is patched in).
+X44 = onp.ones((4, 4), "float32")
+Y43 = onp.ones((4, 3), "float32")
+
+
+def train_on_stand_in(monkeypatch, step):
+    """Route ``step``'s CPU calls through the captured path."""
+    from test_torch_jit import _cpu_capture
+    monkeypatch.setattr(tjit, "_train_graphs", lambda device: True)
+    monkeypatch.setattr(tjit, "_GraphCapture", _cpu_capture(step))
+    return tjit._GraphCapture
+
+
+def dense_pair(units, in_units=4):
+    """A Dense of each package, the port's with the JAX one's
+    parameters."""
+    import incubator_mxnet_tpu as mx
+    jnet = mx.gluon.nn.Dense(units, in_units=in_units)
+    jnet.initialize(mx.init.Xavier())
+    tnet = _dense(units, in_units)
+    mxt.from_jax_params(tnet, jnet)
+    return jnet, tnet
+
+
+def jax_sgd_step(jnet, lr=0.1, steps=1, **kw):
+    """The JAX package's TrainStep (SGD, L2Loss) on ones; its losses."""
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu import jit as jjit
+    step = jjit.TrainStep(jnet, mx.gluon.loss.L2Loss(), mx.gluon.Trainer(
+        jnet.collect_params(), "sgd", dict(learning_rate=lr, **kw)))
+    return [float(step(mx.nd.array(X44), mx.nd.array(Y43)).asnumpy().mean())
+            for _ in range(steps)]
+
+
+def test_trainstep_entries_released_on_del(monkeypatch):
+    import gc
+    net = _dense(3)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+    step = tjit.TrainStep(net, gluon.loss.L2Loss(), trainer)
+    train_on_stand_in(monkeypatch, step)
+    step(X44, Y43)
+    mid = step._model_id
+    assert any(k.model_id == mid for k in aot.CACHE.keys())
+    del step
+    gc.collect()
+    assert not any(k.model_id == mid for k in aot.CACHE.keys())
+
+
+def test_trainstep_explicit_model_id_never_shares_entries(monkeypatch):
+    """Train entries carry instance-bound state: even with one explicit
+    model_id, two TrainSteps must NOT share — each step must update its
+    OWN net (the instance token lives in the cache key). Each net's new
+    weights are the JAX step's from the same weights."""
+    (jnet_a, net_a), (jnet_b, net_b) = dense_pair(3), dense_pair(3)
+    tr_a = gluon.Trainer(net_a.collect_params(), "sgd",
+                         {"learning_rate": 0.1})
+    tr_b = gluon.Trainer(net_b.collect_params(), "sgd",
+                         {"learning_rate": 0.1})
+    s_a = tjit.TrainStep(net_a, gluon.loss.L2Loss(), tr_a, model_id="shared")
+    s_b = tjit.TrainStep(net_b, gluon.loss.L2Loss(), tr_b, model_id="shared")
+    w_a0 = list(net_a.collect_params().values())[0].data().asnumpy().copy()
+    w_b0 = list(net_b.collect_params().values())[0].data().asnumpy().copy()
+    train_on_stand_in(monkeypatch, s_a)
+    s_a(X44, Y43)
+    train_on_stand_in(monkeypatch, s_b)
+    s_b(X44, Y43)
+    w_a1 = list(net_a.collect_params().values())[0].data().asnumpy()
+    w_b1 = list(net_b.collect_params().values())[0].data().asnumpy()
+    assert not onp.allclose(w_a0, w_a1), "net A did not train"
+    assert not onp.allclose(w_b0, w_b1), "net B did not train (hit A's entry)"
+    keys = [k for k in aot.CACHE.keys() if k.model_id == "shared"]
+    assert len(keys) == 2 and {k.extra[1] for k in keys} == {
+        s_a._token, s_b._token}
+    for jnet, tnet in ((jnet_a, net_a), (jnet_b, net_b)):
+        jax_sgd_step(jnet)
+        for jp, tp in zip(jnet.collect_params().values(),
+                          tnet.collect_params().values()):
+            onp.testing.assert_allclose(tp.data().asnumpy(),
+                                        jp.data().asnumpy(), rtol=1e-6,
+                                        atol=1e-7)
+
+
+def test_trainstep_counts_hits_misses_and_evictions_of_kind_train(
+        monkeypatch):
+    """A step's first call is one miss (its capture), every later call a
+    hit; the entry publishes its FLOPs on mxtpu_aot_program_flops; past
+    MXTPU_AOT_CACHE_SIZE it is evicted (counted) and its next call
+    captures again, a miss. The losses are the JAX step's."""
+    jnet, net = dense_pair(3)
+    step = tjit.TrainStep(net, gluon.loss.L2Loss(), gluon.Trainer(
+        net.collect_params(), "sgd", {"learning_rate": 0.1}))
+    train_on_stand_in(monkeypatch, step)
+    counts = (aot._HITS, aot._MISSES, aot._EVICTIONS)
+    before = [c.value(kind="train") for c in counts]
+
+    def moved():
+        return [c.value(kind="train") - b for c, b in zip(counts, before)]
+    losses = [float(step(X44, Y43).asnumpy().mean()) for _ in range(3)]
+    assert moved() == [2, 1, 0] and step.captures == 1
+    (key,) = [k for k in aot.CACHE.keys() if step._token in k.extra]
+    assert key.kind == "train" and key.extra[0] == 1
+    assert aot.artifact_path(key, "/nonexistent") is None
+    assert aot._PROG_FLOPS.value(model=step._model_id, kind="train",
+                                 bucket=4) == step._last_stats["flops"] > 0
+    monkeypatch.setenv("MXTPU_AOT_CACHE_SIZE", "1")
+    other = tjit.EvalStep(_dense(3))
+    monkeypatch.setattr(tjit, "_uses_graphs", lambda device: True)
+    monkeypatch.setattr(tjit, "_GraphCapture", CpuCapture)
+    other(X44)
+    assert moved() == [2, 1, 1] and key not in aot.CACHE.keys()
+    train_on_stand_in(monkeypatch, step)
+    losses.append(float(step(X44, Y43).asnumpy().mean()))
+    assert moved() == [2, 2, 1] and step.captures == 2
+    onp.testing.assert_allclose(losses, jax_sgd_step(jnet, steps=4),
+                                rtol=1e-6)
+    other.release()

@@ -14,6 +14,7 @@ import contextlib
 import threading
 import time
 
+import numpy as onp
 import pytest
 import torch
 
@@ -360,3 +361,77 @@ def test_program_peak_leaves_the_process_peak_alone():
     assert torch.cuda.max_memory_allocated(dev) >= before
     assert entry["stats"]["peak_bytes"] >= 8 * 256 * 4
     step.release()
+
+
+# ------------------------------------------------------------ train MFU
+# tests/test_devstats.py:63-74 on the port, with its assertions. The
+# TrainStep takes its captured path through tests/test_torch_jit.py's CPU
+# stand-in for the graph, whose ``timed`` answers a fixed device time.
+def _series(name):
+    from incubator_mxnet_tpu_torch import telemetry
+    return [l for l in telemetry.export_text().splitlines()
+            if l.startswith(name) and not l.startswith("#")
+            and not l.startswith(name + "_")]
+
+
+def _train_pair(monkeypatch, model_id=None):
+    """(the JAX Dense(3) step's two losses, the port's step over a Dense
+    with the same parameters, on the captured path)."""
+    from test_torch_aot import X44, Y43, dense_pair, train_on_stand_in
+    jnet, net = dense_pair(3)
+    trainer = mxt.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1, "momentum": 0.9})
+    step = tjit.TrainStep(net, mxt.gluon.loss.L2Loss(), trainer,
+                          model_id=model_id)
+    stand_in = train_on_stand_in(monkeypatch, step)
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu import jit as jjit
+    jstep = jjit.TrainStep(jnet, mx.gluon.loss.L2Loss(), mx.gluon.Trainer(
+        jnet.collect_params(), "sgd", {"learning_rate": 0.1,
+                                       "momentum": 0.9}))
+    jlosses = [float(jstep(mx.nd.array(X44), mx.nd.array(Y43)).mean()
+                     .asscalar()) for _ in range(2)]
+    assert jstep._last_stats and jstep._last_stats["flops"] > 0
+    return jlosses, step, stand_in, (X44, Y43)
+
+
+def test_trainstep_entry_is_analyzable_and_observes_mfu(monkeypatch):
+    jlosses, step, _, (x, y) = _train_pair(monkeypatch)
+    loss0 = float(step(x, y).mean().asscalar())
+    assert step._last_stats and step._last_stats["flops"] > 0
+    loss1 = float(step(x, y).mean().asscalar())
+    assert loss1 < loss0          # the captured step still trains
+    lines = _series("mxtpu_device_mfu")
+    assert any('kind="train"' in l and float(l.rsplit(None, 1)[1]) > 0
+               for l in lines), lines
+    # the JAX step's losses; the forward's and the weight gradient's
+    # products, 2·(2·4·4·3), are the entry's FLOPs
+    onp.testing.assert_allclose([loss0, loss1], jlosses, rtol=1e-6)
+    assert step._last_stats["flops"] == 2 * 2 * 4 * 4 * 3
+    assert step._last_stats["output_bytes"] == 4 * 4
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_train_sync_observes_the_replays_device_time(monkeypatch, sync):
+    """With MXTPU_DEVSTATS_TRAIN_SYNC the observation's time is the
+    replay's device time (``_GraphCapture.timed``: CUDA events, read
+    after the replay has ended; the stand-in answers 0.125 s); unset, it
+    is the host window around the replay and nothing is timed on the
+    card. The capture is no replay and observes nothing."""
+    if sync:
+        monkeypatch.setenv("MXTPU_DEVSTATS_TRAIN_SYNC", "1")
+    else:
+        monkeypatch.delenv("MXTPU_DEVSTATS_TRAIN_SYNC", raising=False)
+    jlosses, step, stand_in, (x, y) = _train_pair(
+        monkeypatch, model_id="train-sync-%s" % sync)
+    losses = [float(step(x, y).mean().asscalar()) for _ in range(2)]
+    mid = step._model_id
+    seconds = devstats._DISPATCH_SECONDS.value(model=mid, kind="train")
+    flops = devstats._FLOPS_TOTAL.value(model=mid, kind="train")
+    assert flops == step._last_stats["flops"]          # one replay
+    if sync:
+        assert stand_in.timed_calls == 1 and seconds == 0.125
+    else:
+        assert stand_in.timed_calls == 0 and seconds > 0
+    onp.testing.assert_allclose(losses, jlosses, rtol=1e-6)
+    devstats.detach_model(mid)

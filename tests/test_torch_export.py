@@ -90,6 +90,49 @@ def test_k1_fake_kernel_shapes_and_flop_formula():
         assert attention.fwd_flops(q.shape, causal) == 4 * 2 * 3 * pairs * 64
 
 
+@pytest.mark.parametrize("lse", [False, True])
+def test_k2_k3_fake_kernel_shapes_and_flop_formula(lse):
+    """K2 and K3 are one operator, ``mxtpu::flash_bwd``: its fake kernel
+    gives dq, dk, dv like q, k, v, launching nothing, and
+    ``FlopCounterMode`` counts one attention forward + backward (with the
+    LSE output's cotangent too) as K1's 4· plus K2's 8· and K3's 6·
+    B·H·pairs·D exactly (PERF.md §6's counts); the gradients are the
+    plain backward's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    before = dict(_kernels.LAUNCHES)
+    with FakeTensorMode():
+        q = torch.empty(2, 3, 64, 128, dtype=torch.bfloat16)
+        lse_rows = torch.empty(6, 1, 64)
+        got = torch.ops.mxtpu.flash_bwd(q, q, q, q, lse_rows, q, True, 0.1,
+                                        None)
+    assert [g.shape for g in got] == [q.shape] * 3
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert dict(_kernels.LAUNCHES) == before
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 3, 64, 64, generator=gen).requires_grad_()
+               for _ in range(3))
+    for causal, pairs in ((False, 64 * 64), (True, 64 * 65 // 2)):
+        with FlopCounterMode(display=False) as fc:
+            if lse:
+                out, rows = attention.flash_attention_lse(q, k, v, causal)
+                loss = out.sum() + rows.sum()
+            else:
+                loss = attention.flash_attention(q, k, v, causal).sum()
+            grads = torch.autograd.grad(loss, (q, k, v))
+        assert fc.get_total_flops() == (4 + 8 + 6) * 2 * 3 * pairs * 64
+        assert attention.bwd_flops(q.shape, causal) == \
+            (8 + 6) * 2 * 3 * pairs * 64
+        out, lse_rows = attention._fa_reference(q.detach(), k.detach(),
+                                                v.detach(), causal, 0.125)
+        g_lse = torch.ones(2, 3, 64) if lse else None
+        want = attention._fa_bwd_reference(
+            q.detach(), k.detach(), v.detach(), out, lse_rows,
+            torch.ones_like(out), causal, 0.125, g_lse)
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
 def test_export_holds_k1_as_one_node_per_layer(berts):
     _, tnet = berts
     program = tjit.export_forward(tnet, [torch.tensor(_tokens())])

@@ -215,13 +215,14 @@ def test_signature_keys_lru_and_rebinding(graphs, monkeypatch):
     run eagerly at its first call and captured at its second: predict
     mode, a new batch size and a recording call each capture once;
     ``Trainer.step`` keeps the graphs; ``set_data``, ``cast`` and
-    ``load_parameters`` capture again; past MXTPU_AOT_CACHE_SIZE the least
-    recently used signature goes."""
+    ``load_parameters`` capture again; past MXTPU_EXEC_CACHE_SIZE (the
+    JAX package's bound of a hybridized block's cache) the least recently
+    used signature goes."""
     x, _ = _batch()
     net = _port_net()
     graphs(net)
     net.hybridize()
-    monkeypatch.setenv("MXTPU_AOT_CACHE_SIZE", "3")
+    monkeypatch.setenv("MXTPU_EXEC_CACHE_SIZE", "3")
     xt = torch.from_numpy(x)
     with mxt.cpu():
         with mxt.autograd.pause():

@@ -21,6 +21,7 @@ launch accounting are exercised on the CPU. ``chip_smoke.py`` holds the
 real graphs against the eager body on the card.
 """
 import threading
+import weakref
 
 import numpy as onp
 import pytest
@@ -402,10 +403,13 @@ class _CpuGraph:
 
 
 def _cpu_capture(step, fail=None):
-    """A stand-in for ``jit._GraphCapture`` bound to ``step``; with
-    ``fail`` (a list), the capture sets ``fail[0]`` while the body runs
-    and, when the body raises, fails again on its way out, as torch's
-    capture does."""
+    """A stand-in for ``jit._GraphCapture`` bound to ``step`` (held
+    weakly, so the step can be collected while the stand-in is patched
+    in); with ``fail`` (a list), the capture sets ``fail[0]`` while the
+    body runs and, when the body raises, fails again on its way out, as
+    torch's capture does."""
+    step = weakref.proxy(step)
+
     class Capture:
         def __init__(self, device):
             pass
@@ -434,6 +438,14 @@ def _cpu_capture(step, fail=None):
         @staticmethod
         def upload(dst, host):
             dst.copy_(host)
+
+        @staticmethod
+        def timed(fn):
+            """``fn()`` and ``device_s``: the card's event time, which a
+            test recognises where it is read."""
+            Capture.timed_calls += 1
+            return fn(), Capture.device_s
+    Capture.device_s, Capture.timed_calls = 0.125, 0
     return Capture
 
 
@@ -482,11 +494,17 @@ def test_captured_path_equals_eager_and_counts_replays(monkeypatch):
         assert onp.array_equal(pa[k], pb[k]), k
 
 
+def _step_keys(step):
+    """The step's entries in ``aot.CACHE``, least recently used first."""
+    return [k for k in mxt.aot.CACHE.keys()
+            if k.kind == "train" and step._token in k.extra]
+
+
 def test_signature_rebinding_and_lru(monkeypatch):
     """A new input shape captures anew; ``set_data`` writes in place (the
     same graph); ``cast`` or replaced optimizer states rebind tensors and
-    capture again; past MXTPU_AOT_CACHE_SIZE the least recently used
-    signature is released."""
+    capture again, and the signature's old graph leaves the cache; past
+    MXTPU_AOT_CACHE_SIZE the least recently used entry is evicted."""
     x, y = _batch("mlp")
     net = _port_net("mlp", x)
     trainer = mxt.gluon.Trainer(net.collect_params(), "sgd", {
@@ -499,7 +517,7 @@ def test_signature_rebinding_and_lru(monkeypatch):
     _captured(step, x, y)
     assert step.captures == 1
     _captured(step, x[:4], y[:4])
-    assert step.captures == 2 and len(step._graphs) == 2
+    assert step.captures == 2 and len(_step_keys(step)) == 2
     w = net[0].weight
     w.set_data(onp.zeros(w.shape, "float32"))
     _captured(step, x, y)
@@ -511,10 +529,10 @@ def test_signature_rebinding_and_lru(monkeypatch):
     net.cast("float64")
     net.cast("float32")         # the same dtype, new storage
     _captured(step, x, y)
-    assert step.captures == 4 and len(step._graphs) == 2
+    assert step.captures == 4 and len(_step_keys(step)) == 2
     _captured(step, x[:2], y[:2])
-    assert step.captures == 5 and len(step._graphs) == 2
-    sigs = [s[0][0][0] for s in step._graphs]
+    assert step.captures == 5 and len(_step_keys(step)) == 2
+    sigs = [k.input_sig[0][0] for k in _step_keys(step)]
     assert sigs == [(8, 8), (2, 8)]
 
 
@@ -542,7 +560,7 @@ def test_a_failed_capture_raises_naming_the_operation(monkeypatch):
     assert "capturing the step into a CUDA graph failed" in msg
     assert "test_torch_jit.py" in msg and "in loss" in msg
     assert "not permitted when stream is capturing" in msg
-    assert step.captures == 0 and not step._graphs
+    assert step.captures == 0 and not _step_keys(step)
 
 
 def test_take_and_add_launches():

@@ -222,7 +222,8 @@ def test_train_step_runs_a_shard_map_step_uncaptured(monkeypatch):
     """TrainStep's captured path (through the CPU stand-in for the graph)
     runs a step whose forward goes through shard_map once eagerly, keeps
     that answer, captures nothing and runs the signature eagerly from then
-    on; the losses equal the flash model's."""
+    on, out of ``aot.CACHE`` and with no stats; the losses equal the flash
+    model's."""
     from test_torch_jit import _cpu_capture
     from incubator_mxnet_tpu_torch.models.gpt import (ChunkedLMLoss,
                                                       FeaturesView)
@@ -242,8 +243,10 @@ def test_train_step_runs_a_shard_map_step_uncaptured(monkeypatch):
         got = [step._replay(args, 1, 1).numpy()]
         if att == "ring":
             assert step.captures == 0 and len(step._uncaptured) == 1
-            assert not step._graphs
             got.append(step(tok, tok).asnumpy())
+            assert not [k for k in mxt.aot.CACHE.keys()
+                        if step._token in k.extra]
+            assert step._last_stats is None
         else:
             assert step.captures == 1
             got.append(step._replay(args, 1, 1).numpy())

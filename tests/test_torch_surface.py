@@ -522,7 +522,7 @@ def test_config_describe_and_evict_to_bound(monkeypatch):
     assert lines[0] == mx.config.describe().splitlines()[0]
     assert len(lines) == len(mxt.config.ENV_VARS) + 1
     assert all(name in text for name in mxt.config.ENV_VARS)
-    monkeypatch.setenv("MXTPU_AOT_CACHE_SIZE", "2")
+    monkeypatch.setenv("MXTPU_EXEC_CACHE_SIZE", "2")
     cache, gone = {}, []
     for k in "abc":
         cache[k] = k.upper()
