@@ -1769,10 +1769,11 @@ def train_bert_imperative(tmp, n=NDARRAY_STEPS):
     for name, p in model.collect_params().items():
         check(bool(torch.isfinite(p.data()._data.float()).all()),
               "imperative bert: %s is not finite" % name)
+    custom = _bert_custom_loop(model, x, y, loss_fn, B)
     ms = [g[1] for g in got[1:]]
     ref_ms = [r[1] for r in ref[1:]]
     summary = dict(
-        batch=[B, S], steps=n,
+        custom_loop=custom, batch=[B, S], steps=n,
         losses=[float(g[0]._data.detach().float().mean()) for g in got],
         train_step_losses=[float(r[0]._data.float().mean()) for r in ref],
         losses_bitwise_equal=bitwise, max_rel_loss_diff=worst,
@@ -1793,6 +1794,177 @@ def train_bert_imperative(tmp, n=NDARRAY_STEPS):
            [launches.get(k, 0) for k in ("flash_fwd", "flash_bwd_dkv",
                                          "flash_bwd_dq")]))
     return model, launches, summary
+
+
+def _card_line():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines() or ["unknown"])[0]
+
+
+def _bf16_apart(a, b, start):
+    """(|a - b|, one bf16 ulp of max(|a|, |b|, |start|)) elementwise in
+    fp32: the ulp is 2^(e - 8), e being frexp's exponent. ``start`` is
+    the value a and b were updated from: where the step cancels it, a
+    difference in the step shows against its size, not the result's."""
+    import torch
+    a, b = a.float(), b.float()
+    e = torch.frexp(torch.maximum(torch.maximum(a.abs(), b.abs()),
+                                  start.float().abs()))[1]
+    return (a - b).abs(), torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def _bert_custom_loop(model, x, y, loss_fn, batch, lr=1e-4):
+    """MXNet's custom training loop on the full-width BERT: two steps of
+    record / backward / ``opt.update_multi_precision(i, p.data(), p.grad(),
+    states[i])`` over every parameter (Adam, fp32 masters, rescale 1/B),
+    against two ``Trainer.step``s of a fresh Trainer from the same weights
+    and batch. Each step's ms and update ms by CUDA events. Both run
+    ``update_all``, but the eager ``update`` takes Adam's step count from
+    the host and computes the step size in double, as the JAX package's
+    eager update does, where Trainer computes it from an fp32 device count
+    (fp32 1 - 0.999 is 1.3e-5 off); so after step 1 the Adam moments must
+    be equal bit for bit and every bf16 weight within one bf16 ulp of the
+    larger of it and its start (a step that cancels the start leaves a
+    result far smaller than the step), and after step 2 (whose gradients
+    see step 1's weights) every weight within 4 lr plus that ulp (two Adam
+    steps move a weight by about lr each). Returns a summary."""
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import autograd
+    params = list(model.collect_params().values())
+    start = [p._tensor().detach().clone() for p in params]
+
+    def forward_backward():
+        with autograd.record():
+            loss = loss_fn(model(x), y)
+        loss.backward()
+        return loss
+
+    def run(make_update, states):
+        _reset(params, start)
+        update = make_update()
+        out = []
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            loss = forward_backward()
+            ev[1].record()
+            update()
+            ev[2].record()
+            ev[2].synchronize()
+            st = states()
+            out.append(dict(
+                ms=ev[0].elapsed_time(ev[2]), update_ms=ev[1].elapsed_time(
+                    ev[2]), loss=loss._data.detach().float().clone(),
+                weights=[p._tensor().detach().clone() for p in params],
+                masters=[s[0].clone() for s in st],
+                moments=[torch.cat([s[1][0].flatten(), s[1][1].flatten()])
+                         for s in st]))
+        return out
+
+    trainer = []
+
+    def make_trainer():
+        trainer.append(mxt.gluon.Trainer(model.collect_params(), "adam", {
+            "learning_rate": lr, "multi_precision": True}))
+        return lambda: trainer[0].step(batch)
+    tr = run(make_trainer, lambda: trainer[0]._states)
+    del trainer[:]
+    opt = mxt.optimizer.Adam(learning_rate=lr, multi_precision=True,
+                             rescale_grad=1.0 / batch)
+    states = []
+
+    def make_custom():
+        states.extend(opt.create_state_multi_precision(i, p.data())
+                      for i, p in enumerate(params))
+
+        def update():
+            for i, p in enumerate(params):
+                opt.update_multi_precision(i, p.data(), p.grad(), states[i])
+        return update
+
+    def custom_states():
+        return [(m._data, (s[0]._data, s[1]._data)) for m, s in states]
+    cl = run(make_custom, custom_states)
+    del states[:]
+    check(all(isinstance(p.data(), mxt.nd.NDArray) for p in params),
+          "custom loop: p.data() is not an NDArray")
+    check(torch.equal(tr[0]["loss"], cl[0]["loss"]), "custom loop: the "
+          "first losses differ from Trainer's (same weights and batch)")
+    moments_equal = all(torch.equal(a, b) for a, b in zip(
+        tr[0]["moments"], cl[0]["moments"]))
+    bitwise = all(torch.equal(a, b) for t_, c_ in zip(tr, cl)
+                  for a, b in zip(t_["weights"], c_["weights"]))
+    def worst(step, fn):
+        return max(fn(*_bf16_apart(a, b, w)) for a, b, w in zip(
+            tr[step]["weights"], cl[step]["weights"], start))
+    ulps1 = worst(0, lambda d, u: float((d / u).max()))
+    ulps2 = worst(1, lambda d, u: float((d / u).max()))
+    # how far past one ulp + 4 lr the worst weight of step 2 lies, in lr
+    beyond2 = worst(1, lambda d, u: float((d - u - 4 * lr).max()) / lr)
+    differ = [sum(int((a != b).sum()) for a, b in zip(
+        t_["weights"], c_["weights"])) for t_, c_ in zip(tr, cl)]
+    n_weights = sum(t.numel() for t in start)
+    master_diff = [max(float((a - b).abs().max()) for a, b in zip(
+        t_["masters"], c_["masters"])) for t_, c_ in zip(tr, cl)]
+    if not (bitwise or (moments_equal and ulps1 <= 1 and beyond2 <= 0)):
+        names = list(model.collect_params())
+        k = max(range(len(params)), key=lambda i: float(
+            (lambda d, u: (d / u).max())(*_bf16_apart(
+                tr[0]["weights"][i], cl[0]["weights"][i], start[i]))))
+        d, u = _bf16_apart(tr[0]["weights"][k], cl[0]["weights"][k],
+                           start[k])
+        j = int((d / u).flatten().argmax())
+        n = start[k].numel()
+
+        def at(t):
+            return float(t.flatten()[j % t.numel()])
+        raise SmokeFailure(
+            "custom loop against Trainer.step: moments equal after step 1 "
+            "%s, bf16 ulps after step 1 %.3g, after step 2 %.3g (%.3g lr "
+            "past 4 lr + 1 ulp); worst at %s %s element %d: start %r, "
+            "Trainer %r (master %r, m %r, v %r), loop %r (master %r, m %r, "
+            "v %r)" % (moments_equal, ulps1, ulps2, beyond2, names[k],
+                       tuple(start[k].shape), j, at(start[k]),
+                       at(tr[0]["weights"][k]), at(tr[0]["masters"][k]),
+                       at(tr[0]["moments"][k][:n]),
+                       at(tr[0]["moments"][k][n:]),
+                       at(cl[0]["weights"][k]), at(cl[0]["masters"][k]),
+                       at(cl[0]["moments"][k][:n]),
+                       at(cl[0]["moments"][k][n:])))
+    summary = dict(
+        steps=2, optimizer="adam", lr=lr, multi_precision=True,
+        parameters=len(params), weights=n_weights,
+        custom_step_ms=[r["ms"] for r in cl],
+        custom_update_ms=[r["update_ms"] for r in cl],
+        trainer_step_ms=[r["ms"] for r in tr],
+        trainer_update_ms=[r["update_ms"] for r in tr],
+        losses=[float(r["loss"].mean()) for r in cl],
+        trainer_losses=[float(r["loss"].mean()) for r in tr],
+        weights_bitwise_equal=bitwise,
+        moments_bitwise_equal_after_step1=moments_equal,
+        weights_differing=differ, max_bf16_ulps=[ulps1, ulps2],
+        max_master_abs_diff=master_diff)
+    log("custom loop (opt.update_multi_precision over %d parameters) on "
+        "full-width BERT B %d: step %s ms, update %s ms against "
+        "Trainer.step's step %s ms, update %s ms; weights %s (differing "
+        "%s of %d, at most %s bf16 ulps; masters at most %s apart); Adam "
+        "moments after step 1 %s [%s]" % (
+            len(params), batch, ["%.1f" % v for v in summary[
+                "custom_step_ms"]], ["%.1f" % v for v in summary[
+                    "custom_update_ms"]],
+            ["%.1f" % v for v in summary["trainer_step_ms"]],
+            ["%.1f" % v for v in summary["trainer_update_ms"]],
+            "equal bit for bit" if bitwise else "not bit for bit", differ,
+            n_weights, ["%.3g" % v for v in (ulps1, ulps2)],
+            ["%.3g" % v for v in master_diff],
+            "equal bit for bit" if moments_equal else "DIFFERENT",
+            _card_line()))
+    return summary
 
 
 def _sha256(path):
@@ -5274,7 +5446,7 @@ def check_ndarray_breadth():
             [torch.randn(*x, device=dev), y], init, 3, what)
     foreach_steps, while_steps = steps["foreach"], steps["while_loop"]
     summary = dict(linalg_rel_err=linalg, sparse_dot_rel_err=sparse_err,
-                   deformable_rel_err=deform_err,
+                   deformable_rel_err=deform_err, f9=_f9_on_card(),
                    foreach_captured_equals_eager_steps=foreach_steps,
                    while_loop_captured_equals_eager_steps=while_steps)
     log("nd breadth on the card: nd.linalg card vs CPU worst fp32 %.3g, "
@@ -5285,6 +5457,119 @@ def check_ndarray_breadth():
            max(v for k, v in linalg.items() if k.endswith("64")),
            len(linalg) // 2, sparse_err, deform_err, foreach_steps))
     return summary
+
+
+def _f9_on_card():
+    """MXNet idioms on gpu(0) that the port once refused: every
+    initializer fills a CUDA NDArray in place (the draws equal to the
+    tensor path's from the same seed); ``x += 100`` after a recorded
+    ``y = sum(x * x)`` leaves ``y.backward()`` the gradient [2, 4];
+    TopKAccuracy(2) breaks the reference's tie (0.5); the list format's
+    ``save_ndarray_list``/``load_ndarray_list`` round-trip a bf16 and an
+    fp32 array bit for bit; an eager-or-captured EvalStep on a CUDA net
+    shows as an ``eval:step`` span in the profiler's dump. Returns a
+    summary."""
+    import json as _json
+    import shutil
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    from incubator_mxnet_tpu_torch import autograd, metric, nd, profiler
+    from incubator_mxnet_tpu_torch.ndarray import random as ndrandom
+    from incubator_mxnet_tpu_torch.ndarray import serialization as ser
+    from incubator_mxnet_tpu_torch.telemetry import spans
+    gpu, dev = mxt.gpu(0), torch.device("cuda", 0)
+    init = mxt.init
+    inits = {"zeros": (init.Zero(), (16, 8)), "ones": (init.One(), (16, 8)),
+             "constant": (init.Constant(0.25), (16, 8)),
+             "uniform": (init.Uniform(0.07), (16, 8)),
+             "normal": (init.Normal(0.01), (16, 8)),
+             "orthogonal": (init.Orthogonal(), (8, 16)),
+             "xavier": (init.Xavier(), (16, 8)),
+             "msraprelu": (init.MSRAPrelu(), (16, 8)),
+             "bilinear": (init.Bilinear(), (2, 2, 4, 4)),
+             "lstmbias": (init.LSTMBias(2.0), (16,)),
+             "mixed": (init.Mixed(["w.*"], [init.Constant(0.5)]), (4, 4))}
+    filled = {}
+    for name, (ini, shape) in inits.items():
+        arr = nd.zeros(shape, ctx=gpu)
+        held = arr._data
+        mxt.random.seed(3)
+        (mxt.init.create(name) if name in ("zeros", "ones", "xavier")
+         else ini)("weight", arr)
+        ref = torch.zeros(shape, device=dev)
+        mxt.random.seed(3)
+        ini("weight", ref, ndrandom._generator(dev))
+        # the orthogonal factor comes from cuSOLVER's SVD of the draws
+        same = torch.allclose(held, ref, rtol=0, atol=1e-6) \
+            if name == "orthogonal" else torch.equal(held, ref)
+        check(arr._data is held and held.is_cuda and same
+              and bool(held.isfinite().all()),
+              "init %s on a CUDA NDArray: in place %s, equal to the "
+              "tensor path %s" % (name, arr._data is held, same))
+        filled[name] = dict(mean=float(held.mean()), absmax=float(
+            held.abs().max()))
+    check(filled["zeros"]["absmax"] == 0 and filled["ones"]["mean"] == 1
+          and filled["constant"]["mean"] == 0.25
+          and filled["uniform"]["absmax"] <= 0.07, "initializer values %s"
+          % filled)
+    x = nd.array([1.0, 2.0], ctx=gpu)
+    x.attach_grad()
+    with autograd.record():
+        y = (x * x).sum()
+    x += 100
+    y.backward()
+    grad = x.grad.asnumpy().tolist()
+    check(grad == [2.0, 4.0] and x.asnumpy().tolist() == [101.0, 102.0],
+          "+= after record(): grad %s, x %s" % (grad, x.asnumpy()))
+    top = metric.TopKAccuracy(top_k=2)
+    top.update([nd.array([2, 1], ctx=gpu)],
+               [nd.array([[0.1, 0.5, 0.4], [0.8, 0.1, 0.1]], ctx=gpu)])
+    check(top.get()[1] == 0.5, "TopKAccuracy(2) on the card: %s"
+          % top.get()[1])
+    tmp = _build_tmp()
+    try:
+        f = os.path.join(tmp, "list.params")
+        arrays = [nd.array([[1.5, -2.25], [3.0, 1e-3]], ctx=gpu).astype(
+            "bfloat16"), nd.array([0.1, -7.0, 1e-30], ctx=gpu)]
+        ser.save_ndarray_list(f, arrays, ["bf16", "fp32"])
+        back, names = ser.load_ndarray_list(f)
+        check(names == ["bf16", "fp32"] and all(
+            b.dtype == a.dtype and torch.equal(b._data, a._data.cpu())
+            for a, b in zip(arrays, back)), "the list format's round trip "
+            "on the card")
+        net = mxt.gluon.nn.Dense(3, in_units=4)
+        net.initialize(ctx=gpu, generator=torch.Generator().manual_seed(9))
+        step = mxt.jit.EvalStep(net)
+        trace = os.path.join(tmp, "trace.json")
+        profiler.set_config(filename=trace)
+        profiler.set_state("run")
+        try:
+            # the dump may hold earlier sessions' events: count the
+            # children of this span
+            with spans.span("f9:eval_calls") as calls:
+                for _ in range(3):
+                    step(nd.ones((2, 4), ctx=gpu))
+        finally:
+            profiler.set_state("stop")
+        profiler.dump()
+        with open(trace) as fh:
+            spans_ = [e for e in _json.load(fh)["traceEvents"]
+                      if e.get("cat") == "span" and e["name"] == "eval:step"
+                      and e["args"].get("parent_id") == calls.span_id]
+        step.release()
+        check(len(spans_) == 3, "EvalStep on the card: %d eval:step spans "
+              "under the calls' span in the profiler's dump for 3 calls"
+              % len(spans_))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("F9 on the card: %d initializers fill CUDA NDArrays in place (draws "
+        "= the tensor path's); += after record() keeps the graph (grad %s); "
+        "TopKAccuracy(2) %.2f; save/load_ndarray_list bf16 + fp32 bit for "
+        "bit; eval:step spans %d for 3 EvalStep calls" % (
+            len(filled), grad, top.get()[1], len(spans_)))
+    return dict(initializers=filled, grad_after_write=grad,
+                top2=top.get()[1], list_round_trip_bitwise=True,
+                eval_step_spans=len(spans_))
 
 
 #: op -> (optimizer, its arguments, the op's arguments, number of states,
@@ -5812,6 +6097,7 @@ def ctc_phase(card):
 MODULE_BATCHES = 3         # seeded host batches an epoch, repeated
 MODULE_EPOCHS = 2
 MODULE_TIMED = 3           # timed Module steps after fit (and split, issued)
+MODULE_PREDICT_IMAGES = 300  # Module.predict at batch 256: a short last batch
 MODULE_GLUON_STEPS = (2, 3)    # the Gluon yardstick: (warm-up, timed)
 MODULE_SMALL_STEPS = 3
 MODULE_SMALL_TOL = 1e-4    # card (TF32 off) vs CPU, fp32
@@ -6194,6 +6480,7 @@ def train_module_resnet(tmp):
             lambda: (mod.forward_backward(batch), mod.update()))
         issue = issue_ms(lambda: (mod.forward_backward(batch), mod.update()))
         torch.cuda.synchronize()
+        predict = _module_predict_short_batch(mod, x, split["forward_ms"])
     img_s = B / (step_ms / 1e3)
     for n in mod.param_names:
         check(bool(torch.isfinite(mod._exec.arg_dict[n]._data).all()),
@@ -6213,7 +6500,7 @@ def train_module_resnet(tmp):
         share_of_989_tflops=img_s * RESNET_FLOPS_PER_IMAGE / PEAK_BF16_FLOPS,
         issue_ms=issue, peak_allocated_gb=torch.cuda.max_memory_allocated()
         / 1e9, peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
-        **split, **idle)
+        predict_short_batch=predict, **split, **idle)
     log("Module.fit resnet50_v1 (symbolic, B %d x 3 x 224 x 224 fp32, TF32 "
         "on, %.1f M params): bind %.2f s; step %.1f ms (forward %.1f, "
         "backward %.1f, update %.1f device ms; host %.1f ms, issue %.1f ms, "
@@ -6230,6 +6517,75 @@ def train_module_resnet(tmp):
     gc.collect()
     torch.cuda.empty_cache()
     return summary, prefix, (x, y)
+
+
+def _module_predict_short_batch(mod, x, fit_forward_ms):
+    """Module.predict of the trained net over an NDArrayIter of
+    MODULE_PREDICT_IMAGES images at the bound batch (its last batch holds
+    the rest plus padding), against one forward of the same images at
+    their own batch, which rebinds the executor at that shape
+    (``Executor._reshape``, timed between synchronisations; feeding the
+    bound shape again takes its kept buffers back). The predict must give
+    (images, 1000) rows equal to the forward's within rtol 2e-2 and atol
+    2e-2 (two batch sizes may take other convolution algorithms, TF32 on).
+    Returns a summary."""
+    import numpy as onp
+    import torch
+    import incubator_mxnet_tpu_torch as mxt
+    n, B = MODULE_PREDICT_IMAGES, RESNET_B
+    xs = x[:n]
+    it = mxt.io.NDArrayIter(xs, batch_size=B)
+    ex = mod._exec
+    reshape_ms, real = [], ex._reshape
+
+    def timed_reshape(fed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(fed)
+        torch.cuda.synchronize()
+        reshape_ms.append((time.perf_counter() - t0) * 1e3)
+    ex._reshape = timed_reshape
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.predict(it)
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        bound_reshapes = len(reshape_ms)
+        mod.forward(mxt.io.DataBatch([mxt.nd.array(xs, ctx=mxt.gpu(0))]),
+                    is_train=False)
+        whole = mod.get_outputs()[0].asnumpy()
+        it.reset()
+        again = mod.predict(it)
+    finally:
+        del ex._reshape
+    got = out.asnumpy()
+    check(out.shape == again.shape == (n, 1000) and whole.shape == (n, 1000),
+          "Module.predict over %d images at batch %d: %s, the forward at "
+          "batch %d: %s" % (n, B, out.shape, n, whole.shape))
+    check(bound_reshapes == 0 and len(reshape_ms) == 2, "Module.predict: "
+          "%d reshapes at the bound batch, %d in all" % (bound_reshapes,
+                                                        len(reshape_ms)))
+    err = float((onp.abs(got - whole) - 2e-2 * onp.abs(whole)).max())
+    check(err <= 2e-2 and onp.array_equal(got, again.asnumpy()),
+          "Module.predict against the forward at batch %d: %.3g past rtol "
+          "2e-2 (atol 2e-2)" % (n, err))
+    rows = B * -(-n // B)
+    summary = dict(images=n, batch=B, rows_computed=rows,
+                   predict_s=predict_s, predict_images_per_s=n / predict_s,
+                   predict_rows_per_s=rows / predict_s,
+                   fit_forward_images_per_s=B / (fit_forward_ms / 1e3),
+                   reshape_ms=reshape_ms[0], reshape_back_ms=reshape_ms[1],
+                   max_abs_diff=float(onp.abs(got - whole).max()))
+    log("Module.predict resnet50_v1 over %d images at batch %d (last batch "
+        "%d + pad): %.0f img/s (%.0f rows/s; Module.fit's forward %.0f "
+        "img/s); the forward at batch %d rebinds in %.2f ms (back to %d in "
+        "%.2f ms), rows equal within %.3g [%s]" % (
+            n, B, n % B, summary["predict_images_per_s"],
+            summary["predict_rows_per_s"],
+            summary["fit_forward_images_per_s"], n, reshape_ms[0], B,
+            reshape_ms[1], summary["max_abs_diff"], _card_line()))
+    return summary
 
 
 def check_module_checkpoint(prefix, x):
@@ -11416,10 +11772,7 @@ def main(argv):
             except SmokeFailure as e:
                 print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
                 return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = (smi.stdout.strip().splitlines() or ["unknown"])[0]
+    card = _card_line()
     if opts.rtc_only:
         try:
             _, rtc_rows, rtc_compile_ms = check_rtc()

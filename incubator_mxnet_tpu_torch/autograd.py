@@ -252,6 +252,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
     for var, gradient, req in zip(variables, gradients, grad_reqs):
         t = var._data.detach()
         _mark(t, req)
+        t._mx_own = True
         var._data = t
         if req != "null":
             g = gradient._data.detach().to(device=t.device, dtype=t.dtype)
@@ -260,6 +261,27 @@ def mark_variables(variables, gradients, grad_reqs="write"):
                                  "%s" % (tuple(g.shape), tuple(t.shape)))
             gradient._data = g
             t._mx_grad = gradient
+
+
+def _held(tensor):
+    """Whether ``tensor`` is the variable of one NDArray (``attach_grad``,
+    ``mark_variables``; not a parameter's, which others share) and a live
+    recorded graph holds it: a graph keeps the leaves it saved, and its
+    gradient accumulator keeps the leaf, by reference, so a write in place
+    would change what that graph's backward reads."""
+    return getattr(tensor, "_mx_own", False) and tensor._use_count() > 1
+
+
+def _rebind(old, new):
+    """``new``, computed out of place, made the variable ``old`` was: the
+    same grad_req and the same gradient NDArray, into which a graph that
+    still holds ``old`` writes its gradient."""
+    new = new.detach()
+    buf = _grad_array(old)
+    _mark(new, old._mx_req)
+    new._mx_grad = buf
+    new._mx_own = True
+    return new
 
 
 def _heads(heads, head_grads):

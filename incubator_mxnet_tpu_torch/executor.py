@@ -9,14 +9,25 @@ An inference bind that leaves out a label gives it zeros of (batch,).
 
 ``forward`` copies each fed array into its bound buffer (``copy_``, without
 blocking from pinned host memory) and runs the DAG on the port's ``nd``
-operators, under ``autograd.record()`` when training; the buffers never
-change identity, so arrays taken from ``arg_dict`` keep following the
-executor, and an array that was fed stays the caller's. ``backward`` runs
+operators, under ``autograd.record()`` when training; while the fed shapes
+are the bound ones the buffers never change identity, so arrays taken from
+``arg_dict`` keep following the executor, and an array that was fed stays
+the caller's. A data or label array fed at another shape (a batch of
+another size, as ``Module.predict`` meets at a last batch or
+``FeedForward.load(...).predict`` at its first) rebinds the executor at
+that shape, as MXNet's ``Module.forward`` reshapes its executors and the
+JAX package's ``forward`` takes the fed array: those inputs, the labels
+not fed (batch rows) and their gradient buffers get buffers of the new
+shape, the parameters and auxiliary states stay shared. The buffers of
+each shape are kept, so a shape fed again copies into its buffers as
+before (``_reshape``). ``backward`` runs
 the port's autograd with MXNet's gradient requests: "write" replaces a
 gradient, "add" adds into it, "null" keeps none. ``copy_params_from``
 copies values in; it never shares the caller's arrays.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as onp
 import torch
@@ -61,6 +72,7 @@ class Executor:
                  aux_states=None, inputs_need_grad=True, shared_arrays=None,
                  shared_grads=None):
         self._symbol = symbol
+        self._shaped = {}       # (input, shape) -> (array, gradient)
         self._ctx = ctx if ctx is not None else current_context()
         if not isinstance(self._ctx, Context):
             self._ctx = context_of(torch.empty(0, device=self._ctx))
@@ -175,7 +187,18 @@ class Executor:
 
     def _feed(self, **kwargs):
         """Copy each fed array into its buffer (an unknown name gets a
-        buffer of its own)."""
+        buffer of its own), rebinding the inputs at the fed shapes first
+        where they differ from the bound ones."""
+        data = self._data_names()
+        fed = {}
+        for k, v in kwargs.items():
+            dst = self.arg_dict.get(k)
+            shape = tuple(onp.shape(v))
+            if k in data and dst is not None and shape != dst.shape and \
+                    math.prod(shape) != dst.size:
+                fed[k] = shape
+        if fed:
+            self._reshape(fed)
         for k, v in kwargs.items():
             dst = self.arg_dict.get(k, self.aux_dict.get(k))
             if dst is None:
@@ -183,6 +206,35 @@ class Executor:
                     self._device, copy=True))
             else:
                 _copy_into(dst, v)
+
+    def _reshape(self, fed):
+        """Bind the data inputs at the ``fed`` shapes ({name: shape}), the
+        labels not fed at the fed batch (their first axis), each with a
+        gradient buffer where it had one; buffers are kept by name and
+        shape, the bound ones too."""
+        batch = next(iter(fed.values()))[:1]
+        shapes = dict(fed)
+        for v in self._walk_vars():
+            if _is_label(v) and v.name not in fed and v.name in self.arg_dict:
+                shapes[v.name] = batch + self.arg_dict[v.name].shape[1:]
+        reqs = None
+        for k, shape in shapes.items():
+            old = self.arg_dict[k]
+            self._shaped.setdefault((k, old.shape),
+                                    (old, self.grad_dict.get(k)))
+            if (k, shape) not in self._shaped:
+                arr = NDArray(torch.zeros(shape, dtype=old._data.dtype,
+                                          device=self._device))
+                grad = None
+                if k in self.grad_dict:
+                    grad = NDArray(torch.zeros_like(arr._data))
+                    reqs = reqs or self._reqs(self.grad_req)
+                    autograd.mark_variables([arr], [grad], reqs[k])
+                self._shaped[(k, shape)] = (arr, grad)
+            arr, grad = self._shaped[(k, shape)]
+            self.arg_dict[k] = arr
+            if grad is not None:
+                self.grad_dict[k] = grad
 
     def forward(self, is_train=False, **kwargs):
         """Copy the fed arrays into their buffers and run the graph,

@@ -33,6 +33,7 @@ from .. import autograd
 from .. import initializer as init_mod
 from ..context import as_device, context_of, cpu
 from ..ndarray import NDArray, torch_dtype
+from ..ndarray import random as _random
 from ..ndarray.ndarray import _mx_dtype, array as nd_array
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
@@ -119,15 +120,17 @@ class Parameter:
                    force_reinit=False, generator=None):
         """Allocate and fill on ``ctx``. ``init`` overrides the parameter's
         own initializer; ``default_init`` is used when neither is set.
-        Random draws come from ``generator`` (default: a fresh CPU
-        generator seeded 0)."""
+        Random draws come from ``generator`` (default: ``nd.random``'s
+        CPU generator, which ``mx.random.seed`` seeds: as MXNet's
+        initializers draw from its global random state, two parameters
+        initialized in turn get different values)."""
         if self._data is not None and not force_reinit:
             return
         device = as_device(ctx)
         if default_init is None:
             default_init = init_mod.Uniform()
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = _random._generator(torch.device("cpu"))
         if not self._shape_known():
             if self.allow_deferred_init:
                 self._deferred_init = (init, default_init, device, generator)
@@ -368,11 +371,13 @@ class ParameterDict:
                    force_reinit=False, generator=None):
         """Initialize every parameter; ``init`` is the default initializer
         for parameters without one of their own. One generator feeds them
-        all, in key order, so a seed fixes the whole model. ``verbose``
+        all, in key order, so a seed fixes the whole model (default:
+        ``nd.random``'s CPU generator, which ``mx.random.seed`` seeds).
+        ``verbose``
         logs each parameter's name and initializer, as MXNet does."""
         init = init_mod.Uniform() if init is None else init_mod.create(init)
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = _random._generator(torch.device("cpu"))
         for name, p in self.items():
             p.initialize(None, ctx, init, force_reinit=force_reinit,
                          generator=generator)

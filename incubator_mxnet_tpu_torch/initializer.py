@@ -4,6 +4,10 @@ An initializer fills a tensor in place, ``init(name, tensor, generator)``,
 drawing every random number from the explicit ``torch.Generator`` it is
 given. The generator and the tensor lie on the same device (the caller,
 ``gluon.Parameter``, fills on the generator's device and then moves).
+Called on an NDArray, as MXNet's code calls it (``init("fc1_weight",
+executor.arg_dict["fc1_weight"])``), it fills the array's tensor in place,
+drawing from ``nd.random``'s generator of the array's device when no
+generator is given (so ``mx.random.seed`` fixes the draws).
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import numpy as onp
 import torch
 
 from .base import registry
+from .ndarray import NDArray
+from .ndarray import random as _random
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
            "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
@@ -36,6 +42,7 @@ class Initializer:
         self._kwargs = kwargs
 
     def __call__(self, name, arr, generator=None):
+        arr, generator = _target(arr, generator)
         self.init_weight_by_name(str(name), arr, generator)
 
     @torch.no_grad()
@@ -209,6 +216,7 @@ class Mixed(Initializer):
 
     @torch.no_grad()
     def __call__(self, name, arr, generator=None):
+        arr, generator = _target(arr, generator)
         for pat, init in self.map:
             if pat.match(str(name)):
                 init(name, arr, generator)
@@ -217,6 +225,17 @@ class Mixed(Initializer):
 
     def _init_weight(self, name, arr, generator):
         self(name, arr, generator)
+
+
+def _target(arr, generator):
+    """The tensor an initializer fills, and the generator it draws from:
+    an NDArray's own tensor, and by default ``nd.random``'s generator of
+    its device."""
+    if not isinstance(arr, NDArray):
+        return arr, generator
+    t = arr._data
+    return t, generator if generator is not None else \
+        _random._generator(t.device)
 
 
 def create(name, **kwargs):

@@ -997,9 +997,9 @@ class EvalStep:
 
     def _dispatch(self, args, inference):
         graphs = _uses_graphs(net_device(self.net))
-        if not graphs and not config.get_env("MXTPU_AOT_CACHE_DIR"):
-            return self._forward(args, inference)
         with spans.span("eval:step"):
+            if not graphs and not config.get_env("MXTPU_AOT_CACHE_DIR"):
+                return self._forward(args, inference)
             return self._replay(args, graphs)
 
     def _forward(self, args, inference=False):

@@ -1,14 +1,17 @@
 """Evaluation metrics (counterpart of ``incubator_mxnet_tpu/metric.py``).
 
 The metrics of a training loop reduce on the predictions' device:
-``Accuracy``, ``TopKAccuracy``, ``Perplexity``, ``CrossEntropy`` /
+``Accuracy``, ``Perplexity``, ``CrossEntropy`` /
 ``NegativeLogLikelihood``, ``Loss``, ``MAE``, ``MSE`` and ``RMSE`` keep
 their sums there as float64 tensors and their counts on the host (counts
 follow from shapes), so an update copies nothing to the host; ``get()``
 is the one host read. The JAX package copies every prediction to the host
 (``_as_np``), which at BERT's (64, 512, 32768) logits is 2.1 GB a batch.
 ``F1``, ``MCC``, ``PearsonCorrelation`` and ``CustomMetric`` take small
-host copies, as there. ``Perplexity`` and ``RMSE`` apply their ``exp`` and
+host copies, as there, and so does ``TopKAccuracy``: which of several
+equal predictions count among the top k is NumPy's ``argpartition``'s
+choice in the JAX package (and in MXNet), an order no device sort
+reproduces. ``Perplexity`` and ``RMSE`` apply their ``exp`` and
 square root in ``get_global`` too, as MXNet does (the JAX package's
 ``get_global`` gives the mean negative log-likelihood and the MSE).
 
@@ -191,7 +194,8 @@ class Accuracy(EvalMetric):
 
 @register
 class TopKAccuracy(EvalMetric):
-    """Share of labels among the ``top_k`` largest predictions."""
+    """Share of labels among the ``top_k`` largest predictions, ties
+    broken as NumPy's ``argpartition`` breaks them (on a host copy)."""
 
     def __init__(self, top_k=1, name="top_k_accuracy", **kw):
         super().__init__(name + "_%d" % top_k, top_k=top_k, **kw)
@@ -200,11 +204,11 @@ class TopKAccuracy(EvalMetric):
     def update(self, labels, preds):
         labels, preds = check_label_shapes(labels, preds, True)
         for label, pred in zip(labels, preds):
-            p = _as_tensor(pred)
-            lab = _as_tensor(label, p.device).to(p.device, torch.int64)
-            idx = torch.topk(p, self.top_k, dim=-1).indices
-            hit = (idx == lab[..., None]).any(dim=-1)
-            self._add(hit.sum(), hit.numel())
+            p, lab = _as_np(pred), _as_np(label).astype("int32")
+            idx = onp.argpartition(p, -self.top_k, axis=-1)[
+                ..., -self.top_k:]
+            hit = (idx == lab[..., None]).any(axis=-1)
+            self._add(float(hit.sum()), hit.size)
 
 
 @register

@@ -61,7 +61,11 @@ class GPTModel(HybridBlock):
         self.ln_f = nn.LayerNorm(in_channels=units)
 
     def features(self, token_ids):
-        """Trunk output (B, S, U), the pre-head activations."""
+        """Trunk output (B, S, U), the pre-head activations (an NDArray
+        for NDArray ids, as a call of the block gives)."""
+        return nd.ndarray._apply(self._features, token_ids)
+
+    def _features(self, token_ids):
         B, S = token_ids.shape
         if S > self._max_length:
             raise ValueError(

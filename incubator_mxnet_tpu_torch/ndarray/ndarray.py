@@ -17,7 +17,14 @@ an operator's output that shares storage with an input (``x[k]``,
 ``reshape``, ``astype`` to the same type, ...) is copied. Writes into an
 NDArray (``x[k] = v``, ``x += y``) are in place where torch allows it and
 rebind ``_data`` to a new tensor where it does not (a view, or a tensor
-that autograd records); a write into a variable is in place, unrecorded.
+that autograd records); a write into a variable is in place, unrecorded,
+unless a live recorded graph holds the variable of an ``attach_grad``
+array: then it rebinds, keeping the gradient buffer and grad_req, so that
+graph's backward reads the value it recorded (``autograd._held``). So
+``x[:] = v``, ``+=``, ``-=``, ``*=`` and ``/=`` after ``y = f(x)`` was
+recorded leave ``y.backward()`` the old ``x``, as the JAX package's tape
+does. On a recorded intermediate they rebind (a recorded op, under
+``record()``), on an array outside any graph they write in place.
 
 Each operator mirrors the JAX package's arithmetic, casts and type
 promotion (JAX runs without x64: Python lists and float64 become float32,
@@ -349,7 +356,12 @@ class NDArray:
                 .to(t.dtype)
         if _writable_in_place(t, value):
             with torch.no_grad():
-                t[key] = value
+                if autograd._held(t):
+                    new = t.clone()
+                    new[key] = value
+                    self._data = autograd._rebind(t, new)
+                else:
+                    t[key] = value
             return
         with torch.set_grad_enabled(autograd.is_recording()):
             new = t.clone()
@@ -390,7 +402,10 @@ class NDArray:
                 not isinstance(o, torch.Tensor)
                 or torch.broadcast_shapes(t.shape, o.shape) == t.shape):
             with torch.no_grad():
-                t.copy_(fn(t, o))
+                if autograd._held(t):
+                    self._data = autograd._rebind(t, fn(t, o))
+                else:
+                    t.copy_(fn(t, o))
         else:
             self._data = _apply(fn, self, other)._data
         return self

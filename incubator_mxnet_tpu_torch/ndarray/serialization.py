@@ -20,14 +20,22 @@ records, and row_sparse/CSR records (stored densely on load) are read too.
 bfloat16 is type flag 12 and its raw 16-bit patterns are written and read
 as they are, never through float32. A type without a flag is written as
 float32 (flag 0), as the JAX package does.
+
+``save_ndarray_list``/``load_ndarray_list`` are the JAX package's names and
+signatures; they take NDArrays, tensors or numpy arrays and give NDArrays
+on the CPU (the reference gives numpy arrays, which ``asnumpy()`` and
+``numpy.asarray`` give here: numpy has no bfloat16 in this installation).
+``save_tensor_list``/``load_tensor_list`` are the tensors' own path.
 """
 from __future__ import annotations
 
 import struct
 
+import numpy as onp
 import torch
 
-__all__ = ["save_tensor_list", "load_tensor_list", "is_ndarray_list_file"]
+__all__ = ["save_ndarray_list", "load_ndarray_list", "save_tensor_list",
+           "load_tensor_list", "is_ndarray_list_file"]
 
 kMXAPINDArrayListMagic = 0x112
 NDARRAY_V1_MAGIC = 0xF993FAC8
@@ -82,6 +90,23 @@ def save_tensor_list(fname, tensors, names):
         out.append(b)
     with open(fname, "wb") as f:
         f.write(b"".join(out))
+
+
+def save_ndarray_list(fname, arrays, names):
+    """Write ``arrays`` (NDArrays, tensors or numpy arrays) and ``names``
+    (empty for a list) to ``fname``."""
+    from .ndarray import NDArray
+    save_tensor_list(fname, [
+        a._data if isinstance(a, NDArray) else a
+        if isinstance(a, torch.Tensor) else torch.from_numpy(
+            onp.ascontiguousarray(a)) for a in arrays], names)
+
+
+def load_ndarray_list(fname):
+    """(NDArrays on the CPU, names) from a file in the list format."""
+    from .ndarray import NDArray
+    tensors, names = load_tensor_list(fname)
+    return [NDArray(t) for t in tensors], names
 
 
 class _Reader:

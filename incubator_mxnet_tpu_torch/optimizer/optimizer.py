@@ -26,12 +26,23 @@ generator of the weights' device, which a captured step registers, so each
 replay draws afresh. ``lr_scheduler`` is evaluated on the host
 (``step_scalars``) and reaches the device vector of learning rates.
 
+The eager entry points take what MXNet's code passes: ``create_state``,
+``create_state_multi_precision``, ``update`` and ``update_multi_precision``
+take NDArrays as well as tensors (``p.data()``, ``p.grad()`` and the
+states of MXNet's custom training loop). An NDArray weight gets a state of
+NDArrays over the state's tensors, and ``update`` writes the weight and the
+state in place, so the caller's arrays hold the new values. A row-sparse
+gradient (``nd.sparse.RowSparseNDArray``) updates only the rows it carries,
+weight and momentum, under SGD's ``lazy_update``, and is made dense
+everywhere else, as the JAX package does.
+
 ``Updater`` keeps one state per index and writes and reads the JAX
 package's state pickles (``get_states``/``set_states``: numpy arrays in
 nested tuples), which ``gluon.Trainer.save_states``/``load_states`` use.
 """
 from __future__ import annotations
 
+import functools
 import math
 import pickle
 
@@ -39,7 +50,9 @@ import numpy as onp
 import torch
 
 from ..base import registry
+from ..ndarray import NDArray
 from ..ndarray import random as _random
+from ..ndarray.sparse import RowSparseNDArray
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "NAG", "RMSProp", "AdaGrad",
            "AdaDelta", "Adamax", "Nadam", "Ftrl", "FTML", "LAMB", "LARS",
@@ -58,8 +71,28 @@ def create(name, **kwargs):
     return _REG.create(name, **kwargs)
 
 
+def _takes_ndarrays(create):
+    """``create(self, index, weight)`` that also takes an NDArray weight
+    and then gives the state as NDArrays over its tensors."""
+    @functools.wraps(create)
+    def wrapped(self, index, weight):
+        if not isinstance(weight, NDArray):
+            return create(self, index, weight)
+        return _as_ndarrays(create(self, index, weight._data))
+    wrapped.takes_ndarrays = True
+    return wrapped
+
+
 class Optimizer:
     """Base optimizer."""
+
+    def __init_subclass__(cls, **kwargs):
+        # every subclass's create_state takes an NDArray weight too
+        super().__init_subclass__(**kwargs)
+        for name in ("create_state", "create_state_multi_precision"):
+            fn = cls.__dict__.get(name)
+            if fn is not None and not getattr(fn, "takes_ndarrays", False):
+                setattr(cls, name, _takes_ndarrays(fn))
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -89,12 +122,14 @@ class Optimizer:
         return create(name, **kwargs)
 
     # -- state ---------------------------------------------------------
+    @_takes_ndarrays
     def create_state(self, index, weight):
         return None
 
     def _uses_master(self, weight):
         return self.multi_precision and weight.dtype in _LOW_PRECISION
 
+    @_takes_ndarrays
     def create_state_multi_precision(self, index, weight):
         """(fp32 master, inner state) for a bf16/fp16 weight under
         ``multi_precision``, else the plain state."""
@@ -171,7 +206,7 @@ class Optimizer:
         def vec(x):
             return torch.as_tensor(x, dtype=torch.float32,
                                    device=device).reshape(1)
-        new_state = _clone_state(state)
+        new_state = _map_state(state, torch.clone)
         self._rescale = torch.ones((), dtype=torch.float32, device=device)
         self.multi_update_rule([w], [grad.detach().float().clone()],
                                [new_state], vec(lr), vec(wd), t)
@@ -258,34 +293,50 @@ class Optimizer:
 
     # -- eager entry points ------------------------------------------
     def update(self, index, weight, grad, state, t=None):
-        """Update ``weight`` in fp32 and cast back; returns the state."""
+        """Update ``weight`` in fp32 and cast back; returns the state.
+        ``weight``, ``grad`` and the state's arrays are tensors or
+        NDArrays; the weight and the state are written in place."""
         return self._update(index, weight, grad, state, t, False)
 
     def update_multi_precision(self, index, weight, grad, state, t=None):
         """fp32 master-weight update for bf16/fp16 weights under
         ``multi_precision``; ``update`` otherwise."""
         return self._update(index, weight, grad, state, t,
-                            self._uses_master(weight))
+                            self._uses_master(_tensor_of(weight)))
 
     def _update(self, index, weight, grad, state, t, use_master):
         """``update_all`` of one weight; ``t``, Adam's bias-correction
         step, defaults to this index's update count and stays on the host,
-        as in the JAX package's eager ``update``. Returns the state."""
+        as in the JAX package's eager ``update``. Returns the state (the
+        caller's object, updated in place)."""
+        weight, tensors = _tensor_of(weight), _state_tensors(state)
+        if isinstance(grad, RowSparseNDArray):
+            if not use_master and self._sparse_lazy_supported():
+                self._update_rows(index, weight, grad, tensors, t)
+                return state
+            grad = grad.tostype("default")
         scalars = self.step_scalars([index], t).to(weight.device)
         lrs, wds, _, rescale = self.split_scalars(scalars)
-        self.update_all([weight], [grad], [state], lrs, wds,
+        self.update_all([weight], [_tensor_of(grad)], [tensors], lrs, wds,
                         self._index_update_count[index] if t is None else t,
                         rescale, use_master=[use_master])
         return state
 
+    def _sparse_lazy_supported(self):
+        """Whether a row-sparse gradient updates only its rows."""
+        return False
 
-def _clone_state(state):
-    """A copy of a state (None, a tensor, or tuples and lists of them)."""
-    if isinstance(state, torch.Tensor):
-        return state.clone()
-    if isinstance(state, (tuple, list)):
-        return type(state)(_clone_state(s) for s in state)
-    return state
+    @torch.no_grad()
+    def _update_rows(self, index, weight, grad, state, t):
+        """The lazy update: the rule on the rows ``grad`` carries, of the
+        weight and of the state, written back into those rows alone."""
+        rows = grad.indices._data.to(weight.device, torch.long)
+        w_rows = weight[rows]
+        s_rows = _map_state(state, lambda s: s[rows])
+        self._update(index, w_rows, grad.data._data, s_rows, t, False)
+        weight[rows] = w_rows
+        _map_state(state, lambda s, new: s.index_copy_(0, rows, new),
+                   s_rows)
 
 
 def _write_state(state, new, name):
@@ -313,14 +364,18 @@ def _wd_terms(weights, wds):
 class SGD(Optimizer):
     """SGD with momentum: ``mom = momentum * mom - lr * (g + wd * w)``,
     ``w += mom`` (``w -= lr * (g + wd * w)`` without momentum).
-    ``lazy_update`` (MXNet's: update only the rows a row_sparse gradient
-    carries) is accepted; gradients are dense here, so every row updates,
-    as in the JAX package with a dense gradient."""
+    ``lazy_update`` (MXNet's, on by default): a row-sparse gradient given
+    to ``update`` moves only the rows it carries, weight and momentum,
+    weight decay included; ``Trainer``'s gradients are dense, so every row
+    updates there, as in the JAX package."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
         self.lazy_update = lazy_update
+
+    def _sparse_lazy_supported(self):
+        return self.lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -427,7 +482,12 @@ class Test(Optimizer):
 @register
 class NAG(SGD):
     """Nesterov momentum: ``mom = momentum * mom + g'``,
-    ``w -= lr * (g' + momentum * mom)`` with ``g' = g + wd * w``."""
+    ``w -= lr * (g' + momentum * mom)`` with ``g' = g + wd * w``. A
+    row-sparse gradient is made dense (no lazy rows), as in the JAX
+    package."""
+
+    def _sparse_lazy_supported(self):
+        return False
 
     def multi_update_rule(self, weights, grads, states, lrs, wds, t):
         torch._foreach_add_(grads, _wd_terms(weights, wds))
@@ -907,6 +967,32 @@ class Updater:
 def _tensor_of(x):
     return x._data if hasattr(x, "_data") and not isinstance(
         x, torch.Tensor) else x
+
+
+def _map_state(state, fn, *others):
+    """``fn`` over a state's tensors (None, a tensor, or tuples and lists
+    of them), tensor by tensor with the same places of ``others``; the
+    results in the state's structure."""
+    if isinstance(state, torch.Tensor):
+        return fn(state, *others)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_state(s, fn, *(o[i] for o in others))
+                           for i, s in enumerate(state))
+    return state
+
+
+def _state_tensors(state):
+    """A state with its NDArrays replaced by their tensors."""
+    if isinstance(state, NDArray):
+        return state._data
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_tensors(s) for s in state)
+    return state
+
+
+def _as_ndarrays(state):
+    """A state of tensors as NDArrays over the same tensors."""
+    return _map_state(state, NDArray)
 
 
 def _state_to_np(s):

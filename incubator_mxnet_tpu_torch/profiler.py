@@ -282,42 +282,16 @@ def _sample_memory(op_name):
                             "args": {"bytes_in_use": live}})
 
 
-def _host_rss():
-    """The process's resident bytes now and at its peak, under 'host'."""
-    import resource
-    import sys
-    out = {"peak_rss_bytes": int(resource.getrusage(
-        resource.RUSAGE_SELF).ru_maxrss) * (
-            1 if sys.platform == "darwin" else 1024)}
-    try:
-        with open("/proc/self/statm") as f:
-            out["rss_bytes"] = int(f.read().split()[1]) * \
-                os.sysconf("SC_PAGE_SIZE")
-    except OSError:
-        out["rss_bytes"] = out["peak_rss_bytes"]
-    return {"host": out}
-
-
 def device_memory():
     """Memory of each CUDA device: ``bytes_in_use`` and
     ``peak_bytes_in_use`` (the caching allocator's allocated bytes) and
-    ``bytes_limit`` (the device's total memory), keyed ``cuda:<i>``.
-    Without CUDA, the host's resident bytes under ``'host'``
-    (``rss_bytes``, ``peak_rss_bytes``), as the JAX package reports a
-    backend without memory statistics. (The JAX package reads these
-    through ``telemetry/devstats.py``, which takes this over when it is
-    ported.)"""
-    if not torch.cuda.is_available():
-        return _host_rss()
-    out = {}
-    for i in range(torch.cuda.device_count()):
-        a = _allocated(i)
-        out["cuda:%d" % i] = {
-            "bytes_in_use": int(a.get("current", 0)),
-            "peak_bytes_in_use": int(a.get("peak", 0)),
-            "bytes_limit": int(torch.cuda.get_device_properties(i)
-                               .total_memory)}
-    return out
+    ``bytes_limit`` (the device's total memory), keyed ``cuda:<i>``;
+    without CUDA, the host's resident bytes under ``'host'``
+    (``rss_bytes``, ``peak_rss_bytes``). Delegated to the devstats
+    sampler's snapshot, as in the JAX package, so a source set with
+    ``devstats.set_memory_source`` is what this reports."""
+    from .telemetry import devstats
+    return devstats.device_memory()
 
 
 def memory_summary():

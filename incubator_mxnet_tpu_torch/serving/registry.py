@@ -58,6 +58,19 @@ __all__ = ["ModelRegistry", "BlockServable", "ModelNotFoundError"]
 _LOG = logging.getLogger(__name__)
 
 
+def _seed_slos(name):
+    """The model's default SLOs (availability; latency too when
+    ``MXTPU_SLO_LATENCY_MS`` is set), from its first load, so /debug/slo
+    and the budget gauges carry it before any request; the batcher's or
+    the engine's close detaches them. A misconfigured objective must not
+    make the model unloadable, so a failure is logged, not raised."""
+    from ..telemetry import slo
+    try:
+        slo.REGISTRY.ensure_model(name)
+    except (ValueError, TypeError, KeyError):
+        _LOG.debug("SLO seeding for model %r failed", name, exc_info=True)
+
+
 class ModelNotFoundError(KeyError):
     """Unknown model name (or version); HTTP maps this to 404."""
 
@@ -140,6 +153,7 @@ class _ModelEntry:
         self.versions = {}
         self.current_version = None
         self.metrics = ServingMetrics(model=name)
+        _seed_slos(name)
         self._lock = threading.Lock()
         self._drained = threading.Condition(self._lock)
         self._inflight = {}             # version -> dispatched-batch count
@@ -544,6 +558,7 @@ class ModelRegistry:
         if engine is None:
             from .generate import GenerativeEngine
             engine = GenerativeEngine(name=name, **engine_kw)
+        _seed_slos(name)
         with self._lock:
             if self._closed:
                 engine.close()

@@ -14,7 +14,10 @@ order), unless it says otherwise:
 - ``autograd.grad`` returns the gradients without touching ``.grad``, and
   with ``create_graph`` gives a second derivative;
 - a custom ``autograd.Function`` and ``mark_variables`` with the caller's
-  gradient buffers.
+  gradient buffers;
+- a write (``x[:] =``, ``+=``, ``-=``, ``*=``, ``/=``) into a variable or a
+  recorded intermediate after ``record()`` leaves the recorded graph its
+  old value (the JAX package's tape), within 1e-6.
 """
 import numpy as onp
 import pytest
@@ -388,3 +391,48 @@ def test_in_place_add_on_a_variable_is_in_place_outside_record():
         tag.mark_variables([x], [mxt.nd.zeros((3,), ctx=mxt.cpu())])
     assert isinstance(tag.is_recording(), bool)
     assert torch.is_grad_enabled()
+
+
+WRITES = {
+    "setitem": lambda a: a.__setitem__(slice(None), 0.5),
+    "iadd": lambda a: a.__iadd__(100.0),
+    "isub": lambda a: a.__isub__(1.0),
+    "imul": lambda a: a.__imul__(3.0),
+    "itruediv": lambda a: a.__itruediv__(2.0),
+}
+
+
+@pytest.mark.parametrize("where", ["leaf", "intermediate"])
+@pytest.mark.parametrize("write", sorted(WRITES))
+def test_a_write_after_record_leaves_the_recorded_graph(write, where):
+    """y = sum(h * h) with h = x (a leaf) or h = 2x (an intermediate),
+    recorded; then h is written outside record() and y.backward() gives
+    the gradient at the recorded value, as the JAX package's tape does.
+    The leaf keeps the gradient array attach_grad made and rebinds its
+    tensor (a live graph holds it); once nothing holds it, a write is in
+    place again."""
+    x0 = onp.random.RandomState(5).randn(3).astype("float32")
+    res = []
+    for nd, autograd in ((mx.nd, jag), (mxt.nd, tag)):
+        x = nd.array(x0, **_ctx(nd))
+        x.attach_grad()
+        buf = x.grad
+        with autograd.record():
+            h = x if where == "leaf" else x * 2
+            y = (h * h).sum()
+        before = x._data
+        WRITES[write](h)
+        y.backward()
+        res.append((x.grad.asnumpy(), h.asnumpy()))
+        if nd is mxt.nd:
+            assert x.grad is buf
+            assert (x._data is before) == (where == "intermediate")
+            del y
+            now = x._data
+            x += 1.0
+            assert x._data is now and x._data.requires_grad
+    (jg, jh), (tg, th) = res
+    onp.testing.assert_allclose(tg, jg, **TOL)
+    onp.testing.assert_allclose(tg, (2 if where == "leaf" else 8) * x0,
+                                **TOL)
+    onp.testing.assert_allclose(th, jh, **TOL)

@@ -8,7 +8,8 @@ packages' loss blocks, forward and the gradient of the summed loss with
 respect to every input within 1e-6 of the largest value (the JAX side's
 gradient is its autograd's, ``jax.vjp``). Metrics: within 1e-6 relative
 of the JAX package's, whose sums are host floats where the port's device
-metrics keep float64 tensors.
+metrics keep float64 tensors; TopKAccuracy on tied predictions exactly
+(NumPy's argpartition picks the top k in both).
 """
 import itertools
 import logging
@@ -285,13 +286,14 @@ def test_metrics_match_jax(name):
 
 
 def test_device_metrics_keep_their_sums_on_the_device(monkeypatch):
-    """Accuracy, TopKAccuracy, Perplexity, CrossEntropy, MAE, MSE and Loss
-    keep float64 tensor sums and copy nothing to the host in an update."""
+    """Accuracy, Perplexity, CrossEntropy, MAE, MSE and Loss keep float64
+    tensor sums and copy nothing to the host in an update (TopKAccuracy
+    takes a host copy: NumPy's argpartition breaks its ties)."""
     monkeypatch.setattr(tmetric, "_as_np", lambda x: (_ for _ in ()).throw(
         AssertionError("host copy")))
     lab, p = _metric_batches(onp.random.RandomState(0))[0]
     lab_t, p_t = torch.from_numpy(lab), torch.from_numpy(p)
-    for m in (tmetric.Accuracy(), tmetric.TopKAccuracy(5),
+    for m in (tmetric.Accuracy(),
               tmetric.Perplexity(), tmetric.CrossEntropy(), tmetric.MAE(),
               tmetric.MSE(), tmetric.Loss()):
         m.update([lab_t], [p_t[:, :1] if isinstance(m, tmetric.MAE)
@@ -299,6 +301,25 @@ def test_device_metrics_keep_their_sums_on_the_device(monkeypatch):
         assert isinstance(m.sum_metric, torch.Tensor)
         assert m.sum_metric.dtype == torch.float64
         assert math.isfinite(m.get()[1])
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 3, 5])
+def test_top_k_accuracy_breaks_ties_as_the_reference(top_k):
+    """Predictions drawn from four values, so most rows tie at the k-th
+    largest: TopKAccuracy counts what NumPy's argpartition keeps, as the
+    reference does (exact); and the reference's own example (0.5)."""
+    rng = onp.random.RandomState(top_k)
+    lab = rng.randint(0, 10, 64).astype("float32")
+    p = (rng.randint(0, 4, (64, 10)) / 4.0).astype("float32")
+    jm, tm = jmetric.TopKAccuracy(top_k), tmetric.TopKAccuracy(top_k)
+    jm.update([mx.nd.array(lab)], [mx.nd.array(p)])
+    tm.update([mxt.nd.array(lab, ctx=mxt.cpu())],
+              [mxt.nd.array(p, ctx=mxt.cpu())])
+    assert tm.get() == jm.get()
+    ex = tmetric.TopKAccuracy(top_k=2)
+    ex.update([torch.tensor([2, 1])],
+              [torch.tensor([[0.1, 0.5, 0.4], [0.8, 0.1, 0.1]])])
+    assert ex.get()[1] == 0.5
 
 
 def test_composite_create_and_custom_metrics():

@@ -34,6 +34,15 @@ that waited for them, against the JAX package's, on the CPU.
   across (the JAX package shares buffers there because its arrays are
   immutable): kvstore ``pull`` and ``push``, ``Module.init_params`` /
   ``set_params``, the executor's feed, and the monitor's queued outputs.
+- A fed batch of another shape than the bound one (``FeedForward.load``
+  then ``predict``; a Module forward and backward at another batch)
+  computes on the fed shape, as the JAX executor does, within 1e-5; the
+  bound shape fed again reuses its buffers.
+- Every initializer called on an NDArray (an executor's argument, as
+  MXNet's code calls it) fills it in place: zeros, ones, constant,
+  bilinear and LSTMBias equal to the JAX package's exactly, the random
+  ones within their bounds and equal to the port's own tensor path from
+  the same seed.
 """
 import filecmp
 import logging
@@ -726,3 +735,131 @@ def test_fit_logs_speed_and_checkpoints_each_epoch(tmp_path, caplog):
     assert any("Train-accuracy" in r.getMessage() for r in caplog.records)
     score = mod.score(mxt.io.NDArrayIter(X, Y, batch_size=BATCH), "acc")
     assert score[0][0] == "accuracy" and 0.0 <= score[0][1] <= 1.0
+
+
+# ================================================== fed shapes, initializers
+
+def _mlp(pkg):
+    S = pkg.sym
+    n = S.FullyConnected(S.var("data"), num_hidden=16, name="fc1")
+    n = S.Activation(n, act_type="relu", name="relu1")
+    n = S.FullyConnected(n, num_hidden=4, name="fc2")
+    return S.SoftmaxOutput(n, name="softmax")
+
+
+def test_feed_forward_load_predicts_at_the_fed_batch(tmp_path):
+    """FeedForward.load binds at its default batch (128) and predict's
+    iterator feeds another; the fitted model's answer in both packages."""
+    rng = onp.random.RandomState(0)
+    x = rng.randn(32, 10).astype("float32")
+    y = rng.randint(0, 4, 32).astype("float32")
+    model = mxt.FeedForward(_mlp(mxt), ctx=CPU, num_epoch=1,
+                            numpy_batch_size=16,
+                            initializer=mxt.init.Xavier())
+    model.fit(x, y)
+    prefix = str(tmp_path / "ff")
+    model.save(prefix, epoch=1)
+    want = model.predict(x)
+    got = mxt.FeedForward.load(prefix, 1, ctx=CPU).predict(x)
+    ref = mx.FeedForward.load(prefix, 1).predict(x)
+    assert got.shape == ref.shape == (32, 4)
+    _close(got, want, "load then predict")
+    _close(got, ref, "the JAX package's load then predict")
+
+
+def test_module_forward_at_another_batch_is_the_references():
+    """A Module bound at batch 8: forward and backward of a batch of 5 and
+    predict over 13 rows (a padded last batch) give the JAX Module's
+    outputs and gradients within 1e-5 of the largest; the bound batch fed
+    again takes back its own buffers, and the other batch's are kept."""
+    rng = onp.random.RandomState(2)
+    x = rng.randn(13, 10).astype("float32")
+    arg = {"fc1_weight": rng.randn(16, 10), "fc1_bias": rng.randn(16),
+           "fc2_weight": rng.randn(4, 16), "fc2_bias": rng.randn(4)}
+    arg = {k: (v * 0.3).astype("float32") for k, v in arg.items()}
+    outs = []
+    for pkg in (mx, mxt):
+        mod = pkg.mod.Module(_mlp(pkg), context=_pkg_ctx(pkg))
+        mod.bind([("data", (BATCH, 10))], [("softmax_label", (BATCH,))])
+        mod.set_params({k: _arr(pkg, v) for k, v in arg.items()}, {})
+        bound = mod._exec.arg_dict["data"] if pkg is mxt else None
+        mod.forward(pkg.io.DataBatch([_arr(pkg, x[:5])],
+                                     [_arr(pkg, Y[:5] % 4)]), is_train=True)
+        mod.backward()
+        grads = {k: mod._exec.grad_dict[k].asnumpy() for k in arg}
+        out = mod.get_outputs()[0].asnumpy()
+        pred = mod.predict(pkg.io.NDArrayIter(x, batch_size=BATCH))
+        if pkg is mxt:
+            ex = mod._exec
+            assert ex.arg_dict["data"] is bound
+            assert ex.arg_dict["softmax_label"].shape == (BATCH,)
+            assert sorted(s for k, s in ex._shaped if k == "data") == [
+                (5, 10), (BATCH, 10)]
+        outs.append((out, grads, pred.asnumpy()))
+    (jo, jg, jp), (to, tg, tp) = outs
+    assert to.shape == (5, 4) and tp.shape == (13, 4)
+    _close(to, jo, "forward at batch 5")
+    _close(tp, jp, "predict over 13 rows")
+    for k in jg:
+        _close(tg[k], jg[k], "gradient of %s" % k)
+
+
+INITS = {
+    "zeros": ({}, (6, 5)), "ones": ({}, (6, 5)),
+    "constant": ({"value": 0.25}, (6, 5)),
+    "uniform": ({"scale": 0.07}, (6, 5)),
+    "normal": ({"sigma": 0.01}, (40, 50)),
+    "orthogonal": ({}, (5, 7)), "xavier": ({}, (6, 5)),
+    "msraprelu": ({}, (40, 50)), "bilinear": ({}, (2, 3, 4, 4)),
+    "lstmbias": ({"forget_bias": 2.0}, (16,)), "mixed": ({}, (4, 4)),
+}
+
+
+def _initializer(pkg, name, kw, by_name):
+    if name == "mixed":
+        return pkg.init.Mixed(["fc.*", ".*"], [pkg.init.Zero(),
+                                               pkg.init.Constant(0.5)])
+    if by_name:
+        return pkg.init.create(name, **kw)
+    cls = {"zeros": "Zero", "ones": "One", "msraprelu": "MSRAPrelu",
+           "lstmbias": "LSTMBias"}.get(name, name.capitalize())
+    return getattr(pkg.init, cls)(**kw)
+
+
+@pytest.mark.parametrize("by_name", [True, False])
+@pytest.mark.parametrize("name", sorted(INITS))
+def test_initializers_fill_an_ndarray_in_place(name, by_name):
+    kw, shape = INITS[name]
+    jarr = mx.nd.zeros(shape)
+    _initializer(mx, name, kw, by_name)("weight", jarr)
+    tarr = mxt.nd.zeros(shape, ctx=CPU)
+    held = tarr._data
+    mxt.random.seed(3)
+    _initializer(mxt, name, kw, by_name)("weight", tarr)
+    assert tarr._data is held
+    got, ref = tarr.asnumpy(), jarr.asnumpy()
+    tensor = torch.zeros(shape)
+    mxt.random.seed(3)
+    _initializer(mxt, name, kw, by_name)(
+        "weight", tensor, mxt.nd.random._generator(torch.device("cpu")))
+    assert onp.array_equal(got, tensor.numpy())
+    if name in ("zeros", "ones", "constant", "bilinear", "lstmbias",
+                "mixed"):
+        assert onp.array_equal(got, ref), name
+    elif name == "uniform":
+        assert onp.abs(got).max() <= 0.07 and got.std() > 0.02
+    elif name == "orthogonal":
+        onp.testing.assert_allclose(got @ got.T, 1.414 ** 2 * onp.eye(5),
+                                    atol=1e-5)
+    elif name == "xavier":
+        bound = (3.0 / ((5 + 6) / 2.0)) ** 0.5
+        assert onp.abs(got).max() <= bound and onp.abs(ref).max() <= bound
+    else:
+        sigma = 0.01 if name == "normal" else (2.0 / 1.0625 / 45.0) ** 0.5
+        for a in (got, ref):
+            assert abs(a.std() / sigma - 1) < 0.1 and abs(a.mean()) < sigma
+    bias = mxt.nd.ones((4,), ctx=CPU)
+    _initializer(mxt, name, kw, by_name)("fc_bias", bias)
+    jbias = mx.nd.ones((4,))
+    _initializer(mx, name, kw, by_name)("fc_bias", jbias)
+    assert onp.array_equal(bias.asnumpy(), jbias.asnumpy())

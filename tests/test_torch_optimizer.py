@@ -7,6 +7,14 @@ port's, for a few steps. Tolerances: fp32 weights within 1e-6 relative
 is fused and in computing Adam's step size in double); a bf16 weight with
 an fp32 master within one bf16 rounding (2^-7 relative), its master
 within 1e-6.
+
+MXNet's custom training loop hands the optimizer NDArrays
+(``opt.update(i, p.data(), p.grad(), states[i])``): the same steps on
+NDArrays give the JAX package's weights and states within 1e-6 relative
+(fp32 and the masters) and the port's own tensor path bit for bit, with
+the caller's arrays written in place; row-sparse gradients follow the
+reference's lazy update (only the rows they carry move under SGD's
+``lazy_update``; other optimizers make them dense), within 1e-6.
 """
 import numpy as onp
 import pytest
@@ -146,3 +154,119 @@ def test_trainer_refuses_distributed_kvstore():
     local = mxt.gluon.Trainer(net.collect_params(), "sgd", kvstore=None)
     mxt.jit.TrainStep(net, mxt.gluon.loss.L2Loss(), local)(
         x, torch.zeros(2, 3))
+
+
+# ------------------------------------------- MXNet's loop over NDArrays
+
+NDARRAY_CASES = {
+    "sgd-update": ("sgd", dict(learning_rate=0.1, momentum=0.9, wd=0.01),
+                   "float32"),
+    "adam-update": ("adam", dict(learning_rate=0.01, wd=0.01), "float32"),
+    "adam-fp16-masters": ("adam", dict(learning_rate=0.01, wd=0.01,
+                                       multi_precision=True), "float16"),
+    "sgd-bf16-masters": ("sgd", dict(learning_rate=0.1, momentum=0.9,
+                                     multi_precision=True), "bfloat16"),
+}
+
+
+def _flat(state):
+    if isinstance(state, (tuple, list)):
+        return [a for s in state for a in _flat(s)]
+    return [] if state is None else [state]
+
+
+def _ndarray_loop(pkg, name, kw, w, grads, dtype):
+    """The loop on NDArrays: ``create_state``/``update`` for an fp32
+    weight, the multi-precision pair otherwise."""
+    ctx = {"ctx": mxt.cpu()} if pkg is mxt else {}
+    opt = pkg.optimizer.create(name, **kw)
+    weight = pkg.nd.array(w, **ctx).astype(dtype)
+    multi = dtype != "float32"
+    state = (opt.create_state_multi_precision if multi
+             else opt.create_state)(0, weight)
+    update = opt.update_multi_precision if multi else opt.update
+    for g in grads:
+        state = update(0, weight, pkg.nd.array(g, **ctx).astype(dtype),
+                       state)
+    return weight, state
+
+
+@pytest.mark.parametrize("case", sorted(NDARRAY_CASES))
+def test_update_takes_the_ndarrays_of_mxnets_loop(case):
+    name, kw, dtype = NDARRAY_CASES[case]
+    w, grads = _data(seed=len(case))
+    jw, jstate = _ndarray_loop(mx, name, kw, w, grads, dtype)
+    tw, tstate = _ndarray_loop(mxt, name, kw, w, grads, dtype)
+    w_id = id(tw._data)
+    tstate_arrays = _flat(tstate)
+    assert all(isinstance(a, mxt.nd.NDArray) for a in tstate_arrays)
+    for got, want in zip(tstate_arrays, _flat(jstate), strict=True):
+        onp.testing.assert_allclose(got.asnumpy(), want.asnumpy(),
+                                    rtol=1e-6, atol=1e-7)
+    got, ref = tw.astype("float32").asnumpy(), jw.astype("float32").asnumpy()
+    assert not onp.allclose(got, w)
+    if dtype == "float32":
+        onp.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+    else:
+        master = tstate_arrays[0]._data
+        assert torch.equal(tw._data, master.to(tw._data.dtype))
+        rounding = 2.0 ** (-7 if dtype == "bfloat16" else -10)
+        onp.testing.assert_allclose(got, ref, rtol=rounding, atol=0)
+    # the caller's arrays were written in place, and the tensor path
+    # gives the same bits
+    assert id(tw._data) == w_id
+    tensor_w, _ = _run_port(name, dict(kw, multi_precision=dtype !=
+                                       "float32"), w, grads, dtype)
+    assert onp.array_equal(got, tensor_w)
+
+
+def test_update_of_mxnets_sgd_example_is_the_references():
+    """The reference's own formula check, on both packages."""
+    res = []
+    for pkg in (mx, mxt):
+        ctx = {"ctx": mxt.cpu()} if pkg is mxt else {}
+        opt = pkg.optimizer.SGD(learning_rate=0.1, momentum=0.9, wd=0.01)
+        w = pkg.nd.array([1.0, 2.0], **ctx)
+        opt.update(0, w, pkg.nd.array([0.5, 0.5], **ctx),
+                   opt.create_state(0, w))
+        res.append(w.asnumpy())
+    onp.testing.assert_allclose(res[1], res[0], rtol=1e-6)
+    onp.testing.assert_allclose(res[1], [0.949, 1.948], rtol=1e-6)
+
+
+SPARSE_CASES = {
+    "sgd-lazy": ("sgd", dict(momentum=0.0)),
+    "sgd-momentum-lazy": ("sgd", dict(momentum=0.9)),
+    "sgd-dense": ("sgd", dict(momentum=0.9, lazy_update=False)),
+    "nag-dense": ("nag", dict(momentum=0.9)),
+    "adam-dense": ("adam", {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_row_sparse_gradients_update_as_the_reference(case):
+    name, kw = SPARSE_CASES[case]
+    rng = onp.random.RandomState(3)
+    w0 = rng.randn(6, 3).astype("float32")
+    grads = []
+    for rows in ([1, 4], [0, 4]):
+        g = onp.zeros((6, 3), "float32")
+        g[rows] = rng.randn(len(rows), 3)
+        grads.append(g)
+    res = []
+    for pkg in (mx, mxt):
+        ctx = {"ctx": mxt.cpu()} if pkg is mxt else {}
+        opt = pkg.optimizer.create(name, learning_rate=0.5, wd=0.1, **kw)
+        w = pkg.nd.array(w0, **ctx)
+        state = opt.create_state(0, w)
+        for g in grads:
+            state = opt.update(0, w, pkg.nd.array(g, **ctx)
+                               .tostype("row_sparse"), state)
+        res.append((w.asnumpy(), [s.asnumpy() for s in _flat(state)]))
+    (jw, js), (tw, ts) = res
+    onp.testing.assert_allclose(tw, jw, rtol=1e-6, atol=1e-7)
+    for got, want in zip(ts, js, strict=True):
+        onp.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    untouched = [2, 3, 5]
+    lazy = case.endswith("-lazy")
+    assert onp.array_equal(tw[untouched], w0[untouched]) == lazy

@@ -9,6 +9,9 @@ and as lists. Both packages write the same bytes for the same arrays. A
 small BERT saved with the JAX package's ``save_parameters`` loads into the
 port's ``load_parameters`` and forwards within the model tests' 1e-4; the
 port's ``save_parameters`` loads back into the JAX package bit for bit.
+``serialization.save_ndarray_list``/``load_ndarray_list`` are the JAX
+package's functions under its names: the same bytes for the same arrays,
+each package's file read by the other's bit for bit (exact).
 """
 import numpy as onp
 import pytest
@@ -20,6 +23,7 @@ from incubator_mxnet_tpu.ndarray import serialization as jser
 
 import incubator_mxnet_tpu_torch as mxt
 from incubator_mxnet_tpu_torch import models as tmodels
+from incubator_mxnet_tpu_torch.ndarray import serialization as tser
 
 DTYPES = ["float32", "float16", "bfloat16", "int32", "uint8"]
 V, S = 97, 64
@@ -106,6 +110,34 @@ def test_both_packages_write_the_same_bytes(tmp_path):
         pkg.nd.save(fname, {dt: p[k] for dt, p in zip(DTYPES, pairs)})
         files.append(open(fname, "rb").read())
     assert files[0] == files[1]
+
+
+@pytest.mark.parametrize("given", ["ndarray", "numpy"])
+def test_ndarray_list_functions_are_the_references(tmp_path, given):
+    """The port's save_ndarray_list takes NDArrays (bfloat16 too) or numpy
+    arrays and writes the JAX package's bytes; load_ndarray_list gives
+    NDArrays on the CPU with the names, and each package reads the
+    other's file bit for bit."""
+    dtypes = DTYPES if given == "ndarray" else \
+        [d for d in DTYPES if d != "bfloat16"]
+    pairs = [_pair_arrays(dt, i) for i, dt in enumerate(dtypes)]
+    names = ["w%d" % i for i in range(len(pairs))]
+    jf, tf = str(tmp_path / "jax.params"), str(tmp_path / "port.params")
+    jser.save_ndarray_list(jf, [onp.asarray(j._data) for j, _ in pairs],
+                           names)
+    tser.save_ndarray_list(tf, [t if given == "ndarray" else t.asnumpy()
+                                for _, t in pairs], names)
+    assert open(jf, "rb").read() == open(tf, "rb").read()
+    arrays, got_names = tser.load_ndarray_list(jf)
+    assert got_names == names
+    for t, (j, _), dt in zip(arrays, pairs, dtypes, strict=True):
+        assert isinstance(t, mxt.nd.NDArray) and t.context == mxt.cpu()
+        assert t.dtype == dt
+        assert _bits(t._data) == _jax_bits(onp.asarray(j._data)), dt
+    raw, raw_names = jser.load_ndarray_list(tf)
+    assert raw_names == names
+    for r, (_, t) in zip(raw, pairs, strict=True):
+        assert _jax_bits(r) == _bits(t._data)
 
 
 def test_a_jax_bert_loads_into_the_port_and_back(tmp_path):

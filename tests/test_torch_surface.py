@@ -13,6 +13,10 @@ the keywords it takes.
   through ``_infer_param_shapes``.
 - Every name listed in ROADMAP §3's F2 exists and gives the reference's
   value; every F3 keyword is accepted and does what the reference does.
+- F9h–F9k, the faults the reference's own tests found: ``GPTModel.features``
+  on NDArrays, ``profiler.device_memory`` through devstats, the default
+  SLOs of a loaded model and the default initializer's generator, each as
+  the reference behaves (exact).
 """
 import io
 import contextlib
@@ -950,11 +954,13 @@ def test_f5c_context_device_typeid_and_empty_cache():
 
 def test_f5d_parameterdict_initialize_verbose(caplog):
     """F5d: ``verbose=True`` initializes the same parameters as without
-    it, and logs each one with its initializer."""
+    it (from the same seed of the default generator), and logs each one
+    with its initializer."""
     import logging
     nets = []
     for verbose in (False, True):
         net = mxt.gluon.nn.Dense(3, in_units=2)
+        mxt.random.seed(0)
         with caplog.at_level(logging.INFO):
             net.collect_params().initialize(mxt.init.Xavier(), ctx=mxt.cpu(),
                                             verbose=verbose)
@@ -1030,3 +1036,75 @@ def test_f5f_tile_keywords_are_accepted_and_checked():
         conv_bwd.conv3x3_bwd(x, dy, w, block_n=0)
     with pytest.raises(ValueError, match="interpret"):
         conv_bwd.conv3x3_bwd(x, dy, w, interpret="yes")
+
+
+def test_f9h_gpt_features_take_ndarrays():
+    """GPTModel.features of NDArray ids is an NDArray, equal bit for bit
+    to features of the tensor ids (the reference's features takes its
+    NDArrays)."""
+    gpt = mxt.models.GPTModel(vocab_size=32, units=16, num_layers=1,
+                              num_heads=2, max_length=8, attention="dense")
+    gpt.initialize(mxt.init.Xavier(), ctx=mxt.cpu())
+    ids = onp.random.RandomState(0).randint(0, 32, (2, 8)).astype("int32")
+    got = gpt.features(mxt.nd.array(ids, ctx=mxt.cpu(), dtype="int32"))
+    want = gpt.features(torch.from_numpy(ids))
+    assert isinstance(got, mxt.nd.NDArray) and got.shape == (2, 8, 16)
+    assert torch.equal(got._data, want)
+
+
+def test_f9i_profiler_device_memory_is_devstats_snapshot():
+    """profiler.device_memory delegates to devstats in both packages: an
+    injected memory source is what it reports."""
+    from incubator_mxnet_tpu import profiler as jprof
+    from incubator_mxnet_tpu.telemetry import devstats as jdev
+    from incubator_mxnet_tpu_torch import profiler as tprof
+    from incubator_mxnet_tpu_torch.telemetry import devstats as tdev
+    snap = {"fake:0": {"bytes_in_use": 7, "peak_bytes_in_use": 9,
+                       "bytes_limit": 10}}
+    got = []
+    for prof, dev in ((jprof, jdev), (tprof, tdev)):
+        dev.set_memory_source(lambda: snap)
+        try:
+            got.append(prof.device_memory())
+        finally:
+            dev.set_memory_source(None)
+    assert got[1] == got[0] == snap
+
+
+def test_f9j_a_loaded_model_has_its_default_slos():
+    """Loading a model seeds its availability SLO before any request and
+    unloading detaches it, in both packages."""
+    from incubator_mxnet_tpu import serving as jserving
+    from incubator_mxnet_tpu.telemetry import slo as jslo
+    from incubator_mxnet_tpu_torch import serving as tserving
+    from incubator_mxnet_tpu_torch.telemetry import slo as tslo
+    seen = []
+    for serving, slo, net in (
+            (jserving, jslo, jgluon.nn.Dense(2, in_units=3)),
+            (tserving, tslo, mxt.gluon.nn.Dense(2, in_units=3))):
+        net.initialize(**({"ctx": mxt.cpu()} if serving is tserving
+                          else {}))
+        reg = serving.ModelRegistry()
+        reg.load("f9j", net, max_batch_size=2, batch_timeout_ms=1.0)
+        try:
+            loaded = slo.REGISTRY.get("f9j/availability") is not None
+        finally:
+            reg.close()
+        seen.append((loaded, slo.REGISTRY.get("f9j/availability") is None))
+    assert seen[1] == seen[0] == (True, True)
+
+
+def test_f9k_default_initialization_draws_from_the_global_generator():
+    """Two nets initialized in turn without a generator differ, as in the
+    JAX package (and MXNet); mx.random.seed repeats the draws."""
+    def weight(pkg, seed=None):
+        if seed is not None:
+            pkg.random.seed(seed)
+        net = (jgluon if pkg is mx else mxt.gluon).nn.Dense(7, in_units=4)
+        net.initialize(pkg.init.Xavier(), **(
+            {"ctx": mxt.cpu()} if pkg is mxt else {}))
+        return net.weight.data().asnumpy()
+    for pkg in (mx, mxt):
+        first = weight(pkg, seed=5)
+        assert not onp.array_equal(first, weight(pkg))
+        assert onp.array_equal(first, weight(pkg, seed=5))

@@ -10,6 +10,10 @@ and its neighbours).
 Module-global state (the span ring, the tape, the armed faults) is reset
 around each test that touches it; the watchdog's monitor is stopped in a
 ``finally``.
+
+A registry serving a net on the CPU (the port's eager ``EvalStep``) gives
+the reference's span chain down to ``eval:step`` (names and parent links
+exact).
 """
 import time
 import warnings
@@ -548,3 +552,38 @@ def test_train_step_watchdog_channel_goes_with_the_last_step(monkeypatch):
     assert tjit.TrainStep._hb_live == live
     if live == 0:
         assert "train_step" not in watchdog.channels()
+
+
+def _serve_once(serving, span_mod, net):
+    """One predict through a ModelRegistry: the span records it left."""
+    span_mod.reset()
+    reg = serving.ModelRegistry()
+    reg.load("m", net, max_batch_size=2, batch_timeout_ms=1.0)
+    try:
+        reg.predict("m", onp.ones((8,), "float32"))
+    finally:
+        reg.close()
+    return span_mod.snapshot()
+
+
+def test_eager_eval_step_opens_eval_step_under_serve_dispatch():
+    """The eager EvalStep of a CPU net opens eval:step as the reference's
+    compiled one does, under the replica's serve:dispatch span: the same
+    span names and the same parent links, once a predict (but the
+    reference's eval:build and eval:compile: the port compiles nothing on
+    the CPU)."""
+    import incubator_mxnet_tpu as mx
+    from incubator_mxnet_tpu.telemetry import spans as jspans
+    from incubator_mxnet_tpu_torch import serving as tserving
+    jnet, tnet = _f7_nets()
+    chains = []
+    for serving, span_mod, net in ((mx.serving, jspans, jnet),
+                                   (tserving, spans, tnet)):
+        recs = _serve_once(serving, span_mod, net)
+        by_id = {r["span_id"]: r["name"] for r in recs}
+        chains.append(sorted((r["name"], by_id.get(r["parent_id"]))
+                             for r in recs if r["name"] not in (
+                                 "eval:build", "eval:compile")))
+    assert chains[1] == chains[0]
+    assert ("eval:step", "serve:dispatch") in chains[1]
+    assert [n for n, _ in chains[1]].count("eval:step") == 1
